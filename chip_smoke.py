@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""Chip check of the PyTorch/CUDA port (``multinn_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs six
+phases, one line each; any failure exits non-zero before the result line.
+
+  1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
+  2. build: seconds to build and load the kernels;
+  3. Threefry: the kernel's stream bit-equal to its plain version on
+     (4096, 750) for three seed/salt pairs, and at the main path's shape;
+  4. Gibbs chain: kernel vs plain version (same inputs, on the card) at
+     N=1040, D=84, H=150, k=25 — at most 1% of rows may differ (a row
+     differs only after a last-ulp difference in a probability flips a
+     draw) — and at the scan path's shape;
+  5. fused RBM generation at the flagship widths from one primed state:
+     B=8, T=16 with at least 7 of 8 samples identical (final h within
+     1e-4 on those), then T=1024 with per-track note density within 0.01;
+  6. the slice: GenerationService(batch=8, n_steps=1024, seed_steps=64) on
+     the flagship config with seeded random params serves 16 plain and 8
+     seeded requests, then the scan branch of ``multinn.generate`` runs 16
+     steps. Launch counts are reset right before and read right after;
+     every kernel must have launched. Prints latency p50, songs/s and the
+     B=1 64-bar generation time of the kernel and of its plain version.
+
+Then one JSON line with each kernel's launches, error and times, the
+``nvidia-smi`` name/power-limit line, and the result line
+``{"ok": true, "device": {...}}``. The check needs a CUDA device: without
+one it exits 1 and prints no result.
+"""
+
+import dataclasses
+import json
+import shutil
+import subprocess
+import sys
+import time
+
+FLAGSHIP = dict(n_tracks=5, n_pitches=84, mode="feedback",
+                decoder_type="rnn-rbm", n_hidden=150, n_rnn=100, cd_k=1,
+                gen_k=10)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(line: str) -> None:
+    print(line, flush=True)
+
+
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` runs (after one warm
+    run unless ``warm`` is False), by CUDA events on the current stream."""
+    import torch
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs the card")
+    import numpy as np
+
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import (_build, gen_fused_rbm, gibbs_cuda,
+                                   kernel_prng, sampling)
+    from multinn_torch.serving.service import GenerationService, ServeConfig
+    from multinn_torch.utils.config import (DataConfig, ExperimentConfig,
+                                            GenerateConfig)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # the plain versions are the f32 reference: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    g = torch.Generator().manual_seed(0)
+    results = {}
+
+    # 1. environment ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+    from torch.utils import cpp_extension
+    nvcc = (shutil.which("nvcc") or
+            (cpp_extension.CUDA_HOME or "") + "/bin/nvcc")
+    say(f"phase 1 environment: {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvcc {nvcc} | ninja "
+        f"{cpp_extension.is_ninja_available()} | device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    # 2. build ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.ops()
+    say(f"phase 2 build: {time.perf_counter() - t0:.1f} s with "
+        f"{_build.build_info.get('tool')} into "
+        f"{_build.build_info.get('dir')}")
+
+    # 3. Threefry --------------------------------------------------------------
+    def word_err(a, b):          # largest difference of the uint32 words
+        return float((kernel_prng.as_u64(a) - kernel_prng.as_u64(b))
+                     .abs().max())
+
+    tf_err = 0.0
+    for seed, salt in ((0, 0), (12345, -7), (-2 ** 31, 2 ** 31 - 1)):
+        a = kernel_prng.random_bits((4096, 750), seed, salt, dev, impl="cuda")
+        b = kernel_prng.random_bits((4096, 750), seed, salt, dev,
+                                    impl="plain")
+        tf_err = max(tf_err, word_err(a, b))
+        if not torch.equal(a, b):
+            fail(f"threefry: kernel != plain for seed={seed} salt={salt} "
+                 f"({int((a != b).sum())} of {a.numel()} words differ)")
+    key = sampling.PRNGKey(7, device=dev)
+    x0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    x1 = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    yk = kernel_prng.threefry2x32(key, x0, x1)
+    yp = kernel_prng.threefry2x32(key, x0, x1, impl="plain")
+    tf_err = max([tf_err] + [word_err(p, q) for p, q in zip(yk, yp)])
+    if not all(torch.equal(p, q) for p, q in zip(yk, yp)):
+        fail("threefry: fold_in-shaped call differs from plain")
+    ms = cuda_ms(lambda: kernel_prng.threefry2x32(key, x0, x1), 200)
+    plain_ms = cuda_ms(
+        lambda: kernel_prng.threefry2x32(key, x0, x1, impl="plain"), 50)
+    big = torch.arange(4096 * 750, dtype=torch.int32, device=dev)
+    big_ms = cuda_ms(lambda: kernel_prng.threefry2x32(key, big, big), 50)
+    big_plain_ms = cuda_ms(
+        lambda: kernel_prng.threefry2x32(key, big, big, impl="plain"), 5)
+    results["threefry2x32"] = dict(max_abs_err=tf_err, ms=ms,
+                                   plain_ms=plain_ms)
+    say(f"phase 3 threefry: bit-equal on (4096, 750) x 3 keys and at the "
+        f"fold_in shape; fold_in-shaped call {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms); 3.07M counters {big_ms:.4f} ms (plain "
+        f"{big_plain_ms:.3f} ms)")
+
+    # 4. Gibbs chain -------------------------------------------------------------
+    def gibbs_inputs(n, d=84, h=150):
+        v0 = (torch.rand(n, d, generator=g) < 0.2).float().to(dev)
+        w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+        bv = (-1.0 + 0.5 * torch.randn(n, d, generator=g)).to(dev)
+        bh = (0.5 * torch.randn(n, h, generator=g)).to(dev)
+        return v0, w, bv, bh
+
+    key = sampling.PRNGKey(1, device=dev)
+    args = gibbs_inputs(1040)
+    out_k = gibbs_cuda.gibbs_chain(key, *args, 25)
+    out_p = gibbs_cuda.gibbs_chain_plain(key, *args, 25)
+    differ = float((out_k != out_p).any(dim=1).float().mean())
+    if differ > 0.01:
+        fail(f"gibbs: {differ:.4f} of rows differ from plain (limit 0.01)")
+    n1040_ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain(key, *args, 25), 20)
+    n1040_plain = cuda_ms(
+        lambda: gibbs_cuda.gibbs_chain_plain(key, *args, 25), 3)
+    small = gibbs_inputs(8)                  # the scan path: B=8, gen_k=10
+    sk, sp = (gibbs_cuda.gibbs_chain(key, *small, 10),
+              gibbs_cuda.gibbs_chain_plain(key, *small, 10))
+    small_err = float((sk - sp).abs().max())
+    small_differ = float((sk != sp).any(dim=1).float().mean())
+    if small_differ > 1 / 8:
+        fail(f"gibbs: {small_differ} of the 8 scan-path rows differ")
+    ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain(key, *small, 10), 100)
+    plain_ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain_plain(key, *small, 10),
+                       10)
+    results["gibbs_chain"] = dict(max_abs_err=small_err, ms=ms,
+                                  plain_ms=plain_ms)
+    say(f"phase 4 gibbs: N=1040 k=25 rows differing {differ:.4f} (limit "
+        f"0.01), kernel {n1040_ms:.3f} ms, plain {n1040_plain:.3f} ms; "
+        f"scan-path shape (8 rows, k=10) rows differing {small_differ}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+
+    # 5. fused RBM generation at flagship widths ---------------------------------
+    mcfg = multinn.MultINNConfig(**dict(FLAGSHIP, w_std=0.1))
+    p5 = multinn.init(mcfg, g)
+    p5 = dataclasses.replace(p5, decoder=dataclasses.replace(
+        p5.decoder, bv=p5.decoder.bv + torch.linspace(-3.0, 1.0, 84)))
+    p5 = multinn.tree_map(lambda x: x.to(dev), p5)
+    seed5 = (torch.rand(8, 16, 5, 84, generator=g) < 0.1).float().to(dev)
+    st5 = multinn.prime(p5, multinn.init_state(p5, 8), seed5)
+    h0 = torch.stack([c.h for c in st5.decoder.cell])
+    c0 = torch.stack([c.c for c in st5.decoder.cell])
+    key = sampling.PRNGKey(5, device=dev)
+
+    def fused(n_steps, impl):
+        return gen_fused_rbm.generate_rbm(key, p5.decoder, h0, c0,
+                                          st5.decoder.v_prev, n_steps, 10,
+                                          impl=impl)
+
+    rk, hk, _ = fused(16, "cuda")
+    rp, hp, _ = fused(16, "plain")
+    torch.cuda.synchronize()
+    same = (rk == rp).flatten(1).all(dim=1)
+    if int(same.sum()) < 7:
+        fail(f"fused: only {int(same.sum())} of 8 samples match plain at "
+             f"T=16 (need 7)")
+    h_err = float((hk - hp).abs()[:, :, same].max())
+    if not h_err <= 1e-4:
+        fail(f"fused: final h differs by {h_err} on matching samples")
+    rk, _, _ = fused(1024, "cuda")
+    rp, _, _ = fused(1024, "plain")
+    dens_k = rk.mean(dim=(0, 1, 3))
+    dens_p = rp.mean(dim=(0, 1, 3))
+    dens_gap = float((dens_k - dens_p).abs().max())
+    if not dens_gap <= 0.01:
+        fail(f"fused: per-track density gap {dens_gap} at T=1024 "
+             f"(limit 0.01)")
+    say(f"phase 5 fused: T=16 {int(same.sum())}/8 samples identical, final h "
+        f"max err {h_err:.2e}; T=1024 per-track density kernel "
+        f"{[round(float(x), 4) for x in dens_k]} plain "
+        f"{[round(float(x), 4) for x in dens_p]} (max gap {dens_gap:.4f})")
+
+    # 6. the slice ------------------------------------------------------------------
+    cfg = ExperimentConfig(
+        name="flagship", model=multinn.MultINNConfig(**FLAGSHIP),
+        data=DataConfig(dataset="lpd5", pitch_min=24, pitch_max=107,
+                        n_tracks=5),
+        generate=GenerateConfig(n_steps=1024, seed_steps=64))
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(0))
+    params = multinn.tree_map(lambda x: x.to(dev), params)
+    rng = np.random.default_rng(0)
+    seeds = (rng.random((8, 64, 5, 84)) < 0.1).astype(np.uint8)
+
+    _build.launches.clear()                  # the main path starts here
+    t_serve = time.perf_counter()
+    svc = GenerationService(cfg, params, ServeConfig(
+        batch=8, n_steps=1024, seed_steps=64, seed=0))
+    futs = svc.submit_many(16) + [svc.submit(seed=s) for s in seeds]
+    served = [f.result(timeout=600) for f in futs]
+    stats = svc.stats()
+    svc.close()
+    serve_s = time.perf_counter() - t_serve
+    with torch.inference_mode():
+        state = multinn.init_state(params, 8)
+        _, scan_roll = multinn.generate(
+            params, sampling.fold_in(sampling.PRNGKey(0, device=dev), 99),
+            state, 16, fused=False)
+        torch.cuda.synchronize()
+    launches = dict(_build.launches)         # ... and ends here
+    missing = [n for n in results if not launches.get(n)]
+    if missing:
+        fail(f"the main path never launched {missing}: {launches}")
+    for r in served:
+        if (r.roll.shape != (1024, 5, 84) or r.roll.dtype != np.uint8
+                or not np.isin(r.roll, (0, 1)).all()):
+            fail(f"served roll {r.roll.shape} {r.roll.dtype} is not a "
+                 f"binary (1024, 5, 84) uint8 pianoroll")
+    prov = sorted((r.batch_index, r.row) for r in served)
+    if len(set(prov)) != 24 or stats["batches"] != 3 or stats["errors"]:
+        fail(f"provenance / stats wrong: {prov} {stats}")
+    density = float(np.mean([r.roll.mean() for r in served]))
+    if not 0.0 < density < 1.0:
+        fail(f"served density {density}")
+    if (scan_roll.shape != (8, 16, 5, 84)
+            or not torch.isin(scan_roll, torch.tensor([0.0, 1.0], device=dev)
+                              ).all()):
+        fail(f"scan-branch roll {tuple(scan_roll.shape)} is not binary")
+    # the service is deterministic: batch 0 equals a direct generation
+    # under fold_in(PRNGKey(0), 0)
+    batch0 = svc.generator.generate(
+        sampling.fold_in(sampling.PRNGKey(0, device=dev), 0), 1024, batch=8)
+    first = {r.row: r.roll for r in served if r.batch_index == 0}
+    if not all(np.array_equal(first[i], batch0[i]) for i in first):
+        fail("service batch 0 differs from a direct generation with its key")
+
+    st1 = multinn.init_state(params, 1)
+    gen = lambda impl, st=st1: multinn._generate_fused(
+        params, key, st, 1024, impl=impl)
+    b1_ms = cuda_ms(lambda: gen("cuda"), 3)
+    b1_plain_ms = cuda_ms(lambda: gen("plain"), 1, warm=False)
+    st8 = multinn.init_state(params, 8)
+    b8_ms = cuda_ms(lambda: gen("cuda", st8), 3)
+    b8_plain_ms = cuda_ms(lambda: gen("plain", st8), 1, warm=False)
+    results["gen_fused_rbm"] = dict(max_abs_err=h_err, ms=b8_ms,
+                                    plain_ms=b8_plain_ms)
+    lat = stats["latency_ms"]
+    say(f"phase 6 slice: 24 requests (16 plain, 8 seeded) in 3 batches of 8 "
+        f"in {serve_s:.2f} s incl. warm-up; latency p50 {lat['p50']:.1f} ms "
+        f"p95 {lat['p95']:.1f} ms; {stats.get('songs_per_s', 0.0):.2f} "
+        f"songs/s; note density {density:.4f}; scan branch 16 steps ok; "
+        f"64-bar B=1 kernel {b1_ms:.1f} ms, plain {b1_plain_ms:.1f} ms; "
+        f"B=8 kernel {b8_ms:.1f} ms, plain {b8_plain_ms:.1f} ms; "
+        f"launches {launches}")
+
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                           "multinn_tpu"))
+    if leaked:
+        fail(f"the port imported the JAX package or JAX: {leaked[:5]}")
+
+    sources = {"threefry2x32": ("multinn_torch/csrc/threefry.cu",
+                                "multinn_tpu/ops/kernel_prng.py:29"),
+               "gibbs_chain": ("multinn_torch/csrc/gibbs_chain.cu",
+                               "multinn_tpu/ops/gibbs_pallas.py:62"),
+               "gen_fused_rbm": ("multinn_torch/csrc/gen_fused_rbm.cu",
+                                 "multinn_tpu/ops/gen_fused_rbm.py:169")}
+    say(json.dumps({"kernels": [
+        dict(name=n, route="cuda", source=sources[n][0],
+             replaces=sources[n][1], launches=launches[n], **results[n])
+        for n in sources]}))
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

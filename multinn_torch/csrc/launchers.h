@@ -1,0 +1,56 @@
+// Host-side launchers of the port's CUDA kernels.
+//
+// Plain pointers and sizes in, the launch's error string out (nullptr on
+// success). Neither CUDA nor PyTorch headers appear here, so the PyTorch
+// binding (ops.cpp) and the kernels (*.cu) compile without each other's
+// headers. Every launcher enqueues on the stream it is given and never
+// synchronises; outputs are allocated by the Python wrapper.
+#pragma once
+
+#include <cstdint>
+
+namespace multinn_torch {
+
+// y = Threefry-2x32-20(key, (x0, x1)) elementwise over n counters.
+const char* launch_threefry2x32(const int32_t* key, const int32_t* x0,
+                                const int32_t* x1, int32_t* y0, int32_t* y1,
+                                int64_t n, void* stream);
+
+// k sweeps of block Gibbs over n rows (see gibbs_chain.cu).
+const char* launch_gibbs_chain(const float* v0, const float* w,
+                               const float* wt, const float* bv,
+                               const float* bh, const int32_t* seed,
+                               float* out, int64_t n, int64_t d, int64_t h,
+                               int64_t k, int64_t bb, void* stream);
+
+// Inputs of the whole-generation RNN-RBM kernel (see gen_fused_rbm.cu and
+// multinn_torch/ops/gen_fused_rbm.py::_rbm_args for the layouts).
+struct RbmArgs {
+  const float* w;       // (K, D, H)
+  const float* wt;      // (K, H, D)
+  const float* wuv;     // (K, U, D)
+  const float* wuh;     // (K, U, H)
+  const float* bv;      // (K*D)
+  const float* bh;      // (K*H)
+  const float* wx_v;    // (K, D, G)
+  const float* wx_r;    // (L-1, K, U, G), or nullptr when L == 1
+  const float* wh;      // (L, K, U, G)
+  const float* wctx;    // (K*D, K*G), or nullptr without feedback context
+  const float* b;       // (L, K*G)
+  const float* h0;      // (B, L*K*U)
+  const float* c0;      // (B, L*K*U)
+  const float* v0;      // (B, K*D)
+  const float* given;   // (B, T, K*D), or nullptr
+  const int32_t* seed;  // (2,) the Threefry key words
+  float* roll;          // (B, T, K*D)
+  float* h_out;         // (B, L*K*U)
+  float* c_out;         // (B, L*K*U)
+  int32_t batch, n_steps, gen_k;
+  int32_t k, d, hid, u, g, n_layers;
+  int32_t lstm;         // 1: LSTM cells (g = 4u); 0: vanilla tanh (g = u)
+  int32_t given_mask;   // bit k set: track k takes `given`
+};
+
+const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream);
+
+}  // namespace multinn_torch

@@ -1,0 +1,167 @@
+// PyTorch binding of the port's CUDA kernels: registers them as
+// torch.ops.multinn_torch.* (TORCH_LIBRARY, loaded with
+// torch.ops.load_library — no pybind, no Python.h). Each op checks what its
+// kernel takes and writes into outputs the Python wrapper allocated; the
+// stream is the caller's current CUDA stream, passed as an integer.
+#include <ATen/core/Tensor.h>
+#include <torch/library.h>
+
+#include "launchers.h"
+
+namespace multinn_torch {
+namespace {
+
+void check(const at::Tensor& t, c10::ScalarType dtype, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == dtype, name, " must be ", dtype, ", got ",
+              t.scalar_type());
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+// An absent optional input is passed as an empty tensor.
+const float* optional_f32(const at::Tensor& t, const char* name) {
+  if (t.numel() == 0) return nullptr;
+  check(t, at::kFloat, name);
+  return t.data_ptr<float>();
+}
+
+void raise_on(const char* err, const char* op) {
+  TORCH_CHECK(err == nullptr, op, ": kernel launch failed: ", err);
+}
+
+void* as_stream(int64_t s) { return reinterpret_cast<void*>(s); }
+
+void threefry2x32(at::Tensor y0, at::Tensor y1, const at::Tensor& key,
+                  const at::Tensor& x0, const at::Tensor& x1,
+                  int64_t stream) {
+  for (auto* p : {&y0, &y1}) check(*p, at::kInt, "y");
+  check(key, at::kInt, "key");
+  check(x0, at::kInt, "x0");
+  check(x1, at::kInt, "x1");
+  TORCH_CHECK(key.numel() == 2, "key must hold 2 words");
+  const int64_t n = x0.numel();
+  TORCH_CHECK(x1.numel() == n && y0.numel() == n && y1.numel() == n,
+              "threefry2x32: counter and output sizes differ");
+  raise_on(launch_threefry2x32(key.data_ptr<int32_t>(), x0.data_ptr<int32_t>(),
+                               x1.data_ptr<int32_t>(), y0.data_ptr<int32_t>(),
+                               y1.data_ptr<int32_t>(), n, as_stream(stream)),
+           "threefry2x32");
+}
+
+void gibbs_chain(at::Tensor out, const at::Tensor& v0, const at::Tensor& w,
+                 const at::Tensor& wt, const at::Tensor& bv,
+                 const at::Tensor& bh, const at::Tensor& seed, int64_t k,
+                 int64_t bb, int64_t stream) {
+  check(out, at::kFloat, "out");
+  check(v0, at::kFloat, "v0");
+  check(w, at::kFloat, "w");
+  check(wt, at::kFloat, "wt");
+  check(bv, at::kFloat, "bv");
+  check(bh, at::kFloat, "bh");
+  check(seed, at::kInt, "seed");
+  TORCH_CHECK(w.dim() == 2 && v0.dim() == 2, "gibbs_chain: v0, w must be 2D");
+  const int64_t n = v0.size(0), d = w.size(0), h = w.size(1);
+  TORCH_CHECK(v0.size(1) == d && out.sizes() == v0.sizes() &&
+                  wt.size(0) == h && wt.size(1) == d && bv.numel() == n * d &&
+                  bh.numel() == n * h && seed.numel() == 2 && bb > 0 &&
+                  k >= 0,
+              "gibbs_chain: inconsistent shapes");
+  raise_on(launch_gibbs_chain(v0.data_ptr<float>(), w.data_ptr<float>(),
+                              wt.data_ptr<float>(), bv.data_ptr<float>(),
+                              bh.data_ptr<float>(), seed.data_ptr<int32_t>(),
+                              out.data_ptr<float>(), n, d, h, k, bb,
+                              as_stream(stream)),
+           "gibbs_chain");
+}
+
+void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
+                   const at::Tensor& w, const at::Tensor& wt,
+                   const at::Tensor& wuv, const at::Tensor& wuh,
+                   const at::Tensor& bv, const at::Tensor& bh,
+                   const at::Tensor& wx_v, const at::Tensor& wx_r,
+                   const at::Tensor& wh, const at::Tensor& wctx,
+                   const at::Tensor& b, const at::Tensor& h0,
+                   const at::Tensor& c0, const at::Tensor& v0,
+                   const at::Tensor& given, const at::Tensor& seed,
+                   int64_t gen_k, int64_t lstm, int64_t given_mask,
+                   int64_t stream) {
+  check(roll, at::kFloat, "roll");
+  check(h_out, at::kFloat, "h_out");
+  check(c_out, at::kFloat, "c_out");
+  for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&w, "w"},
+                         {&wt, "wt"}, {&wuv, "wuv"}, {&wuh, "wuh"},
+                         {&bv, "bv"}, {&bh, "bh"}, {&wx_v, "wx_v"},
+                         {&wh, "wh"}, {&b, "b"}, {&h0, "h0"}, {&c0, "c0"},
+                         {&v0, "v0"}})
+    check(*t, at::kFloat, name);
+  check(seed, at::kInt, "seed");
+  TORCH_CHECK(w.dim() == 3 && wuv.dim() == 3 && wx_v.dim() == 3 &&
+                  wh.dim() == 4 && roll.dim() == 3,
+              "gen_fused_rbm: unexpected ranks");
+  RbmArgs a{};
+  a.k = static_cast<int32_t>(w.size(0));
+  a.d = static_cast<int32_t>(w.size(1));
+  a.hid = static_cast<int32_t>(w.size(2));
+  a.u = static_cast<int32_t>(wuv.size(1));
+  a.g = static_cast<int32_t>(wx_v.size(2));
+  a.n_layers = static_cast<int32_t>(wh.size(0));
+  a.batch = static_cast<int32_t>(h0.size(0));
+  a.n_steps = static_cast<int32_t>(roll.size(1));
+  a.gen_k = static_cast<int32_t>(gen_k);
+  a.lstm = static_cast<int32_t>(lstm);
+  a.given_mask = static_cast<int32_t>(given_mask);
+  const int64_t kd = int64_t{a.k} * a.d, lku = int64_t{a.n_layers} * a.k * a.u;
+  TORCH_CHECK(a.g == (lstm ? 4 * a.u : a.u), "gen_fused_rbm: gate width");
+  TORCH_CHECK(roll.size(0) == a.batch && roll.size(2) == kd &&
+                  h0.numel() == a.batch * lku && c0.numel() == a.batch * lku &&
+                  h_out.numel() == a.batch * lku &&
+                  c_out.numel() == a.batch * lku &&
+                  v0.numel() == a.batch * kd && seed.numel() == 2,
+              "gen_fused_rbm: inconsistent shapes");
+  TORCH_CHECK(a.n_layers == 1 || wx_r.numel() == int64_t{a.n_layers - 1} *
+                                                     a.k * a.u * a.g,
+              "gen_fused_rbm: wx_r shape");
+  TORCH_CHECK(given.numel() == 0 || given.numel() == roll.numel(),
+              "gen_fused_rbm: given shape");
+  a.w = w.data_ptr<float>();
+  a.wt = wt.data_ptr<float>();
+  a.wuv = wuv.data_ptr<float>();
+  a.wuh = wuh.data_ptr<float>();
+  a.bv = bv.data_ptr<float>();
+  a.bh = bh.data_ptr<float>();
+  a.wx_v = wx_v.data_ptr<float>();
+  a.wx_r = optional_f32(wx_r, "wx_r");
+  a.wh = wh.data_ptr<float>();
+  a.wctx = optional_f32(wctx, "wctx");
+  a.b = b.data_ptr<float>();
+  a.h0 = h0.data_ptr<float>();
+  a.c0 = c0.data_ptr<float>();
+  a.v0 = v0.data_ptr<float>();
+  a.given = optional_f32(given, "given");
+  a.seed = seed.data_ptr<int32_t>();
+  a.roll = roll.data_ptr<float>();
+  a.h_out = h_out.data_ptr<float>();
+  a.c_out = c_out.data_ptr<float>();
+  raise_on(launch_gen_fused_rbm(a, as_stream(stream)), "gen_fused_rbm");
+}
+
+}  // namespace
+}  // namespace multinn_torch
+
+TORCH_LIBRARY(multinn_torch, m) {
+  m.def("threefry2x32(Tensor(a!) y0, Tensor(b!) y1, Tensor key, Tensor x0, "
+        "Tensor x1, int stream) -> ()");
+  m.def("gibbs_chain(Tensor(a!) out, Tensor v0, Tensor w, Tensor wt, "
+        "Tensor bv, Tensor bh, Tensor seed, int k, int bb, int stream) -> ()");
+  m.def("gen_fused_rbm(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
+        "Tensor w, Tensor wt, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
+        "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "
+        "Tensor h0, Tensor c0, Tensor v0, Tensor given, Tensor seed, "
+        "int gen_k, int lstm, int given_mask, int stream) -> ()");
+}
+
+TORCH_LIBRARY_IMPL(multinn_torch, CUDA, m) {
+  m.impl("threefry2x32", &multinn_torch::threefry2x32);
+  m.impl("gibbs_chain", &multinn_torch::gibbs_chain);
+  m.impl("gen_fused_rbm", &multinn_torch::gen_fused_rbm);
+}

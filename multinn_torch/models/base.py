@@ -1,0 +1,111 @@
+"""Decoder contract and shared recurrent plumbing — port of
+multinn_tpu/models/base.py.
+
+Functions take a single decoder's params (leaves (X, Y), states (B, X)) or
+a TRACK-STACKED decoder (a leading K axis on every leaf, states (K, B, X))
+where the JAX package vmaps over tracks; see nn/rnn.py for the broadcasting
+convention. Time-major tensors put T first: (T, [K,] B, X).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from multinn_torch.nn import rnn as rnn_nn
+from multinn_torch.ops import sampling
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """Shared decoder hyperparameters (field names and defaults as the JAX
+    package's DecoderConfig)."""
+
+    n_visible: int
+    n_hidden: int = 150
+    n_rnn: int = 100
+    n_ctx: int = 0
+    cell: str = "lstm"
+    rnn_layers: int = 1
+    cd_k: int = 1
+    gen_k: int = 10
+    w_std: float = 0.01
+    remat: bool = False
+
+
+def get_decoder(name: str):
+    """Decoder registry: name -> module implementing the contract."""
+    key = name.lower().replace("_", "-")
+    if key in ("rnn-rbm", "rnnrbm"):
+        from multinn_torch.models import rnn_rbm
+        return rnn_rbm
+    if key in ("rnn-nade", "rnnnade"):
+        raise NotImplementedError(
+            "the RNN-NADE decoder is not ported yet (ROADMAP queue 1, "
+            "NADE slice)")
+    raise ValueError(f"Unknown decoder '{name}'; available: rnn-rbm, rnn-nade")
+
+
+def rnn_input(x: torch.Tensor, ctx: Optional[torch.Tensor]) -> torch.Tensor:
+    """Concatenate visible features with optional conditioning context."""
+    if ctx is None:
+        return x
+    return torch.cat([x, ctx], dim=-1)
+
+
+def init_recurrent_state(state_cls, cfg: DecoderConfig, batch_shape,
+                         device=None):
+    return state_cls(
+        cell=rnn_nn.stacked_zero_state(cfg.cell, batch_shape, cfg.n_rnn,
+                                       cfg.rnn_layers, device=device),
+        v_prev=torch.zeros((*batch_shape, cfg.n_visible), device=device))
+
+
+def scan_states(params, state, x_tm: torch.Tensor):
+    """Run the cell stack over time-major inputs; return (final_cell_state,
+    u_prev) where u_prev[t] is the TOP layer's hidden state before x[t]."""
+    final, us = rnn_nn.stacked_scan(params.cfg.cell, params.cell, state.cell,
+                                    x_tm)
+    u0 = rnn_nn.state_h(state.cell[-1])
+    return final, torch.cat([u0[None], us[:-1]], dim=0)
+
+
+def conditioned_biases(params, u_prev: torch.Tensor):
+    """bv(t) = bv + u(t-1) @ Wuv;  bh(t) = bh + u(t-1) @ Wuh."""
+    return (params.bv.unsqueeze(-2) + u_prev @ params.wuv,
+            params.bh.unsqueeze(-2) + u_prev @ params.wuh)
+
+
+def prime_state(state_cls, params, state, x: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None):
+    """Advance the RNN state over a seed sequence x: ([K,] B, T, F); ctx
+    has x's leading dims."""
+    x_tm = x.movedim(-2, 0)
+    ctx_tm = None if ctx is None else ctx.movedim(-2, 0)
+    final, _ = rnn_nn.stacked_scan(params.cfg.cell, params.cell, state.cell,
+                                   rnn_input(x_tm, ctx_tm))
+    return state_cls(cell=final, v_prev=x[..., -1, :])
+
+
+def forced_step(state_cls, params, state, v: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None):
+    """Advance the RNN state ONE step with a given frame v ([K,] B, F)."""
+    new_cell = rnn_nn.stacked_step(params.cfg.cell, params.cell, state.cell,
+                                   rnn_input(v, ctx))
+    return state_cls(cell=new_cell, v_prev=v)
+
+
+def generate_scan(sample_step_fn, params, key, state, n_steps: int,
+                  ctx: Optional[torch.Tensor] = None, k: Optional[int] = None):
+    """Autoregressive generation: a loop over
+    ``sample_step_fn(params, key, state, ctx, k)`` with key t of
+    ``split(key, n_steps)``. ctx: optional (B, n_steps, C)."""
+    keys = sampling.split(key, n_steps)
+    vs = []
+    for t in range(n_steps):
+        c = None if ctx is None else ctx[:, t]
+        state, v = sample_step_fn(params, keys[t], state, c, k)
+        vs.append(v)
+    return state, torch.stack(vs).movedim(0, -2)

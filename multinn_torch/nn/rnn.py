@@ -1,0 +1,163 @@
+"""Recurrent cells and time-major runners — port of multinn_tpu/nn/rnn.py.
+
+LSTM (gate order i, f, g, o; forget-gate bias 1 at init) and the paper's
+vanilla tanh cell, plus stacked layers. f32 only (the JAX package's bf16
+``precision.mm`` policy is not ported yet).
+
+Every function also takes TRACK-STACKED params — a leading K axis on every
+leaf, inputs (K, B, in) — where the JAX package vmaps over tracks: products
+are ``torch.matmul``, which batches over the leading axes, and biases enter
+as ``b.unsqueeze(-2)`` so that (G,) and (K, G) both broadcast. Time-major
+sequences are (T, [K,] B, in).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+
+def _normal(shape, std, generator, device):
+    return std * torch.randn(shape, generator=generator, device=device)
+
+
+@dataclasses.dataclass
+class LSTMParams:
+    """wx: (in, 4H); wh: (H, 4H); b: (4H,). Gate order: i, f, g, o."""
+    wx: torch.Tensor
+    wh: torch.Tensor
+    b: torch.Tensor
+
+
+@dataclasses.dataclass
+class LSTMState:
+    h: torch.Tensor
+    c: torch.Tensor
+
+
+def lstm_init(n_in: int, n_hidden: int, generator=None, w_std: float = 0.01,
+              forget_bias: float = 1.0, device=None) -> LSTMParams:
+    b = torch.zeros(4 * n_hidden, device=device)
+    b[n_hidden:2 * n_hidden] = forget_bias
+    return LSTMParams(
+        wx=_normal((n_in, 4 * n_hidden), w_std, generator, device),
+        wh=_normal((n_hidden, 4 * n_hidden), w_std, generator, device),
+        b=b)
+
+
+def lstm_zero_state(batch_shape, n_hidden: int, device=None) -> LSTMState:
+    z = torch.zeros((*batch_shape, n_hidden), device=device)
+    return LSTMState(h=z, c=z.clone())
+
+
+def _lstm_gates(c, z) -> LSTMState:
+    u = c.shape[-1]
+    i, f, g, o = z[..., :u], z[..., u:2 * u], z[..., 2 * u:3 * u], z[..., 3 * u:]
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return LSTMState(h=torch.sigmoid(o) * torch.tanh(c_new), c=c_new)
+
+
+def lstm_step(params: LSTMParams, state: LSTMState, x) -> LSTMState:
+    z = x @ params.wx + state.h @ params.wh + params.b.unsqueeze(-2)
+    return _lstm_gates(state.c, z)
+
+
+def lstm_scan(params: LSTMParams, state: LSTMState, xs):
+    """LSTM over time-major xs (T, ..., in) -> (final_state, hs (T, ..., H)),
+    with the input projection of all T steps hoisted out of the loop."""
+    xz = xs @ params.wx + params.b.unsqueeze(-2)
+    hs = []
+    for xz_t in xz:
+        state = _lstm_gates(state.c, xz_t + state.h @ params.wh)
+        hs.append(state.h)
+    return state, torch.stack(hs)
+
+
+@dataclasses.dataclass
+class VanillaRNNParams:
+    wx: torch.Tensor   # (in, H)
+    wh: torch.Tensor   # (H, H)
+    b: torch.Tensor    # (H,)
+
+
+@dataclasses.dataclass
+class VanillaRNNState:
+    h: torch.Tensor
+
+
+def vanilla_init(n_in: int, n_hidden: int, generator=None,
+                 w_std: float = 0.01, device=None) -> VanillaRNNParams:
+    return VanillaRNNParams(
+        wx=_normal((n_in, n_hidden), w_std, generator, device),
+        wh=_normal((n_hidden, n_hidden), w_std, generator, device),
+        b=torch.zeros(n_hidden, device=device))
+
+
+def vanilla_zero_state(batch_shape, n_hidden: int, device=None):
+    return VanillaRNNState(h=torch.zeros((*batch_shape, n_hidden),
+                                         device=device))
+
+
+def vanilla_step(params: VanillaRNNParams, state: VanillaRNNState, x):
+    return VanillaRNNState(h=torch.tanh(
+        x @ params.wx + state.h @ params.wh + params.b.unsqueeze(-2)))
+
+
+def vanilla_scan(params: VanillaRNNParams, state: VanillaRNNState, xs):
+    xz = xs @ params.wx + params.b.unsqueeze(-2)
+    hs = []
+    for xz_t in xz:
+        state = VanillaRNNState(h=torch.tanh(xz_t + state.h @ params.wh))
+        hs.append(state.h)
+    return state, torch.stack(hs)
+
+
+# stacked (multi-layer) cells: params/state are tuples of per-layer values;
+# layer l + 1 consumes layer l's hidden trajectory
+
+def stacked_init(cell_type: str, n_in: int, n_hidden: int, n_layers: int,
+                 generator=None, w_std: float = 0.01, device=None):
+    sizes = [n_in] + [n_hidden] * (n_layers - 1)
+    init = CELLS[cell_type][0]
+    return tuple(init(sizes[i], n_hidden, generator=generator, w_std=w_std,
+                      device=device) for i in range(n_layers))
+
+
+def stacked_zero_state(cell_type: str, batch_shape, n_hidden: int,
+                       n_layers: int, device=None):
+    zero = CELLS[cell_type][1]
+    return tuple(zero(batch_shape, n_hidden, device=device)
+                 for _ in range(n_layers))
+
+
+def stacked_step(cell_type: str, params, states, x):
+    step = CELLS[cell_type][2]
+    new_states = []
+    inp = x
+    for p, st in zip(params, states):
+        st = step(p, st, inp)
+        new_states.append(st)
+        inp = st.h
+    return tuple(new_states)
+
+
+def stacked_scan(cell_type: str, params, states, xs) -> Tuple[tuple, object]:
+    scan = CELLS[cell_type][3]
+    finals = []
+    inp = xs
+    for p, st in zip(params, states):
+        final, inp = scan(p, st, inp)
+        finals.append(final)
+    return tuple(finals), inp
+
+
+CELLS = {
+    "lstm": (lstm_init, lstm_zero_state, lstm_step, lstm_scan),
+    "vanilla": (vanilla_init, vanilla_zero_state, vanilla_step, vanilla_scan),
+}
+
+
+def state_h(state) -> torch.Tensor:
+    return state.h

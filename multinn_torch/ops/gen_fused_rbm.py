@@ -1,0 +1,270 @@
+"""Whole RNN-RBM generation in one kernel launch: wrapper of
+csrc/gen_fused_rbm.cu, its plain PyTorch version, and the dispatch gate —
+port of multinn_tpu/ops/gen_fused_rbm.py.
+
+Each step t, for all K tracks and B samples: conditioned biases from the
+top layer's previous h; gen_k Gibbs sweeps started at the previous frame,
+drawing uniforms at salt ``seed[1] + t*2*gen_k + 2s`` (``+1`` for v) and
+counter ``b*K*H + lane`` (``b*K*D + lane``) exactly as the TPU kernel's
+(B, K*H) / (B, K*D) draws; the optional given-track merge; the stacked
+LSTM / vanilla advance, whose layer-0 input is the fresh frame plus the
+PREVIOUS frame of all tracks through ``wctx`` (feedback mode).
+
+The plain version equals the Pallas kernel in interpret mode bit for bit
+in the roll (CPU tests); the CUDA kernel equals the plain version up to the
+rare draw a last-ulp difference in a probability flips, after which that
+sample's trajectory diverges (chip_smoke compares by matching samples).
+
+The gate is a Hopper resource check of the kernel's design — one CTA per
+sample with the state rows in shared memory — computed from the same
+arguments the dispatch builds (not the TPU kernel's VMEM rule). Weights are
+f32 only: the bf16 weight-storage capacity mode exists for VMEM and is not
+ported (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from multinn_torch.ops import _build, kernel_prng
+from multinn_torch.ops.gen_common import (_common_gate, _decoder_param_shapes,
+                                          _eff_dims)
+from multinn_torch.ops.sampling import key_to_seeds
+
+# dynamic shared memory one CTA may use on Hopper (232,448 bytes)
+SMEM_LIMIT_BYTES = 227 * 1024
+MAX_TRACKS = 31             # the given-track merge is a 32-bit lane mask
+
+
+class RbmArgs(NamedTuple):
+    """Kernel inputs from track-STACKED rnn_rbm.Params + state, in compact
+    per-track layouts (the TPU kernel's block-diagonal matrices only served
+    its matrix unit):
+
+        w     (K, D, H)   RBM weights       wt   (K, H, D)   their transpose
+        wuv   (K, U, D)   bias conditioning wuh  (K, U, H)
+        bv    (K*D,)      bh   (K*H,)
+        wx_v  (K, D, G)   layer-0 input projection of the track's frame
+        wh    (L, K, U, G) recurrent weights, G = 4U (LSTM) | U (vanilla)
+        wctx  (K*D, K*G)  feedback projection, rows [source track j][pitch i],
+                          columns [target track k][gate]; None without ctx
+        b     (L, K*G)    gate biases
+        h0/c0 (B, L*K*U)  state rows, layer-major then per-track
+        v0    (B, K*D)    previous frame rows
+        wx_r  (L-1, K, U, G) input projections of layers >= 1; None if L = 1
+    """
+    w: torch.Tensor
+    wt: torch.Tensor
+    wuv: torch.Tensor
+    wuh: torch.Tensor
+    bv: torch.Tensor
+    bh: torch.Tensor
+    wx_v: torch.Tensor
+    wh: torch.Tensor
+    wctx: Optional[torch.Tensor]
+    b: torch.Tensor
+    h0: torch.Tensor
+    c0: torch.Tensor
+    v0: torch.Tensor
+    wx_r: Optional[torch.Tensor]
+
+
+def _rbm_args(dec_params, h0, c0, v0) -> RbmArgs:
+    """h0/c0: (L, K, B, U); v0: (K, B, D)."""
+    cells = dec_params.cell
+    n_layers = len(cells)
+    k, xin_dim, g = cells[0].wx.shape
+    d = dec_params.w.shape[1]
+    ctx_dim = xin_dim - d
+    b = h0.shape[2]
+    wctx = None
+    if ctx_dim:
+        # rows [j*D + i]: d z / d v_{j,i}(t-1) for all target tracks' gates
+        wctx = (cells[0].wx[:, d:, :].reshape(k, k, d, g)
+                .permute(1, 2, 0, 3).reshape(k * d, k * g).contiguous())
+
+    def rows(x):                                 # (L, K, B, X) -> (B, L*K*X)
+        return x.movedim(2, 0).reshape(b, -1).contiguous()
+
+    return RbmArgs(
+        w=dec_params.w.contiguous(),
+        wt=dec_params.w.transpose(1, 2).contiguous(),
+        wuv=dec_params.wuv.contiguous(),
+        wuh=dec_params.wuh.contiguous(),
+        bv=dec_params.bv.reshape(-1).contiguous(),
+        bh=dec_params.bh.reshape(-1).contiguous(),
+        wx_v=cells[0].wx[:, :d, :].contiguous(),
+        wh=torch.stack([c.wh for c in cells]).contiguous(),
+        wctx=wctx,
+        b=torch.stack([c.b.reshape(-1) for c in cells]).contiguous(),
+        h0=rows(h0), c0=rows(c0),
+        v0=v0.movedim(1, 0).reshape(b, -1).contiguous(),
+        wx_r=(torch.stack([c.wx for c in cells[1:]]).contiguous()
+              if n_layers > 1 else None))
+
+
+def _cta_smem_bytes(args: RbmArgs) -> int:
+    """Shared memory of one CTA — the same count as smem_bytes in
+    csrc/gen_fused_rbm.cu: h and c rows, three
+    frame rows (previous, current, visible bias), two hidden rows (sample,
+    bias) and the gate row."""
+    k, d, hid = args.w.shape
+    n_layers, _, u, g = args.wh.shape
+    return 4 * (2 * n_layers * k * u + 3 * k * d + 2 * k * hid + k * g)
+
+
+def _fits(args: RbmArgs) -> bool:
+    return (args.w.shape[0] <= MAX_TRACKS
+            and _cta_smem_bytes(args) <= SMEM_LIMIT_BYTES)
+
+
+def supported(cfg, batch: int, n_steps: int = 2048,
+              gen_k: Optional[int] = None, conditioned: bool = False) -> bool:
+    """Gate for the auto-dispatch: the config is one the kernel takes and
+    one sample's state rows fit a CTA's shared memory (batch sets only the
+    grid; n_steps and gen_k set only the loop trip counts)."""
+    if not _common_gate(cfg, "rnn-rbm") or batch < 1 or n_steps < 1:
+        return False
+    from multinn_torch.models import rnn_rbm
+    (k, d), u, nl = _eff_dims(cfg), cfg.n_rnn, cfg.rnn_layers
+    params = _decoder_param_shapes(cfg, rnn_rbm)
+    st = torch.empty((nl, k, batch, u), device="meta")
+    v0 = torch.empty((k, batch, d), device="meta")
+    return _fits(_rbm_args(params, st, st, v0))
+
+
+def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
+                 gen_k: int, impl=None, wdtype=None, given=None,
+                 given_tracks: Tuple[int, ...] = ()):
+    """Run the whole generation. dec_params: track-STACKED rnn_rbm.Params;
+    h0/c0: (L, K, B, U) ((K, B, U) for one layer); v0: (K, B, D);
+    ``given`` (B, n_steps, K, D) with ``given_tracks``: those tracks' frames
+    replace the sampled ones (accompaniment). Returns (roll (B, n_steps, K,
+    D) float32, h_final (L, K, B, U), c_final (L, K, B, U)).
+
+    ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors; "cuda" / "plain" force one."""
+    if wdtype is not None and wdtype != torch.float32:
+        raise NotImplementedError(
+            "the bf16 weight-storage capacity mode is not ported "
+            "(ROADMAP queue 2); weights are float32")
+    n_layers = len(dec_params.cell)
+    if h0.dim() == 3 and n_layers == 1:
+        h0, c0 = h0[None], c0[None]
+    given_tracks = tuple(sorted(set(int(t) for t in given_tracks)))
+    if (given is None) != (not given_tracks):
+        raise ValueError("given and given_tracks must be passed together")
+    args = _rbm_args(dec_params, h0, c0, v0)
+    k, d, hid = args.w.shape
+    u, g = args.wuv.shape[1], args.wx_v.shape[2]
+    lstm = g == 4 * u
+    b = h0.shape[2]
+    seeds = key_to_seeds(key).to(args.w.device)
+    if given is not None:
+        given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
+    if _build.impl_for(impl, args.w) == "cuda":
+        roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, gen_k,
+                                            lstm, given, given_tracks)
+    else:
+        roll, h_out, c_out = _generate_plain(seeds, args, n_steps, gen_k,
+                                             lstm, given, given_tracks)
+
+    def unrows(r):                         # (B, L*K*U) -> (L, K, B, U)
+        return r.reshape(b, n_layers, k, u).permute(1, 2, 0, 3)
+
+    return roll.reshape(b, n_steps, k, d), unrows(h_out), unrows(c_out)
+
+
+def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
+                   given_tracks):
+    if not _fits(args):
+        raise ValueError(
+            f"generate_rbm: one sample's state needs "
+            f"{_cta_smem_bytes(args)} bytes of shared memory (limit "
+            f"{SMEM_LIMIT_BYTES}) or K > {MAX_TRACKS}; gen_fused.supported "
+            f"refuses this config — use the scan path")
+    b = args.h0.shape[0]
+    kd = args.v0.shape[1]
+    dev = args.w.device
+    roll = torch.empty((b, n_steps, kd), device=dev)
+    h_out, c_out = torch.empty_like(args.h0), torch.empty_like(args.c0)
+    none = torch.empty(0, device=dev)
+    mask = sum(1 << t for t in given_tracks)
+    with torch.cuda.device(dev):
+        _build.launches["gen_fused_rbm"] += 1
+        _build.ops().gen_fused_rbm(
+            roll, h_out, c_out, args.w, args.wt, args.wuv, args.wuh, args.bv,
+            args.bh, args.wx_v, none if args.wx_r is None else args.wx_r,
+            args.wh, none if args.wctx is None else args.wctx, args.b,
+            args.h0, args.c0, args.v0, none if given is None else given,
+            seeds, gen_k, int(lstm), mask, _build.stream_of(args.w))
+    return roll, h_out, c_out
+
+
+def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
+                    given_tracks):
+    """Plain PyTorch version of the kernel, same signature and stream.
+    Track-major (K, B, X) tensors; torch.matmul batches over the tracks."""
+    k, d, hid = args.w.shape
+    n_layers, _, u, g = args.wh.shape
+    b = args.h0.shape[0]
+    dev = args.w.device
+    s0, s1 = (int(s) & kernel_prng.MASK for s in seeds.tolist())
+    # counters b*K*X + lane, as (K, B, X) to line up with the track-major rows
+    def ctr(x):
+        c = torch.arange(b * k * x, dtype=torch.int64, device=dev)
+        return c.reshape(b, k, x).transpose(0, 1)
+    ctr_h, ctr_v = ctr(hid), ctr(d)
+
+    def uniform(salt, counter):
+        return kernel_prng.uniform_from_bits(
+            kernel_prng.bits_at_plain(s0, salt & kernel_prng.MASK, counter))
+
+    def track_major(rows, width):          # (B, K*X) -> (K, B, X)
+        return rows.reshape(b, k, width).transpose(0, 1)
+
+    h = [track_major(args.h0[:, l * k * u:(l + 1) * k * u], u)
+         for l in range(n_layers)]
+    c = [track_major(args.c0[:, l * k * u:(l + 1) * k * u], u)
+         for l in range(n_layers)]
+    v_prev = track_major(args.v0, d)
+    bv, bh = args.bv.reshape(k, 1, d), args.bh.reshape(k, 1, hid)
+    gmask = torch.zeros(k, 1, 1, dtype=torch.bool, device=dev)
+    gmask[list(given_tracks)] = True
+    frames = []
+    for t in range(n_steps):
+        bv_row = bv + h[-1] @ args.wuv
+        bh_row = bh + h[-1] @ args.wuh
+        salt0 = s1 + t * 2 * gen_k
+        v = v_prev
+        for s in range(gen_k):
+            ph = torch.sigmoid(v @ args.w + bh_row)
+            hs = (uniform(salt0 + 2 * s, ctr_h) < ph).to(torch.float32)
+            pv = torch.sigmoid(hs @ args.wt + bv_row)
+            v = (uniform(salt0 + 2 * s + 1, ctr_v) < pv).to(torch.float32)
+        if given is not None:
+            v = torch.where(gmask, track_major(given[:, t], d), v)
+        frames.append(v.transpose(0, 1).reshape(b, k * d))
+        inp = v
+        for l in range(n_layers):
+            w_in = args.wx_v if l == 0 else args.wx_r[l - 1]
+            z = inp @ w_in + h[l] @ args.wh[l]
+            z = z + args.b[l].reshape(k, 1, g)
+            if l == 0 and args.wctx is not None:
+                ctx = v_prev.transpose(0, 1).reshape(b, k * d) @ args.wctx
+                z = z + track_major(ctx, g)
+            if lstm:
+                c[l] = (torch.sigmoid(z[..., u:2 * u]) * c[l]
+                        + torch.sigmoid(z[..., :u]) * torch.tanh(z[..., 2 * u:3 * u]))
+                h[l] = torch.sigmoid(z[..., 3 * u:]) * torch.tanh(c[l])
+            else:
+                h[l] = torch.tanh(z)
+            inp = h[l]
+        v_prev = v
+
+    def rows(xs):                          # L x (K, B, U) -> (B, L*K*U)
+        return torch.stack(xs).permute(2, 0, 1, 3).reshape(b, -1)
+
+    return torch.stack(frames, dim=1), rows(h), rows(c)

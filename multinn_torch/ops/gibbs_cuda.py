@@ -1,0 +1,86 @@
+"""The k-sweep block-Gibbs chain: CUDA kernel wrapper (csrc/gibbs_chain.cu)
+and its plain PyTorch version — port of multinn_tpu/ops/gibbs_pallas.py.
+
+Both draw the JAX Pallas kernel's stream: rows are tiled into blocks of
+``block_rows(N, D, H)`` (the Pallas kernel's ``_block_b`` rule, kept for its
+stream layout, not for any memory budget of this card), block q keys its
+stream with ``seed[0] ^ q * 0x85EB`` (int32, wrapping), and the draw at
+(row r of the block, column c) has counter r * n_cols + c under salt
+``seed[1] + 2i`` (h of sweep i) or ``+ 2i + 1`` (v). So the plain version
+equals ``gibbs_pallas.gibbs_chain(..., interpret=True)`` bit for bit, and
+the kernel equals the plain version up to the rare draw a last-ulp
+difference in a probability flips.
+
+The Pallas dispatch gate (8 <= B <= 2048) was a TPU performance crossover;
+the kernel here takes any row count, and its crossover against plain
+PyTorch on the H100 is not measured yet (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multinn_torch.ops import _build, kernel_prng
+from multinn_torch.ops.sampling import key_to_seeds
+
+# the Pallas kernel's row-tile budget (multinn_tpu/ops/vmem.py:
+# PER_STEP_KERNEL_BUDGET_BYTES) — part of the stream layout
+_TILE_BUDGET_BYTES = (10 * 1024 * 1024 * 4) // 5
+
+
+def block_rows(b: int, d: int, h: int) -> int:
+    """Rows per stream block: gibbs_pallas._block_b's formula."""
+    per_row = 4 * (2 * d + 2 * h + d + h)
+    bb = max(8, min(b, _TILE_BUDGET_BYTES // max(per_row, 1)))
+    bb = (bb // 8) * 8
+    return max(8, min(bb, 1024))
+
+
+def _rows(v0, w, bv, bh):
+    d, h = w.shape
+    shape = v0.shape
+    return (v0.reshape(-1, d).contiguous(),
+            bv.expand(shape).reshape(-1, d).contiguous(),
+            bh.expand(*shape[:-1], h).reshape(-1, h).contiguous())
+
+
+def gibbs_chain(key, v0, w, bv, bh, k: int) -> torch.Tensor:
+    """The chain on the card: v0 (..., D) float32 CUDA tensors, biases
+    broadcastable to v0 / (..., H); returns the k-th visible sample."""
+    v0_2d, bv_2d, bh_2d = _rows(v0, w, bv, bh)
+    d, h = w.shape
+    out = torch.empty_like(v0_2d)
+    seeds = key_to_seeds(key).to(v0.device)
+    bb = block_rows(v0_2d.shape[0], d, h)
+    w = w.contiguous()
+    with torch.cuda.device(v0.device):
+        _build.launches["gibbs_chain"] += 1
+        _build.ops().gibbs_chain(out, v0_2d, w, w.t().contiguous(), bv_2d,
+                                 bh_2d, seeds, k, bb, _build.stream_of(v0))
+    return out.reshape(v0.shape)
+
+
+def gibbs_chain_plain(key, v0, w, bv, bh, k: int) -> torch.Tensor:
+    """Plain PyTorch version of ``gibbs_chain`` on the same stream."""
+    v0_2d, bv_2d, bh_2d = _rows(v0, w, bv, bh)
+    n = v0_2d.shape[0]
+    d, h = w.shape
+    s0, s1 = (int(s) & kernel_prng.MASK for s in key_to_seeds(key).tolist())
+    rows = torch.arange(n, dtype=torch.int64, device=v0.device)
+    bb = block_rows(n, d, h)
+    blk, lrow = rows // bb, rows % bb
+    seed = (s0 ^ ((blk * 0x85EB) & kernel_prng.MASK))[:, None]
+    ctr_h = lrow[:, None] * h + torch.arange(h, device=v0.device)
+    ctr_v = lrow[:, None] * d + torch.arange(d, device=v0.device)
+    v = v0_2d
+    for i in range(k):
+        salt = (s1 + 2 * i) & kernel_prng.MASK
+        ph = torch.sigmoid(v @ w + bh_2d)
+        uh = kernel_prng.uniform_from_bits(
+            kernel_prng.bits_at_plain(seed, salt, ctr_h))
+        hs = (uh < ph).to(v.dtype)
+        pv = torch.sigmoid(hs @ w.t() + bv_2d)
+        uv = kernel_prng.uniform_from_bits(
+            kernel_prng.bits_at_plain(seed, salt + 1, ctr_v))
+        v = (uv < pv).to(v.dtype)
+    return v.reshape(v0.shape)

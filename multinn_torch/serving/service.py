@@ -1,0 +1,352 @@
+"""Continuous-batching generation service — port of
+multinn_tpu/serving/service.py (plain and seeded requests).
+
+A request queue -> ONE dispatcher thread that coalesces up to ``batch``
+requests of one kind (plain or seeded) per device call, waiting at most
+``max_wait_ms`` after the first (under-full batches run padded, so the
+program shape never changes) -> a bounded window of ``pipeline_depth``
+dispatched batches -> ONE drainer thread that waits on each batch's CUDA
+event, fetches and decodes it, and resolves the per-request futures.
+
+The dispatcher enqueues its work on a CUDA stream of its own and never
+synchronises (keys derive on the card, seeds copy from pinned memory), so
+the next batch is queued while the previous one runs; the drainer's copies
+run on the generator's copy stream.
+
+RNG contract: batch ``i`` samples under ``fold_in(PRNGKey(seed), i)`` — the
+same kernel seeds as the JAX service's batch ``i``; a request's provenance
+``(batch_index, row)`` pins its sample stream.
+
+Accompaniment requests and the sparse transport are not ported yet
+(ROADMAP queue 1): a service refuses ``accompany_tracks`` and ``given``
+rolls with a ValueError, and ``transport="auto"`` means packed.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from concurrent.futures import Future
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from multinn_torch.ops import sampling
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Server knobs (field names and defaults as the JAX ServeConfig)."""
+    batch: int = 0             # 0 = auto: largest fused-gate-admitted batch
+    n_steps: int = 0           # 0 = cfg.generate.n_steps
+    max_wait_ms: float = 5.0   # batching window after the first request
+    pipeline_depth: int = 3    # max dispatched-but-unfetched device batches
+    seed: int = 0              # base RNG seed (batch i uses fold_in(seed, i))
+    history: int = 1024        # latency samples kept for percentile stats
+    seed_steps: int = 0        # >0 enables seeded requests (seed rolls are
+    #                            cropped / left-padded to this many frames)
+    accompany_tracks: tuple = ()  # accompaniment: not ported, must be empty
+    accompany_steps: int = 0
+    transport: str = "auto"    # "auto" | "packed" (both bit-packed frames);
+    #                            "sparse" is not ported
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """Resolved value of one request's future."""
+    roll: np.ndarray           # finalized FRAME pianoroll (n_steps, K, D)
+    batch_index: int           # provenance: which device batch
+    row: int                   # provenance: row within the batch
+    queue_s: float             # enqueue -> dispatch
+    total_s: float             # enqueue -> resolution
+
+
+class _Request:
+    __slots__ = ("future", "t_enqueue", "seed")
+
+    def __init__(self, seed: Optional[np.ndarray] = None):
+        self.future = Future()
+        self.t_enqueue = time.time()
+        self.seed = seed       # normalized model-space (seed_steps, K, D)
+
+    @property
+    def kind(self) -> str:
+        return "seeded" if self.seed is not None else "plain"
+
+
+def auto_batch(cfg, n_steps: int) -> int:
+    """Largest fused-kernel-gate-admitted serving batch for this config; 8
+    when nothing is admitted (the scan path still serves)."""
+    from multinn_torch.ops import gen_fused
+    cands = (8, 16, 32, 64, 128, 256)
+    return max((b for b in cands
+                if gen_fused.supported(cfg.model, b, n_steps)), default=8)
+
+
+class GenerationService:
+    """Continuous-batching generation server core (module docstring)."""
+
+    def __init__(self, cfg, params, serve_cfg: ServeConfig = None):
+        from multinn_torch.training.generator import Generator
+
+        self.cfg = cfg
+        self.serve_cfg = serve_cfg or ServeConfig()
+        if self.serve_cfg.accompany_tracks:
+            raise ValueError("accompaniment requests are not ported yet "
+                             "(ROADMAP queue 1): accompany_tracks must be "
+                             "empty")
+        if self.serve_cfg.transport not in ("auto", "packed"):
+            raise ValueError(f"transport must be auto|packed (sparse is not "
+                             f"ported), got {self.serve_cfg.transport!r}")
+        self.n_steps = self.serve_cfg.n_steps or cfg.generate.n_steps
+        self.batch = self.serve_cfg.batch or auto_batch(cfg, self.n_steps)
+        self.generator = Generator(cfg, params)
+        self.device = self.generator.device
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._base_key = sampling.PRNGKey(self.serve_cfg.seed,
+                                          device=self.device)
+
+        self._lock = threading.Condition()
+        self._queues = {"plain": collections.deque(),
+                        "seeded": collections.deque()}
+        self._closed = False
+        self._inflight = threading.Semaphore(self.serve_cfg.pipeline_depth)
+        self._done_q: collections.deque = collections.deque()
+        self._done_cv = threading.Condition()
+
+        self._stats_lock = threading.Lock()
+        self._n_requests = 0
+        self._n_batches = 0
+        self._n_seeded_batches = 0
+        self._n_padded_rows = 0
+        self._n_errors = 0
+        self._t_started = time.time()
+        self._latencies = collections.deque(maxlen=self.serve_cfg.history)
+        self._queue_waits = collections.deque(maxlen=self.serve_cfg.history)
+        self._done_times = collections.deque(maxlen=self.serve_cfg.history)
+
+        # user-facing seed rolls are FRAME space; the model may be onset_hold
+        self._frame_dim = (cfg.model.n_pitches // 2
+                           if cfg.data.encoding == "onset_hold"
+                           else cfg.model.n_pitches)
+
+        # warm every program shape before accepting traffic (the first call
+        # builds the kernels): one unseeded, plus one seeded iff seed_steps
+        self.generator.fetch_rolls(self._dispatch(self._base_key, None))
+        if self.serve_cfg.seed_steps > 0:
+            zeros = np.zeros((self.batch, self.serve_cfg.seed_steps,
+                              cfg.model.n_tracks, cfg.model.n_pitches),
+                             np.float32)
+            self.generator.fetch_rolls(self._dispatch(self._base_key, zeros))
+
+        self._dispatcher = threading.Thread(target=self._dispatch_loop,
+                                            name="multinn-serve-dispatch",
+                                            daemon=True)
+        self._drainer = threading.Thread(target=self._drain_loop,
+                                         name="multinn-serve-drain",
+                                         daemon=True)
+        self._dispatcher.start()
+        self._drainer.start()
+
+    def _dispatch(self, key, seed_arr):
+        with torch.cuda.stream(self._stream):
+            return self.generator.generate_async(key, self.n_steps,
+                                                 self.batch, seed=seed_arr)
+
+    # -- front end -----------------------------------------------------------
+
+    def _normalize_seed(self, seed: np.ndarray) -> np.ndarray:
+        """User frame-space seed roll (T, K, D_frame) -> model-space
+        (seed_steps, K, D_model) float32: encode the full roll, keep the LAST
+        seed_steps frames, left-pad zeros."""
+        if self.serve_cfg.seed_steps <= 0:
+            raise ValueError("this service has seed_steps=0: seeded "
+                             "requests are disabled")
+        seed = np.asarray(seed)
+        k, d = self.cfg.model.n_tracks, self._frame_dim
+        if seed.ndim != 3 or seed.shape[1:] != (k, d) or seed.shape[0] < 1:
+            raise ValueError(f"seed roll must be (T>=1, {k}, {d}) "
+                             f"frame-space, got {seed.shape}")
+        enc = (seed > 0).astype(np.uint8)
+        if self.cfg.data.encoding != "frame":
+            from multinn_torch.training.generator import pianoroll
+            enc = pianoroll().encode_rolls(enc, self.cfg.data.encoding)
+        s = self.serve_cfg.seed_steps
+        enc = enc[-s:]
+        if enc.shape[0] < s:
+            pad = np.zeros((s - enc.shape[0],) + enc.shape[1:], enc.dtype)
+            enc = np.concatenate([pad, enc], axis=0)
+        return enc.astype(np.float32)
+
+    def submit(self, seed: Optional[np.ndarray] = None,
+               given: Optional[np.ndarray] = None) -> Future:
+        """Enqueue one generation request; returns its future (resolving to
+        a ServeResult). ``seed``: optional frame-space roll (T, K, D_frame)
+        to prime on (requires ServeConfig.seed_steps > 0)."""
+        return self.submit_many(1, seed=seed, given=given)[0]
+
+    def submit_many(self, n: int, seed: Optional[np.ndarray] = None,
+                    given: Optional[np.ndarray] = None) -> List[Future]:
+        """Enqueue ``n`` requests atomically, all with the same seed (or
+        none). Returns their futures in submission order."""
+        if given is not None:
+            raise ValueError("this service has no accompany_tracks: "
+                             "accompaniment requests are disabled")
+        norm = self._normalize_seed(seed) if seed is not None else None
+        reqs = [_Request(norm) for _ in range(n)]
+        if not reqs:
+            return []
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("service is closed")
+            self._queues[reqs[0].kind].extend(reqs)
+            self._lock.notify()
+        with self._stats_lock:
+            self._n_requests += n
+        return [r.future for r in reqs]
+
+    def stats(self) -> dict:
+        """Service counters + latency percentiles over the recent window."""
+        with self._stats_lock:
+            lat = np.asarray(self._latencies, np.float64)
+            qw = np.asarray(self._queue_waits, np.float64)
+            out = {
+                "batch": self.batch,
+                "n_steps": self.n_steps,
+                "transport": "packed",
+                "pipeline_depth": self.serve_cfg.pipeline_depth,
+                "requests": self._n_requests,
+                "batches": self._n_batches,
+                "seeded_batches": self._n_seeded_batches,
+                "seed_steps": self.serve_cfg.seed_steps,
+                "padded_rows": self._n_padded_rows,
+                "errors": self._n_errors,
+                "uptime_s": time.time() - self._t_started,
+                "queued": sum(len(q) for q in self._queues.values()),
+            }
+            if lat.size:
+                out["latency_ms"] = {
+                    "p50": float(np.percentile(lat, 50)) * 1e3,
+                    "p95": float(np.percentile(lat, 95)) * 1e3,
+                    "p99": float(np.percentile(lat, 99)) * 1e3,
+                    "window": int(lat.size),
+                }
+                out["queue_wait_ms_p50"] = float(np.percentile(qw, 50)) * 1e3
+                if len(self._done_times) >= 2:
+                    span = self._done_times[-1] - self._done_times[0]
+                    out["songs_per_s"] = ((len(self._done_times) - 1)
+                                          / max(span, 1e-9))
+            return out
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop accepting requests, drain in-flight work, join threads.
+        Queued-but-undispatched requests are rejected. Idempotent."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            pending = [r for q in self._queues.values() for r in q]
+            for q in self._queues.values():
+                q.clear()
+            self._lock.notify_all()
+        for req in pending:
+            req.future.set_exception(RuntimeError("service closed"))
+        with self._done_cv:
+            self._done_cv.notify_all()
+        self._dispatcher.join(timeout)
+        self._drainer.join(timeout)
+
+    # -- dispatcher thread ----------------------------------------------------
+
+    def _take_batch(self) -> Optional[List[_Request]]:
+        """Block until >=1 request, then wait up to max_wait_ms for the batch
+        to fill. The oldest queued request picks the kind. None on close."""
+        deadline = None
+        with self._lock:
+            while True:
+                live = [q for q in self._queues.values() if q]
+                if live:
+                    q = min(live, key=lambda q: q[0].t_enqueue)
+                    if deadline is None:
+                        deadline = (q[0].t_enqueue
+                                    + self.serve_cfg.max_wait_ms / 1e3)
+                    if len(q) >= self.batch or time.time() >= deadline:
+                        return [q.popleft()
+                                for _ in range(min(self.batch, len(q)))]
+                    self._lock.wait(max(deadline - time.time(), 0.0))
+                elif self._closed:
+                    return None
+                else:
+                    deadline = None
+                    self._lock.wait(0.1)
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            reqs = self._take_batch()
+            if reqs is None:
+                return
+            self._inflight.acquire()           # bound dispatched-unfetched
+            kind = reqs[0].kind
+            with self._stats_lock:
+                bi = self._n_batches
+                self._n_batches += 1
+                self._n_seeded_batches += int(kind == "seeded")
+                self._n_padded_rows += self.batch - len(reqs)
+            seed_arr = None
+            if kind == "seeded":               # pad rows prime on zeros
+                seed_arr = np.zeros(
+                    (self.batch,) + reqs[0].seed.shape, np.float32)
+                for row, r in enumerate(reqs):
+                    seed_arr[row] = r.seed
+            t_dispatch = time.time()
+            try:
+                with torch.cuda.stream(self._stream):
+                    key = sampling.fold_in(self._base_key, bi)
+                out = self._dispatch(key, seed_arr)
+            except Exception as e:            # pragma: no cover - defensive
+                self._inflight.release()
+                with self._stats_lock:
+                    self._n_errors += len(reqs)
+                for r in reqs:
+                    r.future.set_exception(e)
+                continue
+            with self._done_cv:
+                self._done_q.append((out, reqs, bi, t_dispatch))
+                self._done_cv.notify()
+
+    # -- drainer thread --------------------------------------------------------
+
+    def _drain_loop(self) -> None:
+        while True:
+            with self._done_cv:
+                while not self._done_q:
+                    if self._closed and not self._dispatcher.is_alive():
+                        return
+                    self._done_cv.wait(0.1)
+                out, reqs, bi, t_dispatch = self._done_q.popleft()
+            try:
+                rolls = self.generator.finalize(
+                    self.generator.fetch_rolls(out))
+            except Exception as e:
+                self._inflight.release()
+                with self._stats_lock:
+                    self._n_errors += len(reqs)
+                for r in reqs:
+                    r.future.set_exception(e)
+                continue
+            self._inflight.release()
+            t_done = time.time()
+            with self._stats_lock:
+                for r in reqs:
+                    self._latencies.append(t_done - r.t_enqueue)
+                    self._queue_waits.append(t_dispatch - r.t_enqueue)
+                    self._done_times.append(t_done)
+            for row, r in enumerate(reqs):
+                r.future.set_result(ServeResult(
+                    roll=rolls[row], batch_index=bi, row=row,
+                    queue_s=t_dispatch - r.t_enqueue,
+                    total_s=t_done - r.t_enqueue))

@@ -1,0 +1,171 @@
+"""Typed experiment configs — mirror of multinn_tpu/utils/config.py.
+
+Same dataclasses, field names and defaults, so every ``configs/*.json``
+loads into either package (a test holds the field sets equal).
+``MultINNConfig`` lives in models/multinn.py as in the reference.
+``DataConfig`` (multinn_tpu/data/datasets.py) and ``MeshConfig``
+(multinn_tpu/parallel/mesh.py) are mirrored here: the port has no data
+pipeline or parallel package yet (ROADMAP queue 1), so they only parse and
+validate, and the serving path runs without importing the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import typing
+from typing import Any, Dict, List, Tuple, get_args, get_origin
+
+from multinn_torch.models.multinn import MultINNConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "synthetic"
+    source: str = "synthetic"
+    path: str = ""
+    steps_per_quarter: int = 4
+    pitch_min: int = 21
+    pitch_max: int = 108
+    n_tracks: int = 1
+    window: int = 64
+    batch_size: int = 32
+    splits: Tuple[float, float, float] = (0.8, 0.1, 0.1)
+    seed: int = 0
+    synthetic_songs: int = 64
+    synthetic_steps: int = 256
+    encoding: str = "frame"            # "frame" | "onset_hold"
+    transpose_range: int = 0
+    transpose_exclude: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.encoding not in ("frame", "onset_hold"):
+            raise ValueError(f"data.encoding must be 'frame' or "
+                             f"'onset_hold', got {self.encoding!r}")
+
+    @property
+    def n_pitches(self) -> int:
+        return self.pitch_max - self.pitch_min + 1
+
+    @property
+    def frame_dim(self) -> int:
+        """Per-track visible width the model sees (model.n_pitches)."""
+        return self.n_pitches * (2 if self.encoding == "onset_hold" else 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    epochs: int = 10
+    lr: float = 1e-3
+    lr_schedule: str = "constant"
+    lr_min: float = 0.0
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    optimizer: str = "adam"
+    hf_cg_iters: int = 25
+    hf_lambda0: float = 1.0
+    grad_clip: float = 5.0
+    weight_decay: float = 0.0
+    seed: int = 42
+    steps_per_call: int = 1
+    eval_every_epochs: int = 1
+    log_every_steps: int = 50
+    ckpt_every_steps: int = 500
+    keep_last: int = 3
+    keep_best: bool = True
+    early_stop_patience: int = 0
+    pretrain_encoder_epochs: int = 0
+    pretrain_lr: float = 1e-3
+    fault_inject_step: int = -1
+    image_summaries: bool = False
+    run_dir: str = "runs/default"
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerateConfig:
+    n_steps: int = 1024                # 64 bars x 16 steps/bar
+    n_samples: int = 2
+    seed_steps: int = 32
+    gibbs_k: int = 0                   # 0 = use model cfg gen_k
+    temperature: float = 1.0
+    bpm: float = 120.0
+    out_dir: str = "samples"
+    gap_fill_steps: int = 0
+    min_note_steps: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    use_mesh: bool = False
+    data: int = 0
+    track: int = 1
+    model: int = 1
+    seq: int = 1
+    seq_microbatches: int = 0
+    style: str = "gspmd"
+
+    def __post_init__(self):
+        if self.style not in ("gspmd", "shard_map", "seqpipe"):
+            raise ValueError(f"mesh.style must be gspmd|shard_map|seqpipe, "
+                             f"got {self.style!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    name: str = "experiment"
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: MultINNConfig = dataclasses.field(default_factory=MultINNConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    generate: GenerateConfig = dataclasses.field(
+        default_factory=GenerateConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+def _coerce(value: Any, typ: Any) -> Any:
+    origin = get_origin(typ)
+    if dataclasses.is_dataclass(typ) and isinstance(value, dict):
+        return from_dict(typ, value)
+    if origin in (tuple, Tuple) and isinstance(value, (list, tuple)):
+        args = get_args(typ)
+        if len(args) == 2 and args[1] is Ellipsis:
+            return tuple(_coerce(v, args[0]) for v in value)
+        if args:
+            return tuple(_coerce(v, t) for v, t in zip(value, args))
+        return tuple(value)
+    if origin in (list, List) and isinstance(value, (list, tuple)):
+        (arg,) = get_args(typ) or (Any,)
+        return [_coerce(v, arg) for v in value]
+    if typ is bool and isinstance(value, str):
+        return value.lower() in ("1", "true", "yes", "on")
+    if typ in (int, float) and isinstance(value, str):
+        return typ(value)
+    if typ is float and isinstance(value, int):
+        return float(value)
+    return value
+
+
+def from_dict(cls, d: Dict[str, Any]):
+    """Build dataclass ``cls`` from a nested dict; unknown keys raise."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    hints = typing.get_type_hints(cls)
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"unknown config keys for {cls.__name__}: "
+                         f"{sorted(unknown)}")
+    return cls(**{k: _coerce(v, hints[k]) for k, v in d.items()})
+
+
+def to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def _migrate(d: Dict[str, Any]) -> Dict[str, Any]:
+    train = d.get("train", {})
+    if "remat" in train:                     # moved: train.remat -> model.remat
+        d.setdefault("model", {})["remat"] = train.pop("remat")
+    return d
+
+
+def load_json(path: str) -> ExperimentConfig:
+    with open(path) as f:
+        return from_dict(ExperimentConfig, _migrate(json.load(f)))
