@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs six
+Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs nine
 phases, one line each; any failure exits non-zero before the result line.
+Phases 4-6 drive the RNN-RBM path, 7-9 the RNN-NADE path.
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -22,12 +23,21 @@ phases, one line each; any failure exits non-zero before the result line.
      seeded requests, then the scan branch of ``multinn.generate`` runs 16
      steps. Launch counts are reset right before and read right after;
      every kernel must have launched. Prints latency p50, songs/s and the
-     B=1 64-bar generation time of the kernel and of its plain version.
+     B=1 64-bar generation time of the kernel and of its plain version;
+  7. NADE sampler: kernel vs plain version at D=84, H=150 for one track's
+     8 rows (the scan branch's shape) — at most 1 of 8 rows may differ;
+  8. fused NADE generation at the flagship widths from one primed state:
+     B=8, T=16 with at least 7 of 8 samples identical (final h within 1e-4
+     on those), then T=1024 with per-track density within 0.01;
+  9. the NADE slice: as phase 6 on the NADE flagship config (the fused
+     NADE kernel serves, a 16-step ``fused=False`` generation runs the
+     sampler kernel), with its own launch counts, reset right before and
+     read right after.
 
-Then one JSON line with each kernel's launches, error and times, the
-``nvidia-smi`` name/power-limit line, and the result line
-``{"ok": true, "device": {...}}``. The check needs a CUDA device: without
-one it exits 1 and prints no result.
+Then the total wall time, one JSON line with each kernel's launches (from
+its path's window), error and times, the ``nvidia-smi`` name/power-limit
+line, and the result line ``{"ok": true, "device": {...}}``. The check
+needs a CUDA device: without one it exits 1 and prints no result.
 """
 
 import dataclasses
@@ -40,6 +50,7 @@ import time
 FLAGSHIP = dict(n_tracks=5, n_pitches=84, mode="feedback",
                 decoder_type="rnn-rbm", n_hidden=150, n_rnn=100, cd_k=1,
                 gen_k=10)
+NADE_FLAGSHIP = dict(FLAGSHIP, decoder_type="rnn-nade")
 
 
 def fail(msg: str) -> None:
@@ -69,14 +80,16 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs the card")
     import numpy as np
 
     from multinn_torch.models import multinn
-    from multinn_torch.ops import (_build, gen_fused_rbm, gibbs_cuda,
-                                   kernel_prng, sampling)
+    from multinn_torch.ops import (_build, gen_fused_nade, gen_fused_rbm,
+                                   gibbs_cuda, kernel_prng, nade_cuda,
+                                   sampling)
     from multinn_torch.serving.service import GenerationService, ServeConfig
     from multinn_torch.utils.config import (DataConfig, ExperimentConfig,
                                             GenerateConfig)
@@ -293,22 +306,175 @@ def main() -> None:
         f"B=8 kernel {b8_ms:.1f} ms, plain {b8_plain_ms:.1f} ms; "
         f"launches {launches}")
 
+    rbm_launches = launches
+
+    # 7. NADE sampler -------------------------------------------------------------
+    def nade_inputs(n, d=84, h=150):
+        w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+        v = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+        bv = (-1.0 + 0.5 * torch.randn(n, d, generator=g)).to(dev)
+        bh = (0.5 * torch.randn(n, h, generator=g)).to(dev)
+        return w, v, bv, bh
+
+    key = sampling.PRNGKey(3, device=dev)
+    nargs = nade_inputs(8)                   # one track, the scan branch's 8 rows
+    nk = nade_cuda.nade_sample(key, *nargs, (8,))
+    npl = nade_cuda.nade_sample_plain(key, *nargs, (8,))
+    torch.cuda.synchronize()
+    nade_err = float((nk - npl).abs().max())
+    nade_differ = int((nk != npl).any(dim=1).sum())
+    if nade_differ > 1:
+        fail(f"nade_sample: {nade_differ} of 8 rows differ from plain "
+             f"(limit 1)")
+    ms = cuda_ms(lambda: nade_cuda.nade_sample(key, *nargs, (8,)), 100)
+    plain_ms = cuda_ms(lambda: nade_cuda.nade_sample_plain(key, *nargs, (8,)),
+                       10)
+    results["nade_sample"] = dict(max_abs_err=nade_err, ms=ms,
+                                  plain_ms=plain_ms)
+    say(f"phase 7 nade sampler: D=84 H=150, 8 rows, rows differing "
+        f"{nade_differ} (limit 1), density {float(nk.mean()):.4f}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms")
+
+    # 8. fused NADE generation at flagship widths --------------------------------
+    ncfg = multinn.MultINNConfig(**dict(NADE_FLAGSHIP, w_std=0.1))
+    p8 = multinn.init(ncfg, g)
+    p8 = dataclasses.replace(p8, decoder=dataclasses.replace(
+        p8.decoder, bv=p8.decoder.bv + torch.linspace(-3.0, 1.0, 84)))
+    p8 = multinn.tree_map(lambda x: x.to(dev), p8)
+    seed8 = (torch.rand(8, 16, 5, 84, generator=g) < 0.1).float().to(dev)
+    st8 = multinn.prime(p8, multinn.init_state(p8, 8), seed8)
+    h0 = torch.stack([c.h for c in st8.decoder.cell])
+    c0 = torch.stack([c.c for c in st8.decoder.cell])
+    key = sampling.PRNGKey(8, device=dev)
+
+    def nfused(n_steps, impl):
+        return gen_fused_nade.generate_nade(key, p8.decoder, h0, c0,
+                                            st8.decoder.v_prev, n_steps,
+                                            impl=impl)
+
+    rk, hk, _ = nfused(16, "cuda")
+    rp, hp, _ = nfused(16, "plain")
+    torch.cuda.synchronize()
+    same = (rk == rp).flatten(1).all(dim=1)
+    if int(same.sum()) < 7:
+        fail(f"fused nade: only {int(same.sum())} of 8 samples match plain "
+             f"at T=16 (need 7)")
+    nh_err = float((hk - hp).abs()[:, :, same].max())
+    if not nh_err <= 1e-4:
+        fail(f"fused nade: final h differs by {nh_err} on matching samples")
+    rk, _, _ = nfused(1024, "cuda")
+    rp, _, _ = nfused(1024, "plain")
+    dens_k = rk.mean(dim=(0, 1, 3))
+    dens_p = rp.mean(dim=(0, 1, 3))
+    dens_gap = float((dens_k - dens_p).abs().max())
+    if not dens_gap <= 0.01:
+        fail(f"fused nade: per-track density gap {dens_gap} at T=1024 "
+             f"(limit 0.01)")
+    say(f"phase 8 fused nade: T=16 {int(same.sum())}/8 samples identical, "
+        f"final h max err {nh_err:.2e}; T=1024 per-track density kernel "
+        f"{[round(float(x), 4) for x in dens_k]} plain "
+        f"{[round(float(x), 4) for x in dens_p]} (max gap {dens_gap:.4f})")
+
+    # 9. the NADE slice -------------------------------------------------------------
+    ncfg9 = ExperimentConfig(
+        name="flagship-nade", model=multinn.MultINNConfig(**NADE_FLAGSHIP),
+        data=DataConfig(dataset="lpd5", pitch_min=24, pitch_max=107,
+                        n_tracks=5),
+        generate=GenerateConfig(n_steps=1024, seed_steps=64))
+    nparams = multinn.init(ncfg9.model, torch.Generator().manual_seed(0))
+    nparams = multinn.tree_map(lambda x: x.to(dev), nparams)
+    nseeds = (np.random.default_rng(1).random((8, 64, 5, 84)) < 0.1
+              ).astype(np.uint8)
+
+    _build.launches.clear()                  # the NADE path starts here
+    t_serve = time.perf_counter()
+    svc = GenerationService(ncfg9, nparams, ServeConfig(
+        batch=8, n_steps=1024, seed_steps=64, seed=0))
+    futs = svc.submit_many(16) + [svc.submit(seed=s) for s in nseeds]
+    served = [f.result(timeout=600) for f in futs]
+    stats = svc.stats()
+    svc.close()
+    serve_s = time.perf_counter() - t_serve
+    with torch.inference_mode():
+        _, scan_roll = multinn.generate(
+            nparams, sampling.fold_in(sampling.PRNGKey(0, device=dev), 99),
+            multinn.init_state(nparams, 8), 16, fused=False)
+        torch.cuda.synchronize()
+    nade_launches = dict(_build.launches)    # ... and ends here
+    missing = [n for n in ("gen_fused_nade", "nade_sample", "threefry2x32")
+               if not nade_launches.get(n)]
+    if missing:
+        fail(f"the NADE path never launched {missing}: {nade_launches}")
+    for r in served:
+        if (r.roll.shape != (1024, 5, 84) or r.roll.dtype != np.uint8
+                or not np.isin(r.roll, (0, 1)).all()):
+            fail(f"served NADE roll {r.roll.shape} {r.roll.dtype} is not a "
+                 f"binary (1024, 5, 84) uint8 pianoroll")
+    prov = sorted((r.batch_index, r.row) for r in served)
+    if len(set(prov)) != 24 or stats["batches"] != 3 or stats["errors"]:
+        fail(f"NADE provenance / stats wrong: {prov} {stats}")
+    ndensity = float(np.mean([r.roll.mean() for r in served]))
+    if not 0.0 < ndensity < 1.0:
+        fail(f"served NADE density {ndensity}")
+    if (scan_roll.shape != (8, 16, 5, 84)
+            or not torch.isin(scan_roll, torch.tensor([0.0, 1.0], device=dev)
+                              ).all()):
+        fail(f"NADE scan-branch roll {tuple(scan_roll.shape)} is not binary")
+    batch0 = svc.generator.generate(
+        sampling.fold_in(sampling.PRNGKey(0, device=dev), 0), 1024, batch=8)
+    first = {r.row: r.roll for r in served if r.batch_index == 0}
+    if not all(np.array_equal(first[i], batch0[i]) for i in first):
+        fail("NADE service batch 0 differs from a direct generation with its "
+             "key")
+
+    nst1 = multinn.init_state(nparams, 1)
+    ngen = lambda impl, st=nst1: multinn._generate_fused(
+        nparams, key, st, 1024, impl=impl)
+    nb1_ms = cuda_ms(lambda: ngen("cuda"), 3)
+    nb1_plain_ms = cuda_ms(lambda: ngen("plain"), 1, warm=False)
+    nst8 = multinn.init_state(nparams, 8)
+    nb8_ms = cuda_ms(lambda: ngen("cuda", nst8), 3)
+    nb8_plain_ms = cuda_ms(lambda: ngen("plain", nst8), 1, warm=False)
+    results["gen_fused_nade"] = dict(max_abs_err=nh_err, ms=nb8_ms,
+                                     plain_ms=nb8_plain_ms)
+    lat = stats["latency_ms"]
+    say(f"phase 9 nade slice: 24 requests (16 plain, 8 seeded) in 3 batches "
+        f"of 8 in {serve_s:.2f} s incl. warm-up; latency p50 "
+        f"{lat['p50']:.1f} ms p95 {lat['p95']:.1f} ms; "
+        f"{stats.get('songs_per_s', 0.0):.2f} songs/s; note density "
+        f"{ndensity:.4f}; scan branch 16 steps ok; 64-bar B=1 kernel "
+        f"{nb1_ms:.1f} ms, plain {nb1_plain_ms:.1f} ms; B=8 kernel "
+        f"{nb8_ms:.1f} ms, plain {nb8_plain_ms:.1f} ms; launches "
+        f"{nade_launches}")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
     if leaked:
         fail(f"the port imported the JAX package or JAX: {leaked[:5]}")
 
+    # name: (source, the TPU kernel it replaces, the path whose window
+    # counted its launches)
     sources = {"threefry2x32": ("multinn_torch/csrc/threefry.cu",
-                                "multinn_tpu/ops/kernel_prng.py:29"),
+                                "multinn_tpu/ops/kernel_prng.py:29",
+                                rbm_launches),
                "gibbs_chain": ("multinn_torch/csrc/gibbs_chain.cu",
-                               "multinn_tpu/ops/gibbs_pallas.py:62"),
+                               "multinn_tpu/ops/gibbs_pallas.py:62",
+                               rbm_launches),
                "gen_fused_rbm": ("multinn_torch/csrc/gen_fused_rbm.cu",
-                                 "multinn_tpu/ops/gen_fused_rbm.py:169")}
+                                 "multinn_tpu/ops/gen_fused_rbm.py:169",
+                                 rbm_launches),
+               "nade_sample": ("multinn_torch/csrc/nade_sample.cu",
+                               "multinn_tpu/ops/nade_pallas.py:45",
+                               nade_launches),
+               "gen_fused_nade": ("multinn_torch/csrc/gen_fused_nade.cu",
+                                  "multinn_tpu/ops/gen_fused_nade.py:242",
+                                  nade_launches)}
+    say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
-        dict(name=n, route="cuda", source=sources[n][0],
-             replaces=sources[n][1], launches=launches[n], **results[n])
-        for n in sources]}))
+        dict(name=n, route="cuda", source=src, replaces=rep,
+             launches=counts[n], **results[n])
+        for n, (src, rep, counts) in sources.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,4 +53,44 @@ struct RbmArgs {
 
 const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream);
 
+// NADE ancestral sampling sweep over n rows with per-row biases (see
+// nade_sample.cu).
+const char* launch_nade_sample(const float* w, const float* v,
+                               const float* bv, const float* bh,
+                               const int32_t* seed, float* out, int64_t n,
+                               int64_t d, int64_t h, void* stream);
+
+// Inputs of the whole-generation RNN-NADE kernel (see gen_fused_nade.cu and
+// multinn_torch/ops/gen_fused_nade.py::_nade_args for the layouts). bf16
+// matrices are passed as their 16-bit words.
+struct NadeArgs {
+  const uint16_t* w;     // (K, D, H) bf16 NADE encode weights
+  const uint16_t* v;     // (K, D, H) bf16 NADE decode weights
+  const uint16_t* wuv;   // (K, U, D) bf16 visible-bias conditioning
+  const float* wuh;      // (K, U, H)
+  const float* bv;       // (K*D)
+  const float* bh;       // (K*H)
+  const uint16_t* wx_v;  // (K, D, G) bf16 layer-0 own-frame input projection
+  const float* wxg;      // (K, D, G) the same rows in f32 (given merge), or
+                         //   nullptr without given tracks
+  const float* wx_r;     // (L-1, K, U, G), or nullptr when L == 1
+  const float* wh;       // (L, K, U, G)
+  const uint16_t* wctx;  // (K*D, K*G) bf16, or nullptr without feedback
+  const float* b;        // (L, K*G)
+  const float* h0;       // (B, L*K*U)
+  const float* c0;       // (B, L*K*U)
+  const float* v0;       // (B, K*D)
+  const float* given;    // (B, T, K*D), or nullptr
+  const int32_t* seed;   // (2,) the Threefry key words
+  float* roll;           // (B, T, K*D)
+  float* h_out;          // (B, L*K*U)
+  float* c_out;          // (B, L*K*U)
+  int32_t batch, n_steps;
+  int32_t k, d, hid, u, g, n_layers;
+  int32_t lstm;          // 1: LSTM cells (g = 4u); 0: vanilla tanh (g = u)
+  int32_t given_mask;    // bit k set: track k takes `given`
+};
+
+const char* launch_gen_fused_nade(const NadeArgs& a, void* stream);
+
 }  // namespace multinn_torch

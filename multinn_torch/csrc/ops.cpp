@@ -145,6 +145,104 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   raise_on(launch_gen_fused_rbm(a, as_stream(stream)), "gen_fused_rbm");
 }
 
+void nade_sample(at::Tensor out, const at::Tensor& w, const at::Tensor& v,
+                 const at::Tensor& bv, const at::Tensor& bh,
+                 const at::Tensor& seed, int64_t stream) {
+  check(out, at::kFloat, "out");
+  check(w, at::kFloat, "w");
+  check(v, at::kFloat, "v");
+  check(bv, at::kFloat, "bv");
+  check(bh, at::kFloat, "bh");
+  check(seed, at::kInt, "seed");
+  TORCH_CHECK(w.dim() == 2 && bv.dim() == 2, "nade_sample: w, bv must be 2D");
+  const int64_t n = bv.size(0), d = w.size(0), h = w.size(1);
+  TORCH_CHECK(v.sizes() == w.sizes() && bv.size(1) == d &&
+                  bh.numel() == n * h && out.sizes() == bv.sizes() &&
+                  seed.numel() == 2,
+              "nade_sample: inconsistent shapes");
+  raise_on(launch_nade_sample(w.data_ptr<float>(), v.data_ptr<float>(),
+                              bv.data_ptr<float>(), bh.data_ptr<float>(),
+                              seed.data_ptr<int32_t>(), out.data_ptr<float>(),
+                              n, d, h, as_stream(stream)),
+           "nade_sample");
+}
+
+const uint16_t* bf16_words(const at::Tensor& t, const char* name) {
+  check(t, at::kBFloat16, name);
+  return reinterpret_cast<const uint16_t*>(t.data_ptr());
+}
+
+void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
+                    const at::Tensor& w, const at::Tensor& v,
+                    const at::Tensor& wuv, const at::Tensor& wuh,
+                    const at::Tensor& bv, const at::Tensor& bh,
+                    const at::Tensor& wx_v, const at::Tensor& wxg,
+                    const at::Tensor& wx_r, const at::Tensor& wh,
+                    const at::Tensor& wctx, const at::Tensor& b,
+                    const at::Tensor& h0, const at::Tensor& c0,
+                    const at::Tensor& v0, const at::Tensor& given,
+                    const at::Tensor& seed, int64_t lstm, int64_t given_mask,
+                    int64_t stream) {
+  check(roll, at::kFloat, "roll");
+  check(h_out, at::kFloat, "h_out");
+  check(c_out, at::kFloat, "c_out");
+  for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&wuh, "wuh"},
+                         {&bv, "bv"}, {&bh, "bh"}, {&wh, "wh"}, {&b, "b"},
+                         {&h0, "h0"}, {&c0, "c0"}, {&v0, "v0"}})
+    check(*t, at::kFloat, name);
+  check(seed, at::kInt, "seed");
+  TORCH_CHECK(w.dim() == 3 && wuv.dim() == 3 && wx_v.dim() == 3 &&
+                  wh.dim() == 4 && roll.dim() == 3,
+              "gen_fused_nade: unexpected ranks");
+  NadeArgs a{};
+  a.k = static_cast<int32_t>(w.size(0));
+  a.d = static_cast<int32_t>(w.size(1));
+  a.hid = static_cast<int32_t>(w.size(2));
+  a.u = static_cast<int32_t>(wuv.size(1));
+  a.g = static_cast<int32_t>(wx_v.size(2));
+  a.n_layers = static_cast<int32_t>(wh.size(0));
+  a.batch = static_cast<int32_t>(h0.size(0));
+  a.n_steps = static_cast<int32_t>(roll.size(1));
+  a.lstm = static_cast<int32_t>(lstm);
+  a.given_mask = static_cast<int32_t>(given_mask);
+  const int64_t kd = int64_t{a.k} * a.d, lku = int64_t{a.n_layers} * a.k * a.u;
+  TORCH_CHECK(a.g == (lstm ? 4 * a.u : a.u), "gen_fused_nade: gate width");
+  TORCH_CHECK(v.sizes() == w.sizes() && roll.size(0) == a.batch &&
+                  roll.size(2) == kd && h0.numel() == a.batch * lku &&
+                  c0.numel() == a.batch * lku &&
+                  h_out.numel() == a.batch * lku &&
+                  c_out.numel() == a.batch * lku &&
+                  v0.numel() == a.batch * kd && seed.numel() == 2,
+              "gen_fused_nade: inconsistent shapes");
+  TORCH_CHECK(a.n_layers == 1 || wx_r.numel() == int64_t{a.n_layers - 1} *
+                                                     a.k * a.u * a.g,
+              "gen_fused_nade: wx_r shape");
+  TORCH_CHECK(given.numel() == 0 ||
+                  (given.numel() == roll.numel() && wxg.numel() == wx_v.numel()),
+              "gen_fused_nade: given / wxg shape");
+  a.w = bf16_words(w, "w");
+  a.v = bf16_words(v, "v");
+  a.wuv = bf16_words(wuv, "wuv");
+  a.wuh = wuh.data_ptr<float>();
+  a.bv = bv.data_ptr<float>();
+  a.bh = bh.data_ptr<float>();
+  a.wx_v = bf16_words(wx_v, "wx_v");
+  a.wxg = optional_f32(wxg, "wxg");
+  a.wx_r = optional_f32(wx_r, "wx_r");
+  a.wh = wh.data_ptr<float>();
+  a.wctx = wctx.numel() == 0 ? nullptr : bf16_words(wctx, "wctx");
+  a.b = b.data_ptr<float>();
+  a.h0 = h0.data_ptr<float>();
+  a.c0 = c0.data_ptr<float>();
+  a.v0 = v0.data_ptr<float>();
+  a.given = optional_f32(given, "given");
+  a.seed = seed.data_ptr<int32_t>();
+  a.roll = roll.data_ptr<float>();
+  a.h_out = h_out.data_ptr<float>();
+  a.c_out = c_out.data_ptr<float>();
+  raise_on(launch_gen_fused_nade(a, as_stream(stream)), "gen_fused_nade");
+}
+
 }  // namespace
 }  // namespace multinn_torch
 
@@ -158,10 +256,19 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "
         "Tensor h0, Tensor c0, Tensor v0, Tensor given, Tensor seed, "
         "int gen_k, int lstm, int given_mask, int stream) -> ()");
+  m.def("nade_sample(Tensor(a!) out, Tensor w, Tensor v, Tensor bv, "
+        "Tensor bh, Tensor seed, int stream) -> ()");
+  m.def("gen_fused_nade(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
+        "Tensor w, Tensor v, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
+        "Tensor wx_v, Tensor wxg, Tensor wx_r, Tensor wh, Tensor wctx, "
+        "Tensor b, Tensor h0, Tensor c0, Tensor v0, Tensor given, "
+        "Tensor seed, int lstm, int given_mask, int stream) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(multinn_torch, CUDA, m) {
   m.impl("threefry2x32", &multinn_torch::threefry2x32);
   m.impl("gibbs_chain", &multinn_torch::gibbs_chain);
   m.impl("gen_fused_rbm", &multinn_torch::gen_fused_rbm);
+  m.impl("nade_sample", &multinn_torch::nade_sample);
+  m.impl("gen_fused_nade", &multinn_torch::gen_fused_nade);
 }

@@ -42,9 +42,8 @@ def get_decoder(name: str):
         from multinn_torch.models import rnn_rbm
         return rnn_rbm
     if key in ("rnn-nade", "rnnnade"):
-        raise NotImplementedError(
-            "the RNN-NADE decoder is not ported yet (ROADMAP queue 1, "
-            "NADE slice)")
+        from multinn_torch.models import rnn_nade
+        return rnn_nade
     raise ValueError(f"Unknown decoder '{name}'; available: rnn-rbm, rnn-nade")
 
 

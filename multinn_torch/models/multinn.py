@@ -3,11 +3,11 @@ multinn_tpu/models/multinn.py.
 
 Inter-track modes ``per-track``, ``feedback`` and ``hybrid`` (with the
 pass-through encoder, hybrid differs from per-track only in config).
-Per-track decoder params are STACKED along a leading track axis K, as in
-the JAX package; where it vmaps over tracks the port batches the same
-computation over that axis (nn/rnn.py), and loops over tracks only where a
-kernel takes one decoder (the scan path's Gibbs chain). Pianorolls are
-(B, T, K, D). ``joint`` mode, the loss and accompaniment wait for later
+Both decoder families, RNN-RBM and RNN-NADE. Per-track decoder params are
+STACKED along a leading track axis K, as in the JAX package; where it vmaps
+over tracks the port batches the same computation over that axis
+(nn/rnn.py), and loops over tracks only where a kernel takes one decoder
+(the scan path's Gibbs chain or NADE sweep). Pianorolls are (B, T, K, D). ``joint`` mode, the loss and accompaniment wait for later
 slices (ROADMAP queue 1).
 """
 
@@ -19,7 +19,6 @@ from typing import Optional, Tuple
 import torch
 
 from multinn_torch.models import encoders as enc_mod
-from multinn_torch.models import rnn_rbm
 from multinn_torch.models.base import DecoderConfig, get_decoder
 from multinn_torch.models.encoders import EncoderConfig
 from multinn_torch.nn import rnn as rnn_nn
@@ -89,7 +88,7 @@ class MultINNConfig:
 @dataclasses.dataclass
 class MultINNParams:
     encoder: object     # () for pass-through encoders
-    decoder: object     # track-stacked rnn_rbm.Params
+    decoder: object     # track-stacked rnn_rbm.Params | rnn_nade.Params
     cfg: MultINNConfig
 
 
@@ -245,14 +244,16 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
     (B, n_steps, K, D) float32).
 
     ``fused``: True runs the whole-generation kernel (ops/gen_fused.py),
-    False the step loop (scan path: a Gibbs-chain launch per track and
-    step); None picks the kernel whenever its gate admits the config and
-    batch. On CPU tensors each kernel runs as its plain version."""
+    False the step loop (scan path: a Gibbs-chain or NADE-sweep launch per
+    track and step); None picks the kernel whenever its gate admits the
+    config and batch. On CPU tensors each kernel runs as its plain
+    version."""
     cfg = params.cfg
     batch = state.decoder.v_prev.shape[1]
     if fused is None:
         from multinn_torch.ops import gen_fused
-        fused = gen_fused.supported(cfg, batch, n_steps, gen_k=k)
+        fused = (gen_fused.supported(cfg, batch, n_steps, gen_k=k)
+                 or gen_fused.supported_nade(cfg, batch, n_steps))
     params = tempered_params(params, temperature)
     if fused:
         return _generate_fused(params, key, state, n_steps, k=k)
@@ -277,16 +278,21 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
     h0 = torch.stack([st.h for st in dec_state.cell])
     c0 = (torch.zeros_like(h0) if vanilla
           else torch.stack([st.c for st in dec_state.cell]))
-    roll, h_f, c_f = gen_fused.generate_rbm(
-        key, params.decoder, h0, c0, dec_state.v_prev, n_steps,
-        cfg.gen_k if k is None else k, impl=impl)    # (B, T, K, D)
+    if cfg.decoder_type == "rnn-nade":
+        roll, h_f, c_f = gen_fused.generate_nade(
+            key, params.decoder, h0, c0, dec_state.v_prev, n_steps,
+            impl=impl)                                   # (B, T, K, D)
+    else:
+        roll, h_f, c_f = gen_fused.generate_rbm(
+            key, params.decoder, h0, c0, dec_state.v_prev, n_steps,
+            cfg.gen_k if k is None else k, impl=impl)
     v_last = roll[:, -1].movedim(0, 1)                   # (K, B, D)
 
     def cell_state(h, c):
         return (rnn_nn.VanillaRNNState(h=h) if vanilla
                 else rnn_nn.LSTMState(h=h, c=c))
 
-    new_dec = rnn_rbm.State(
+    new_dec = get_decoder(cfg.decoder_type).State(
         cell=tuple(cell_state(h_f[l], c_f[l]) for l in range(len(h_f))),
         v_prev=v_last)
     ctx = _flatten_latents(v_last) if cfg.mode == "feedback" else None

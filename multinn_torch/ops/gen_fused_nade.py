@@ -1,0 +1,301 @@
+"""Whole RNN-NADE generation in one kernel launch: wrapper of
+csrc/gen_fused_nade.cu, its plain PyTorch version, and the dispatch gate —
+port of multinn_tpu/ops/gen_fused_nade.py.
+
+Each step t, for all K tracks and B samples: conditioned biases from the
+top layer's previous h; the ancestral sweep over the D dims, drawing the
+uniform of (dim i, track k, sample b) at counter ``(i*8 + k)*B + b`` under
+salt ``seed[1] + t``, exactly as the TPU kernel's (D*8, B) draw; the
+running activation and the layer-0 input projection z grow one dim at a
+time by exact adds; the optional given-track merge (given tracks' z is
+recomputed from the given frame with f32 rows); the stacked LSTM / vanilla
+advance, whose layer-0 input adds the PREVIOUS frame of all tracks through
+``wctx`` (feedback mode).
+
+As in the TPU kernel, the NADE weights w and v, the visible-bias
+conditioning wuv, the layer-0 own-frame input projection and wctx are
+stored in bf16 and upcast exactly at use; every other matrix stays f32.
+The plain version equals the Pallas kernel in interpret mode bit for bit
+in the roll at the test sizes, against both its sequential sweep and its
+default speculative one (CPU tests); the CUDA kernel equals the plain
+version up to the rare draw a last-ulp difference in a logit flips, after
+which that sample's trajectory diverges (chip_smoke compares by matching
+samples).
+
+The gate is a Hopper resource check of the kernel's design — one CTA per
+sample with the state rows in shared memory and each thread's share of a
+dim's weights in registers — computed from the same arguments the dispatch
+builds. The TPU kernel's "B = 1 or a multiple of 8" rule (Mosaic tiling)
+is gone; K <= 8 stays, because the random stream has 8 rows per dim. The
+bf16 aux-matrix capacity mode exists for VMEM and is not ported (ROADMAP
+queue 2).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from multinn_torch.nn import rnn as rnn_nn
+from multinn_torch.ops import _build, kernel_prng
+from multinn_torch.ops.gen_common import (_common_gate, _ctx_rows,
+                                          _decoder_param_shapes, _eff_dims,
+                                          _from_state_rows, _state_rows)
+from multinn_torch.ops.sampling import key_to_seeds
+
+# dynamic shared memory one CTA may use on Hopper (232,448 bytes)
+SMEM_LIMIT_BYTES = 227 * 1024
+STREAM_ROWS = 8             # tracks per dim in the random stream: K <= 8
+# csrc/gen_fused_nade.cu: kThreads, and the register-held weights per
+# thread and dim (kChunkRounds 32-lane hidden chunks, kZRounds z lanes)
+_THREADS = 512
+_CHUNK_ROUNDS = 4
+_Z_ROUNDS = 8
+
+
+class NadeArgs(NamedTuple):
+    """Kernel inputs from track-STACKED rnn_nade.Params + state, in compact
+    per-track layouts (the TPU kernel's padded dim-major block rows and its
+    fused [W | pad | M] matrix only served Mosaic):
+
+        w, v  (K, D, H)   NADE weights, bf16
+        wuv   (K, U, D)   visible-bias conditioning, bf16
+        wuh   (K, U, H)   hidden-bias conditioning
+        bv    (K*D,)      bh   (K*H,)
+        wx_v  (K, D, G)   layer-0 input projection of the track's frame, bf16
+        wh    (L, K, U, G) recurrent weights, G = 4U (LSTM) | U (vanilla)
+        wctx  (K*D, K*G)  feedback projection, rows [source track j][pitch i],
+                          columns [target track k][gate], bf16; None without
+                          ctx
+        b     (L, K*G)    gate biases
+        h0/c0 (B, L*K*U)  state rows, layer-major then per-track
+        v0    (B, K*D)    previous frame rows
+        wx_r  (L-1, K, U, G) input projections of layers >= 1; None if L = 1
+    """
+    w: torch.Tensor
+    v: torch.Tensor
+    wuv: torch.Tensor
+    wuh: torch.Tensor
+    bv: torch.Tensor
+    bh: torch.Tensor
+    wx_v: torch.Tensor
+    wh: torch.Tensor
+    wctx: Optional[torch.Tensor]
+    b: torch.Tensor
+    h0: torch.Tensor
+    c0: torch.Tensor
+    v0: torch.Tensor
+    wx_r: Optional[torch.Tensor]
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).contiguous()
+
+
+def _nade_args(dec_params, h0, c0, v0) -> NadeArgs:
+    """h0/c0: (L, K, B, U); v0: (K, B, D)."""
+    cells = dec_params.cell
+    n_layers = len(cells)
+    d = dec_params.w.shape[1]
+    b = h0.shape[2]
+    wctx = _ctx_rows(cells[0].wx, d)
+    return NadeArgs(
+        w=_bf16(dec_params.w), v=_bf16(dec_params.v),
+        wuv=_bf16(dec_params.wuv),
+        wuh=dec_params.wuh.contiguous(),
+        bv=dec_params.bv.reshape(-1).contiguous(),
+        bh=dec_params.bh.reshape(-1).contiguous(),
+        wx_v=_bf16(cells[0].wx[:, :d, :]),
+        wh=torch.stack([c.wh for c in cells]).contiguous(),
+        wctx=None if wctx is None else _bf16(wctx),
+        b=torch.stack([c.b.reshape(-1) for c in cells]).contiguous(),
+        h0=_state_rows(h0), c0=_state_rows(c0),
+        v0=v0.movedim(1, 0).reshape(b, -1).contiguous(),
+        wx_r=(torch.stack([c.wx for c in cells[1:]]).contiguous()
+              if n_layers > 1 else None))
+
+
+def _cta_smem_bytes(args: NadeArgs) -> int:
+    """Shared memory of one CTA — the same count as smem_bytes in
+    csrc/gen_fused_nade.cu: h and c rows, four frame rows (previous, fresh,
+    visible bias, uniforms), two hidden rows (activation, its sigmoid), the
+    z / gate row and two rows of chunk partials."""
+    k, d, hid = args.w.shape
+    n_layers, _, u, g = args.wh.shape
+    chunks = k * -(-hid // 32)
+    return 4 * (2 * n_layers * k * u + 4 * k * d + 2 * k * hid + k * g
+                + 2 * chunks)
+
+
+def _fits(args: NadeArgs) -> bool:
+    k, _, hid = args.w.shape
+    g = args.wx_v.shape[2]
+    return (k <= STREAM_ROWS
+            and k * -(-hid // 32) <= _CHUNK_ROUNDS * _THREADS // 32
+            and k * g <= _Z_ROUNDS * _THREADS
+            and _cta_smem_bytes(args) <= SMEM_LIMIT_BYTES)
+
+
+def supported_nade(cfg, batch: int, n_steps: int = 2048) -> bool:
+    """Gate for the auto-dispatch: the config is one the kernel takes, one
+    sample's state rows fit a CTA's shared memory and a dim's weights fit
+    the threads' registers (batch sets only the grid; n_steps only the loop
+    trip count)."""
+    if not _common_gate(cfg, "rnn-nade") or batch < 1 or n_steps < 1:
+        return False
+    from multinn_torch.models import rnn_nade
+    (k, d), u, nl = _eff_dims(cfg), cfg.n_rnn, cfg.rnn_layers
+    params = _decoder_param_shapes(cfg, rnn_nade)
+    st = torch.empty((nl, k, batch, u), device="meta")
+    v0 = torch.empty((k, batch, d), device="meta")
+    return _fits(_nade_args(params, st, st, v0))
+
+
+def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
+                  impl=None, aux_dtype=None, given=None,
+                  given_tracks: Tuple[int, ...] = ()):
+    """Run the whole generation. dec_params: track-STACKED rnn_nade.Params;
+    h0/c0: (L, K, B, U) ((K, B, U) for one layer); v0: (K, B, D);
+    ``given`` (B, n_steps, K, D) with ``given_tracks``: those tracks' frames
+    replace the sampled ones (accompaniment). Returns (roll (B, n_steps, K,
+    D) float32, h_final (L, K, B, U), c_final (L, K, B, U)).
+
+    ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors; "cuda" / "plain" force one."""
+    if aux_dtype is not None and aux_dtype != torch.float32:
+        raise NotImplementedError(
+            "the bf16 aux-matrix capacity mode is not ported (ROADMAP queue "
+            "2); wuh, wh and the layer >= 1 input projections are float32")
+    n_layers = len(dec_params.cell)
+    if h0.dim() == 3 and n_layers == 1:
+        h0, c0 = h0[None], c0[None]
+    given_tracks = tuple(sorted(set(int(t) for t in given_tracks)))
+    if (given is None) != (not given_tracks):
+        raise ValueError("given and given_tracks must be passed together")
+    args = _nade_args(dec_params, h0, c0, v0)
+    k, d, _ = args.w.shape
+    if k > STREAM_ROWS:
+        raise ValueError(f"generate_nade: K={k} tracks; the random stream "
+                         f"holds {STREAM_ROWS} per dim")
+    u, g = args.wuv.shape[1], args.wx_v.shape[2]
+    lstm = g == 4 * u
+    b = h0.shape[2]
+    seeds = key_to_seeds(key).to(args.bv.device)
+    wxg = None
+    if given is not None:
+        given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
+        wxg = dec_params.cell[0].wx[:, :d, :].contiguous()
+    if _build.impl_for(impl, args.bv) == "cuda":
+        roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, lstm, given,
+                                            given_tracks, wxg)
+    else:
+        roll, h_out, c_out = _generate_plain(seeds, args, n_steps, lstm,
+                                             given, given_tracks, wxg)
+
+    return (roll.reshape(b, n_steps, k, d),
+            _from_state_rows(h_out, n_layers, k, u),
+            _from_state_rows(c_out, n_layers, k, u))
+
+
+def _generate_cuda(seeds, args: NadeArgs, n_steps, lstm, given, given_tracks,
+                   wxg):
+    if not _fits(args):
+        raise ValueError(
+            f"generate_nade: one sample needs {_cta_smem_bytes(args)} bytes "
+            f"of shared memory (limit {SMEM_LIMIT_BYTES}) or more register-"
+            f"held weights than the kernel keeps; gen_fused.supported_nade "
+            f"refuses this config — use the scan path")
+    b = args.h0.shape[0]
+    kd = args.v0.shape[1]
+    dev = args.bv.device
+    roll = torch.empty((b, n_steps, kd), device=dev)
+    h_out, c_out = torch.empty_like(args.h0), torch.empty_like(args.c0)
+    none = torch.empty(0, device=dev)
+    mask = sum(1 << t for t in given_tracks)
+    opt = lambda x: none if x is None else x
+    with torch.cuda.device(dev):
+        _build.launches["gen_fused_nade"] += 1
+        _build.ops().gen_fused_nade(
+            roll, h_out, c_out, args.w, args.v, args.wuv, args.wuh, args.bv,
+            args.bh, args.wx_v, opt(wxg), opt(args.wx_r), args.wh,
+            opt(args.wctx), args.b, args.h0, args.c0, args.v0, opt(given),
+            seeds, int(lstm), mask, _build.stream_of(args.bv))
+    return roll, h_out, c_out
+
+
+def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
+                    given_tracks, wxg):
+    """Plain PyTorch version of the kernel, same signature and stream.
+    Track-major (K, B, X) tensors; torch.matmul batches over the tracks.
+    The sweep adds one dim at a time, as the kernel does: z is not
+    v @ Wx afterwards, whose reordered sum would change h and c in the
+    last bits and later flip a draw."""
+    k, d, hid = args.w.shape
+    n_layers, _, u, g = args.wh.shape
+    b = args.h0.shape[0]
+    dev = args.bv.device
+    s0, s1 = (int(s) & kernel_prng.MASK for s in seeds.tolist())
+    w, v, wuv, wx_v = (x.float() for x in (args.w, args.v, args.wuv,
+                                            args.wx_v))
+    wctx = None if args.wctx is None else args.wctx.float()
+    # counter of (dim i, track k, sample b): (i*8 + k)*B + b, as (K, B, D)
+    ctr = ((torch.arange(d, device=dev) * STREAM_ROWS
+            + torch.arange(k, device=dev)[:, None, None]) * b
+           + torch.arange(b, device=dev)[:, None])
+
+    def track_major(rows, width):          # (B, K*X) -> (K, B, X)
+        return rows.reshape(b, k, width).transpose(0, 1)
+
+    h = [track_major(args.h0[:, l * k * u:(l + 1) * k * u], u)
+         for l in range(n_layers)]
+    c = [track_major(args.c0[:, l * k * u:(l + 1) * k * u], u)
+         for l in range(n_layers)]
+    v_prev = track_major(args.v0, d)
+    bv, bh = args.bv.reshape(k, 1, d), args.bh.reshape(k, 1, hid)
+    gmask = torch.zeros(k, 1, 1, dtype=torch.bool, device=dev)
+    gmask[list(given_tracks)] = True
+    frames = []
+    for t in range(n_steps):
+        bv_row = bv + h[-1] @ wuv                          # (K, B, D)
+        act = bh + h[-1] @ args.wuh                        # (K, B, H)
+        unif = kernel_prng.uniform_from_bits(kernel_prng.bits_at_plain(
+            s0, (s1 + t) & kernel_prng.MASK, ctr))
+        z = torch.zeros(k, b, g, device=dev)
+        xs = []
+        for i in range(d):
+            s = (torch.sigmoid(act) @ v[:, i, :, None])[..., 0]    # (K, B)
+            x = (unif[..., i] < torch.sigmoid(s + bv_row[..., i])
+                 ).to(torch.float32)
+            xs.append(x)
+            act = act + x[..., None] * w[:, i, None, :]
+            z = z + x[..., None] * wx_v[:, i, None, :]
+        v_new = torch.stack(xs, dim=-1)                    # (K, B, D)
+        if given is not None:
+            v_new = torch.where(gmask, track_major(given[:, t], d), v_new)
+            z = torch.where(gmask, v_new @ wxg, z)
+        frames.append(v_new.transpose(0, 1).reshape(b, k * d))
+        for l in range(n_layers):
+            if l == 0:
+                zin = z
+                if wctx is not None:
+                    prev = v_prev.transpose(0, 1).reshape(b, k * d)
+                    ctx = torch.zeros(b, k * g, device=dev)
+                    for j in range(k):
+                        ctx = ctx + prev[:, j * d:(j + 1) * d] @ wctx[
+                            j * d:(j + 1) * d]
+                    zin = zin + track_major(ctx, g)
+            else:
+                zin = h[l - 1] @ args.wx_r[l - 1]
+            zz = (zin + h[l] @ args.wh[l]) + args.b[l].reshape(k, 1, g)
+            if lstm:
+                st = rnn_nn._lstm_gates(c[l], zz)
+                h[l], c[l] = st.h, st.c
+            else:
+                h[l] = torch.tanh(zz)
+        v_prev = v_new
+
+    def rows(xs):                          # L x (K, B, U) -> (B, L*K*U)
+        return torch.stack(xs).permute(2, 0, 1, 3).reshape(b, -1)
+
+    return torch.stack(frames, dim=1), rows(h), rows(c)

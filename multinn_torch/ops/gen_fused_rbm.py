@@ -29,8 +29,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from multinn_torch.ops import _build, kernel_prng
-from multinn_torch.ops.gen_common import (_common_gate, _decoder_param_shapes,
-                                          _eff_dims)
+from multinn_torch.ops.gen_common import (_common_gate, _ctx_rows,
+                                          _decoder_param_shapes, _eff_dims,
+                                          _from_state_rows, _state_rows)
 from multinn_torch.ops.sampling import key_to_seeds
 
 # dynamic shared memory one CTA may use on Hopper (232,448 bytes)
@@ -75,19 +76,8 @@ def _rbm_args(dec_params, h0, c0, v0) -> RbmArgs:
     """h0/c0: (L, K, B, U); v0: (K, B, D)."""
     cells = dec_params.cell
     n_layers = len(cells)
-    k, xin_dim, g = cells[0].wx.shape
     d = dec_params.w.shape[1]
-    ctx_dim = xin_dim - d
     b = h0.shape[2]
-    wctx = None
-    if ctx_dim:
-        # rows [j*D + i]: d z / d v_{j,i}(t-1) for all target tracks' gates
-        wctx = (cells[0].wx[:, d:, :].reshape(k, k, d, g)
-                .permute(1, 2, 0, 3).reshape(k * d, k * g).contiguous())
-
-    def rows(x):                                 # (L, K, B, X) -> (B, L*K*X)
-        return x.movedim(2, 0).reshape(b, -1).contiguous()
-
     return RbmArgs(
         w=dec_params.w.contiguous(),
         wt=dec_params.w.transpose(1, 2).contiguous(),
@@ -97,9 +87,9 @@ def _rbm_args(dec_params, h0, c0, v0) -> RbmArgs:
         bh=dec_params.bh.reshape(-1).contiguous(),
         wx_v=cells[0].wx[:, :d, :].contiguous(),
         wh=torch.stack([c.wh for c in cells]).contiguous(),
-        wctx=wctx,
+        wctx=_ctx_rows(cells[0].wx, d),
         b=torch.stack([c.b.reshape(-1) for c in cells]).contiguous(),
-        h0=rows(h0), c0=rows(c0),
+        h0=_state_rows(h0), c0=_state_rows(c0),
         v0=v0.movedim(1, 0).reshape(b, -1).contiguous(),
         wx_r=(torch.stack([c.wx for c in cells[1:]]).contiguous()
               if n_layers > 1 else None))
@@ -171,10 +161,9 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
         roll, h_out, c_out = _generate_plain(seeds, args, n_steps, gen_k,
                                              lstm, given, given_tracks)
 
-    def unrows(r):                         # (B, L*K*U) -> (L, K, B, U)
-        return r.reshape(b, n_layers, k, u).permute(1, 2, 0, 3)
-
-    return roll.reshape(b, n_steps, k, d), unrows(h_out), unrows(c_out)
+    return (roll.reshape(b, n_steps, k, d),
+            _from_state_rows(h_out, n_layers, k, u),
+            _from_state_rows(c_out, n_layers, k, u))
 
 
 def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,

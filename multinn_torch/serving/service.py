@@ -78,12 +78,17 @@ class _Request:
 
 
 def auto_batch(cfg, n_steps: int) -> int:
-    """Largest fused-kernel-gate-admitted serving batch for this config; 8
-    when nothing is admitted (the scan path still serves)."""
+    """Largest fused-kernel-gate-admitted serving batch for this config,
+    from the decoder family's candidates (the JAX service's lists); 8 when
+    nothing is admitted (the scan path still serves)."""
     from multinn_torch.ops import gen_fused
-    cands = (8, 16, 32, 64, 128, 256)
-    return max((b for b in cands
-                if gen_fused.supported(cfg.model, b, n_steps)), default=8)
+    if cfg.model.decoder_type == "rnn-nade":
+        cands = (8, 16, 32, 48, 64, 128)
+        gate = gen_fused.supported_nade
+    else:
+        cands = (8, 16, 32, 64, 128, 256)
+        gate = gen_fused.supported
+    return max((b for b in cands if gate(cfg.model, b, n_steps)), default=8)
 
 
 class GenerationService:

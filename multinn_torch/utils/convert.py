@@ -3,7 +3,8 @@
 Duck-typed on the JAX pytree (attributes, ``np.asarray`` on each leaf), so
 this module imports no jax. The layout is kept as is: the track-stacked
 leading axis K; LSTM ``wx`` (in, 4U), ``wh`` (U, 4U), ``b`` (4U) in gate
-order i, f, g, o; RBM ``w`` (F, H); ``wuv`` (U, F); ``wuh`` (U, H).
+order i, f, g, o; RBM ``w`` (F, H) and NADE ``w``, ``v`` (F, H);
+``wuv`` (U, F); ``wuh`` (U, H).
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from multinn_torch.models import multinn, rnn_rbm
+from multinn_torch.models import multinn
+from multinn_torch.models.base import get_decoder
 from multinn_torch.nn import rnn as rnn_nn
 
 
@@ -29,16 +31,17 @@ def _cell(p, device):
 
 
 def from_jax(params, device=None) -> multinn.MultINNParams:
-    """A JAX ``MultINNParams`` (RNN-RBM decoder, pass-through encoder) ->
-    the port's MultINNParams on ``device``."""
+    """A JAX ``MultINNParams`` (RNN-RBM or RNN-NADE decoder, pass-through
+    encoder) -> the port's MultINNParams on ``device``."""
     cfg = multinn.MultINNConfig(**dataclasses.asdict(params.cfg))
-    if cfg.decoder_type != "rnn-rbm" or cfg.encoder_hidden:
-        raise NotImplementedError("from_jax covers RNN-RBM decoders with "
-                                  "pass-through encoders")
+    if cfg.encoder_hidden:
+        raise NotImplementedError("from_jax covers pass-through encoders")
+    mod = get_decoder(cfg.decoder_type)
     d = params.decoder
-    decoder = rnn_rbm.Params(
+    decoder = mod.Params(
         cell=tuple(_cell(c, device) for c in d.cell),
-        w=_tensor(d.w, device), bv=_tensor(d.bv, device),
-        bh=_tensor(d.bh, device), wuv=_tensor(d.wuv, device),
-        wuh=_tensor(d.wuh, device), cfg=cfg.decoder_config())
+        cfg=cfg.decoder_config(),
+        **{f.name: _tensor(getattr(d, f.name), device)
+           for f in dataclasses.fields(mod.Params)
+           if f.name not in ("cell", "cfg")})
     return multinn.MultINNParams(encoder=(), decoder=decoder, cfg=cfg)

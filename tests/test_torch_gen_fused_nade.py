@@ -1,0 +1,203 @@
+"""multinn_torch whole-generation RNN-NADE (ops/gen_fused_nade.py) against
+the JAX Pallas kernel in interpret mode: the plain version must give the
+same roll bit for bit and the final cell state within 1e-5 (float32; the
+two sum their logits and gates in different orders), against the kernel's
+sequential sweep (spec=1) and its default speculative one, for feedback
+and per-track modes, one and two layers, LSTM and vanilla cells, B=1 and
+B=8, a temperature, and the given-track merge."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from multinn_tpu.models import multinn as jax_multinn  # noqa: E402
+from multinn_tpu.ops import gen_fused as jax_gen_fused  # noqa: E402
+from multinn_torch.models import multinn, rnn_nade  # noqa: E402
+from multinn_torch.ops import gen_fused, gen_fused_nade, sampling  # noqa: E402
+from multinn_torch.utils.convert import from_jax  # noqa: E402
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-5)
+K, D, H, U, T = 3, 8, 6, 4, 6
+
+
+def _primed(mode, cell, layers, batch, seed=0):
+    cfg = jax_multinn.MultINNConfig(
+        n_tracks=K, n_pitches=D, mode=mode, decoder_type="rnn-nade",
+        n_hidden=H, n_rnn=U, cell=cell, rnn_layers=layers, w_std=0.7)
+    jp = jax_multinn.init(jax.random.PRNGKey(seed), cfg)
+    tp = from_jax(jp)
+    roll = (np.random.default_rng(seed + 1).random((batch, 4, K, D)) < 0.3
+            ).astype(np.float32)
+    js = jax_multinn.prime(jp, jax_multinn.init_state(jp, batch),
+                           jnp.asarray(roll))
+    ts = multinn.prime(tp, multinn.init_state(tp, batch),
+                       torch.from_numpy(roll))
+    return jp, tp, js, ts
+
+
+def _h0c0(js):
+    h0 = np.stack([np.asarray(c.h) for c in js.decoder.cell])
+    c0 = np.stack([np.asarray(getattr(c, "c", np.zeros_like(c.h)))
+                   for c in js.decoder.cell])
+    return h0, c0
+
+
+def _check_state(tfin, jfin, cell, mode):
+    for a, b in zip(tfin.decoder.cell, jfin.decoder.cell):
+        np.testing.assert_allclose(a.h.numpy(), np.asarray(b.h), **TOL)
+        if cell == "lstm":
+            np.testing.assert_allclose(a.c.numpy(), np.asarray(b.c), **TOL)
+    np.testing.assert_array_equal(tfin.decoder.v_prev.numpy(),
+                                  np.asarray(jfin.decoder.v_prev))
+    if mode == "feedback":
+        np.testing.assert_array_equal(tfin.ctx.numpy(), np.asarray(jfin.ctx))
+
+
+CASES = [("feedback", "lstm", 1, 1, 1.0), ("feedback", "lstm", 1, 8, 1.0),
+         ("per-track", "lstm", 2, 8, 1.0), ("per-track", "vanilla", 1, 1, 1.0),
+         ("feedback", "vanilla", 2, 8, 1.0), ("feedback", "lstm", 2, 1, 0.7)]
+
+
+@pytest.mark.parametrize("mode,cell,layers,batch,temp", CASES)
+def test_plain_fused_bit_equal_to_sequential_sweep(mode, cell, layers, batch,
+                                                   temp):
+    """Against generate_nade(spec=1): the TPU kernel's sequential sweep."""
+    jp, tp, js, ts = _primed(mode, cell, layers, batch)
+    jp = jax_multinn.tempered_params(jp, temp)
+    h0, c0 = _h0c0(js)
+    jroll, jh, jc = jax_gen_fused.generate_nade(
+        jax.random.PRNGKey(5), jp.decoder, jnp.asarray(h0), jnp.asarray(c0),
+        js.decoder.v_prev, T, interpret=True, spec=1)
+    tdec = multinn.tempered_params(tp, temp).decoder
+    troll, th, tc = gen_fused.generate_nade(
+        sampling.PRNGKey(5), tdec, torch.from_numpy(h0), torch.from_numpy(c0),
+        ts.decoder.v_prev, T)
+    assert troll.shape == (batch, T, K, D) and troll.dtype == torch.float32
+    np.testing.assert_array_equal(troll.numpy(), np.asarray(jroll))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    if cell == "lstm":
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+    assert 0.05 < float(troll.mean()) < 0.95          # non-degenerate
+
+
+@pytest.mark.parametrize("mode,cell,layers,batch,temp", CASES[1::2])
+def test_generate_bit_equal_to_jax_generate_fused(mode, cell, layers, batch,
+                                                  temp):
+    """multinn.generate (auto gate -> the fused path) against JAX's
+    _generate_fused in interpret mode at its default speculative depth."""
+    jp, tp, js, ts = _primed(mode, cell, layers, batch, seed=2)
+    jfin, jroll = jax_multinn._generate_fused(
+        jax_multinn.tempered_params(jp, temp), jax.random.PRNGKey(7), js, T,
+        interpret=True)
+    tfin, troll = multinn.generate(tp, sampling.PRNGKey(7), ts, T,
+                                   temperature=temp)
+    np.testing.assert_array_equal(troll.numpy(), np.asarray(jroll))
+    assert isinstance(tfin.decoder, rnn_nade.State)
+    _check_state(tfin, jfin, cell, mode)
+
+
+def test_given_merge_bit_equal_to_pallas_interpret():
+    jp, tp, js, ts = _primed("feedback", "lstm", 1, 3, seed=3)
+    given = (np.random.default_rng(4).random((3, T, K, D)) < 0.5
+             ).astype(np.float32)
+    h0, c0 = _h0c0(js)
+    jroll, jh, jc = jax_gen_fused.generate_nade(
+        jax.random.PRNGKey(8), jp.decoder, jnp.asarray(h0), jnp.asarray(c0),
+        js.decoder.v_prev, T, interpret=True, given=jnp.asarray(given),
+        given_tracks=(0, 2))
+    troll, th, tc = gen_fused.generate_nade(
+        sampling.PRNGKey(8), tp.decoder, torch.from_numpy(h0),
+        torch.from_numpy(c0), ts.decoder.v_prev, T,
+        given=torch.from_numpy(given), given_tracks=[2, 0])
+    np.testing.assert_array_equal(troll.numpy(), np.asarray(jroll))
+    np.testing.assert_array_equal(troll[:, :, [0, 2]].numpy(),
+                                  given[:, :, [0, 2]])
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+
+
+def test_exactly_five_matrices_are_rounded_to_bf16(monkeypatch):
+    """The TPU kernel stores w, v, wuv, the layer-0 own-frame input
+    projection and wctx in bf16 and everything else in f32; the port must
+    round the same five. Left in f32 they change the logits by ~1e-3 and
+    the roll parts from the reference at the first close draw."""
+    jp, tp, js, ts = _primed("feedback", "lstm", 2, 8, seed=5)
+    h0, c0 = _h0c0(js)
+    args = gen_fused_nade._nade_args(tp.decoder, torch.from_numpy(h0),
+                                     torch.from_numpy(c0), ts.decoder.v_prev)
+    bf16 = {n for n, x in args._asdict().items()
+            if x is not None and x.dtype == torch.bfloat16}
+    assert bf16 == {"w", "v", "wuv", "wx_v", "wctx"}
+    assert all(x.dtype == torch.float32 for n, x in args._asdict().items()
+               if x is not None and n not in bf16)
+    want = jnp.asarray(jp.decoder.v).astype(jnp.bfloat16).astype(jnp.float32)
+    np.testing.assert_array_equal(args.v.float().numpy(), np.asarray(want))
+
+    jroll, _, _ = jax_gen_fused.generate_nade(
+        jax.random.PRNGKey(6), jp.decoder, jnp.asarray(h0), jnp.asarray(c0),
+        js.decoder.v_prev, 16, interpret=True, spec=1)
+
+    def run():
+        return gen_fused.generate_nade(
+            sampling.PRNGKey(6), tp.decoder, torch.from_numpy(h0),
+            torch.from_numpy(c0), ts.decoder.v_prev, 16)[0].numpy()
+
+    np.testing.assert_array_equal(run(), np.asarray(jroll))
+    monkeypatch.setattr(gen_fused_nade, "_bf16", lambda x: x.contiguous())
+    assert not np.array_equal(run(), np.asarray(jroll))
+
+
+def test_generate_nade_argument_checks():
+    _, tp, _, ts = _primed("feedback", "lstm", 1, 2)
+    h0 = torch.stack([c.h for c in ts.decoder.cell])
+    c0 = torch.stack([c.c for c in ts.decoder.cell])
+    args = (sampling.PRNGKey(0), tp.decoder, h0, c0, ts.decoder.v_prev, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        gen_fused.generate_nade(*args, aux_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="together"):
+        gen_fused.generate_nade(*args, given_tracks=(0,))
+    with pytest.raises(ValueError, match="CUDA"):
+        gen_fused.generate_nade(*args, impl="cuda")
+    # (K, B, U) state auto-promotes for one layer; f32 aux is the default
+    r1, _, _ = gen_fused.generate_nade(sampling.PRNGKey(0), tp.decoder, h0[0],
+                                       c0[0], ts.decoder.v_prev, 2)
+    r2, _, _ = gen_fused.generate_nade(*args, aux_dtype=torch.float32)
+    assert torch.equal(r1, r2)
+
+
+def test_gate_is_a_hopper_resource_check():
+    flagship = multinn.MultINNConfig(n_tracks=5, n_pitches=84,
+                                     mode="feedback", decoder_type="rnn-nade",
+                                     n_hidden=150, n_rnn=100)
+    # no "B = 1 or a multiple of 8" rule: batch only sets the grid
+    for batch in (1, 3, 8, 48, 128, 4096):
+        assert gen_fused.supported_nade(flagship, batch, 1024)
+    assert not gen_fused.supported_nade(flagship, 0, 1024)
+    assert not gen_fused.supported_nade(
+        dataclasses.replace(flagship, decoder_type="rnn-rbm"), 8)
+    assert not gen_fused.supported_nade(
+        dataclasses.replace(flagship, encoder_hidden=(64,)), 8)
+    # the random stream has 8 rows per dim
+    assert gen_fused.supported_nade(
+        dataclasses.replace(flagship, n_tracks=8), 8)
+    assert not gen_fused.supported_nade(
+        dataclasses.replace(flagship, n_tracks=9), 8)
+    # register-held weights: K * ceil(H/32) <= 64 chunks, K * G <= 4096
+    assert not gen_fused.supported_nade(
+        dataclasses.replace(flagship, n_hidden=512), 8)
+    assert not gen_fused.supported_nade(
+        dataclasses.replace(flagship, n_rnn=256), 8)
+    # the count the gate uses: flagship state rows of one sample
+    params = gen_fused_nade._decoder_param_shapes(flagship, rnn_nade)
+    st = torch.empty((1, 5, 1, 100), device="meta")
+    args = gen_fused_nade._nade_args(params, st, st,
+                                     torch.empty((5, 1, 84), device="meta"))
+    assert gen_fused_nade._cta_smem_bytes(args) == 4 * (
+        2 * 500 + 4 * 420 + 2 * 750 + 2000 + 2 * 25)

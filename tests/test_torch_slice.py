@@ -1,9 +1,10 @@
 """The multinn_torch serving slice end to end on the CPU, against the JAX
-package: parameter conversion, configs, the Generator (bit-equal to JAX's
-init_state -> prime -> fused kernel in interpret mode -> bitpack for the
-same key), the GenerationService, the scan path (distribution level: its
-Gibbs chains draw the kernel stream, JAX's draw jax.random) and an import
-of the port with JAX blocked."""
+package, for both decoder families: parameter conversion, configs, the
+Generator (bit-equal to JAX's init_state -> prime -> fused kernel in
+interpret mode -> bitpack for the same key), the GenerationService and its
+batch choice, the scan path (distribution level: its Gibbs chains draw the
+kernel stream, JAX's draw jax.random) and an import of the port with JAX
+blocked."""
 
 import dataclasses
 import os
@@ -275,6 +276,91 @@ def test_scan_path_matches_jax_scan_in_distribution():
     np.testing.assert_allclose(troll.mean(dim=(0, 1, 3)).numpy(),
                                np.asarray(jroll).mean(axis=(0, 1, 3)),
                                atol=0.05)
+
+
+NADE_MODEL = dict(MODEL, decoder_type="rnn-nade")
+
+
+def _nade_jax_params(seed=0):
+    return jax_multinn.init(jax.random.PRNGKey(seed),
+                            jax_multinn.MultINNConfig(**NADE_MODEL))
+
+
+def _nade_experiment():
+    return dataclasses.replace(_experiment(),
+                               model=multinn.MultINNConfig(**NADE_MODEL))
+
+
+def test_from_jax_round_trip_for_a_nade_model():
+    jp = _nade_jax_params()
+    tp = from_jax(jp)
+    assert dataclasses.asdict(tp.cfg) == dataclasses.asdict(jp.cfg)
+    assert type(tp.decoder).__module__.endswith("rnn_nade")
+    for name in ("w", "v", "bv", "bh", "wuv", "wuh"):
+        got = getattr(tp.decoder, name)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(jp.decoder, name)))
+    for jc, tc in zip(jp.decoder.cell, tp.decoder.cell):
+        for name in ("wx", "wh", "b"):
+            np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                          np.asarray(getattr(jc, name)))
+    one = multinn.index_tree(tp.decoder, 1)
+    np.testing.assert_array_equal(one.v.numpy(), np.asarray(jp.decoder.v[1]))
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_nade_generator_bit_equal_to_jax(seeded):
+    jp = _nade_jax_params(1)
+    gen = Generator(_nade_experiment(), from_jax(jp))
+    seed_roll = ((np.random.default_rng(3).random((B, 4, K, D)) < 0.3)
+                 .astype(np.float32) if seeded else None)
+    want = _jax_generation(jp, seed_roll, 12, B)
+    got = gen.generate(sampling.PRNGKey(12), T, seed=seed_roll, batch=B)
+    assert got.shape == (B, T, K, D) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.mean() < 1
+
+
+def test_nade_service_answers_plain_and_seeded_requests():
+    svc = service.GenerationService(
+        _nade_experiment(), from_jax(_nade_jax_params(2)),
+        service.ServeConfig(batch=2, n_steps=T, seed_steps=3, seed=4,
+                            max_wait_ms=1.0))
+    try:
+        seeds = (np.random.default_rng(6).random((2, 6, K, D)) < 0.3
+                 ).astype(np.uint8)
+        futs = svc.submit_many(3) + [svc.submit(seed=s) for s in seeds]
+        res = [f.result(timeout=120) for f in futs]
+        stats = svc.stats()
+    finally:
+        svc.close()
+    for r in res:
+        assert r.roll.shape == (T, K, D) and r.roll.dtype == np.uint8
+        assert set(np.unique(r.roll)) <= {0, 1}
+    prov = [(r.batch_index, r.row) for r in res]
+    assert len(set(prov)) == 5
+    assert stats["requests"] == 5 and stats["errors"] == 0
+    assert stats["seeded_batches"] >= 1
+    b0 = min(bi for bi, _ in prov)
+    direct = svc.generator.generate(
+        sampling.fold_in(sampling.PRNGKey(4), b0), T, batch=2)
+    for r in res:
+        if r.batch_index == b0:
+            np.testing.assert_array_equal(r.roll, direct[r.row])
+
+
+def test_auto_batch_uses_the_nade_gate():
+    cfg = _nade_experiment()
+    # the NADE candidates (8, 16, 32, 48, 64, 128), all admitted here
+    assert service.auto_batch(cfg, T) == 128
+    # the NADE gate refuses more than 8 tracks (the RBM gate would not)
+    wide = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, n_tracks=9))
+    assert service.auto_batch(wide, T) == 8
+    rbm_wide = dataclasses.replace(wide, model=dataclasses.replace(
+        wide.model, decoder_type="rnn-rbm"))
+    assert service.auto_batch(rbm_wide, T) == 256
 
 
 def test_port_imports_and_serves_without_jax():
