@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs nine
+Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs twelve
 phases, one line each; any failure exits non-zero before the result line.
-Phases 4-6 drive the RNN-RBM path, 7-9 the RNN-NADE path.
+Phases 4-6 drive the RNN-RBM serving path, 7-9 the RNN-NADE serving path,
+10-12 training (the NADE likelihood kernels, then the Trainer on each
+family).
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -32,7 +34,23 @@ Phases 4-6 drive the RNN-RBM path, 7-9 the RNN-NADE path.
   9. the NADE slice: as phase 6 on the NADE flagship config (the fused
      NADE kernel serves, a 16-step ``fused=False`` generation runs the
      sampler kernel), with its own launch counts, reset right before and
-     read right after.
+     read right after;
+ 10. NADE likelihood kernels at the training shape (K=5 tracks x N=4096
+     rows, D=84, H=150, per-row biases): forward logits within 1e-4 of the
+     plain version, every backward output (dW, dV, dx, dbh; dbv through the
+     autograd Function) within 1e-4 * max|ref| + 1e-5; times of the
+     kernels, the plain versions and the cumsum form's autograd step;
+ 11. RBM training: ``Trainer`` on the flagship, B=16, T=64, 20 Adam steps
+     (one detailed) and one ``evaluate`` over a masked split, with the
+     launch counts reset right before (the Gibbs chain must launch at least
+     100 times: 5 tracks x 20 steps); finite loss and grad_norm, every
+     parameter moved; one CD-1 chain at N=1024 vs plain (at most 1% of rows
+     differ); warm step time, frames/s and the device-busy share;
+ 12. NADE training: ``Trainer`` on the NADE flagship, B=64, T=64, 20 steps
+     on one fixed batch: its NLL falls, both likelihood kernels launch at
+     least 20 times in the window, one step's gradients through the
+     kernels equal the plain versions' within phase 10's tolerance; step
+     time, frames/s and the device-busy share.
 
 Then the total wall time, one JSON line with each kernel's launches (from
 its path's window), error and times, the ``nvidia-smi`` name/power-limit
@@ -447,6 +465,230 @@ def main() -> None:
         f"{nb8_ms:.1f} ms, plain {nb8_plain_ms:.1f} ms; launches "
         f"{nade_launches}")
 
+    # 10. NADE likelihood kernels ------------------------------------------
+    from multinn_torch.nn import nade as nade_nn
+    from multinn_torch.ops import nade_ll
+
+    def ll_inputs(k, n, d=84, h=150):
+        x = (torch.rand(k, n, d, generator=g) < 0.06).float()
+        w = 0.1 * torch.randn(k, d, h, generator=g)
+        v = 0.1 * torch.randn(k, d, h, generator=g)
+        bv = -1.0 + 0.5 * torch.randn(k, n, d, generator=g)
+        bh = 0.5 * torch.randn(k, n, h, generator=g)
+        cot = torch.randn(k, n, d, generator=g)
+        return [t.to(dev) for t in (x, w, v, bv, bh, cot)]
+
+    def grad_err(a, b):            # the stated backward tolerance, as a ratio
+        return float((a - b).abs().max()) / (1e-4 * float(b.abs().max())
+                                             + 1e-5)
+
+    xl, wl, vl, bvl, bhl, cot = ll_inputs(5, 4096)
+    lk, ak = nade_ll.nade_ll_fwd(xl, wl, vl, bvl, bhl)
+    lp, ap = nade_ll.nade_ll_fwd_plain(xl, wl, vl, bvl, bhl)
+    fwd_err = float((lk - lp).abs().max())
+    if not fwd_err <= 1e-4:
+        fail(f"nade_ll_fwd: logits differ from plain by {fwd_err}")
+    bk = nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak, want_dx=True)
+    bp = nade_ll.nade_ll_bwd_plain(xl, wl, vl, cot, ap, want_dx=True)
+    ratios = {n: grad_err(a, b) for n, a, b in zip(("dW", "dV", "dx", "dbh"),
+                                                    bk, bp)}
+    leaves = lambda: [t.clone().requires_grad_(True)
+                      for t in (xl, wl, vl, bvl, bhl)]
+    fk, fp = leaves(), leaves()
+    gk = torch.autograd.grad(nade_ll.nade_logits(*fk, impl="cuda"), fk, cot)
+    gp = torch.autograd.grad(nade_ll.nade_logits(*fp, impl="plain"), fp, cot)
+    for n, a, b in zip(("dx", "dW", "dV", "dbv", "dbh"), gk, gp):
+        ratios["fn_" + n] = grad_err(a, b)
+    if max(ratios.values()) > 1.0:
+        fail(f"nade_ll_bwd: gradients outside 1e-4*max|ref|+1e-5 (error / "
+             f"tolerance): {ratios}")
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(bk, bp))
+    fwd_ms = cuda_ms(lambda: nade_ll.nade_ll_fwd(xl, wl, vl, bvl, bhl), 20)
+    fwd_plain = cuda_ms(
+        lambda: nade_ll.nade_ll_fwd_plain(xl, wl, vl, bvl, bhl), 3)
+    bwd_ms = cuda_ms(lambda: nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak,
+                                                 want_dx=False), 20)
+    bwd_dx_ms = cuda_ms(lambda: nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak), 20)
+    bwd_plain = cuda_ms(lambda: nade_ll.nade_ll_bwd_plain(
+        xl, wl, vl, cot, ap, want_dx=False), 3)
+
+    def ll_step(logits_fn):        # forward + backward into the four weights
+        ps = [t.clone().requires_grad_(True) for t in (wl, vl, bvl, bhl)]
+        torch.autograd.grad(logits_fn(xl, *ps), ps, cot)
+
+    step_kernel = cuda_ms(lambda: ll_step(nade_ll.nade_logits), 10)
+    step_cumsum = cuda_ms(lambda: ll_step(nade_nn.conditionals_logits), 3)
+    results["nade_ll_fwd"] = dict(max_abs_err=fwd_err, ms=fwd_ms,
+                                  plain_ms=fwd_plain)
+    results["nade_ll_bwd"] = dict(max_abs_err=bwd_err, ms=bwd_ms,
+                                  plain_ms=bwd_plain)
+    say(f"phase 10 nade likelihood: K=5 N=4096 D=84 H=150; logits max err "
+        f"{fwd_err:.2e} (limit 1e-4); backward error / tolerance "
+        f"{ {n: round(r, 4) for n, r in ratios.items()} }; forward kernel "
+        f"{fwd_ms:.4f} ms, plain {fwd_plain:.3f} ms; backward kernel "
+        f"{bwd_ms:.4f} ms ({bwd_dx_ms:.4f} ms with dx), plain "
+        f"{bwd_plain:.3f} ms; autograd step through the kernels "
+        f"{step_kernel:.3f} ms, through the cumsum form {step_cumsum:.3f} ms")
+    del lk, ak, lp, ap, bk, bp, fk, fp, gk, gp
+
+    # 11. RBM training --------------------------------------------------------
+    from multinn_torch.training.trainer import Trainer
+    from multinn_torch.utils.config import TrainConfig
+
+    class RollSource:
+        """Seeded Bernoulli(0.06) pianorolls (bench.py's density) behind the
+        Dataset interface: ``train`` holds n_train batches (one batch
+        n_train times with ``fixed``), ``valid`` ends in a short batch whose
+        last window is half masked."""
+
+        def __init__(self, n_train, n_valid, batch, seed, fixed=False):
+            rng = np.random.default_rng(seed)
+            draw = lambda n: (rng.random((n, 64, 5, 84)) < 0.06).astype(
+                np.uint8)
+            self.windows = {"train": draw(batch if fixed else
+                                          n_train * batch),
+                            "valid": draw(n_valid)}
+            self.masks = {k: np.ones(v.shape[:2], np.uint8)
+                          for k, v in self.windows.items()}
+            self.masks["valid"][-1, 32:] = 0
+            self.batch, self.n_train, self.fixed = batch, n_train, fixed
+
+        def n_batches(self, split="train"):
+            return (self.n_train if split == "train"
+                    else -(-len(self.windows[split]) // self.batch))
+
+        def batches(self, split="train", epoch=0, shuffle=True,
+                    drop_remainder=True, with_masks=False, augment=False):
+            data, masks = self.windows[split], self.masks[split]
+            if self.fixed and split == "train":
+                yield from [data] * self.n_train
+                return
+            idx = np.arange(len(data))
+            if shuffle:
+                np.random.default_rng(epoch).shuffle(idx)
+            for c in range(0, len(data), self.batch):
+                sel = idx[c:c + self.batch]
+                if len(sel) < self.batch and drop_remainder:
+                    break
+                yield (data[sel], masks[sel]) if with_masks else data[sel]
+
+    def device_busy(trainer, x, key, reps=5):
+        """Kernel time per step (torch.profiler) and the top kernels."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        trainer.train_step(x, key)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                trainer.train_step(x, key)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        return total, [(e.key[:40], round(e.self_device_time_total / 1e3
+                                          / reps, 3)) for e in top]
+
+    def train_phase(model, batch, fixed, seed):
+        tcfg = ExperimentConfig(
+            model=multinn.MultINNConfig(**model),
+            train=TrainConfig(log_every_steps=20))
+        src = RollSource(20, 2 * batch + batch // 2, batch, seed, fixed)
+        p0 = multinn.tree_map(lambda t: t.to(dev), multinn.init(
+            tcfg.model, torch.Generator().manual_seed(seed)))
+        return Trainer(tcfg, src, params=p0), src, p0
+
+    def moved(trainer, p0):
+        return all(not torch.equal(a, b) for a, b in zip(
+            trainer._leaves, multinn.tree_leaves(p0)))
+
+    def step_time(trainer, x):
+        """Warm step ms (CUDA events) and what the profiler says of it."""
+        key = sampling.PRNGKey(123, device=dev)
+        ms = cuda_ms(lambda: trainer.train_step(x, key), 10)
+        busy_ms, top = device_busy(trainer, x, key)
+        busy = (f"kernel time per step {busy_ms:.2f} ms (device busy "
+                f"{busy_ms / ms:.1%}), top {top}" if busy_ms else
+                "device busy share not measured (the profiler saw no "
+                "device time)")
+        return ms, busy
+
+    trainer, src, p0 = train_phase(FLAGSHIP, 16, False, 11)
+    _build.launches.clear()                  # the RBM training path starts
+    last = trainer.train_epoch()
+    ev = trainer.evaluate("valid")
+    torch.cuda.synchronize()
+    rbm_train_launches = dict(_build.launches)   # ... and ends here
+    if trainer.step != 20 or not last:
+        fail(f"rbm training ran {trainer.step} steps, logged {last}")
+    if not (np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
+            and all(np.isfinite(v) for v in ev.values())):
+        fail(f"rbm training: non-finite metrics {last} {ev}")
+    if not moved(trainer, p0):
+        fail("rbm training: a parameter leaf did not move")
+    if rbm_train_launches.get("gibbs_chain", 0) < 100:
+        fail(f"rbm training launched the Gibbs chain "
+             f"{rbm_train_launches.get('gibbs_chain', 0)} times (< 100)")
+    cd_args = gibbs_inputs(1024)
+    key = sampling.PRNGKey(2, device=dev)
+    ck = gibbs_cuda.gibbs_chain(key, *cd_args, 1)
+    cp = gibbs_cuda.gibbs_chain_plain(key, *cd_args, 1)
+    cd_differ = float((ck != cp).any(dim=1).float().mean())
+    if cd_differ > 0.01:
+        fail(f"gibbs at N=1024 k=1: {cd_differ:.4f} of rows differ")
+    cd_ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain(key, *cd_args, 1), 50)
+    cd_plain = cuda_ms(
+        lambda: gibbs_cuda.gibbs_chain_plain(key, *cd_args, 1), 5)
+    x16 = trainer._to_device(next(src.batches("train", shuffle=False)))
+    rbm_ms, rbm_busy = step_time(trainer, x16)
+    say(f"phase 11 rbm training: 20 steps B=16 T=64, loss {last['loss']:.4f} "
+        f"grad_norm {last['grad_norm']:.4f} f1 {last.get('f1', 0):.4f}; eval "
+        f"loss {ev['loss']:.4f} ll/frame {ev['ll_per_frame']:.4f}; every leaf "
+        f"moved; launches {rbm_train_launches}; CD-1 chain N=1024 rows "
+        f"differing {cd_differ:.4f}, kernel {cd_ms:.4f} ms, plain "
+        f"{cd_plain:.3f} ms; warm step {rbm_ms:.2f} ms = "
+        f"{16 * 64 / rbm_ms * 1e3:.0f} frames/s; {rbm_busy}")
+    del trainer
+
+    # 12. NADE training -----------------------------------------------------
+    trainer, src, p0 = train_phase(NADE_FLAGSHIP, 64, True, 12)
+    x64 = trainer._to_device(next(src.batches("train", shuffle=False)))
+    key = sampling.PRNGKey(0, device=dev)
+    with torch.no_grad():
+        nll0 = float(multinn.loss(trainer.params, key, x64,
+                                  detailed=False)[0])
+    _build.launches.clear()                  # the NADE training path starts
+    last = trainer.train_epoch()
+    torch.cuda.synchronize()
+    nade_train_launches = dict(_build.launches)  # ... and ends here
+    with torch.no_grad():
+        nll20 = float(multinn.loss(trainer.params, key, x64,
+                                   detailed=False)[0])
+    if not nll20 < nll0:
+        fail(f"nade training: NLL {nll0} -> {nll20} did not fall")
+    if (nade_train_launches.get("nade_ll_fwd", 0) < 20
+            or nade_train_launches.get("nade_ll_bwd", 0) < 20):
+        fail(f"nade training launches {nade_train_launches}")
+    if not moved(trainer, p0):
+        fail("nade training: a parameter leaf did not move")
+    grads = {}
+    for impl in ("cuda", "plain"):
+        loss, _ = multinn.loss(trainer.params, key, x64, detailed=False,
+                               impl=impl)
+        grads[impl] = torch.autograd.grad(loss, trainer._leaves)
+    g_ratio = max(grad_err(a, b) for a, b in zip(grads["cuda"],
+                                                 grads["plain"]))
+    if g_ratio > 1.0:
+        fail(f"nade training: kernel gradients vs plain at {g_ratio:.3f} of "
+             f"the tolerance")
+    nade_ms, nade_busy = step_time(trainer, x64)
+    say(f"phase 12 nade training: 20 steps B=64 T=64 on one batch, NLL "
+        f"{nll0:.4f} -> {nll20:.4f}; launches {nade_train_launches}; model "
+        f"gradients kernel vs plain at {g_ratio:.4f} of the tolerance; warm "
+        f"step {nade_ms:.2f} ms = {64 * 64 / nade_ms * 1e3:.0f} frames/s; "
+        f"{nade_busy}")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -469,7 +711,13 @@ def main() -> None:
                                nade_launches),
                "gen_fused_nade": ("multinn_torch/csrc/gen_fused_nade.cu",
                                   "multinn_tpu/ops/gen_fused_nade.py:242",
-                                  nade_launches)}
+                                  nade_launches),
+               "nade_ll_fwd": ("multinn_torch/csrc/nade_ll.cu",
+                               "multinn_tpu/ops/nade_ll_pallas.py:123",
+                               nade_train_launches),
+               "nade_ll_bwd": ("multinn_torch/csrc/nade_ll.cu",
+                               "multinn_tpu/ops/nade_ll_pallas.py:153",
+                               nade_train_launches)}
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,

@@ -97,7 +97,10 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
     const cudaError_t e = cudaFuncSetAttribute(
         gibbs_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return cudaGetErrorString(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // cleared: the caller raises this error itself
+      return cudaGetErrorString(e);
+    }
   }
   const int blocks = static_cast<int>((n + kRows - 1) / kRows);
   gibbs_chain_kernel<<<blocks, kThreads, smem,

@@ -93,4 +93,25 @@ struct NadeArgs {
 
 const char* launch_gen_fused_nade(const NadeArgs& a, void* stream);
 
+// Rows per CTA of the NADE likelihood kernels; the backward's dW / dV
+// partials have ceil(n / kNadeLLTileRows) tiles per track.
+constexpr int kNadeLLTileRows = 32;
+
+// Teacher-forced NADE logits of k tracks x n rows (see nade_ll.cu): x, bv,
+// logits (k, n, d); bh, a_end (k, n, h); w, v (k, d, h).
+const char* launch_nade_ll_fwd(const float* x, const float* w, const float* v,
+                               const float* bv, const float* bh,
+                               float* logits, float* a_end, int64_t k,
+                               int64_t n, int64_t d, int64_t h,
+                               void* stream);
+
+// Its reverse sweep from a_end for the logits' cotangent g (k, n, d): dw, dv
+// (k, d, h) through the per-tile partials dw_part, dv_part (k, tiles, d, h);
+// dx (k, n, d), or nullptr when no input gradient is wanted; dbh (k, n, h).
+const char* launch_nade_ll_bwd(const float* x, const float* w, const float* v,
+                               const float* g, const float* a_end,
+                               float* dw_part, float* dv_part, float* dw,
+                               float* dv, float* dx, float* dbh, int64_t k,
+                               int64_t n, int64_t d, int64_t h, void* stream);
+
 }  // namespace multinn_torch

@@ -101,7 +101,10 @@ const char* launch_nade_sample(const float* w, const float* v,
     const cudaError_t e = cudaFuncSetAttribute(
         nade_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return cudaGetErrorString(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // cleared: the caller raises this error itself
+      return cudaGetErrorString(e);
+    }
   }
   nade_sample_kernel<<<static_cast<int>(n), threads > 0 ? threads : 32, smem,
                        static_cast<cudaStream_t>(stream)>>>(

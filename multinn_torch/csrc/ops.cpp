@@ -25,6 +25,13 @@ const float* optional_f32(const at::Tensor& t, const char* name) {
   return t.data_ptr<float>();
 }
 
+// An output the caller did not ask for is passed as an empty tensor.
+float* optional_out(at::Tensor& t, const char* name) {
+  if (t.numel() == 0) return nullptr;
+  check(t, at::kFloat, name);
+  return t.data_ptr<float>();
+}
+
 void raise_on(const char* err, const char* op) {
   TORCH_CHECK(err == nullptr, op, ": kernel launch failed: ", err);
 }
@@ -243,6 +250,66 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   raise_on(launch_gen_fused_nade(a, as_stream(stream)), "gen_fused_nade");
 }
 
+void nade_ll_fwd(at::Tensor logits, at::Tensor a_end, const at::Tensor& x,
+                 const at::Tensor& w, const at::Tensor& v,
+                 const at::Tensor& bv, const at::Tensor& bh, int64_t stream) {
+  check(logits, at::kFloat, "logits");
+  check(a_end, at::kFloat, "a_end");
+  check(x, at::kFloat, "x");
+  check(w, at::kFloat, "w");
+  check(v, at::kFloat, "v");
+  check(bv, at::kFloat, "bv");
+  check(bh, at::kFloat, "bh");
+  TORCH_CHECK(x.dim() == 3 && w.dim() == 3, "nade_ll_fwd: x, w must be 3D");
+  const int64_t k = w.size(0), n = x.size(1), d = w.size(1), h = w.size(2);
+  TORCH_CHECK(x.size(0) == k && x.size(2) == d && v.sizes() == w.sizes() &&
+                  bv.sizes() == x.sizes() && logits.sizes() == x.sizes() &&
+                  bh.dim() == 3 && bh.size(0) == k && bh.size(1) == n &&
+                  bh.size(2) == h && a_end.sizes() == bh.sizes(),
+              "nade_ll_fwd: inconsistent shapes");
+  raise_on(launch_nade_ll_fwd(x.data_ptr<float>(), w.data_ptr<float>(),
+                              v.data_ptr<float>(), bv.data_ptr<float>(),
+                              bh.data_ptr<float>(), logits.data_ptr<float>(),
+                              a_end.data_ptr<float>(), k, n, d, h,
+                              as_stream(stream)),
+           "nade_ll_fwd");
+}
+
+void nade_ll_bwd(at::Tensor dw, at::Tensor dv, at::Tensor dx, at::Tensor dbh,
+                 at::Tensor dw_part, at::Tensor dv_part, const at::Tensor& x,
+                 const at::Tensor& w, const at::Tensor& v,
+                 const at::Tensor& g, const at::Tensor& a_end,
+                 int64_t stream) {
+  for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&dw, "dw"},
+                         {&dv, "dv"}, {&dbh, "dbh"}, {&dw_part, "dw_part"},
+                         {&dv_part, "dv_part"}, {&x, "x"}, {&w, "w"},
+                         {&v, "v"}, {&g, "g"}, {&a_end, "a_end"}})
+    check(*t, at::kFloat, name);
+  TORCH_CHECK(x.dim() == 3 && w.dim() == 3, "nade_ll_bwd: x, w must be 3D");
+  const int64_t k = w.size(0), n = x.size(1), d = w.size(1), h = w.size(2);
+  const int64_t tiles = (n + kNadeLLTileRows - 1) / kNadeLLTileRows;
+  TORCH_CHECK(x.size(0) == k && x.size(2) == d && v.sizes() == w.sizes() &&
+                  g.sizes() == x.sizes() && dw.sizes() == w.sizes() &&
+                  dv.sizes() == w.sizes() && a_end.dim() == 3 &&
+                  a_end.size(0) == k && a_end.size(1) == n &&
+                  a_end.size(2) == h && dbh.sizes() == a_end.sizes() &&
+                  dw_part.dim() == 4 && dw_part.size(0) == k &&
+                  dw_part.size(1) == tiles && dw_part.size(2) == d &&
+                  dw_part.size(3) == h && dv_part.sizes() == dw_part.sizes(),
+              "nade_ll_bwd: inconsistent shapes");
+  TORCH_CHECK(dx.numel() == 0 || dx.sizes() == x.sizes(),
+              "nade_ll_bwd: dx must be empty or x's shape");
+  raise_on(launch_nade_ll_bwd(x.data_ptr<float>(), w.data_ptr<float>(),
+                              v.data_ptr<float>(), g.data_ptr<float>(),
+                              a_end.data_ptr<float>(),
+                              dw_part.data_ptr<float>(),
+                              dv_part.data_ptr<float>(), dw.data_ptr<float>(),
+                              dv.data_ptr<float>(), optional_out(dx, "dx"),
+                              dbh.data_ptr<float>(), k, n, d, h,
+                              as_stream(stream)),
+           "nade_ll_bwd");
+}
+
 }  // namespace
 }  // namespace multinn_torch
 
@@ -263,6 +330,11 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor wx_v, Tensor wxg, Tensor wx_r, Tensor wh, Tensor wctx, "
         "Tensor b, Tensor h0, Tensor c0, Tensor v0, Tensor given, "
         "Tensor seed, int lstm, int given_mask, int stream) -> ()");
+  m.def("nade_ll_fwd(Tensor(a!) logits, Tensor(b!) a_end, Tensor x, "
+        "Tensor w, Tensor v, Tensor bv, Tensor bh, int stream) -> ()");
+  m.def("nade_ll_bwd(Tensor(a!) dw, Tensor(b!) dv, Tensor(c!) dx, "
+        "Tensor(d!) dbh, Tensor(e!) dw_part, Tensor(f!) dv_part, Tensor x, "
+        "Tensor w, Tensor v, Tensor g, Tensor a_end, int stream) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(multinn_torch, CUDA, m) {
@@ -271,4 +343,6 @@ TORCH_LIBRARY_IMPL(multinn_torch, CUDA, m) {
   m.impl("gen_fused_rbm", &multinn_torch::gen_fused_rbm);
   m.impl("nade_sample", &multinn_torch::nade_sample);
   m.impl("gen_fused_nade", &multinn_torch::gen_fused_nade);
+  m.impl("nade_ll_fwd", &multinn_torch::nade_ll_fwd);
+  m.impl("nade_ll_bwd", &multinn_torch::nade_ll_bwd);
 }

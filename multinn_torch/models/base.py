@@ -77,6 +77,64 @@ def conditioned_biases(params, u_prev: torch.Tensor):
             params.bh.unsqueeze(-2) + u_prev @ params.wuh)
 
 
+def teacher_forced(params, x: torch.Tensor, ctx: Optional[torch.Tensor]):
+    """The training recurrence from a zero state: x ([K,] B, T, F), ctx
+    with x's leading dims -> (x_tm, bv_t, bh_t), time-major (T, [K,] B, .),
+    with the biases conditioned on u(t-1)."""
+    cfg = params.cfg
+    x_tm = x.movedim(-2, 0)
+    ctx_tm = None if ctx is None else ctx.movedim(-2, 0)
+    zero = rnn_nn.stacked_zero_state(cfg.cell, x.shape[:-2], cfg.n_rnn,
+                                     cfg.rnn_layers, device=x.device)
+    _, us = rnn_nn.stacked_scan(cfg.cell, params.cell, zero,
+                                rnn_input(x_tm, ctx_tm))
+    u_prev = torch.cat([torch.zeros_like(us[:1]), us[:-1]], dim=0)
+    bv_t, bh_t = conditioned_biases(params, u_prev)
+    return x_tm, bv_t, bh_t
+
+
+def time_major_mask(frame_mask: Optional[torch.Tensor], stacked: bool):
+    """A (B, T) frame mask -> float (T, B), or (T, 1, B) against
+    track-stacked (T, K, B) values; None stays None."""
+    if frame_mask is None:
+        return None
+    m = frame_mask.t().float()
+    return m[:, None] if stacked else m
+
+
+def frame_mean(v: torch.Tensor, m_tm: Optional[torch.Tensor] = None):
+    """Mean of v (T, [K,] B) over time and batch — per track when
+    stacked — or, with a mask, sum(v * m) / max(sum(m), 1)."""
+    if m_tm is None:
+        return v.mean(dim=(0, -1))
+    return ((v * m_tm).sum(dim=(0, -1))
+            / torch.clamp(m_tm.sum(dim=(0, -1)), min=1.0))
+
+
+def per_track(fn, params, key, x_tm, bv_t, bh_t, dim: int = 0):
+    """``fn(key, x, params, bv, bh)`` on one decoder's time-major tensors,
+    or, for track-stacked params (keys (K, 2), tensors (T, K, ...)), on
+    each track's slice with its own key; the results are stacked on
+    ``dim`` (dicts per entry). This is where the port loops over tracks:
+    the kernels and the monitoring draws take one decoder at a time."""
+    if params.w.dim() == 2:
+        return fn(key, x_tm, params, bv_t, bh_t)
+    outs = [fn(key[i], x_tm[:, i], index_params(params, i), bv_t[:, i],
+               bh_t[:, i]) for i in range(params.w.shape[0])]
+    if isinstance(outs[0], dict):
+        return {k: torch.stack([o[k] for o in outs], dim=dim)
+                for k in outs[0]}
+    return torch.stack(outs, dim=dim)
+
+
+def index_params(params, i: int):
+    """Track i's decoder weights (the cell stays stacked: the per-track
+    functions use only the frame model's tensors)."""
+    return dataclasses.replace(params, **{
+        f.name: getattr(params, f.name)[i] for f in dataclasses.fields(params)
+        if f.name not in ("cell", "cfg")})
+
+
 def prime_state(state_cls, params, state, x: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None):
     """Advance the RNN state over a seed sequence x: ([K,] B, T, F); ctx

@@ -1,5 +1,4 @@
-"""MultINN — the multi-track model — port of the generation half of
-multinn_tpu/models/multinn.py.
+"""MultINN — the multi-track model — port of multinn_tpu/models/multinn.py.
 
 Inter-track modes ``per-track``, ``feedback`` and ``hybrid`` (with the
 pass-through encoder, hybrid differs from per-track only in config).
@@ -7,8 +6,9 @@ Both decoder families, RNN-RBM and RNN-NADE. Per-track decoder params are
 STACKED along a leading track axis K, as in the JAX package; where it vmaps
 over tracks the port batches the same computation over that axis
 (nn/rnn.py), and loops over tracks only where a kernel takes one decoder
-(the scan path's Gibbs chain or NADE sweep). Pianorolls are (B, T, K, D). ``joint`` mode, the loss and accompaniment wait for later
-slices (ROADMAP queue 1).
+(the scan path's Gibbs chain or NADE sweep, the CD chain). Pianorolls
+are (B, T, K, D). ``joint`` mode and accompaniment wait for later slices
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -119,6 +119,13 @@ def tree_map(fn, *trees):
     return t0
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, in field order (``tree_map``'s traversal)."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def stack_trees(trees):
     """Per-track trees -> one tree with a leading track axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
@@ -169,6 +176,72 @@ def _feedback_ctx(feats_k: torch.Tensor,
     first = (torch.zeros_like(lat[:, :1]) if prefix is None
              else prefix[:, None].to(lat.dtype))
     return torch.cat([first, lat[:, :-1]], dim=1)
+
+
+def _mean_tree(metrics: dict) -> dict:
+    """Per-track metrics (K,) -> their mean over tracks."""
+    return {k: v.mean(dim=0) for k, v in metrics.items()}
+
+
+def _track_inputs(params: MultINNParams, x: torch.Tensor):
+    """(B, T, K, D) -> the decoders' features (K, B, T, F) and, in feedback
+    mode, each track's teacher-forced context (K, B, T, K*F)."""
+    cfg = params.cfg
+    feats_k = _encode_tracks(params, x)
+    if cfg.mode != "feedback":
+        return feats_k, None
+    ctx = _feedback_ctx(feats_k)
+    return feats_k, ctx.expand(cfg.n_tracks, *ctx.shape)
+
+
+def loss(params: MultINNParams, key: torch.Tensor, x: torch.Tensor,
+         detailed: bool = True, frame_mask: Optional[torch.Tensor] = None,
+         impl=None):
+    """Teacher-forced loss over all tracks, x (B, T, K, D); frame_mask
+    (B, T). Returns (loss, metrics): the metrics averaged over tracks, the
+    per-track losses under ``loss_per_track``. Track i's key is
+    ``split(key, K)[i]``. ``detailed=False`` is the trainer's hot path;
+    ``impl`` forces the decoder's kernels or their plain versions."""
+    cfg = params.cfg
+    _check_mode(cfg)
+    feats_k, ctx = _track_inputs(params, x)
+    keys = sampling.split(key, cfg.n_tracks)
+    losses, metrics = get_decoder(cfg.decoder_type).loss(
+        params.decoder, keys, feats_k, ctx=ctx, detailed=detailed,
+        frame_mask=frame_mask, impl=impl)
+    metrics = _mean_tree(metrics)
+    metrics["loss_per_track"] = losses.detach()
+    total = losses.mean()
+    metrics["loss"] = total.detach()
+    return total, metrics
+
+
+def log_likelihood(params: MultINNParams, key: torch.Tensor,
+                   x: torch.Tensor,
+                   frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sequence LL summed over tracks and time, (B,): exact for NADE
+    decoders, the pseudo-LL proxy for RBM decoders."""
+    cfg = params.cfg
+    _check_mode(cfg)
+    feats_k, ctx = _track_inputs(params, x)
+    lls = get_decoder(cfg.decoder_type).log_likelihood_proxy(
+        params.decoder, sampling.split(key, cfg.n_tracks), feats_k, ctx=ctx,
+        frame_mask=frame_mask)
+    return lls.sum(dim=0)
+
+
+def conditional_logits(params: MultINNParams, x: torch.Tensor):
+    """Teacher-forced conditional logits and their targets for NADE
+    decoders, both (K, T, B, F)."""
+    cfg = params.cfg
+    if cfg.decoder_type != "rnn-nade":
+        raise ValueError("conditional_logits requires an rnn-nade decoder "
+                         "(RBM CD training has no GGN linearization)")
+    _check_mode(cfg)
+    feats_k, ctx = _track_inputs(params, x)
+    logits = get_decoder(cfg.decoder_type).conditional_logits(
+        params.decoder, feats_k, ctx=ctx)
+    return logits.movedim(1, 0), feats_k.transpose(1, 2)
 
 
 def init_state(params: MultINNParams, batch: int) -> MultINNState:

@@ -1,5 +1,4 @@
-"""RNN-NADE decoder — port of multinn_tpu/models/rnn_nade.py (generation
-half; the exact-likelihood loss waits for the training slice).
+"""RNN-NADE decoder — port of multinn_tpu/models/rnn_nade.py.
 
 A NADE over each frame v(t) whose biases are conditioned on the hidden
 state of a deterministic RNN that consumed frames < t:
@@ -8,7 +7,11 @@ state of a deterministic RNN that consumed frames < t:
     u(t)  = Cell(u(t-1), [v(t); ctx(t)])
 
 Params and State may be track-stacked (leading K axis), except in
-``sample_frame``, whose sweep takes one decoder's W and V.
+``sample_frame``, whose sweep takes one decoder's W and V. Training is
+exact maximum likelihood: ``loss`` and ``log_likelihood`` take one decoder
+with x (B, T, F) or track-stacked params with x (K, B, T, F), and one
+launch of the grid-free likelihood kernels (ops/nade_ll.py) covers every
+track and frame.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ import torch
 
 from multinn_torch.models import base
 from multinn_torch.models.base import DecoderConfig
+from multinn_torch.nn import nade as nade_nn
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import nade_ops
+from multinn_torch.training.metrics import frame_metrics
 
 
 @dataclasses.dataclass
@@ -63,6 +68,95 @@ def init(cfg: DecoderConfig, generator=None, device=None) -> Params:
 def init_state(params: Params, batch_shape: Tuple[int, ...]) -> State:
     return base.init_recurrent_state(State, params.cfg, batch_shape,
                                      device=params.w.device)
+
+
+def _tracks_first(stacked: bool, *ts):
+    """(T, K, ...) -> (K, T, ...) for the likelihood ops' track-stacked
+    layout; one decoder's tensors pass as they are."""
+    return tuple(t.movedim(1, 0) for t in ts) if stacked else ts
+
+
+def _log_probs(params: Params, x_tm, bv_t, bh_t, need_logits: bool,
+               impl=None):
+    """Exact per-frame log-likelihoods (T, [K,] B) and, when asked, the
+    conditional logits (T, [K,] B, F) they come from."""
+    stacked = params.w.dim() == 3
+    xk, bvk, bhk = _tracks_first(stacked, x_tm, bv_t, bh_t)
+    logits = nade_ops.nade_conditionals_logits(xk, params.w, params.v, bvk,
+                                               bhk, impl=impl)
+    ll = nade_nn.bernoulli_ll(logits, xk).sum(dim=-1)
+    ll, logits = _tracks_first(stacked, ll, logits)
+    return ll, (logits if need_logits else None)
+
+
+def _nll(params: Params, x: torch.Tensor, ctx: Optional[torch.Tensor],
+         frame_mask: Optional[torch.Tensor] = None, need_logits=False,
+         impl=None):
+    """Mean per-frame negative log-likelihood (per track when stacked),
+    with the time-major inputs and, with ``need_logits``, the logits."""
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
+    ll, logits = _log_probs(params, x_tm, bv_t, bh_t, need_logits, impl)
+    m_tm = base.time_major_mask(frame_mask, params.w.dim() == 3)
+    return -base.frame_mean(ll, m_tm), (x_tm, logits)
+
+
+def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
+         ctx: Optional[torch.Tensor] = None, detailed: bool = True,
+         frame_mask: Optional[torch.Tensor] = None, impl=None):
+    """Exact NLL loss. ``key`` is unused (kept for the decoder contract).
+    Returns (loss, metrics), per track when stacked. ``detailed=False``
+    skips the frame metrics (hot path); ``frame_mask`` (B, T) excludes
+    padded frames. ``impl`` forces the likelihood kernels or their plain
+    versions."""
+    del key
+    nll, (x_tm, logits) = _nll(params, x, ctx, frame_mask,
+                               need_logits=detailed, impl=impl)
+    if not detailed:
+        return nll, {"loss": nll.detach()}
+    m2 = base.time_major_mask(frame_mask, False)
+    with torch.no_grad():
+        probs = torch.sigmoid(logits)
+        if params.w.dim() == 3:
+            per = [frame_metrics(probs[:, i], x_tm[:, i], mask=m2)
+                   for i in range(probs.shape[1])]
+            metrics = {k: torch.stack([m[k] for m in per]) for k in per[0]}
+        else:
+            metrics = frame_metrics(probs, x_tm, mask=m2)
+    metrics["nll"] = nll.detach()
+    metrics["loss"] = nll.detach()
+    return nll, metrics
+
+
+def conditional_logits(params: Params, x: torch.Tensor,
+                       ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Teacher-forced per-dim conditional logits, time-major (T, [K,] B, F),
+    in the parallel cumsum form (the linearization point of Hessian-free
+    training, which is forward-mode: the kernels' Function has no jvp)."""
+    stacked = params.w.dim() == 3
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
+    xk, bvk, bhk = _tracks_first(stacked, x_tm, bv_t, bh_t)
+    (logits,) = _tracks_first(stacked, nade_nn.conditionals_logits(
+        xk, params.w, params.v, bvk, bhk, form="cumsum"))
+    return logits
+
+
+def log_likelihood(params: Params, key: torch.Tensor, x: torch.Tensor,
+                   ctx: Optional[torch.Tensor] = None,
+                   frame_mask: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Exact per-sequence log-likelihood ([K,] B), summed over the real
+    frames."""
+    del key
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
+    ll, _ = _log_probs(params, x_tm, bv_t, bh_t, False)
+    m_tm = base.time_major_mask(frame_mask, params.w.dim() == 3)
+    if m_tm is not None:
+        ll = ll * m_tm
+    return ll.sum(dim=0)
+
+
+# the trainer treats both decoder families alike
+log_likelihood_proxy = log_likelihood
 
 
 def prime(params: Params, state: State, x: torch.Tensor,

@@ -1,5 +1,4 @@
-"""RNN-RBM decoder — port of multinn_tpu/models/rnn_rbm.py (generation
-half; the CD loss and likelihood wait for the training slice).
+"""RNN-RBM decoder — port of multinn_tpu/models/rnn_rbm.py.
 
 An RBM over each frame v(t) whose biases are conditioned on the hidden
 state of a deterministic RNN that consumed frames < t:
@@ -8,7 +7,12 @@ state of a deterministic RNN that consumed frames < t:
     u(t)  = Cell(u(t-1), [v(t); ctx(t)])
 
 Params and State may be track-stacked (leading K axis), except in
-``sample_frame``, whose Gibbs chain takes one decoder's W.
+``sample_frame``, whose Gibbs chain takes one decoder's W. ``loss`` and
+``log_likelihood_proxy`` take either one decoder with one key and x
+(B, T, F), or track-stacked params with keys (K, 2) and x (K, B, T, F);
+they run the recurrence batched over tracks and the Gibbs chain (and the
+monitoring draws) per track, each on its own key, where the JAX package
+vmaps over tracks.
 """
 
 from __future__ import annotations
@@ -20,8 +24,12 @@ import torch
 
 from multinn_torch.models import base
 from multinn_torch.models.base import DecoderConfig
+from multinn_torch.nn import rbm as rbm_nn
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import gibbs as gibbs_ops
+from multinn_torch.ops import sampling
+from multinn_torch.training.metrics import (binary_cross_entropy,
+                                            frame_metrics)
 
 
 @dataclasses.dataclass
@@ -61,6 +69,70 @@ def init(cfg: DecoderConfig, generator=None, device=None) -> Params:
 def init_state(params: Params, batch_shape: Tuple[int, ...]) -> State:
     return base.init_recurrent_state(State, params.cfg, batch_shape,
                                      device=params.w.device)
+
+
+def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
+         ctx: Optional[torch.Tensor] = None, detailed: bool = True,
+         frame_mask: Optional[torch.Tensor] = None, impl=None):
+    """CD-k loss, teacher forced. x: ([K,] B, T, F); ctx: x's leading dims
+    and (T, C); frame_mask: (B, T), shared by the tracks. Returns (loss,
+    metrics), per track when stacked. Gradient reaches the RNN through the
+    conditioned biases of both free-energy terms, never through the chain.
+    Keys per decoder: ``k1, k2, k3 = split(key, 3)`` (chain,
+    reconstruction, pseudo-likelihood). ``detailed=False`` is the hot path
+    (loss only); ``impl`` forces the chain's kernel or its plain version."""
+    cfg = params.cfg
+    stacked = params.w.dim() == 3
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
+    m_tm = base.time_major_mask(frame_mask, stacked)
+    keys = (torch.stack([sampling.split(k, 3) for k in key]) if stacked
+            else sampling.split(key, 3))                 # ([K,] 3, 2)
+
+    def chain(kk, v0, p, bv, bh):
+        return gibbs_ops.gibbs_chain(kk[0], v0, p.w.detach(), bv.detach(),
+                                     bh.detach(), cfg.cd_k, impl=impl)
+
+    with torch.no_grad():
+        vk = base.per_track(chain, params, keys, x_tm, bv_t, bh_t, dim=1)
+    fe = rbm_nn.free_energy(x_tm, params.w, bv_t, bh_t)    # (T, [K,] B)
+    cd = base.frame_mean(fe - rbm_nn.free_energy(vk, params.w, bv_t, bh_t),
+                         m_tm)
+    if not detailed:
+        return cd, {"loss": cd.detach()}
+
+    m2 = base.time_major_mask(frame_mask, False)
+
+    def monitor(kk, v0, p, bv, bh):
+        recon = rbm_nn.reconstruction(kk[1], v0, p.w, bv, bh, k=cfg.cd_k)
+        out = frame_metrics(recon, v0, mask=m2)
+        out["bce_recon"] = binary_cross_entropy(recon, v0, mask=m2)
+        out["pll"] = base.frame_mean(
+            rbm_nn.pseudo_log_likelihood(kk[2], v0, p.w, bv, bh), m2)
+        return out
+
+    with torch.no_grad():
+        metrics = base.per_track(monitor, params, keys, x_tm, bv_t, bh_t)
+        metrics["free_energy"] = base.frame_mean(fe, m_tm)
+    metrics["loss"] = cd.detach()
+    return cd, metrics
+
+
+def log_likelihood_proxy(params: Params, key: torch.Tensor, x: torch.Tensor,
+                         ctx: Optional[torch.Tensor] = None,
+                         frame_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Per-sequence pseudo-LL (the RBM's LL is intractable), summed over
+    the real frames: ([K,] B)."""
+    stacked = params.w.dim() == 3
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
+    pll = base.per_track(
+        lambda kk, v0, p, bv, bh: rbm_nn.pseudo_log_likelihood(
+            kk, v0, p.w, bv, bh),
+        params, key, x_tm, bv_t, bh_t, dim=1)             # (T, [K,] B)
+    m_tm = base.time_major_mask(frame_mask, stacked)
+    if m_tm is not None:
+        pll = pll * m_tm
+    return pll.sum(dim=0)
 
 
 def prime(params: Params, state: State, x: torch.Tensor,

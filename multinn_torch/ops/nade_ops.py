@@ -1,10 +1,14 @@
-"""Dispatch for the NADE sampling sweep — port of the sampling half of
-multinn_tpu/ops/nade_ops.py (the likelihood dispatch waits for the training
-slice).
+"""Dispatch for the NADE hot ops — port of multinn_tpu/ops/nade_ops.py.
 
-The JAX dispatch picks the Pallas kernel on a TPU and a ``jax.random`` scan
-elsewhere. Here both implementations draw the kernel's own Threefry stream
-(ops/nade_cuda.py):
+Likelihood (``nade_conditionals_logits``, ``nade_log_prob``): the grid-free
+kernels' autograd Function (ops/nade_ll.py), on the kernels for CUDA
+tensors and on their plain versions for CPU tensors; ``chunk=`` / ``form=``
+force the parallel reference forms (nn/nade.py). The JAX package's
+``MULTINN_NADE_LL_IMPL`` switch (a TPU A/B knob) is not ported.
+
+Sampling (``nade_sample``): the JAX dispatch picks the Pallas kernel on a
+TPU and a ``jax.random`` scan elsewhere. Here both implementations draw the
+kernel's own Threefry stream (ops/nade_cuda.py):
 
   * ``cuda``  — the hand-written kernel (csrc/nade_sample.cu);
   * ``plain`` — its PyTorch version;
@@ -13,11 +17,33 @@ elsewhere. Here both implementations draw the kernel's own Threefry stream
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from multinn_torch.ops import _build, nade_cuda
+from multinn_torch.nn import nade as _nade
+from multinn_torch.ops import _build, nade_cuda, nade_ll
+
+
+def nade_conditionals_logits(x: torch.Tensor, w, v, bv, bh,
+                             form: Optional[str] = None,
+                             impl=None) -> torch.Tensor:
+    """All D teacher-forced conditional logits (..., D); x (..., D) with
+    w, v (D, H), or x (K, ..., D) with track-stacked (K, D, H)."""
+    if form is not None:
+        return _nade.conditionals_logits(x, w, v, bv, bh, form=form)
+    return nade_ll.nade_logits(x, w, v, bv, bh, impl=impl)
+
+
+def nade_log_prob(x: torch.Tensor, w, v, bv, bh,
+                  chunk: Optional[int] = None, form: Optional[str] = None,
+                  impl=None) -> torch.Tensor:
+    """Exact log p(x), x's leading dims. ``chunk`` / ``form`` force the
+    reference forms."""
+    if chunk is not None:
+        return _nade.log_prob_chunked(x, w, v, bv, bh, chunk=chunk)
+    logits = nade_conditionals_logits(x, w, v, bv, bh, form=form, impl=impl)
+    return _nade.bernoulli_ll(logits, x).sum(dim=-1)
 
 
 def nade_sample(key: torch.Tensor, w, v, bv, bh,

@@ -1,4 +1,5 @@
-"""Parameter conversion from the JAX package — ``from_jax``.
+"""Parameter conversion between the packages — ``from_jax`` and its
+inverse ``to_numpy``.
 
 Duck-typed on the JAX pytree (attributes, ``np.asarray`` on each leaf), so
 this module imports no jax. The layout is kept as is: the track-stacked
@@ -10,6 +11,7 @@ order i, f, g, o; RBM ``w`` (F, H) and NADE ``w``, ``v`` (F, H);
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -45,3 +47,20 @@ def from_jax(params, device=None) -> multinn.MultINNParams:
            for f in dataclasses.fields(mod.Params)
            if f.name not in ("cell", "cfg")})
     return multinn.MultINNParams(encoder=(), decoder=decoder, cfg=cfg)
+
+
+def to_numpy(params: multinn.MultINNParams) -> SimpleNamespace:
+    """The port's MultINNParams -> the JAX layout as numpy arrays: a
+    namespace tree with the JAX pytree's attributes (``cfg``, ``encoder``,
+    ``decoder.cell[l].wx``, ``decoder.w``, ...), so ``from_jax`` reads it
+    back and a test compares it leaf by leaf with JAX params."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy().copy()
+
+    d = params.decoder
+    cell = tuple(SimpleNamespace(wx=arr(c.wx), wh=arr(c.wh), b=arr(c.b))
+                 for c in d.cell)
+    decoder = SimpleNamespace(cell=cell, **{
+        f.name: arr(getattr(d, f.name)) for f in dataclasses.fields(d)
+        if f.name not in ("cell", "cfg")})
+    return SimpleNamespace(cfg=params.cfg, encoder=(), decoder=decoder)

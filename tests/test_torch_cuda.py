@@ -14,8 +14,8 @@ torch = pytest.importorskip("torch")
 
 from multinn_torch.models import multinn  # noqa: E402
 from multinn_torch.ops import (_build, gen_fused_nade,  # noqa: E402
-                               gen_fused_rbm, gibbs, kernel_prng, nade_ops,
-                               sampling)
+                               gen_fused_rbm, gibbs, kernel_prng, nade_ll,
+                               nade_ops, sampling)
 from multinn_torch.serving.service import (GenerationService,  # noqa: E402
                                            ServeConfig)
 from multinn_torch.utils import config  # noqa: E402
@@ -205,3 +205,101 @@ def test_nade_service_and_scan_branch_run_on_the_kernels(dev):
                                multinn.init_state(params, 2), 4, fused=False)
     assert roll.shape == (2, 4, 5, 84)
     assert _build.launches["nade_sample"] == 4 * 5
+
+
+def _ll_inputs(dev, k, n, d=84, h=150, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand(k, n, d, generator=g) < 0.1).float()
+    w = 0.1 * torch.randn(k, d, h, generator=g)
+    v = 0.1 * torch.randn(k, d, h, generator=g)
+    bv = -1.0 + 0.5 * torch.randn(k, n, d, generator=g)
+    bh = 0.5 * torch.randn(k, n, h, generator=g)
+    cot = torch.randn(k, n, d, generator=g)
+    return [t.to(dev) for t in (x, w, v, bv, bh, cot)]
+
+
+def _within(a, b):
+    """The stated backward tolerance: 1e-4 * max|ref| + 1e-5."""
+    return float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("k,n", [(1, 1037), (5, 1037), (5, 4096)])
+def test_nade_ll_kernels_match_plain(dev, k, n):
+    """Ragged N (1037 = 32 * 32 + 13) and the training shape."""
+    x, w, v, bv, bh, cot = _ll_inputs(dev, k, n)
+    _build.launches.clear()
+    lk, ak = nade_ll.nade_ll_fwd(x, w, v, bv, bh)
+    lp, ap = nade_ll.nade_ll_fwd_plain(x, w, v, bv, bh)
+    assert float((lk - lp).abs().max()) <= 1e-4
+    assert _within(ak, ap)
+    for want_dx in (True, False):
+        got = nade_ll.nade_ll_bwd(x, w, v, cot, ak, want_dx)
+        want = nade_ll.nade_ll_bwd_plain(x, w, v, cot, ap, want_dx)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if b is not None:
+                assert _within(a, b)
+    assert _build.launches["nade_ll_fwd"] == 1
+    assert _build.launches["nade_ll_bwd"] == 2
+
+
+def test_nade_ll_function_on_the_card_and_replay_is_bit_equal(dev):
+    """The autograd Function through the kernels equals its plain path, and
+    a replay gives the same gradients bit for bit (no float atomics)."""
+    x, w, v, bv, bh, cot = _ll_inputs(dev, 5, 777)
+
+    def grads(impl):
+        ts = [t.clone().requires_grad_(True) for t in (x, w, v, bv, bh)]
+        out = nade_ll.nade_logits(*ts, impl=impl)
+        return [out.detach()] + list(torch.autograd.grad(out, ts, cot))
+
+    first, again, plain = grads("cuda"), grads("cuda"), grads("plain")
+    for a, b, p in zip(first, again, plain):
+        assert torch.equal(a, b)
+        assert _within(a, p)
+
+
+@pytest.mark.parametrize("d,h", [(84, 600), (2000, 150)])
+def test_nade_ll_refused_launch_raises(dev, d, h):
+    """H=600 asks for 608 threads, over the kernels' 512-thread bound;
+    D=2000 asks for 500 KB of shared memory, over the card's 227 KB. CUDA
+    refuses either launch, and the op raises instead of returning what
+    the output buffers held."""
+    x, w, v, bv, bh, _ = _ll_inputs(dev, 1, 40, d=d, h=h)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        nade_ll.nade_ll_fwd(x, w, v, bv, bh)
+        torch.cuda.synchronize()
+
+
+def test_gibbs_kernel_at_the_training_shape(dev):
+    """The CD-1 chain: N = B*T = 1024 rows per track, k=1."""
+    g = torch.Generator().manual_seed(6)
+    n, d, h = 1024, 84, 150
+    v0 = (torch.rand(n, d, generator=g) < 0.06).float().to(dev)
+    w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+    bv = (-1.0 + 0.5 * torch.randn(n, d, generator=g)).to(dev)
+    bh = (0.5 * torch.randn(n, h, generator=g)).to(dev)
+    key = sampling.PRNGKey(3, device=dev)
+    out_k = gibbs.gibbs_chain(key, v0, w, bv, bh, 1)
+    out_p = gibbs.gibbs_chain(key, v0, w, bv, bh, 1, impl="plain")
+    assert float((out_k != out_p).any(dim=1).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+def test_training_loss_gradients_kernel_vs_plain(dev, model):
+    """multinn.loss at the flagship widths (B=4, T=16): the gradients
+    through the kernels equal the plain versions' (the RBM draws the same
+    chain stream; a flipped draw would show as a large difference)."""
+    params = _params(multinn.MultINNConfig(**model), dev)
+    leaves = multinn.tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    x = (torch.rand(4, 16, 5, 84, generator=torch.Generator()
+                    .manual_seed(7)) < 0.06).float().to(dev)
+    key = sampling.PRNGKey(9, device=dev)
+    out = {}
+    for impl in ("cuda", "plain"):
+        loss, _ = multinn.loss(params, key, x, detailed=False, impl=impl)
+        out[impl] = [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+    for a, b in zip(out["cuda"], out["plain"]):
+        assert _within(a, b)
