@@ -17,20 +17,25 @@ family).
      N=1040, D=84, H=150, k=25 — at most 1% of rows may differ (a row
      differs only after a last-ulp difference in a probability flips a
      draw) — and at the scan path's shape;
-  5. fused RBM generation at the flagship widths from one primed state:
+  5. fused RBM generation at the flagship widths from primed states:
      B=8, T=16 with at least 7 of 8 samples identical (final h within
      1e-4 on those), then T=1024 with per-track note density within 0.01;
+     B=256 (several samples per cluster), T=16 with at least 254 of 256
+     samples identical (final h within 1e-4); then the batch sweep B in
+     {1, 8, 64, 256} at T=1024 on the flagship with seeded random params:
+     ms per song, us per step, the bound (the work this run's rolls need,
+     at the card's peak rates) and the roofline share;
   6. the slice: GenerationService(batch=8, n_steps=1024, seed_steps=64) on
      the flagship config with seeded random params serves 16 plain and 8
      seeded requests, then the scan branch of ``multinn.generate`` runs 16
      steps. Launch counts are reset right before and read right after;
      every kernel must have launched. Prints latency p50, songs/s and the
-     B=1 64-bar generation time of the kernel and of its plain version;
+     B=8 64-bar generation time of the kernel (the sweep's) and of its
+     plain version;
   7. NADE sampler: kernel vs plain version at D=84, H=150 for one track's
      8 rows (the scan branch's shape) — at most 1 of 8 rows may differ;
-  8. fused NADE generation at the flagship widths from one primed state:
-     B=8, T=16 with at least 7 of 8 samples identical (final h within 1e-4
-     on those), then T=1024 with per-track density within 0.01;
+  8. fused NADE generation as phase 5 (B=8 and B=256 at T=16, density at
+     T=1024) and the batch sweep, on the NADE flagship;
   9. the NADE slice: as phase 6 on the NADE flagship config (the fused
      NADE kernel serves, a 16-step ``fused=False`` generation runs the
      sampler kernel), with its own launch counts, reset right before and
@@ -53,9 +58,16 @@ family).
      time, frames/s and the device-busy share.
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window), error and times, the ``nvidia-smi`` name/power-limit
-line, and the result line ``{"ok": true, "device": {...}}``. The check
-needs a CUDA device: without one it exits 1 and prints no result.
+its path's window), error, times (the fused kernels at B=8, the service's
+batch) and bound (``bound_ms``: the larger of the bytes it must move at
+3.35 TB/s and the operations this run's inputs need at 67 TFLOP/s, the
+H100 SXM's f32 rate outside the tensor cores; work that depends on draws
+the kernel does not show, the RBM's visible passes, is left out, so the
+bound stays a lower bound; ``library_ms`` is null: no single PyTorch call
+computes any of these functions), the ``nvidia-smi`` name/power-limit
+line, and the result line
+``{"ok": true, "device": {...}}``. The check needs a CUDA device: without
+one it exits 1 and prints no result.
 """
 
 import dataclasses
@@ -69,6 +81,55 @@ FLAGSHIP = dict(n_tracks=5, n_pitches=84, mode="feedback",
                 decoder_type="rnn-rbm", n_hidden=150, n_rnn=100, cd_k=1,
                 gen_k=10)
 NADE_FLAGSHIP = dict(FLAGSHIP, decoder_type="rnn-nade")
+SWEEP_BATCHES = (1, 8, 64, 256)
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+PEAK_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float):
+    """The least time the card could take for this work (ms), and what
+    bounds it: the bytes at the memory rate or the operations at the f32
+    rate (the integer work of Threefry is counted at the same rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_work(params, roll, v0, gen_k: int):
+    """(bytes, operations) of one whole generation: every decoder weight
+    read once (bf16 where the NADE kernel keeps it), the state in and out,
+    the roll written once; the dense products (biases, recurrence, the
+    NADE's per-dim sums) plus the products over the frames' nonzero
+    entries that this run's roll holds (the RBM's hidden pass, with each
+    sweep's chain taken at the frame's density; the own-frame projection;
+    the feedback context over the previous frame; the NADE's W updates).
+    The RBM's visible pass needs products only over the chain's nonzero
+    hidden samples, which the kernel's run does not show, so it is left
+    out: a lower bound. A multiply-add counts 2."""
+    from multinn_torch.models import multinn
+    cfg = params.cfg
+    k, d, h, u, n_layers = (cfg.n_tracks, cfg.n_pitches, cfg.n_hidden,
+                            cfg.n_rnn, cfg.rnn_layers)
+    g = 4 * u if cfg.cell == "lstm" else u
+    b, t = roll.shape[:2]
+    steps = b * t * k
+    nnz = float(roll.sum())
+    nnz_prev = float(v0.sum() + roll[:, :-1].sum())
+    ctx = k * g * nnz_prev if cfg.ctx_dim() else 0.0
+    dense = steps * ((d + h) * u + g * u * (2 * n_layers - 1))
+    dec = params.decoder
+    numel = sum(x.numel() for x in multinn.tree_leaves(dec))
+    if cfg.decoder_type == "rnn-rbm":
+        ops = 2 * (dense + gen_k * h * nnz + g * nnz + ctx)
+        wbytes = 4 * numel
+    else:
+        ops = 2 * (dense + steps * d * h + ctx) + h * nnz + g * nnz
+        half = (dec.w.numel() + dec.v.numel() + dec.wuv.numel()
+                + dec.cell[0].wx.numel())
+        wbytes = 2 * half + 4 * (numel - half)
+    nbytes = wbytes + 4 * (roll.numel() + 4 * b * n_layers * k * u
+                           + b * k * d)
+    return nbytes, ops
 
 
 def fail(msg: str) -> None:
@@ -121,6 +182,33 @@ def main() -> None:
     g = torch.Generator().manual_seed(0)
     results = {}
 
+    def sweep(params, gen_k):
+        """The family's fused kernel over SWEEP_BATCHES at T=1024 from a
+        fresh state: one row per batch with ms per song (CUDA events), us
+        per step, the bound and the roofline share."""
+        key = sampling.PRNGKey(5, device=dev)
+        rows = []
+        for b in SWEEP_BATCHES:
+            state = multinn.init_state(params, b)
+            run = lambda: multinn._generate_fused(params, key, state, 1024,
+                                                  impl="cuda")[1]
+            roll = run()
+            ms = cuda_ms(run, 3, warm=False)
+            bms, by = bound(*fused_work(params, roll, state.decoder.v_prev,
+                                        gen_k))
+            rows.append(dict(batch=b, ms=ms, us_per_step=ms * 1e3 / 1024,
+                             bound_ms=bms, bound_by=by, share=bms / ms,
+                             density=float(roll.mean())))
+            del roll
+        return rows
+
+    def sweep_line(rows):
+        return "; ".join(
+            f"B={r['batch']} {r['ms']:.3f} ms/song {r['us_per_step']:.2f} "
+            f"us/step, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"share {r['share']:.4%}, density {r['density']:.4f}"
+            for r in rows)
+
     # 1. environment ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -170,8 +258,13 @@ def main() -> None:
     big_ms = cuda_ms(lambda: kernel_prng.threefry2x32(key, big, big), 50)
     big_plain_ms = cuda_ms(
         lambda: kernel_prng.threefry2x32(key, big, big, impl="plain"), 5)
+    # one counter: key, two counter words and two output words; about 80
+    # 32-bit integer operations (20 rounds of add/rotate/xor, 5 key
+    # injections)
     results["threefry2x32"] = dict(max_abs_err=tf_err, ms=ms,
-                                   plain_ms=plain_ms)
+                                   plain_ms=plain_ms, **dict(zip(
+                                       ("bound_ms", "bound_by"),
+                                       bound(24, 80))))
     say(f"phase 3 threefry: bit-equal on (4096, 750) x 3 keys and at the "
         f"fold_in shape; fold_in-shaped call {ms:.4f} ms (plain "
         f"{plain_ms:.4f} ms); 3.07M counters {big_ms:.4f} ms (plain "
@@ -205,52 +298,83 @@ def main() -> None:
     ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain(key, *small, 10), 100)
     plain_ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain_plain(key, *small, 10),
                        10)
+    # per sweep: the hidden pass over the nonzero visible entries (each
+    # sweep's chain taken at the output's density); the visible pass,
+    # whose products run over hidden samples the kernel does not show, is
+    # left out (a lower bound)
     results["gibbs_chain"] = dict(max_abs_err=small_err, ms=ms,
-                                  plain_ms=plain_ms)
+                                  plain_ms=plain_ms, **dict(zip(
+                                      ("bound_ms", "bound_by"), bound(
+                                          4 * (3 * 8 * 84 + 84 * 150
+                                               + 8 * 150),
+                                          2 * 10 * 150 * float(sk.sum())))))
     say(f"phase 4 gibbs: N=1040 k=25 rows differing {differ:.4f} (limit "
         f"0.01), kernel {n1040_ms:.3f} ms, plain {n1040_plain:.3f} ms; "
         f"scan-path shape (8 rows, k=10) rows differing {small_differ}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
 
     # 5. fused RBM generation at flagship widths ---------------------------------
+    def primed(params, batch):
+        """h0, c0 and v_prev of a state primed on a seeded random roll."""
+        seed = (torch.rand(batch, 16, 5, 84, generator=g) < 0.1).float()
+        st = multinn.prime(params, multinn.init_state(params, batch),
+                           seed.to(dev))
+        return (torch.stack([c.h for c in st.decoder.cell]),
+                torch.stack([c.c for c in st.decoder.cell]),
+                st.decoder.v_prev)
+
+    def match16(gen, rows, need, name):
+        """Kernel vs plain version at T=16 from the primed rows: at least
+        ``need`` samples identical, the final h within 1e-4 on those.
+        Returns the count and that error."""
+        rk, hk, _ = gen(*rows, 16, "cuda")
+        rp, hp, _ = gen(*rows, 16, "plain")
+        same = (rk == rp).flatten(1).all(dim=1)
+        n_same = int(same.sum())
+        if n_same < need:
+            fail(f"{name}: only {n_same} of {len(same)} samples match plain "
+                 f"at T=16 (need {need})")
+        err = float((hk - hp).abs()[:, :, same].max())
+        if not err <= 1e-4:
+            fail(f"{name}: final h differs by {err} on matching samples")
+        return n_same, err
+
+    def density_gap(gen, rows, name):
+        """Per-track note density of kernel and plain version at T=1024
+        from the primed rows, within 0.01 of each other."""
+        dens = [gen(*rows, 1024, impl)[0].mean(dim=(0, 1, 3))
+                for impl in ("cuda", "plain")]
+        gap = float((dens[0] - dens[1]).abs().max())
+        if not gap <= 0.01:
+            fail(f"{name}: per-track density gap {gap} at T=1024 (limit "
+                 f"0.01)")
+        return [[round(float(x), 4) for x in d] for d in dens], gap
+
     mcfg = multinn.MultINNConfig(**dict(FLAGSHIP, w_std=0.1))
-    p5 = multinn.init(mcfg, g)
+    p5 = multinn.init(mcfg, g, device=dev)
     p5 = dataclasses.replace(p5, decoder=dataclasses.replace(
-        p5.decoder, bv=p5.decoder.bv + torch.linspace(-3.0, 1.0, 84)))
-    p5 = multinn.tree_map(lambda x: x.to(dev), p5)
-    seed5 = (torch.rand(8, 16, 5, 84, generator=g) < 0.1).float().to(dev)
-    st5 = multinn.prime(p5, multinn.init_state(p5, 8), seed5)
-    h0 = torch.stack([c.h for c in st5.decoder.cell])
-    c0 = torch.stack([c.c for c in st5.decoder.cell])
+        p5.decoder, bv=p5.decoder.bv + torch.linspace(-3.0, 1.0, 84,
+                                                      device=dev)))
+    rows5 = primed(p5, 8)
     key = sampling.PRNGKey(5, device=dev)
 
-    def fused(n_steps, impl):
-        return gen_fused_rbm.generate_rbm(key, p5.decoder, h0, c0,
-                                          st5.decoder.v_prev, n_steps, 10,
-                                          impl=impl)
+    def fused(h0, c0, v0, n_steps, impl):
+        return gen_fused_rbm.generate_rbm(key, p5.decoder, h0, c0, v0,
+                                          n_steps, 10, impl=impl)
 
-    rk, hk, _ = fused(16, "cuda")
-    rp, hp, _ = fused(16, "plain")
-    torch.cuda.synchronize()
-    same = (rk == rp).flatten(1).all(dim=1)
-    if int(same.sum()) < 7:
-        fail(f"fused: only {int(same.sum())} of 8 samples match plain at "
-             f"T=16 (need 7)")
-    h_err = float((hk - hp).abs()[:, :, same].max())
-    if not h_err <= 1e-4:
-        fail(f"fused: final h differs by {h_err} on matching samples")
-    rk, _, _ = fused(1024, "cuda")
-    rp, _, _ = fused(1024, "plain")
-    dens_k = rk.mean(dim=(0, 1, 3))
-    dens_p = rp.mean(dim=(0, 1, 3))
-    dens_gap = float((dens_k - dens_p).abs().max())
-    if not dens_gap <= 0.01:
-        fail(f"fused: per-track density gap {dens_gap} at T=1024 "
-             f"(limit 0.01)")
-    say(f"phase 5 fused: T=16 {int(same.sum())}/8 samples identical, final h "
-        f"max err {h_err:.2e}; T=1024 per-track density kernel "
-        f"{[round(float(x), 4) for x in dens_k]} plain "
-        f"{[round(float(x), 4) for x in dens_p]} (max gap {dens_gap:.4f})")
+    same8, h_err = match16(fused, rows5, 7, "fused")
+    (dens_k, dens_p), dens_gap = density_gap(fused, rows5, "fused")
+    # B=256: several samples per cluster, as the sweep times it
+    same256, h_err256 = match16(fused, primed(p5, 256), 254, "fused B=256")
+    say(f"phase 5 fused: T=16 B=8 {same8}/8 samples identical, final h max "
+        f"err {h_err:.2e}; T=16 B=256 {same256}/256 identical (need 254), "
+        f"final h max err {h_err256:.2e}; T=1024 per-track density kernel "
+        f"{dens_k} plain {dens_p} (max gap {dens_gap:.4f})")
+    params = multinn.init(multinn.MultINNConfig(**FLAGSHIP),
+                          torch.Generator().manual_seed(0), device=dev)
+    rbm_sweep = sweep(params, FLAGSHIP["gen_k"])
+    say(f"phase 5 sweep, T=1024, flagship with seeded random params, "
+        f"{smi}: {sweep_line(rbm_sweep)}")
 
     # 6. the slice ------------------------------------------------------------------
     cfg = ExperimentConfig(
@@ -258,8 +382,6 @@ def main() -> None:
         data=DataConfig(dataset="lpd5", pitch_min=24, pitch_max=107,
                         n_tracks=5),
         generate=GenerateConfig(n_steps=1024, seed_steps=64))
-    params = multinn.init(cfg.model, torch.Generator().manual_seed(0))
-    params = multinn.tree_map(lambda x: x.to(dev), params)
     rng = np.random.default_rng(0)
     seeds = (rng.random((8, 64, 5, 84)) < 0.1).astype(np.uint8)
 
@@ -305,23 +427,21 @@ def main() -> None:
     if not all(np.array_equal(first[i], batch0[i]) for i in first):
         fail("service batch 0 differs from a direct generation with its key")
 
-    st1 = multinn.init_state(params, 1)
-    gen = lambda impl, st=st1: multinn._generate_fused(
-        params, key, st, 1024, impl=impl)
-    b1_ms = cuda_ms(lambda: gen("cuda"), 3)
-    b1_plain_ms = cuda_ms(lambda: gen("plain"), 1, warm=False)
-    st8 = multinn.init_state(params, 8)
-    b8_ms = cuda_ms(lambda: gen("cuda", st8), 3)
-    b8_plain_ms = cuda_ms(lambda: gen("plain", st8), 1, warm=False)
-    results["gen_fused_rbm"] = dict(max_abs_err=h_err, ms=b8_ms,
-                                    plain_ms=b8_plain_ms)
+    # the kernels line: the service's batch, B=8, from the sweep, and the
+    # plain version at the sweep's inputs
+    b8 = next(r for r in rbm_sweep if r["batch"] == 8)
+    b8_plain_ms = cuda_ms(lambda: multinn._generate_fused(
+        params, sampling.PRNGKey(5, device=dev), multinn.init_state(params, 8),
+        1024, impl="plain"), 1, warm=False)
+    results["gen_fused_rbm"] = dict(
+        max_abs_err=max(h_err, h_err256), ms=b8["ms"], plain_ms=b8_plain_ms,
+        bound_ms=b8["bound_ms"], bound_by=b8["bound_by"])
     lat = stats["latency_ms"]
     say(f"phase 6 slice: 24 requests (16 plain, 8 seeded) in 3 batches of 8 "
         f"in {serve_s:.2f} s incl. warm-up; latency p50 {lat['p50']:.1f} ms "
         f"p95 {lat['p95']:.1f} ms; {stats.get('songs_per_s', 0.0):.2f} "
         f"songs/s; note density {density:.4f}; scan branch 16 steps ok; "
-        f"64-bar B=1 kernel {b1_ms:.1f} ms, plain {b1_plain_ms:.1f} ms; "
-        f"B=8 kernel {b8_ms:.1f} ms, plain {b8_plain_ms:.1f} ms; "
+        f"64-bar B=8 kernel {b8['ms']:.3f} ms, plain {b8_plain_ms:.1f} ms; "
         f"launches {launches}")
 
     rbm_launches = launches
@@ -347,51 +467,44 @@ def main() -> None:
     ms = cuda_ms(lambda: nade_cuda.nade_sample(key, *nargs, (8,)), 100)
     plain_ms = cuda_ms(lambda: nade_cuda.nade_sample_plain(key, *nargs, (8,)),
                        10)
+    # dense V . sigmoid(a) per dim, W updates for the sampled ones
     results["nade_sample"] = dict(max_abs_err=nade_err, ms=ms,
-                                  plain_ms=plain_ms)
+                                  plain_ms=plain_ms, **dict(zip(
+                                      ("bound_ms", "bound_by"), bound(
+                                          4 * (2 * 84 * 150 + 8 * 84 * 2
+                                               + 8 * 150),
+                                          2 * 8 * 84 * 150
+                                          + 150 * float(nk.sum())))))
     say(f"phase 7 nade sampler: D=84 H=150, 8 rows, rows differing "
         f"{nade_differ} (limit 1), density {float(nk.mean()):.4f}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms")
 
     # 8. fused NADE generation at flagship widths --------------------------------
     ncfg = multinn.MultINNConfig(**dict(NADE_FLAGSHIP, w_std=0.1))
-    p8 = multinn.init(ncfg, g)
+    p8 = multinn.init(ncfg, g, device=dev)
     p8 = dataclasses.replace(p8, decoder=dataclasses.replace(
-        p8.decoder, bv=p8.decoder.bv + torch.linspace(-3.0, 1.0, 84)))
-    p8 = multinn.tree_map(lambda x: x.to(dev), p8)
-    seed8 = (torch.rand(8, 16, 5, 84, generator=g) < 0.1).float().to(dev)
-    st8 = multinn.prime(p8, multinn.init_state(p8, 8), seed8)
-    h0 = torch.stack([c.h for c in st8.decoder.cell])
-    c0 = torch.stack([c.c for c in st8.decoder.cell])
+        p8.decoder, bv=p8.decoder.bv + torch.linspace(-3.0, 1.0, 84,
+                                                      device=dev)))
+    rows8 = primed(p8, 8)
     key = sampling.PRNGKey(8, device=dev)
 
-    def nfused(n_steps, impl):
-        return gen_fused_nade.generate_nade(key, p8.decoder, h0, c0,
-                                            st8.decoder.v_prev, n_steps,
-                                            impl=impl)
+    def nfused(h0, c0, v0, n_steps, impl):
+        return gen_fused_nade.generate_nade(key, p8.decoder, h0, c0, v0,
+                                            n_steps, impl=impl)
 
-    rk, hk, _ = nfused(16, "cuda")
-    rp, hp, _ = nfused(16, "plain")
-    torch.cuda.synchronize()
-    same = (rk == rp).flatten(1).all(dim=1)
-    if int(same.sum()) < 7:
-        fail(f"fused nade: only {int(same.sum())} of 8 samples match plain "
-             f"at T=16 (need 7)")
-    nh_err = float((hk - hp).abs()[:, :, same].max())
-    if not nh_err <= 1e-4:
-        fail(f"fused nade: final h differs by {nh_err} on matching samples")
-    rk, _, _ = nfused(1024, "cuda")
-    rp, _, _ = nfused(1024, "plain")
-    dens_k = rk.mean(dim=(0, 1, 3))
-    dens_p = rp.mean(dim=(0, 1, 3))
-    dens_gap = float((dens_k - dens_p).abs().max())
-    if not dens_gap <= 0.01:
-        fail(f"fused nade: per-track density gap {dens_gap} at T=1024 "
-             f"(limit 0.01)")
-    say(f"phase 8 fused nade: T=16 {int(same.sum())}/8 samples identical, "
-        f"final h max err {nh_err:.2e}; T=1024 per-track density kernel "
-        f"{[round(float(x), 4) for x in dens_k]} plain "
-        f"{[round(float(x), 4) for x in dens_p]} (max gap {dens_gap:.4f})")
+    nsame8, nh_err = match16(nfused, rows8, 7, "fused nade")
+    (dens_k, dens_p), dens_gap = density_gap(nfused, rows8, "fused nade")
+    nsame256, nh_err256 = match16(nfused, primed(p8, 256), 254,
+                                  "fused nade B=256")
+    say(f"phase 8 fused nade: T=16 B=8 {nsame8}/8 samples identical, final "
+        f"h max err {nh_err:.2e}; T=16 B=256 {nsame256}/256 identical (need "
+        f"254), final h max err {nh_err256:.2e}; T=1024 per-track density "
+        f"kernel {dens_k} plain {dens_p} (max gap {dens_gap:.4f})")
+    nparams = multinn.init(multinn.MultINNConfig(**NADE_FLAGSHIP),
+                           torch.Generator().manual_seed(0), device=dev)
+    nade_sweep = sweep(nparams, 0)
+    say(f"phase 8 sweep, T=1024, NADE flagship with seeded random params, "
+        f"{smi}: {sweep_line(nade_sweep)}")
 
     # 9. the NADE slice -------------------------------------------------------------
     ncfg9 = ExperimentConfig(
@@ -399,8 +512,6 @@ def main() -> None:
         data=DataConfig(dataset="lpd5", pitch_min=24, pitch_max=107,
                         n_tracks=5),
         generate=GenerateConfig(n_steps=1024, seed_steps=64))
-    nparams = multinn.init(ncfg9.model, torch.Generator().manual_seed(0))
-    nparams = multinn.tree_map(lambda x: x.to(dev), nparams)
     nseeds = (np.random.default_rng(1).random((8, 64, 5, 84)) < 0.1
               ).astype(np.uint8)
 
@@ -445,24 +556,21 @@ def main() -> None:
         fail("NADE service batch 0 differs from a direct generation with its "
              "key")
 
-    nst1 = multinn.init_state(nparams, 1)
-    ngen = lambda impl, st=nst1: multinn._generate_fused(
-        nparams, key, st, 1024, impl=impl)
-    nb1_ms = cuda_ms(lambda: ngen("cuda"), 3)
-    nb1_plain_ms = cuda_ms(lambda: ngen("plain"), 1, warm=False)
-    nst8 = multinn.init_state(nparams, 8)
-    nb8_ms = cuda_ms(lambda: ngen("cuda", nst8), 3)
-    nb8_plain_ms = cuda_ms(lambda: ngen("plain", nst8), 1, warm=False)
-    results["gen_fused_nade"] = dict(max_abs_err=nh_err, ms=nb8_ms,
-                                     plain_ms=nb8_plain_ms)
+    nb8 = next(r for r in nade_sweep if r["batch"] == 8)
+    nb8_plain_ms = cuda_ms(lambda: multinn._generate_fused(
+        nparams, sampling.PRNGKey(5, device=dev),
+        multinn.init_state(nparams, 8), 1024, impl="plain"), 1, warm=False)
+    results["gen_fused_nade"] = dict(
+        max_abs_err=max(nh_err, nh_err256), ms=nb8["ms"],
+        plain_ms=nb8_plain_ms, bound_ms=nb8["bound_ms"],
+        bound_by=nb8["bound_by"])
     lat = stats["latency_ms"]
     say(f"phase 9 nade slice: 24 requests (16 plain, 8 seeded) in 3 batches "
         f"of 8 in {serve_s:.2f} s incl. warm-up; latency p50 "
         f"{lat['p50']:.1f} ms p95 {lat['p95']:.1f} ms; "
         f"{stats.get('songs_per_s', 0.0):.2f} songs/s; note density "
-        f"{ndensity:.4f}; scan branch 16 steps ok; 64-bar B=1 kernel "
-        f"{nb1_ms:.1f} ms, plain {nb1_plain_ms:.1f} ms; B=8 kernel "
-        f"{nb8_ms:.1f} ms, plain {nb8_plain_ms:.1f} ms; launches "
+        f"{ndensity:.4f}; scan branch 16 steps ok; 64-bar B=8 kernel "
+        f"{nb8['ms']:.3f} ms, plain {nb8_plain_ms:.1f} ms; launches "
         f"{nade_launches}")
 
     # 10. NADE likelihood kernels ------------------------------------------
@@ -518,10 +626,21 @@ def main() -> None:
 
     step_kernel = cuda_ms(lambda: ll_step(nade_ll.nade_logits), 10)
     step_cumsum = cuda_ms(lambda: ll_step(nade_nn.conditionals_logits), 3)
-    results["nade_ll_fwd"] = dict(max_abs_err=fwd_err, ms=fwd_ms,
-                                  plain_ms=fwd_plain)
-    results["nade_ll_bwd"] = dict(max_abs_err=bwd_err, ms=bwd_ms,
-                                  plain_ms=bwd_plain)
+    # forward: dense V . sigmoid(a) per row and dim, W updates where
+    # x = 1; backward (no dx): dense dV and the logit gradient's V
+    # products, the a downdate and dW where x = 1
+    kk, nn, dd, hh = 5, 4096, 84, 150
+    nnz_x = float(xl.sum())
+    results["nade_ll_fwd"] = dict(
+        max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain, **dict(zip(
+            ("bound_ms", "bound_by"), bound(
+                4 * (3 * kk * nn * dd + 2 * kk * nn * hh + 2 * kk * dd * hh),
+                2 * kk * nn * dd * hh + hh * nnz_x))))
+    results["nade_ll_bwd"] = dict(
+        max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain, **dict(zip(
+            ("bound_ms", "bound_by"), bound(
+                4 * (2 * kk * nn * dd + 2 * kk * nn * hh + 4 * kk * dd * hh),
+                4 * kk * nn * dd * hh + 2 * hh * nnz_x))))
     say(f"phase 10 nade likelihood: K=5 N=4096 D=84 H=150; logits max err "
         f"{fwd_err:.2e} (limit 1e-4); backward error / tolerance "
         f"{ {n: round(r, 4) for n, r in ratios.items()} }; forward kernel "
@@ -595,8 +714,8 @@ def main() -> None:
             model=multinn.MultINNConfig(**model),
             train=TrainConfig(log_every_steps=20))
         src = RollSource(20, 2 * batch + batch // 2, batch, seed, fixed)
-        p0 = multinn.tree_map(lambda t: t.to(dev), multinn.init(
-            tcfg.model, torch.Generator().manual_seed(seed)))
+        p0 = multinn.init(tcfg.model, torch.Generator().manual_seed(seed),
+                          device=dev)
         return Trainer(tcfg, src, params=p0), src, p0
 
     def moved(trainer, p0):
@@ -721,7 +840,7 @@ def main() -> None:
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,
-             launches=counts[n], **results[n])
+             launches=counts[n], **results[n], library_ms=None)
         for n, (src, rep, counts) in sources.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

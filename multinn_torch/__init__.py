@@ -2,11 +2,16 @@
 
 The JAX package (``multinn_tpu``) stays beside this one as the reference;
 every module here mirrors the JAX module of the same name so a reader can
-find each counterpart. Framework-free pieces (the data layer:
-``multinn_tpu.data``) are imported, not copied — ``multinn_tpu`` imports
-lazily and its data layer has no jax import.
+find each counterpart. This package imports neither JAX nor anything of
+``multinn_tpu``, not even its framework-free modules: what it needs of
+them (the pianoroll encodings, ``data/pianoroll.py``) is its own copy.
+Only the tests import both packages, to compare them.
 
 Conventions:
+  * the entry points (``multinn.init``, ``utils.convert.from_jax``,
+    ``training.trainer.Trainer``) put the model on the CUDA device unless
+    given ``device="cpu"``, and raise when there is no CUDA device and no
+    explicit device; everything below them runs where its inputs lie;
   * parameters and states are dataclasses of tensors; every function takes
     them explicitly (no hidden module state, no global RNG);
   * randomness is a Threefry key — two uint32 words as a tensor — passed in

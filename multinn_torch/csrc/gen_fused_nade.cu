@@ -2,49 +2,53 @@
 // track k < K and every sample b < B —
 //   1. conditioned biases from the top layer's previous h:
 //        bv'(t) = bv + h_top Wuv,  a = bh'(t) = bh + h_top Wuh;
-//   2. the ancestral sweep over the D dims, all K tracks at once:
-//        s = V_i . sigmoid(a),  x_i = (u < sigmoid(s + bv'_i)),
-//        a += x_i W_i,  z += x_i Wx_i  (the layer-0 input projection of the
-//        fresh frame, accumulated during the sweep);
-//   3. the given-track merge (accompaniment: given tracks take `given`, and
-//      their z is recomputed from the given frame with f32 rows);
-//   4. the stacked LSTM / vanilla advance, whose layer-0 input adds, in
-//      feedback mode, the PREVIOUS frame of all tracks through Wctx;
+//   2. the ancestral sweep over the D dims of each track:
+//        s = V_i . sigmoid(a),  x_i = (u < sigmoid(s + bv'_i)),  a += x_i W_i;
+//   3. the given-track merge (accompaniment: given tracks take `given`);
+//   4. the stacked LSTM / vanilla advance, whose layer-0 input is the fresh
+//      frame through Wx (for given tracks the f32 rows) plus, in feedback
+//      mode, the PREVIOUS frame of all tracks through Wctx;
 //   5. the frame written to the roll.
 //
 // Replaces multinn_tpu/ops/gen_fused_nade.py::_nade_kernel (wrapper
-// _generate_nade). The TPU kernel runs the T steps as a sequential grid with
-// every weight in VMEM, in dim-major block rows padded to 8 tracks and 128
-// lanes for Mosaic. Here, as in gen_fused_rbm.cu, ONE CTA PER SAMPLE runs
-// all T steps and all K tracks with compact per-track weights read through
-// L2; the sample's state rows live in shared memory (~25 KB at the flagship
-// K=5, D=84, H=150, U=100).
+// _generate_nade), whose T steps run as a sequential grid with every
+// weight in VMEM, in dim-major rows padded to 8 tracks and 128 lanes.
 //
-// Sweep layout: the hidden lanes of each track are cut into 32-lane chunks;
-// warp w owns chunks w, w + 16, ... for the whole launch, so each thread
-// updates only its own lanes of a and sigmoid(a), and each dim needs ONE
-// barrier (between the chunk partials and the per-track sums, which every
-// thread adds in chunk order). The z lanes are owned the same way. A dim's
-// V, W and Wx words are loaded one dim ahead, so their L2 latency overlaps
-// the previous dim's barrier; what remains serial per dim is a shuffle
-// tree, a barrier, K sigmoids and the lane updates.
+// Bound on an H100 (the flagship K=5, D=84, H=150, U=100, G=400, one
+// 64-bar song, B=1, T=1024): 2.97 GFLOP of dense f32 work, 44 us at
+// 67 TFLOP/s; about 5.2 MB of bytes, 1.5 us. The work is a chain of D
+// dependent dims per step: a dim needs the sigmoid of the previous dim's
+// update. One CTA per sample with all tracks sharing a block barrier per
+// dim and the weights read from L2, as this kernel first did, took 2.5 us
+// per dim and 0.46 ms per step.
+//
+// Design (gen_cluster.cuh): a cluster of K CTAs (K <= 8) per group of S
+// samples, one track per CTA, its V, W (bf16), Wuh (f32) and Wuv (bf16)
+// in shared memory. ONE WARP runs one sample's sweep of one track, with
+// the track's H lanes of a and sigmoid(a) in registers (ceil(H/32) per
+// lane): a dim costs shared-memory reads of V_i (the next dim's issued one
+// dim ahead), a fixed xor-butterfly sum that leaves the same logit in every
+// lane, one sigmoid and a compare, and when x_i = 1 the W_i update of the
+// warp's own lanes. No block barrier inside the sweep. The own-frame
+// projection z = sum_i x_i Wx_i leaves the serial loop: the cell stack
+// gathers it over the sampled frame's active dims, in increasing i, which
+// is the same sequence of exact f32 adds from 0 as the per-dim update. The
+// cell stack and the frame exchange are the RBM kernel's. Measured on an
+// H100 80GB HBM3 at 700 W (PERF.md): 75.7 ms per 64-bar song at B=1, 270
+// ms at B=256, against 467 and 950 ms for the one-CTA-per-sample design.
 //
 // Numerics kept from the TPU kernel: w, v, wuv, the layer-0 own-frame Wx
-// and wctx are bf16 (upcast exactly at use); a and z grow one dim at a time
-// in f32 by exact adds (x is 0 or 1); the gate sum is
-// ((z_acc + ctx) + h Wh) + b with ctx summed over source tracks in order.
+// and wctx are bf16 (widened exactly at use); the gate sum is
+// ((z + ctx) + h Wh) + b with ctx summed over source tracks in order; a
+// given track's z is recomputed from the given frame with f32 rows.
 //
 // Random stream: the TPU kernel draws a (D*8, B) uniform matrix per step at
 // salt seed[1] + t, so the draw of (dim i, track k, sample b) has counter
 // (i*8 + k)*B + b. This kernel draws the same counters into shared memory
 // before each step's sweep (K <= 8).
-//
-// Cost: per step, D serial dims of about one L2 round trip each (the
-// shuffle, the barrier and the sigmoids), then the cell stack, whose
-// dot products read Wh, Wx and Wctx one thread per output like
-// gen_fused_rbm.cu (skipping the zero entries of the binary frames).
 #include <cuda_runtime.h>
 
+#include "gen_cluster.cuh"
 #include "launchers.h"
 #include "reduce.cuh"
 #include "threefry.cuh"
@@ -52,270 +56,179 @@
 namespace multinn_torch {
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-// register-held weights per thread and dim (ops/gen_fused_nade.py's gate
-// refuses configs beyond them): chunk rounds cover K * ceil(H/32) <= 64
-// chunks, z rounds K * G <= 4096 lanes
-constexpr int kChunkRounds = 4;
-constexpr int kZRounds = 8;
+using gen_cluster::chunks_of;
+using gen_cluster::Cta;
+using gen_cluster::kThreads;
+using gen_cluster::kWarps;
+using gen_cluster::Plan;
+
 constexpr int kStreamRows = 8;  // tracks per dim in the random stream
+constexpr int kMaxLaneRounds = 8;  // hidden lanes per warp lane: H <= 256
+constexpr int kMaxDims = 1024;     // a lane keeps 32 dims' bits: D <= 1024
 
-// Dim i's weights for this thread's chunks (V and W) and z lanes (Wx).
-struct DimWeights {
-  float v[kChunkRounds];
-  float w[kChunkRounds];
-  float x[kZRounds];
-};
+// per-step weight matrices in shared-memory priority order
+enum { kV = 0, kW = 1, kWuh = 2, kWuv = 3, kMatrices = 4 };
 
-__device__ __forceinline__ void load_dim(const NadeArgs& a, int i, int tid,
-                                         int nchunks, int wpt,
-                                         DimWeights& dw) {
-  const int lane = tid & 31, warp = tid >> 5;
-  const int H = a.hid, D = a.d, G = a.g, KG = a.k * a.g;
-#pragma unroll
-  for (int r = 0; r < kChunkRounds; ++r) {
-    const int c = warp + r * kWarps;
-    const int k = c / wpt, j = (c - k * wpt) * 32 + lane;
-    const bool ok = c < nchunks && j < H;
-    const size_t idx = (static_cast<size_t>(k) * D + i) * H + j;
-    dw.v[r] = ok ? bf16_to_f32(a.v[idx]) : 0.f;
-    dw.w[r] = ok ? bf16_to_f32(a.w[idx]) : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < kZRounds; ++r) {
-    const int o = tid + r * kThreads;
-    const int k = o / G, g = o - k * G;
-    dw.x[r] = o < KG ? bf16_to_f32(
-                           a.wx_v[(static_cast<size_t>(k) * D + i) * G + g])
-                     : 0.f;
-  }
+// scratch of a group during the sweep: bv'(t) (D), the uniforms (D),
+// bh'(t) (H); during the cell stack: the gates (G)
+inline int nade_scratch(const NadeArgs& a) {
+  return a.g > 2 * a.d + a.hid ? a.g : 2 * a.d + a.hid;
 }
 
 template <bool kLstm>
-__global__ void __launch_bounds__(kThreads) gen_fused_nade_kernel(NadeArgs a) {
-  extern __shared__ float smem[];
-  const int K = a.k, D = a.d, H = a.hid, U = a.u, G = a.g, L = a.n_layers;
-  const int KD = K * D, KH = K * H, KU = K * U, KG = K * G, LKU = L * KU;
-  const int T = a.n_steps, B = a.batch;
-  const int wpt = (H + 31) / 32, nchunks = K * wpt;
-  float* h_s = smem;            // (L, K, U) cell h, layer-major
-  float* c_s = h_s + LKU;       // (L, K, U) cell c
-  float* v_prev = c_s + LKU;    // (K, D) previous frame
-  float* v_new = v_prev + KD;   // (K, D) fresh frame
-  float* bv_row = v_new + KD;   // (K, D) conditioned visible bias
-  float* u_s = bv_row + KD;     // (K, D) this step's uniforms
-  float* act = u_s + KD;        // (K, H) running activation a
-  float* sig = act + KH;        // (K, H) sigmoid(a)
-  float* z = sig + KH;          // (K, G) layer-0 input projection, then gates
-  float* red = z + KG;          // (2, nchunks) chunk partials of the logits
+__global__ void __launch_bounds__(kThreads, 1)
+    gen_fused_nade_kernel(NadeArgs a, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Cta ct = gen_cluster::make_cta(smem, p, a.k, a.d, a.u, a.n_layers,
+                                       a.batch);
+  const int K = a.k, D = a.d, H = a.hid, U = a.u, L = a.n_layers;
+  const int KD = K * D, T = a.n_steps, B = a.batch;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nchd = chunks_of(D);
+  const int NG = ct.n_groups();
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int o = tid; o < LKU; o += nt) {
-    h_s[o] = a.h0[static_cast<size_t>(b) * LKU + o];
-    c_s[o] = a.c0[static_cast<size_t>(b) * LKU + o];
+  // this CTA's tracks' per-step weights into shared memory
+  for (int j = 0; j < ct.ntr; ++j) {
+    const size_t k = ct.track(j);
+    if ((p.w_smem >> kV) & 1) {
+      auto* dst = const_cast<uint16_t*>(ct.matrix<uint16_t>(kV, j, a.v, 0));
+      for (int o = tid; o < D * H; o += kThreads) dst[o] = a.v[k * D * H + o];
+    }
+    if ((p.w_smem >> kW) & 1) {
+      auto* dst = const_cast<uint16_t*>(ct.matrix<uint16_t>(kW, j, a.w, 0));
+      for (int o = tid; o < D * H; o += kThreads) dst[o] = a.w[k * D * H + o];
+    }
+    if ((p.w_smem >> kWuh) & 1) {
+      auto* dst = const_cast<float*>(ct.matrix<float>(kWuh, j, a.wuh, 0));
+      for (int o = tid; o < U * H; o += kThreads)
+        dst[o] = a.wuh[k * U * H + o];
+    }
+    if ((p.w_smem >> kWuv) & 1) {
+      auto* dst =
+          const_cast<uint16_t*>(ct.matrix<uint16_t>(kWuv, j, a.wuv, 0));
+      for (int o = tid; o < U * D; o += kThreads)
+        dst[o] = a.wuv[k * U * D + o];
+    }
   }
-  for (int o = tid; o < KD; o += nt)
-    v_prev[o] = a.v0[static_cast<size_t>(b) * KD + o];
+  gen_cluster::load_state(ct, a.h0, a.c0, a.v0);   // ends with a barrier
+
+  const gen_cluster::CellWeights<uint16_t, uint16_t> cw{
+      a.wx_v, a.wxg, a.wx_r, a.wh, a.wctx, a.b, a.g, a.given_mask};
   const uint32_t seed0 = static_cast<uint32_t>(a.seed[0]);
   const uint32_t seed1 = static_cast<uint32_t>(a.seed[1]);
-  __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    // 1. biases from the TOP layer's previous h; a = bh', z = 0; uniforms
-    const float* h_top = h_s + (L - 1) * KU;
+    const int buf = t & 1;           // parity buffer of the fresh rows
+    // 1. biases from the TOP layer's previous h, and the step's uniforms
     const uint32_t salt = seed1 + static_cast<uint32_t>(t);
-    for (int o = tid; o < KD; o += nt) {
-      const int k = o / D, i = o - k * D;
-      const float* hk = h_top + k * U;
-      const uint16_t* wk = a.wuv + static_cast<size_t>(k) * U * D + i;
-      float acc = 0.f;
-      for (int uu = 0; uu < U; ++uu)
-        acc = fmaf(hk[uu], bf16_to_f32(wk[static_cast<size_t>(uu) * D]), acc);
-      bv_row[o] = a.bv[o] + acc;
-      const uint32_t ctr =
-          (static_cast<uint32_t>(i) * kStreamRows + k) * static_cast<uint32_t>(B) + b;
-      u_s[o] = random_uniform_at(seed0, salt, ctr);
-    }
-    for (int o = tid; o < KH; o += nt) {
-      const int k = o / H, j = o - k * H;
-      const float* hk = h_top + k * U;
-      const float* wk = a.wuh + static_cast<size_t>(k) * U * H + j;
-      float acc = 0.f;
-      for (int uu = 0; uu < U; ++uu)
-        acc = fmaf(hk[uu], wk[static_cast<size_t>(uu) * H], acc);
-      const float x = a.bh[o] + acc;
-      act[o] = x;
-      sig[o] = sigmoid_f32(x);
-    }
-    for (int o = tid; o < KG; o += nt) z[o] = 0.f;
-    __syncthreads();
-
-    // 2. the sweep: dim i's weights were loaded during dim i-1
-    DimWeights cur, nxt;
-    load_dim(a, 0, tid, nchunks, wpt, cur);
-    for (int i = 0; i < D; ++i) {
-      if (i + 1 < D) load_dim(a, i + 1, tid, nchunks, wpt, nxt);
-      float* rd = red + (i & 1) * nchunks;
-#pragma unroll
-      for (int r = 0; r < kChunkRounds; ++r) {
-        const int c = warp + r * kWarps;
-        if (c < nchunks) {                     // warp-uniform
-          const int k = c / wpt, j = (c - k * wpt) * 32 + lane;
-          const float part = warp_sum(j < H ? cur.v[r] * sig[k * H + j] : 0.f);
-          if (lane == 0) rd[c] = part;
-        }
+    const int W1 = 2 * D + H;
+    for (int o = tid; o < NG * W1; o += kThreads) {
+      const int grp = o / W1, e = o - grp * W1;
+      const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
+      const float* ht = ct.h(s, j) + (L - 1) * U;
+      float* sc = ct.scratch(s, j);
+      if (e < D) {
+        const uint16_t* wuv = ct.matrix(kWuv, j, a.wuv, U * D);
+        sc[e] = a.bv[k * D + e] + gen_cluster::dot(ht, wuv + e, D, U);
+      } else if (e < 2 * D) {
+        const uint32_t i = e - D;
+        sc[e] = random_uniform_at(
+            seed0, salt,
+            (i * kStreamRows + k) * static_cast<uint32_t>(B) + ct.b0 + s);
+      } else {
+        const int jj = e - 2 * D;
+        const float* wuh = ct.matrix(kWuh, j, a.wuh, U * H);
+        sc[e] = a.bh[k * H + jj] + gen_cluster::dot(ht, wuh + jj, H, U);
       }
-      __syncthreads();
-      uint32_t xmask = 0;                      // bit k: track k samples 1
-      for (int k = 0; k < K; ++k) {
-        float s = 0.f;
-        for (int q = 0; q < wpt; ++q) s += rd[k * wpt + q];
-        if (u_s[k * D + i] < sigmoid_f32(s + bv_row[k * D + i]))
-          xmask |= 1u << k;
-      }
-      if (tid < K) v_new[tid * D + i] = ((xmask >> tid) & 1u) ? 1.f : 0.f;
-      if (xmask != 0) {
-#pragma unroll
-        for (int r = 0; r < kChunkRounds; ++r) {
-          const int c = warp + r * kWarps;
-          const int k = c / wpt, j = (c - k * wpt) * 32 + lane;
-          if (c < nchunks && j < H && ((xmask >> k) & 1u)) {
-            const float x = act[k * H + j] + cur.w[r];
-            act[k * H + j] = x;
-            sig[k * H + j] = sigmoid_f32(x);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kZRounds; ++r) {
-          const int o = tid + r * kThreads;
-          if (o < KG && ((xmask >> (o / G)) & 1u)) z[o] += cur.x[r];
-        }
-      }
-      if (i + 1 < D) cur = nxt;
     }
     __syncthreads();
 
-    // 3. given merge, 5. emit the frame
-    const size_t frame = (static_cast<size_t>(b) * T + t) * KD;
-    for (int o = tid; o < KD; o += nt) {
-      if (a.given != nullptr && ((a.given_mask >> (o / D)) & 1))
-        v_new[o] = a.given[frame + o];
-      a.roll[frame + o] = v_new[o];
-    }
-    __syncthreads();
-
-    // 4. the cell stack: layer 0 takes z (+ the previous frame through
-    //    wctx), layer l >= 1 the fresh h of layer l - 1
-    for (int l = 0; l < L; ++l) {
-      const float* h_l = h_s + l * KU;
-      const float* h_in = h_s + (l > 0 ? l - 1 : 0) * KU;
-      for (int o = tid; o < KG; o += nt) {
-        const int k = o / G, gg = o - k * G;
-        float zin = 0.f;
-        if (l == 0) {
-          if (a.given != nullptr && ((a.given_mask >> k) & 1)) {
-            // the sweep's z came from discarded samples: recompute it from
-            // the given frame with the f32 rows
-            const float* vk = v_new + k * D;
-            const float* wk = a.wxg + static_cast<size_t>(k) * D * G + gg;
-            for (int i = 0; i < D; ++i) {
-              const float x = vk[i];
-              if (x != 0.f) zin = fmaf(x, wk[static_cast<size_t>(i) * G], zin);
+    // 2. the sweep: one warp per (sample, track slot); the sampled frame
+    //    replaces the uniforms in the scratch row
+    for (int grp = warp; grp < NG; grp += kWarps) {
+      const int s = grp / ct.ntr, j = grp - s * ct.ntr;
+      float* sc = ct.scratch(s, j);
+      const uint16_t* vm = ct.matrix(kV, j, a.v, D * H);
+      const uint16_t* wm = ct.matrix(kW, j, a.w, D * H);
+      float act[kMaxLaneRounds], sg[kMaxLaneRounds], vn[kMaxLaneRounds];
+#pragma unroll
+      for (int q = 0; q < kMaxLaneRounds; ++q) {
+        const int jj = lane + 32 * q;
+        act[q] = jj < H ? sc[2 * D + jj] : 0.f;
+        sg[q] = jj < H ? gen_cluster::sigmoid_nr(act[q]) : 0.f;
+        vn[q] = jj < H ? bf16_to_f32(vm[jj]) : 0.f;
+      }
+      uint32_t bits = 0;                 // bit c: dim 32c + lane sampled 1
+      for (int i = 0; i < D; ++i) {
+        float part = 0.f;
+#pragma unroll
+        for (int q = 0; q < kMaxLaneRounds; ++q) {
+          const float vq = vn[q];
+          const int jj = lane + 32 * q;
+          if (i + 1 < D) vn[q] = jj < H ? bf16_to_f32(vm[(i + 1) * H + jj])
+                                        : 0.f;
+          part = fmaf(vq, sg[q], part);
+        }
+        const float logit = warp_allsum(part);
+        const bool x = sc[D + i] < gen_cluster::sigmoid_nr(logit + sc[i]);
+        if (x) {                          // the same in every lane
+#pragma unroll
+          for (int q = 0; q < kMaxLaneRounds; ++q) {
+            const int jj = lane + 32 * q;
+            if (jj < H) {
+              act[q] = act[q] + bf16_to_f32(wm[i * H + jj]);
+              sg[q] = gen_cluster::sigmoid_nr(act[q]);
             }
-          } else {
-            zin = z[o];
           }
-          if (a.wctx != nullptr) {
-            float ctx = 0.f;
-            for (int j = 0; j < K; ++j) {
-              float part = 0.f;
-              for (int i = 0; i < D; ++i) {
-                const float x = v_prev[j * D + i];
-                if (x != 0.f)
-                  part = fmaf(
-                      x,
-                      bf16_to_f32(a.wctx[static_cast<size_t>(j * D + i) * KG + o]),
-                      part);
-              }
-              ctx += part;
-            }
-            zin = zin + ctx;
-          }
-        } else {
-          const float* xk = h_in + k * U;
-          const float* wk =
-              a.wx_r + (static_cast<size_t>(l - 1) * K + k) * U * G + gg;
-          for (int uu = 0; uu < U; ++uu)
-            zin = fmaf(xk[uu], wk[static_cast<size_t>(uu) * G], zin);
         }
-        const float* hk = h_l + k * U;
-        const float* whk = a.wh + (static_cast<size_t>(l) * K + k) * U * G + gg;
-        float rec = 0.f;
-        for (int uu = 0; uu < U; ++uu)
-          rec = fmaf(hk[uu], whk[static_cast<size_t>(uu) * G], rec);
-        z[o] = (zin + rec) + a.b[static_cast<size_t>(l) * KG + o];
+        if ((i & 31) == lane && x) bits |= 1u << (i >> 5);
       }
-      __syncthreads();
-      for (int o = tid; o < KU; o += nt) {
-        const int k = o / U, uu = o - k * U;
-        const float* zk = z + k * G;
-        if (kLstm) {
-          const float c_new = sigmoid_f32(zk[U + uu]) * c_s[l * KU + o] +
-                              sigmoid_f32(zk[uu]) * tanhf(zk[2 * U + uu]);
-          c_s[l * KU + o] = c_new;
-          h_s[l * KU + o] = sigmoid_f32(zk[3 * U + uu]) * tanhf(c_new);
-        } else {
-          h_s[l * KU + o] = tanhf(zk[uu]);
-        }
+      for (int c = 0; c < nchd; ++c) {
+        const int i = c * 32 + lane;
+        if (i < D) sc[D + i] = (bits >> c) & 1u ? 1.f : 0.f;
       }
-      __syncthreads();
     }
-    for (int o = tid; o < KD; o += nt) v_prev[o] = v_new[o];
     __syncthreads();
-  }
-  for (int o = tid; o < LKU; o += nt) {
-    a.h_out[static_cast<size_t>(b) * LKU + o] = h_s[o];
-    a.c_out[static_cast<size_t>(b) * LKU + o] = c_s[o];
-  }
-}
 
-// Dynamic shared memory of one CTA (bytes): the rows laid out at the top of
-// the kernel. ops/gen_fused_nade.py::_cta_smem_bytes makes the same count.
-int64_t smem_bytes(const NadeArgs& a) {
-  const int64_t kd = static_cast<int64_t>(a.k) * a.d;
-  const int64_t kh = static_cast<int64_t>(a.k) * a.hid;
-  const int64_t lku = static_cast<int64_t>(a.n_layers) * a.k * a.u;
-  const int64_t kg = static_cast<int64_t>(a.k) * a.g;
-  const int64_t nchunks = static_cast<int64_t>(a.k) * ((a.hid + 31) / 32);
-  return static_cast<int64_t>(sizeof(float)) *
-         (2 * lku + 4 * kd + 2 * kh + kg + 2 * nchunks);
+    // 3. given merge, 5. emit the frame into the roll and the fresh rows
+    gen_cluster::emit_frames(ct, buf, a.roll, t, T, [&](int s, int j, int i) {
+      const int k = ct.track(j);
+      if (a.given != nullptr && ((a.given_mask >> k) & 1))
+        return a.given[(static_cast<size_t>(ct.b0 + s) * T + t) * KD +
+                       k * D + i];
+      return ct.scratch(s, j)[D + i];
+    });
+
+    // 4. the cell stack, then the fresh frames of all tracks become the
+    //    previous ones
+    gen_cluster::cell_stack<kLstm, true>(ct, cw, buf);
+    gen_cluster::gather_frames(ct, buf);
+  }
+  gen_cluster::store_state(ct, a.h_out, a.c_out);
 }
 
 }  // namespace
 
-const char* launch_gen_fused_nade(const NadeArgs& a, void* stream) {
+// The shared-memory plan; ops/gen_fused_nade.py::_sample_bytes makes the
+// same per-sample count.
+gen_cluster::Plan plan_gen_fused_nade(const NadeArgs& a, int64_t limit) {
+  const int64_t dh = 2 * int64_t{a.d} * a.hid;
+  const int64_t mats[kMatrices] = {dh, dh, 4 * int64_t{a.u} * a.hid,
+                                   2 * int64_t{a.u} * a.d};
+  return gen_cluster::make_plan(a.k, a.d, a.u, a.n_layers, nade_scratch(a),
+                                mats, kMatrices, limit);
+}
+
+const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
+                                  int64_t* shape) {
   if (a.batch <= 0 || a.n_steps <= 0) return nullptr;
-  const int64_t nchunks = static_cast<int64_t>(a.k) * ((a.hid + 31) / 32);
-  if (a.k > kStreamRows || nchunks > kChunkRounds * kWarps ||
-      static_cast<int64_t>(a.k) * a.g > static_cast<int64_t>(kZRounds) * kThreads)
-    return "gen_fused_nade: config beyond the kernel's register-held weights "
-           "or the stream's 8 tracks";
-  const int64_t smem = smem_bytes(a);
-  auto kernel = a.lstm ? gen_fused_nade_kernel<true>
-                       : gen_fused_nade_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return cudaGetErrorString(e);
-  }
-  kernel<<<a.batch, kThreads, static_cast<size_t>(smem),
-           static_cast<cudaStream_t>(stream)>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  return err == cudaSuccess ? nullptr : cudaGetErrorString(err);
+  if (a.k > kStreamRows || a.hid > 32 * kMaxLaneRounds || a.d > kMaxDims)
+    return "gen_fused_nade: K > 8 (the stream's rows), H > 256 (the "
+           "register-held lanes) or D > 1024";
+  const Plan p = plan_gen_fused_nade(a, kSmemLimitBytes);
+  return gen_cluster::launch(a.lstm ? gen_fused_nade_kernel<true>
+                                    : gen_fused_nade_kernel<false>,
+                             a, p, a.batch, stream, shape);
 }
 
 }  // namespace multinn_torch

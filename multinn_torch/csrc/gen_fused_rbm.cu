@@ -9,227 +9,195 @@
 //   5. the frame written to the roll.
 //
 // Replaces multinn_tpu/ops/gen_fused_rbm.py::_rbm_kernel (wrapper
-// _generate_rbm). The TPU kernel runs the T steps as a sequential grid with
-// every weight resident in VMEM; here the sequential loop is inside the
-// CTA. The cross-track coupling (feedback context, block-diagonal RBM)
-// never leaves a sample, so ONE CTA PER SAMPLE runs all T steps and all K
-// tracks with no inter-CTA communication. The per-sample state rows live in
-// shared memory (~23 KB at the flagship K=5, D=84, H=150, U=100); the
-// weights (~5.5 MB in f32) stay in global memory and are read through L2.
+// _generate_rbm), whose T steps run as a sequential grid with every weight
+// resident in VMEM.
+//
+// Bound on an H100 (the flagship K=5, D=84, H=150, U=100, G=400, gen_k=10,
+// one 64-bar song, B=1, T=1024): 5.29 GFLOP of dense f32 work, 79 us at
+// 67 TFLOP/s; its bytes (5.55 MB of weights, 1.7 MB of roll) take 2.2 us.
+// But the work is a chain: per step 23 dependent phases (biases, 2*gen_k
+// Gibbs passes, gates, cell), each of a few hundred outputs. One CTA per
+// sample reading every weight from L2 through serial per-thread loads, as
+// this kernel first did, took 0.51 ms per step.
+//
+// Design (gen_cluster.cuh): a cluster of min(K, 8) CTAs per group of S
+// samples; CTA r owns tracks r, r + C, .... Each CTA holds its tracks' W
+// (row stride H | 1, so the visible pass's column reads hit distinct
+// banks), Wuh and Wuv in shared memory, so the biases and all 2*gen_k
+// Gibbs passes read no global memory and need only the CTA's own barrier.
+// A pass is one thread per output summing its row in four independent
+// accumulators (16 shared-memory loads in flight). The cell stack reads
+// Wx and Wctx over the active rows of the fresh and the previous frame,
+// Wh densely, one thread per gate (coalesced). Tracks swap their frames
+// once per step through distributed shared memory. The S samples of a
+// cluster share its shared-memory weights, S = ceil(B / the clusters the
+// card holds), so large batches run in one wave.
+//
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): 55.0 ms per 64-bar
+// song at B=1, 373 ms at B=256, against 523 and 563 ms for the one-CTA-
+// per-sample design.
 //
 // Random stream: the TPU kernel draws (B, K*H) and (B, K*D) uniforms per
 // sweep at salts seed[1] + t*2*gen_k + 2s (+1 for v), so the draw of sample
 // b, lane o has counter b*K*H + o (b*K*D + o). This kernel draws the same
 // counters, so it and its plain version agree bit for bit in the stream.
-//
-// Cost: each step re-reads every weight once per sample (gen_k * 2 passes
-// over W plus the LSTM matrices) through L2, one thread per output, each
-// thread's loads issued one after another. On an H100 80GB HBM3 at 700 W a
-// step takes about 0.51 ms whatever the batch up to 264 samples (two CTAs
-// per SM), about 5.6 times a bandwidth estimate, so load latency rather
-// than L2 bandwidth is the likely bound (not yet measured). Skipping the
-// zero entries of the binary frames cuts the reads of W, Wx and Wctx
-// roughly by the frame density. Independent loads in flight, a warp per
-// output, and a sample's tracks split over a cluster with the weights in
-// shared memory are the next design steps.
 #include <cuda_runtime.h>
 
+#include "gen_cluster.cuh"
 #include "launchers.h"
 #include "threefry.cuh"
 
 namespace multinn_torch {
 namespace {
 
-constexpr int kThreads = 512;
+using gen_cluster::Cta;
+using gen_cluster::kThreads;
+using gen_cluster::Plan;
 
-template <bool kLstm>
-__global__ void __launch_bounds__(kThreads) gen_fused_rbm_kernel(RbmArgs a) {
-  extern __shared__ float smem[];
-  const int K = a.k, D = a.d, H = a.hid, U = a.u, G = a.g, L = a.n_layers;
-  const int KD = K * D, KH = K * H, KU = K * U, KG = K * G, LKU = L * KU;
-  const int T = a.n_steps;
-  float* h_s = smem;            // (L, K, U) cell h, layer-major
-  float* c_s = h_s + LKU;       // (L, K, U) cell c
-  float* v_prev = c_s + LKU;    // (K, D) previous frame
-  float* v = v_prev + KD;       // (K, D) chain state / fresh frame
-  float* hid = v + KD;          // (K, H) hidden sample
-  float* bv_row = hid + KH;     // (K, D) conditioned visible bias
-  float* bh_row = bv_row + KD;  // (K, H) conditioned hidden bias
-  float* z = bh_row + KH;       // (K, G) gate pre-activations
+// per-step weight matrices in shared-memory priority order
+enum { kW = 0, kWuh = 1, kWuv = 2, kMatrices = 3 };
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int o = tid; o < LKU; o += nt) {
-    h_s[o] = a.h0[static_cast<size_t>(b) * LKU + o];
-    c_s[o] = a.c0[static_cast<size_t>(b) * LKU + o];
-  }
-  for (int o = tid; o < KD; o += nt)
-    v_prev[o] = a.v0[static_cast<size_t>(b) * KD + o];
-  const uint32_t seed0 = static_cast<uint32_t>(a.seed[0]);
-  const uint32_t seed1 = static_cast<uint32_t>(a.seed[1]);
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    // 1. biases from the TOP layer's previous h
-    const float* h_top = h_s + (L - 1) * KU;
-    for (int o = tid; o < KD; o += nt) {
-      const int k = o / D, i = o - k * D;
-      const float* hk = h_top + k * U;
-      const float* wk = a.wuv + static_cast<size_t>(k) * U * D + i;
-      float acc = 0.f;
-      for (int uu = 0; uu < U; ++uu)
-        acc = fmaf(hk[uu], wk[static_cast<size_t>(uu) * D], acc);
-      bv_row[o] = a.bv[o] + acc;
-      v[o] = v_prev[o];
-    }
-    for (int o = tid; o < KH; o += nt) {
-      const int k = o / H, j = o - k * H;
-      const float* hk = h_top + k * U;
-      const float* wk = a.wuh + static_cast<size_t>(k) * U * H + j;
-      float acc = 0.f;
-      for (int uu = 0; uu < U; ++uu)
-        acc = fmaf(hk[uu], wk[static_cast<size_t>(uu) * H], acc);
-      bh_row[o] = a.bh[o] + acc;
-    }
-    __syncthreads();
-
-    // 2. gen_k Gibbs sweeps, all tracks at once
-    const uint32_t salt0 =
-        seed1 + static_cast<uint32_t>(t) * 2u * static_cast<uint32_t>(a.gen_k);
-    for (int s = 0; s < a.gen_k; ++s) {
-      const uint32_t salt_h = salt0 + 2u * static_cast<uint32_t>(s);
-      for (int o = tid; o < KH; o += nt) {
-        const int k = o / H, j = o - k * H;
-        const float* vk = v + k * D;
-        const float* wk = a.w + static_cast<size_t>(k) * D * H + j;
-        float acc = 0.f;
-        for (int i = 0; i < D; ++i) {
-          const float x = vk[i];
-          if (x != 0.f) acc = fmaf(x, wk[static_cast<size_t>(i) * H], acc);
-        }
-        const float p = sigmoid_f32(acc + bh_row[o]);
-        const float u = random_uniform_at(
-            seed0, salt_h, static_cast<uint32_t>(b) * KH + o);
-        hid[o] = u < p ? 1.f : 0.f;
-      }
-      __syncthreads();
-      for (int o = tid; o < KD; o += nt) {
-        const int k = o / D, i = o - k * D;
-        const float* hk = hid + k * H;
-        const float* wk = a.wt + static_cast<size_t>(k) * H * D + i;
-        float acc = 0.f;
-        for (int j = 0; j < H; ++j) {
-          const float x = hk[j];
-          if (x != 0.f) acc = fmaf(x, wk[static_cast<size_t>(j) * D], acc);
-        }
-        const float p = sigmoid_f32(acc + bv_row[o]);
-        const float u = random_uniform_at(
-            seed0, salt_h + 1u, static_cast<uint32_t>(b) * KD + o);
-        v[o] = u < p ? 1.f : 0.f;
-      }
-      __syncthreads();
-    }
-
-    // 3. given merge, 5. emit the frame
-    const size_t frame = (static_cast<size_t>(b) * T + t) * KD;
-    for (int o = tid; o < KD; o += nt) {
-      if (a.given != nullptr && ((a.given_mask >> (o / D)) & 1))
-        v[o] = a.given[frame + o];
-      a.roll[frame + o] = v[o];
-    }
-    __syncthreads();
-
-    // 4. the cell stack: layer 0 reads the fresh frame (+ the previous
-    //    frame through wctx), layer l >= 1 the fresh h of layer l - 1
-    for (int l = 0; l < L; ++l) {
-      const float* h_l = h_s + l * KU;
-      const float* h_in = h_s + (l > 0 ? l - 1 : 0) * KU;
-      for (int o = tid; o < KG; o += nt) {
-        const int k = o / G, gg = o - k * G;
-        float acc = 0.f;
-        if (l == 0) {
-          const float* vk = v + k * D;
-          const float* wk = a.wx_v + static_cast<size_t>(k) * D * G + gg;
-          for (int i = 0; i < D; ++i) {
-            const float x = vk[i];
-            if (x != 0.f) acc = fmaf(x, wk[static_cast<size_t>(i) * G], acc);
-          }
-        } else {
-          const float* xk = h_in + k * U;
-          const float* wk =
-              a.wx_r + (static_cast<size_t>(l - 1) * K + k) * U * G + gg;
-          for (int uu = 0; uu < U; ++uu)
-            acc = fmaf(xk[uu], wk[static_cast<size_t>(uu) * G], acc);
-        }
-        const float* hk = h_l + k * U;
-        const float* whk = a.wh + (static_cast<size_t>(l) * K + k) * U * G + gg;
-        float rec = 0.f;
-        for (int uu = 0; uu < U; ++uu)
-          rec = fmaf(hk[uu], whk[static_cast<size_t>(uu) * G], rec);
-        float zz = (acc + rec) + a.b[static_cast<size_t>(l) * KG + o];
-        if (l == 0 && a.wctx != nullptr) {
-          float ctx = 0.f;
-          for (int r = 0; r < KD; ++r) {
-            const float x = v_prev[r];
-            if (x != 0.f)
-              ctx = fmaf(x, a.wctx[static_cast<size_t>(r) * KG + o], ctx);
-          }
-          zz += ctx;
-        }
-        z[o] = zz;
-      }
-      __syncthreads();
-      for (int o = tid; o < KU; o += nt) {
-        const int k = o / U, uu = o - k * U;
-        const float* zk = z + k * G;
-        if (kLstm) {
-          const float c_new = sigmoid_f32(zk[U + uu]) * c_s[l * KU + o] +
-                              sigmoid_f32(zk[uu]) * tanhf(zk[2 * U + uu]);
-          c_s[l * KU + o] = c_new;
-          h_s[l * KU + o] = sigmoid_f32(zk[3 * U + uu]) * tanhf(c_new);
-        } else {
-          h_s[l * KU + o] = tanhf(zk[uu]);
-        }
-      }
-      __syncthreads();
-    }
-    for (int o = tid; o < KD; o += nt) v_prev[o] = v[o];
-    __syncthreads();
-  }
-  for (int o = tid; o < LKU; o += nt) {
-    a.h_out[static_cast<size_t>(b) * LKU + o] = h_s[o];
-    a.c_out[static_cast<size_t>(b) * LKU + o] = c_s[o];
-  }
+// scratch of a group during the Gibbs sweeps: bv(t) (D), bh(t) (H), the
+// chain's visible (D) and hidden (H) samples; during the cell stack: the
+// gates (G)
+inline int rbm_scratch(const RbmArgs& a) {
+  return a.g > 2 * (a.d + a.hid) ? a.g : 2 * (a.d + a.hid);
 }
 
-// Dynamic shared memory of one CTA (bytes): the rows laid out at the top of
-// the kernel. ops/gen_fused_rbm.py::_cta_smem_bytes makes the same count.
-int64_t smem_bytes(const RbmArgs& a) {
-  const int64_t kd = static_cast<int64_t>(a.k) * a.d;
-  const int64_t kh = static_cast<int64_t>(a.k) * a.hid;
-  const int64_t lku = static_cast<int64_t>(a.n_layers) * a.k * a.u;
-  const int64_t kg = static_cast<int64_t>(a.k) * a.g;
-  return static_cast<int64_t>(sizeof(float)) *
-         (2 * lku + 3 * kd + 2 * kh + kg);
+template <bool kLstm>
+__global__ void __launch_bounds__(kThreads, 1)
+    gen_fused_rbm_kernel(RbmArgs a, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Cta ct = gen_cluster::make_cta(smem, p, a.k, a.d, a.u, a.n_layers,
+                                       a.batch);
+  const int K = a.k, D = a.d, H = a.hid, U = a.u, L = a.n_layers;
+  const int KD = K * D, KH = K * H, T = a.n_steps;
+  const int tid = threadIdx.x;
+  const int NG = ct.n_groups();
+  const bool w_in_smem = (p.w_smem >> kW) & 1;
+  const int ldw = w_in_smem ? (H | 1) : H;
+
+  // this CTA's tracks' per-step weights into shared memory
+  for (int j = 0; j < ct.ntr; ++j) {
+    const int k = ct.track(j);
+    if (w_in_smem) {
+      float* dst = const_cast<float*>(ct.matrix<float>(kW, j, a.w, 0));
+      for (int o = tid; o < D * H; o += kThreads) {
+        const int i = o / H, jj = o - i * H;
+        dst[i * ldw + jj] = a.w[static_cast<size_t>(k) * D * H + o];
+      }
+    }
+    if ((p.w_smem >> kWuh) & 1) {
+      float* dst = const_cast<float*>(ct.matrix<float>(kWuh, j, a.wuh, 0));
+      for (int o = tid; o < U * H; o += kThreads)
+        dst[o] = a.wuh[static_cast<size_t>(k) * U * H + o];
+    }
+    if ((p.w_smem >> kWuv) & 1) {
+      float* dst = const_cast<float*>(ct.matrix<float>(kWuv, j, a.wuv, 0));
+      for (int o = tid; o < U * D; o += kThreads)
+        dst[o] = a.wuv[static_cast<size_t>(k) * U * D + o];
+    }
+  }
+  gen_cluster::load_state(ct, a.h0, a.c0, a.v0);   // ends with a barrier
+
+  const gen_cluster::CellWeights<float, float> cw{
+      a.wx_v, nullptr, a.wx_r, a.wh, a.wctx, a.b, a.g, a.given_mask};
+  const uint32_t seed0 = static_cast<uint32_t>(a.seed[0]);
+  const uint32_t seed1 = static_cast<uint32_t>(a.seed[1]);
+
+  for (int t = 0; t < T; ++t) {
+    const int buf = t & 1;           // parity buffer of the fresh rows
+    // 1. biases from the TOP layer's previous h
+    for (int o = tid; o < NG * (D + H); o += kThreads) {
+      const int grp = o / (D + H), e = o - grp * (D + H);
+      const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
+      const float* ht = ct.h(s, j) + (L - 1) * U;
+      float* sc = ct.scratch(s, j);
+      if (e < D) {
+        const float* wuv = ct.matrix(kWuv, j, a.wuv, U * D);
+        sc[e] = a.bv[k * D + e] + gen_cluster::dot(ht, wuv + e, D, U);
+      } else {
+        const int jj = e - D;
+        const float* wuh = ct.matrix(kWuh, j, a.wuh, U * H);
+        sc[D + jj] = a.bh[k * H + jj] + gen_cluster::dot(ht, wuh + jj, H, U);
+      }
+    }
+    __syncthreads();
+
+    // 2. gen_k Gibbs sweeps, every group at once; the chain starts at the
+    //    previous frame
+    const uint32_t salt0 =
+        seed1 + static_cast<uint32_t>(t) * 2u * static_cast<uint32_t>(a.gen_k);
+    for (int sw = 0; sw < a.gen_k; ++sw) {
+      const uint32_t salt_h = salt0 + 2u * static_cast<uint32_t>(sw);
+      for (int o = tid; o < NG * H; o += kThreads) {
+        const int grp = o / H, jj = o - grp * H;
+        const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
+        float* sc = ct.scratch(s, j);
+        const float* v = sw == 0 ? ct.prev(s) + k * D : sc + D + H;
+        const float acc =
+            gen_cluster::dot(v, ct.matrix(kW, j, a.w, D * H) + jj, ldw, D);
+        const float pr = gen_cluster::sigmoid_nr(acc + sc[D + jj]);
+        const float uu = random_uniform_at(
+            seed0, salt_h,
+            static_cast<uint32_t>(ct.b0 + s) * KH + k * H + jj);
+        sc[2 * D + H + jj] = uu < pr ? 1.f : 0.f;
+      }
+      __syncthreads();
+      for (int o = tid; o < NG * D; o += kThreads) {
+        const int grp = o / D, i = o - grp * D;
+        const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
+        float* sc = ct.scratch(s, j);
+        const float acc = gen_cluster::dot(
+            sc + 2 * D + H, ct.matrix(kW, j, a.w, D * H) + i * ldw, 1, H);
+        const float pr = gen_cluster::sigmoid_nr(acc + sc[i]);
+        const float uu = random_uniform_at(
+            seed0, salt_h + 1u,
+            static_cast<uint32_t>(ct.b0 + s) * KD + k * D + i);
+        sc[D + H + i] = uu < pr ? 1.f : 0.f;
+      }
+      __syncthreads();
+    }
+
+    // 3. given merge, 5. emit the frame into the roll and the fresh rows
+    gen_cluster::emit_frames(ct, buf, a.roll, t, T, [&](int s, int j, int i) {
+      const int k = ct.track(j);
+      if (a.given != nullptr && ((a.given_mask >> k) & 1))
+        return a.given[(static_cast<size_t>(ct.b0 + s) * T + t) * KD +
+                       k * D + i];
+      return a.gen_k > 0 ? ct.scratch(s, j)[D + H + i]
+                         : ct.prev(s)[k * D + i];
+    });
+
+    // 4. the cell stack, then the fresh frames of all tracks become the
+    //    previous ones
+    gen_cluster::cell_stack<kLstm, false>(ct, cw, buf);
+    gen_cluster::gather_frames(ct, buf);
+  }
+  gen_cluster::store_state(ct, a.h_out, a.c_out);
 }
 
 }  // namespace
 
-const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream) {
+// The shared-memory plan; ops/gen_fused_rbm.py::_sample_bytes makes the
+// same per-sample count.
+gen_cluster::Plan plan_gen_fused_rbm(const RbmArgs& a, int64_t limit) {
+  const int64_t mats[kMatrices] = {
+      4 * int64_t{a.d} * (a.hid | 1), 4 * int64_t{a.u} * a.hid,
+      4 * int64_t{a.u} * a.d};
+  return gen_cluster::make_plan(a.k, a.d, a.u, a.n_layers, rbm_scratch(a),
+                                mats, kMatrices, limit);
+}
+
+const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
+                                 int64_t* shape) {
   if (a.batch <= 0 || a.n_steps <= 0) return nullptr;
-  const int64_t smem = smem_bytes(a);
-  auto kernel = a.lstm ? gen_fused_rbm_kernel<true>
-                       : gen_fused_rbm_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return cudaGetErrorString(e);
-  }
-  kernel<<<a.batch, kThreads, static_cast<size_t>(smem),
-           static_cast<cudaStream_t>(stream)>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  return err == cudaSuccess ? nullptr : cudaGetErrorString(err);
+  if (a.k > 31)
+    return "gen_fused_rbm: the given-track mask takes at most 31 tracks";
+  const Plan p = plan_gen_fused_rbm(a, kSmemLimitBytes);
+  return gen_cluster::launch(a.lstm ? gen_fused_rbm_kernel<true>
+                                    : gen_fused_rbm_kernel<false>,
+                             a, p, a.batch, stream, shape);
 }
 
 }  // namespace multinn_torch

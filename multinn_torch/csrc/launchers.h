@@ -11,6 +11,9 @@
 
 namespace multinn_torch {
 
+// Dynamic shared memory one CTA may use on Hopper (232,448 bytes).
+constexpr int64_t kSmemLimitBytes = 227 * 1024;
+
 // y = Threefry-2x32-20(key, (x0, x1)) elementwise over n counters.
 const char* launch_threefry2x32(const int32_t* key, const int32_t* x0,
                                 const int32_t* x1, int32_t* y0, int32_t* y1,
@@ -27,7 +30,6 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
 // multinn_torch/ops/gen_fused_rbm.py::_rbm_args for the layouts).
 struct RbmArgs {
   const float* w;       // (K, D, H)
-  const float* wt;      // (K, H, D)
   const float* wuv;     // (K, U, D)
   const float* wuh;     // (K, U, H)
   const float* bv;      // (K*D)
@@ -51,7 +53,18 @@ struct RbmArgs {
   int32_t given_mask;   // bit k set: track k takes `given`
 };
 
-const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream);
+// The whole-generation launchers (RBM and NADE) take `shape`: nullptr
+// launches the kernel; otherwise nothing is launched and shape receives
+// the launch's plan for a.batch (only the sizes of `a` are read): CTAs
+// per cluster, track slots per CTA, the bit set of per-step weight
+// matrices held in shared memory, the bytes of that weight region and of
+// one sample's state, the most samples the shared memory holds, the
+// samples per cluster, the clusters of the grid and the clusters the card
+// holds at once.
+constexpr int kLaunchShapeFields = 9;
+
+const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
+                                 int64_t* shape = nullptr);
 
 // NADE ancestral sampling sweep over n rows with per-row biases (see
 // nade_sample.cu).
@@ -91,7 +104,8 @@ struct NadeArgs {
   int32_t given_mask;    // bit k set: track k takes `given`
 };
 
-const char* launch_gen_fused_nade(const NadeArgs& a, void* stream);
+const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
+                                  int64_t* shape = nullptr);
 
 // Rows per CTA of the NADE likelihood kernels; the backward's dW / dV
 // partials have ceil(n / kNadeLLTileRows) tiles per track.

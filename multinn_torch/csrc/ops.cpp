@@ -6,6 +6,8 @@
 #include <ATen/core/Tensor.h>
 #include <torch/library.h>
 
+#include <vector>
+
 #include "launchers.h"
 
 namespace multinn_torch {
@@ -82,8 +84,8 @@ void gibbs_chain(at::Tensor out, const at::Tensor& v0, const at::Tensor& w,
 }
 
 void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
-                   const at::Tensor& w, const at::Tensor& wt,
-                   const at::Tensor& wuv, const at::Tensor& wuh,
+                   const at::Tensor& w, const at::Tensor& wuv,
+                   const at::Tensor& wuh,
                    const at::Tensor& bv, const at::Tensor& bh,
                    const at::Tensor& wx_v, const at::Tensor& wx_r,
                    const at::Tensor& wh, const at::Tensor& wctx,
@@ -96,7 +98,7 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
   for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&w, "w"},
-                         {&wt, "wt"}, {&wuv, "wuv"}, {&wuh, "wuh"},
+                         {&wuv, "wuv"}, {&wuh, "wuh"},
                          {&bv, "bv"}, {&bh, "bh"}, {&wx_v, "wx_v"},
                          {&wh, "wh"}, {&b, "b"}, {&h0, "h0"}, {&c0, "c0"},
                          {&v0, "v0"}})
@@ -131,7 +133,6 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   TORCH_CHECK(given.numel() == 0 || given.numel() == roll.numel(),
               "gen_fused_rbm: given shape");
   a.w = w.data_ptr<float>();
-  a.wt = wt.data_ptr<float>();
   a.wuv = wuv.data_ptr<float>();
   a.wuh = wuh.data_ptr<float>();
   a.bv = bv.data_ptr<float>();
@@ -250,6 +251,39 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   raise_on(launch_gen_fused_nade(a, as_stream(stream)), "gen_fused_nade");
 }
 
+// The launch plan a whole-generation kernel (nade: 0 the RBM, 1 the NADE)
+// makes for these sizes, without launching it: the kLaunchShapeFields
+// values of launchers.h.
+std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
+                                    int64_t hid, int64_t u, int64_t n_layers,
+                                    int64_t lstm, int64_t batch) {
+  std::vector<int64_t> shape(kLaunchShapeFields, 0);
+  TORCH_CHECK(batch > 0, "gen_fused_plan: batch must be positive");
+  auto sizes = [&](auto& a) {
+    a.k = static_cast<int32_t>(k);
+    a.d = static_cast<int32_t>(d);
+    a.hid = static_cast<int32_t>(hid);
+    a.u = static_cast<int32_t>(u);
+    a.g = static_cast<int32_t>(lstm ? 4 * u : u);
+    a.n_layers = static_cast<int32_t>(n_layers);
+    a.lstm = static_cast<int32_t>(lstm);
+    a.batch = static_cast<int32_t>(batch);
+    a.n_steps = 1;
+  };
+  const char* err;
+  if (nade) {
+    NadeArgs a{};
+    sizes(a);
+    err = launch_gen_fused_nade(a, nullptr, shape.data());
+  } else {
+    RbmArgs a{};
+    sizes(a);
+    err = launch_gen_fused_rbm(a, nullptr, shape.data());
+  }
+  raise_on(err, "gen_fused_plan");
+  return shape;
+}
+
 void nade_ll_fwd(at::Tensor logits, at::Tensor a_end, const at::Tensor& x,
                  const at::Tensor& w, const at::Tensor& v,
                  const at::Tensor& bv, const at::Tensor& bh, int64_t stream) {
@@ -319,7 +353,7 @@ TORCH_LIBRARY(multinn_torch, m) {
   m.def("gibbs_chain(Tensor(a!) out, Tensor v0, Tensor w, Tensor wt, "
         "Tensor bv, Tensor bh, Tensor seed, int k, int bb, int stream) -> ()");
   m.def("gen_fused_rbm(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
-        "Tensor w, Tensor wt, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
+        "Tensor w, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "
         "Tensor h0, Tensor c0, Tensor v0, Tensor given, Tensor seed, "
         "int gen_k, int lstm, int given_mask, int stream) -> ()");
@@ -330,6 +364,10 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor wx_v, Tensor wxg, Tensor wx_r, Tensor wh, Tensor wctx, "
         "Tensor b, Tensor h0, Tensor c0, Tensor v0, Tensor given, "
         "Tensor seed, int lstm, int given_mask, int stream) -> ()");
+  // no tensor arguments: a kernel for every dispatch key
+  m.def("gen_fused_plan(int nade, int k, int d, int hid, int u, "
+        "int n_layers, int lstm, int batch) -> int[]",
+        &multinn_torch::gen_fused_plan);
   m.def("nade_ll_fwd(Tensor(a!) logits, Tensor(b!) a_end, Tensor x, "
         "Tensor w, Tensor v, Tensor bv, Tensor bh, int stream) -> ()");
   m.def("nade_ll_bwd(Tensor(a!) dw, Tensor(b!) dv, Tensor(c!) dx, "

@@ -23,6 +23,7 @@ from multinn_torch.models.base import DecoderConfig, get_decoder
 from multinn_torch.models.encoders import EncoderConfig
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import sampling
+from multinn_torch.utils.device import entry_device
 
 MODES = ("per-track", "feedback", "joint", "hybrid")
 MODE_ALIASES = {"jamming": "per-track", "composer": "joint"}
@@ -146,12 +147,16 @@ def init(cfg: MultINNConfig, generator: Optional[torch.Generator] = None,
          device=None) -> MultINNParams:
     """Random params with the JAX package's shapes and init distributions
     (normal(0, w_std) weights, zero biases, LSTM forget-gate bias 1),
-    drawn from ``generator``."""
+    drawn on the CPU from ``generator`` (so a seed gives the same values on
+    every device) and placed on ``device``: the CUDA card when None, which
+    raises without one."""
     _check_mode(cfg)
+    device = entry_device(device)
     dec = get_decoder(cfg.decoder_type)
     dcfg = cfg.decoder_config()
-    decoder = stack_trees([dec.init(dcfg, generator=generator, device=device)
+    decoder = stack_trees([dec.init(dcfg, generator=generator, device="cpu")
                            for _ in range(cfg.n_tracks)])
+    decoder = tree_map(lambda x: x.to(device), decoder)
     return MultINNParams(encoder=enc_mod.init(cfg.encoder_config()),
                          decoder=decoder, cfg=cfg)
 

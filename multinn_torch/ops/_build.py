@@ -36,7 +36,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 _SOURCES = ("threefry.cu", "gibbs_chain.cu", "gen_fused_rbm.cu",
             "nade_sample.cu", "gen_fused_nade.cu", "nade_ll.cu", "ops.cpp")
-_HEADERS = ("threefry.cuh", "reduce.cuh", "launchers.h")
+_HEADERS = ("threefry.cuh", "reduce.cuh", "gen_cluster.cuh", "launchers.h")
 _LIB = "multinn_torch_ops.so"
 _CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3",
                "-Xptxas=-v"]

@@ -6,9 +6,42 @@ The kernels run in the decoder's feature space with per-track layouts.
 ``meta`` device, so a gate can run the real argument builder and size the
 launch without allocating anything. ``_ctx_rows`` and ``_state_rows`` /
 ``_from_state_rows`` are the layouts both whole-generation kernels read.
+``cluster_shape`` and ``sample_bytes`` make the count of
+csrc/gen_cluster.cuh's make_plan that the dispatch gates need: a cluster
+of min(K, 8) CTAs, CTA r owning tracks r, r + C, ..., and one sample's
+state, which must fit a CTA's shared memory. Where the per-step weights
+go and how many samples a cluster runs is decided at launch (the
+card-only tests read that plan through the gen_fused_plan op).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
+
+# dynamic shared memory one CTA may use on Hopper (232,448 bytes)
+SMEM_LIMIT_BYTES = 227 * 1024
+MAX_CLUSTER = 8             # the portable cluster size
+
+
+def cluster_shape(k: int) -> Tuple[int, int]:
+    """(CTAs per cluster, track slots per CTA) for K tracks."""
+    c = min(k, MAX_CLUSTER)
+    return c, -(-k // c)
+
+
+def sample_bytes(k: int, d: int, u: int, n_layers: int, scratch: int) -> int:
+    """Shared memory of one sample's state in a CTA: the frames of all
+    tracks at t-1 (K*D) f32, per track slot its fresh rows of both step
+    parities (2*D), h and c (L*U each) and a scratch row f32, the lists of
+    nonzero entries of the K previous and the tpc fresh rows (a count and
+    up to D uint16 indices each), 16-byte aligned. The per-track weights
+    go to shared memory only beside it, so a launch is possible exactly
+    when this fits."""
+    tpc = cluster_shape(k)[1]
+    row_list = 4 + 2 * (d + d % 2)
+    nbytes = (4 * (k * d + tpc * (2 * d + 2 * n_layers * u + scratch))
+              + (k + tpc) * row_list)
+    return (nbytes + 15) & ~15
 
 
 def _common_gate(cfg, decoder_type: str) -> bool:

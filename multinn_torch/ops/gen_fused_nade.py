@@ -22,13 +22,15 @@ version up to the rare draw a last-ulp difference in a logit flips, after
 which that sample's trajectory diverges (chip_smoke compares by matching
 samples).
 
-The gate is a Hopper resource check of the kernel's design — one CTA per
-sample with the state rows in shared memory and each thread's share of a
-dim's weights in registers — computed from the same arguments the dispatch
-builds. The TPU kernel's "B = 1 or a multiple of 8" rule (Mosaic tiling)
-is gone; K <= 8 stays, because the random stream has 8 rows per dim. The
-bf16 aux-matrix capacity mode exists for VMEM and is not ported (ROADMAP
-queue 2).
+The gate is a Hopper resource check of the kernel's design — a cluster of
+K CTAs per group of samples, each CTA with its track's V, W, Wuh and Wuv
+in shared memory where they fit (else read from global memory) and each
+sample's state rows beside them; one warp per sample and track runs the
+sweep with the track's hidden lanes in registers — computed from the same
+arguments the dispatch builds. The TPU kernel's "B = 1 or a multiple of 8"
+rule (Mosaic tiling) is gone; K <= 8 stays, because the random stream has
+8 rows per dim. The bf16 aux-matrix capacity mode exists for VMEM and is
+not ported (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -38,20 +40,18 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from multinn_torch.nn import rnn as rnn_nn
-from multinn_torch.ops import _build, kernel_prng
-from multinn_torch.ops.gen_common import (_common_gate, _ctx_rows,
-                                          _decoder_param_shapes, _eff_dims,
-                                          _from_state_rows, _state_rows)
+from multinn_torch.ops import _build, gen_common, kernel_prng
+from multinn_torch.ops.gen_common import (SMEM_LIMIT_BYTES, _common_gate,
+                                          _ctx_rows, _decoder_param_shapes,
+                                          _eff_dims, _from_state_rows,
+                                          _state_rows)
 from multinn_torch.ops.sampling import key_to_seeds
 
-# dynamic shared memory one CTA may use on Hopper (232,448 bytes)
-SMEM_LIMIT_BYTES = 227 * 1024
 STREAM_ROWS = 8             # tracks per dim in the random stream: K <= 8
-# csrc/gen_fused_nade.cu: kThreads, and the register-held weights per
-# thread and dim (kChunkRounds 32-lane hidden chunks, kZRounds z lanes)
-_THREADS = 512
-_CHUNK_ROUNDS = 4
-_Z_ROUNDS = 8
+# csrc/gen_fused_nade.cu: a sweep warp's lane holds kMaxLaneRounds hidden
+# lanes (H <= 256) and one bit per 32 dims (D <= 1024)
+MAX_HIDDEN = 32 * 8
+MAX_DIMS = 1024
 
 
 class NadeArgs(NamedTuple):
@@ -116,32 +116,26 @@ def _nade_args(dec_params, h0, c0, v0) -> NadeArgs:
               if n_layers > 1 else None))
 
 
-def _cta_smem_bytes(args: NadeArgs) -> int:
-    """Shared memory of one CTA — the same count as smem_bytes in
-    csrc/gen_fused_nade.cu: h and c rows, four frame rows (previous, fresh,
-    visible bias, uniforms), two hidden rows (activation, its sigmoid), the
-    z / gate row and two rows of chunk partials."""
+def _sample_bytes(args: NadeArgs) -> int:
+    """One sample's shared memory, as plan_gen_fused_nade in
+    csrc/gen_fused_nade.cu counts it: a group's scratch row holds bv'(t),
+    the step's uniforms and bh'(t), then the gates."""
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
-    chunks = k * -(-hid // 32)
-    return 4 * (2 * n_layers * k * u + 4 * k * d + 2 * k * hid + k * g
-                + 2 * chunks)
+    return gen_common.sample_bytes(k, d, u, n_layers, max(g, 2 * d + hid))
 
 
 def _fits(args: NadeArgs) -> bool:
-    k, _, hid = args.w.shape
-    g = args.wx_v.shape[2]
-    return (k <= STREAM_ROWS
-            and k * -(-hid // 32) <= _CHUNK_ROUNDS * _THREADS // 32
-            and k * g <= _Z_ROUNDS * _THREADS
-            and _cta_smem_bytes(args) <= SMEM_LIMIT_BYTES)
+    k, d, hid = args.w.shape
+    return (k <= STREAM_ROWS and hid <= MAX_HIDDEN and d <= MAX_DIMS
+            and _sample_bytes(args) <= SMEM_LIMIT_BYTES)
 
 
 def supported_nade(cfg, batch: int, n_steps: int = 2048) -> bool:
     """Gate for the auto-dispatch: the config is one the kernel takes, one
-    sample's state rows fit a CTA's shared memory and a dim's weights fit
-    the threads' registers (batch sets only the grid; n_steps only the loop
-    trip count)."""
+    sample's state rows fit a CTA's shared memory and a track's hidden
+    lanes fit a warp's registers (batch sets only the samples per cluster
+    and the grid; n_steps only the loop trip count)."""
     if not _common_gate(cfg, "rnn-nade") or batch < 1 or n_steps < 1:
         return False
     from multinn_torch.models import rnn_nade
@@ -202,9 +196,9 @@ def _generate_cuda(seeds, args: NadeArgs, n_steps, lstm, given, given_tracks,
                    wxg):
     if not _fits(args):
         raise ValueError(
-            f"generate_nade: one sample needs {_cta_smem_bytes(args)} bytes "
-            f"of shared memory (limit {SMEM_LIMIT_BYTES}) or more register-"
-            f"held weights than the kernel keeps; gen_fused.supported_nade "
+            f"generate_nade: one sample needs {_sample_bytes(args)} "
+            f"bytes of shared memory (limit {SMEM_LIMIT_BYTES}), or H > "
+            f"{MAX_HIDDEN} or D > {MAX_DIMS}; gen_fused.supported_nade "
             f"refuses this config — use the scan path")
     b = args.h0.shape[0]
     kd = args.v0.shape[1]
@@ -228,9 +222,10 @@ def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
                     given_tracks, wxg):
     """Plain PyTorch version of the kernel, same signature and stream.
     Track-major (K, B, X) tensors; torch.matmul batches over the tracks.
-    The sweep adds one dim at a time, as the kernel does: z is not
-    v @ Wx afterwards, whose reordered sum would change h and c in the
-    last bits and later flip a draw."""
+    z grows one dim at a time, in increasing i, as the kernel's gather
+    over the sampled frame's active dims adds it: z is not v @ Wx
+    afterwards, whose reordered sum would change h and c in the last bits
+    and later flip a draw."""
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
     b = args.h0.shape[0]

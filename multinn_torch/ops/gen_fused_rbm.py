@@ -15,11 +15,13 @@ in the roll (CPU tests); the CUDA kernel equals the plain version up to the
 rare draw a last-ulp difference in a probability flips, after which that
 sample's trajectory diverges (chip_smoke compares by matching samples).
 
-The gate is a Hopper resource check of the kernel's design — one CTA per
-sample with the state rows in shared memory — computed from the same
-arguments the dispatch builds (not the TPU kernel's VMEM rule). Weights are
-f32 only: the bf16 weight-storage capacity mode exists for VMEM and is not
-ported (ROADMAP queue 2).
+The gate is a Hopper resource check of the kernel's design — a cluster of
+min(K, 8) CTAs per group of samples, each CTA with its tracks' W, Wuh and
+Wuv in shared memory where they fit (else read from global memory) and
+each sample's state rows beside them — computed from the same arguments
+the dispatch builds (not the TPU kernel's VMEM rule): one sample's state
+must fit. Weights are f32 only: the bf16 weight-storage capacity mode
+exists for VMEM and is not ported (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -28,14 +30,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from multinn_torch.ops import _build, kernel_prng
-from multinn_torch.ops.gen_common import (_common_gate, _ctx_rows,
-                                          _decoder_param_shapes, _eff_dims,
-                                          _from_state_rows, _state_rows)
+from multinn_torch.ops import _build, gen_common, kernel_prng
+from multinn_torch.ops.gen_common import (SMEM_LIMIT_BYTES, _common_gate,
+                                          _ctx_rows, _decoder_param_shapes,
+                                          _eff_dims, _from_state_rows,
+                                          _state_rows)
 from multinn_torch.ops.sampling import key_to_seeds
 
-# dynamic shared memory one CTA may use on Hopper (232,448 bytes)
-SMEM_LIMIT_BYTES = 227 * 1024
 MAX_TRACKS = 31             # the given-track merge is a 32-bit lane mask
 
 
@@ -44,7 +45,7 @@ class RbmArgs(NamedTuple):
     per-track layouts (the TPU kernel's block-diagonal matrices only served
     its matrix unit):
 
-        w     (K, D, H)   RBM weights       wt   (K, H, D)   their transpose
+        w     (K, D, H)   RBM weights
         wuv   (K, U, D)   bias conditioning wuh  (K, U, H)
         bv    (K*D,)      bh   (K*H,)
         wx_v  (K, D, G)   layer-0 input projection of the track's frame
@@ -57,7 +58,6 @@ class RbmArgs(NamedTuple):
         wx_r  (L-1, K, U, G) input projections of layers >= 1; None if L = 1
     """
     w: torch.Tensor
-    wt: torch.Tensor
     wuv: torch.Tensor
     wuh: torch.Tensor
     bv: torch.Tensor
@@ -80,7 +80,6 @@ def _rbm_args(dec_params, h0, c0, v0) -> RbmArgs:
     b = h0.shape[2]
     return RbmArgs(
         w=dec_params.w.contiguous(),
-        wt=dec_params.w.transpose(1, 2).contiguous(),
         wuv=dec_params.wuv.contiguous(),
         wuh=dec_params.wuh.contiguous(),
         bv=dec_params.bv.reshape(-1).contiguous(),
@@ -95,26 +94,26 @@ def _rbm_args(dec_params, h0, c0, v0) -> RbmArgs:
               if n_layers > 1 else None))
 
 
-def _cta_smem_bytes(args: RbmArgs) -> int:
-    """Shared memory of one CTA — the same count as smem_bytes in
-    csrc/gen_fused_rbm.cu: h and c rows, three
-    frame rows (previous, current, visible bias), two hidden rows (sample,
-    bias) and the gate row."""
+def _sample_bytes(args: RbmArgs) -> int:
+    """One sample's shared memory, as plan_gen_fused_rbm in
+    csrc/gen_fused_rbm.cu counts it: a group's scratch row holds bv(t),
+    bh(t) and the chain's visible and hidden samples, then the gates."""
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
-    return 4 * (2 * n_layers * k * u + 3 * k * d + 2 * k * hid + k * g)
+    return gen_common.sample_bytes(k, d, u, n_layers, max(g, 2 * (d + hid)))
 
 
 def _fits(args: RbmArgs) -> bool:
     return (args.w.shape[0] <= MAX_TRACKS
-            and _cta_smem_bytes(args) <= SMEM_LIMIT_BYTES)
+            and _sample_bytes(args) <= SMEM_LIMIT_BYTES)
 
 
 def supported(cfg, batch: int, n_steps: int = 2048,
               gen_k: Optional[int] = None, conditioned: bool = False) -> bool:
     """Gate for the auto-dispatch: the config is one the kernel takes and
     one sample's state rows fit a CTA's shared memory (batch sets only the
-    grid; n_steps and gen_k set only the loop trip counts)."""
+    samples per cluster and the grid; n_steps and gen_k set only the loop
+    trip counts)."""
     if not _common_gate(cfg, "rnn-rbm") or batch < 1 or n_steps < 1:
         return False
     from multinn_torch.models import rnn_rbm
@@ -171,7 +170,7 @@ def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
     if not _fits(args):
         raise ValueError(
             f"generate_rbm: one sample's state needs "
-            f"{_cta_smem_bytes(args)} bytes of shared memory (limit "
+            f"{_sample_bytes(args)} bytes of shared memory (limit "
             f"{SMEM_LIMIT_BYTES}) or K > {MAX_TRACKS}; gen_fused.supported "
             f"refuses this config — use the scan path")
     b = args.h0.shape[0]
@@ -184,7 +183,7 @@ def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
     with torch.cuda.device(dev):
         _build.launches["gen_fused_rbm"] += 1
         _build.ops().gen_fused_rbm(
-            roll, h_out, c_out, args.w, args.wt, args.wuv, args.wuh, args.bv,
+            roll, h_out, c_out, args.w, args.wuv, args.wuh, args.bv,
             args.bh, args.wx_v, none if args.wx_r is None else args.wx_r,
             args.wh, none if args.wctx is None else args.wctx, args.b,
             args.h0, args.c0, args.v0, none if given is None else given,
@@ -206,6 +205,7 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
         c = torch.arange(b * k * x, dtype=torch.int64, device=dev)
         return c.reshape(b, k, x).transpose(0, 1)
     ctr_h, ctr_v = ctr(hid), ctr(d)
+    wt = args.w.transpose(1, 2).contiguous()
 
     def uniform(salt, counter):
         return kernel_prng.uniform_from_bits(
@@ -231,7 +231,7 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
         for s in range(gen_k):
             ph = torch.sigmoid(v @ args.w + bh_row)
             hs = (uniform(salt0 + 2 * s, ctr_h) < ph).to(torch.float32)
-            pv = torch.sigmoid(hs @ args.wt + bv_row)
+            pv = torch.sigmoid(hs @ wt + bv_row)
             v = (uniform(salt0 + 2 * s + 1, ctr_v) < pv).to(torch.float32)
         if given is not None:
             v = torch.where(gmask, track_major(given[:, t], d), v)

@@ -34,6 +34,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from multinn_torch.data import pianoroll
 from multinn_torch.ops import sampling
 
 
@@ -178,8 +179,7 @@ class GenerationService:
                              f"frame-space, got {seed.shape}")
         enc = (seed > 0).astype(np.uint8)
         if self.cfg.data.encoding != "frame":
-            from multinn_torch.training.generator import pianoroll
-            enc = pianoroll().encode_rolls(enc, self.cfg.data.encoding)
+            enc = pianoroll.encode_rolls(enc, self.cfg.data.encoding)
         s = self.serve_cfg.seed_steps
         enc = enc[-s:]
         if enc.shape[0] < s:

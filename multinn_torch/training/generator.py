@@ -22,17 +22,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from multinn_torch.data import pianoroll
 from multinn_torch.models import multinn
 from multinn_torch.ops import bitpack
-
-
-def pianoroll():
-    """The JAX package's framework-free (numpy) pianoroll helpers, imported
-    only where an encoding or post-processing transforms a roll: the frame
-    encoding needs no transform, so the plain serving path does not import
-    the JAX package at all."""
-    from multinn_tpu.data import pianoroll as pr
-    return pr
 
 
 class AsyncRolls(NamedTuple):
@@ -121,10 +113,10 @@ class Generator:
         """Model-space rolls -> user-facing frame pianorolls: decode the data
         encoding, then the opt-in gap-fill / min-note post-processing."""
         if self.cfg.data.encoding != "frame":
-            rolls = pianoroll().decode_rolls(rolls, self.cfg.data.encoding)
+            rolls = pianoroll.decode_rolls(rolls, self.cfg.data.encoding)
         gcfg = self.cfg.generate
         gap = getattr(gcfg, "gap_fill_steps", 0)
         min_steps = getattr(gcfg, "min_note_steps", 0)
         if gap or min_steps:
-            rolls = pianoroll().postprocess_roll(rolls, gap, min_steps)
+            rolls = pianoroll.postprocess_roll(rolls, gap, min_steps)
         return rolls

@@ -34,6 +34,7 @@ import torch
 
 from multinn_torch.models import multinn
 from multinn_torch.ops import sampling
+from multinn_torch.utils.device import entry_device
 
 _LATER = "not ported to multinn_torch yet (ROADMAP queue 1)"
 
@@ -162,22 +163,24 @@ class Trainer:
     ``batches(split, epoch=, shuffle=, drop_remainder=, with_masks=,
     augment=)`` yields uint8 (B, T, K, D) arrays, plus (B, T) masks with
     ``with_masks``; ``n_batches(split)`` counts the training batches.
-    Without ``params`` the model is initialised on the CPU from a
-    torch.Generator seeded with the init key's words (the port has no
+    Without ``params`` the model is initialised on ``device`` (the CUDA
+    card when None, which raises without one) from a torch.Generator
+    seeded with the init key's words (the port has no
     jax.random.normal)."""
 
-    def __init__(self, cfg, dataset, params=None):
+    def __init__(self, cfg, dataset, params=None, device=None):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.dataset = dataset
-        self.device = (torch.device("cpu") if params is None
+        self.device = (entry_device(device) if params is None
                        else params.decoder.w.device)
         self.rng = sampling.PRNGKey(cfg.train.seed, device=self.device)
         self.rng, init_key = sampling.split(self.rng)
         if params is None:
             words = sampling.key_to_seeds(init_key).tolist()
             params = multinn.init(cfg.model, torch.Generator().manual_seed(
-                (words[0] & 0xFFFFFFFF) << 32 | words[1] & 0xFFFFFFFF))
+                (words[0] & 0xFFFFFFFF) << 32 | words[1] & 0xFFFFFFFF),
+                device=self.device)
         self.params = multinn.tree_map(
             lambda t: t.detach().clone().requires_grad_(True), params)
         self._leaves = multinn.tree_leaves(self.params)

@@ -19,6 +19,7 @@ import torch
 from multinn_torch.models import multinn
 from multinn_torch.models.base import get_decoder
 from multinn_torch.nn import rnn as rnn_nn
+from multinn_torch.utils.device import entry_device
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -34,7 +35,9 @@ def _cell(p, device):
 
 def from_jax(params, device=None) -> multinn.MultINNParams:
     """A JAX ``MultINNParams`` (RNN-RBM or RNN-NADE decoder, pass-through
-    encoder) -> the port's MultINNParams on ``device``."""
+    encoder) -> the port's MultINNParams on ``device``: the CUDA card when
+    None, which raises without one."""
+    device = entry_device(device)
     cfg = multinn.MultINNConfig(**dataclasses.asdict(params.cfg))
     if cfg.encoder_hidden:
         raise NotImplementedError("from_jax covers pass-through encoders")

@@ -13,9 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from multinn_torch.models import multinn  # noqa: E402
-from multinn_torch.ops import (_build, gen_fused_nade,  # noqa: E402
-                               gen_fused_rbm, gibbs, kernel_prng, nade_ll,
-                               nade_ops, sampling)
+from multinn_torch.ops import (_build, gen_common,  # noqa: E402
+                               gen_fused_nade, gen_fused_rbm, gibbs,
+                               kernel_prng, nade_ll, nade_ops, sampling)
 from multinn_torch.serving.service import (GenerationService,  # noqa: E402
                                            ServeConfig)
 from multinn_torch.utils import config  # noqa: E402
@@ -37,8 +37,7 @@ def dev():
 
 
 def _params(cfg, dev, seed=0):
-    params = multinn.init(cfg, torch.Generator().manual_seed(seed))
-    return multinn.tree_map(lambda x: x.to(dev), params)
+    return multinn.init(cfg, torch.Generator().manual_seed(seed), device=dev)
 
 
 @pytest.mark.parametrize("seed,salt", [(0, 0), (12345, -7),
@@ -205,6 +204,188 @@ def test_nade_service_and_scan_branch_run_on_the_kernels(dev):
                                multinn.init_state(params, 2), 4, fused=False)
     assert roll.shape == (2, 4, 5, 84)
     assert _build.launches["nade_sample"] == 4 * 5
+
+
+# the cluster split: K in {1, 5, 8} for both families and K=12 (two tracks
+# per CTA) for the RBM; per-track, hybrid and feedback modes; L=2
+CLUSTER_CASES = [("rnn-rbm", 1, "per-track", 1), ("rnn-rbm", 5, "hybrid", 1),
+                 ("rnn-rbm", 8, "feedback", 2), ("rnn-rbm", 12, "feedback", 1),
+                 ("rnn-nade", 1, "per-track", 2),
+                 ("rnn-nade", 5, "hybrid", 1), ("rnn-nade", 8, "feedback", 2)]
+
+
+def _cluster_model(family, n_tracks, mode="feedback", layers=1):
+    return multinn.MultINNConfig(
+        n_tracks=n_tracks, n_pitches=84, mode=mode, decoder_type=family,
+        n_hidden=150, n_rnn=100, rnn_layers=layers, gen_k=10, w_std=0.1)
+
+
+def _primed(params, batch, dev, seed=1):
+    k, d = params.cfg.n_tracks, params.cfg.n_pitches
+    roll = (torch.rand(batch, 16, k, d, generator=torch.Generator()
+                       .manual_seed(seed)) < 0.1).float().to(dev)
+    return multinn.prime(params, multinn.init_state(params, batch), roll)
+
+
+def _identical_samples(rk, rp):
+    return (rk == rp).flatten(1).all(dim=1)
+
+
+@pytest.mark.parametrize("family,n_tracks,mode,layers", CLUSTER_CASES)
+def test_cluster_kernels_match_plain(dev, family, n_tracks, mode, layers):
+    """At least 7 of 8 samples identical at T=16 (a sample diverges only
+    after a last-ulp difference in a probability flips a draw) and the
+    final h within 1e-4 on those."""
+    params = _params(_cluster_model(family, n_tracks, mode, layers), dev)
+    state = _primed(params, 8, dev)
+    key = sampling.PRNGKey(5, device=dev)
+    _build.launches.clear()
+    fk, rk = multinn._generate_fused(params, key, state, 16, impl="cuda")
+    fp, rp = multinn._generate_fused(params, key, state, 16, impl="plain")
+    assert _build.launches[{"rnn-rbm": "gen_fused_rbm",
+                            "rnn-nade": "gen_fused_nade"}[family]] == 1
+    same = _identical_samples(rk, rp)
+    assert int(same.sum()) >= 7
+    for a, b in zip(fk.decoder.cell, fp.decoder.cell):
+        assert float((a.h - b.h).abs()[:, same].max()) <= 1e-4
+    assert 0.0 < float(rk.mean()) < 1.0
+
+
+@pytest.mark.parametrize("family", ["rnn-rbm", "rnn-nade"])
+def test_cluster_given_merge_matches_plain(dev, family):
+    """Given tracks 1 and 3 take the given frames; the sampled tracks and
+    the final state follow the plain version's."""
+    params = _params(_cluster_model(family, 5), dev)
+    state = _primed(params, 8, dev)
+    h0 = torch.stack([c.h for c in state.decoder.cell])
+    c0 = torch.stack([c.c for c in state.decoder.cell])
+    given = (torch.rand(8, 16, 5, 84, generator=torch.Generator()
+                        .manual_seed(2)) < 0.3).float().to(dev)
+    key = sampling.PRNGKey(4, device=dev)
+    fn = (gen_fused_rbm.generate_rbm if family == "rnn-rbm" else
+          gen_fused_nade.generate_nade)
+    extra = (10,) if family == "rnn-rbm" else ()
+    out = {impl: fn(key, params.decoder, h0, c0, state.decoder.v_prev, 16,
+                    *extra, impl=impl, given=given, given_tracks=(1, 3))
+           for impl in ("cuda", "plain")}
+    rk, hk, _ = out["cuda"]
+    rp, hp, _ = out["plain"]
+    assert torch.equal(rk[:, :, [1, 3]], given[:, :, [1, 3]])
+    same = _identical_samples(rk, rp)
+    assert int(same.sum()) >= 7
+    assert float((hk - hp).abs()[:, :, same].max()) <= 1e-4
+
+
+@pytest.mark.parametrize("family", ["rnn-rbm", "rnn-nade"])
+def test_cluster_runs_several_samples_per_cluster(dev, family):
+    """B=300 is more samples than the card holds clusters, so clusters run
+    several samples each, the last cluster fewer; every sample must index
+    its own state, stream and roll rows: at least 99 % of the samples
+    identical to the plain version at T=8 (a fault in one sample slot
+    would break about one in twelve), and the final h within 1e-4 on
+    those."""
+    params = _params(_cluster_model(family, 5), dev)
+    state = _primed(params, 300, dev, seed=3)
+    key = sampling.PRNGKey(6, device=dev)
+    fk, rk = multinn._generate_fused(params, key, state, 8, impl="cuda")
+    fp, rp = multinn._generate_fused(params, key, state, 8, impl="plain")
+    same = _identical_samples(rk, rp)
+    assert int(same.sum()) >= 297
+    for a, b in zip(fk.decoder.cell, fp.decoder.cell):
+        assert float((a.h - b.h).abs()[:, same].max()) <= 1e-4
+
+
+@pytest.mark.parametrize("family", ["rnn-rbm", "rnn-nade"])
+def test_cluster_replay_is_bit_equal(dev, family):
+    """No float atomics: the same launch twice gives the same bits."""
+    params = _params(_cluster_model(family, 5), dev)
+    state = _primed(params, 8, dev)
+    key = sampling.PRNGKey(7, device=dev)
+    (f1, r1), (f2, r2) = (multinn._generate_fused(params, key, state, 32,
+                                                  impl="cuda")
+                          for _ in range(2))
+    assert torch.equal(r1, r2)
+    for a, b in zip(f1.decoder.cell, f2.decoder.cell):
+        assert torch.equal(a.h, b.h) and torch.equal(a.c, b.c)
+
+
+PLAN_FIELDS = ("cluster", "tpc", "w_smem", "weight_bytes", "sample_bytes",
+               "max_samples", "samples", "grid", "clusters")
+
+# (family, K, H, U; CTAs per cluster, track slots per CTA, the per-step
+# weight matrices in shared memory by bit — RBM: W, Wuh, Wuv; NADE: V, W,
+# Wuh, Wuv — their bytes, the most samples a CTA holds)
+PLAN_CASES = [
+    ("rnn-rbm", 1, 150, 100, 1, 1, 0b111, 144336, 21),
+    ("rnn-rbm", 5, 150, 100, 5, 1, 0b111, 144336, 14),
+    ("rnn-rbm", 8, 150, 100, 8, 1, 0b111, 144336, 11),
+    ("rnn-rbm", 9, 150, 100, 8, 2, 0b101, 168672, 5),
+    ("rnn-rbm", 12, 150, 100, 8, 2, 0b101, 168672, 4),
+    ("rnn-rbm", 31, 150, 100, 8, 4, 0b100, 134400, 3),
+    ("rnn-rbm", 5, 200, 150, 5, 1, 0b011, 187536, 6),
+    ("rnn-nade", 1, 150, 100, 1, 1, 0b1111, 127200, 27),
+    ("rnn-nade", 5, 150, 100, 5, 1, 0b1111, 127200, 18),
+    ("rnn-nade", 8, 256, 100, 8, 1, 0b1111, 205216, 3),
+    ("rnn-nade", 5, 150, 256, 5, 1, 0b0111, 204000, 2),
+    ("rnn-nade", 5, 256, 400, 5, 1, 0b1011, 153216, 6)]
+
+
+def _launch_plan(cfg, batch):
+    """The plan the family's kernel makes at launch (csrc/gen_cluster.cuh),
+    read through the gen_fused_plan op, which launches nothing."""
+    k, d = gen_common._eff_dims(cfg)
+    return dict(zip(PLAN_FIELDS, _build.ops().gen_fused_plan(
+        int(cfg.decoder_type == "rnn-nade"), k, d, cfg.n_hidden, cfg.n_rnn,
+        cfg.rnn_layers, int(cfg.cell == "lstm"), batch)))
+
+
+def _gate_sample_bytes(cfg):
+    """One sample's shared memory as the dispatch gate counts it."""
+    from multinn_torch.models import rnn_nade, rnn_rbm
+    rbm = cfg.decoder_type == "rnn-rbm"
+    params = gen_common._decoder_param_shapes(cfg, rnn_rbm if rbm
+                                              else rnn_nade)
+    st = torch.empty((cfg.rnn_layers, cfg.n_tracks, 1, cfg.n_rnn),
+                     device="meta")
+    v0 = torch.empty((cfg.n_tracks, 1, cfg.n_pitches), device="meta")
+    if rbm:
+        return gen_fused_rbm._sample_bytes(
+            gen_fused_rbm._rbm_args(params, st, st, v0))
+    return gen_fused_nade._sample_bytes(
+        gen_fused_nade._nade_args(params, st, st, v0))
+
+
+@pytest.mark.parametrize(
+    "family,n_tracks,n_hidden,n_rnn,cluster,tpc,w_smem,weight_bytes,s_max",
+    PLAN_CASES)
+def test_launch_plan(dev, family, n_tracks, n_hidden, n_rnn, cluster, tpc,
+                     w_smem, weight_bytes, s_max):
+    """C = min(K, 8) CTAs per cluster, CTA r owning tracks r, r + C, ...;
+    the per-step weight matrices go to shared memory in priority order
+    while they fit beside one sample's state, the rest are read from
+    global memory; one sample's state is the count the dispatch gate
+    makes; S = ceil(B / the clusters the card holds at once) samples per
+    cluster, within what the shared memory holds, and ceil(B / S)
+    clusters, so the flagship's B=256 runs in one wave."""
+    cfg = multinn.MultINNConfig(
+        n_tracks=n_tracks, n_pitches=84, mode="per-track",
+        decoder_type=family, n_hidden=n_hidden, n_rnn=n_rnn, gen_k=10)
+    limit = gen_common.SMEM_LIMIT_BYTES
+    for batch in (1, 8, 64, 256, 300, 4096):
+        p = _launch_plan(cfg, batch)
+        assert ((p["cluster"], p["tpc"], p["w_smem"], p["weight_bytes"],
+                 p["max_samples"])
+                == (cluster, tpc, w_smem, weight_bytes, s_max))
+        assert p["sample_bytes"] == _gate_sample_bytes(cfg)
+        assert (weight_bytes + s_max * p["sample_bytes"] <= limit
+                < weight_bytes + (s_max + 1) * p["sample_bytes"])
+        assert p["clusters"] >= 1
+        assert p["samples"] == max(1, min(s_max,
+                                          -(-batch // p["clusters"])))
+        assert p["grid"] == -(-batch // p["samples"])
+    if (n_tracks, n_hidden, n_rnn) == (5, 150, 100):
+        p = _launch_plan(cfg, 256)
+        assert p["grid"] <= p["clusters"]
 
 
 def _ll_inputs(dev, k, n, d=84, h=150, seed=4):

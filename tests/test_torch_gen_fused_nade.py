@@ -7,6 +7,7 @@ and per-track modes, one and two layers, LSTM and vanilla cells, B=1 and
 B=8, a temperature, and the given-track merge."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -19,12 +20,15 @@ import jax.numpy as jnp  # noqa: E402
 from multinn_tpu.models import multinn as jax_multinn  # noqa: E402
 from multinn_tpu.ops import gen_fused as jax_gen_fused  # noqa: E402
 from multinn_torch.models import multinn, rnn_nade  # noqa: E402
-from multinn_torch.ops import gen_fused, gen_fused_nade, sampling  # noqa: E402
+from multinn_torch.ops import (gen_common, gen_fused,  # noqa: E402
+                               gen_fused_nade, sampling)
+from multinn_torch.utils import config  # noqa: E402
 from multinn_torch.utils.convert import from_jax  # noqa: E402
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 K, D, H, U, T = 3, 8, 6, 4, 6
+CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
 
 
 def _primed(mode, cell, layers, batch, seed=0):
@@ -32,7 +36,7 @@ def _primed(mode, cell, layers, batch, seed=0):
         n_tracks=K, n_pitches=D, mode=mode, decoder_type="rnn-nade",
         n_hidden=H, n_rnn=U, cell=cell, rnn_layers=layers, w_std=0.7)
     jp = jax_multinn.init(jax.random.PRNGKey(seed), cfg)
-    tp = from_jax(jp)
+    tp = from_jax(jp, device="cpu")
     roll = (np.random.default_rng(seed + 1).random((batch, 4, K, D)) < 0.3
             ).astype(np.float32)
     js = jax_multinn.prime(jp, jax_multinn.init_state(jp, batch),
@@ -172,10 +176,22 @@ def test_generate_nade_argument_checks():
     assert torch.equal(r1, r2)
 
 
+FLAGSHIP = multinn.MultINNConfig(n_tracks=5, n_pitches=84, mode="feedback",
+                                 decoder_type="rnn-nade", n_hidden=150,
+                                 n_rnn=100)
+
+
+def _args(cfg, batch=1):
+    params = gen_fused_nade._decoder_param_shapes(cfg, rnn_nade)
+    st = torch.empty((cfg.rnn_layers, cfg.n_tracks, batch, cfg.n_rnn),
+                     device="meta")
+    return gen_fused_nade._nade_args(
+        params, st, st,
+        torch.empty((cfg.n_tracks, batch, cfg.n_pitches), device="meta"))
+
+
 def test_gate_is_a_hopper_resource_check():
-    flagship = multinn.MultINNConfig(n_tracks=5, n_pitches=84,
-                                     mode="feedback", decoder_type="rnn-nade",
-                                     n_hidden=150, n_rnn=100)
+    flagship = FLAGSHIP
     # no "B = 1 or a multiple of 8" rule: batch only sets the grid
     for batch in (1, 3, 8, 48, 128, 4096):
         assert gen_fused.supported_nade(flagship, batch, 1024)
@@ -189,15 +205,55 @@ def test_gate_is_a_hopper_resource_check():
         dataclasses.replace(flagship, n_tracks=8), 8)
     assert not gen_fused.supported_nade(
         dataclasses.replace(flagship, n_tracks=9), 8)
-    # register-held weights: K * ceil(H/32) <= 64 chunks, K * G <= 4096
+    # a sweep warp holds H <= 256 hidden lanes in registers
+    assert gen_fused.supported_nade(
+        dataclasses.replace(flagship, n_hidden=256), 8)
     assert not gen_fused.supported_nade(
         dataclasses.replace(flagship, n_hidden=512), 8)
-    assert not gen_fused.supported_nade(
+    # wider cells now fit: their matrices stay in global memory, and one
+    # sample's state rows are what must fit (n_rnn=16384: 256 KB of gates)
+    assert gen_fused.supported_nade(
         dataclasses.replace(flagship, n_rnn=256), 8)
-    # the count the gate uses: flagship state rows of one sample
-    params = gen_fused_nade._decoder_param_shapes(flagship, rnn_nade)
-    st = torch.empty((1, 5, 1, 100), device="meta")
-    args = gen_fused_nade._nade_args(params, st, st,
-                                     torch.empty((5, 1, 84), device="meta"))
-    assert gen_fused_nade._cta_smem_bytes(args) == 4 * (
-        2 * 500 + 4 * 420 + 2 * 750 + 2000 + 2 * 25)
+    assert not gen_fused.supported_nade(
+        dataclasses.replace(flagship, n_rnn=16384), 8)
+    # the count the gate uses: one flagship sample's state
+    # previous frames, fresh rows of both parities, h and c, a scratch row
+    # of max(G, 2D + H) floats; the lists of 5 previous and 1 fresh row
+    sample = 4 * (5 * 84 + 2 * 84 + 2 * 100 + max(400, 2 * 84 + 150)) \
+        + (5 + 1) * (4 + 2 * 84)
+    assert (gen_fused_nade._sample_bytes(_args(flagship))
+            == -(-sample // 16) * 16 == 5792)
+
+
+@pytest.mark.parametrize("n_tracks,n_hidden,n_rnn", [
+    (1, 150, 100), (5, 150, 100), (8, 256, 100), (5, 150, 256),
+    (5, 256, 400)])
+def test_one_track_per_cta_and_the_sample_count(n_tracks, n_hidden, n_rnn):
+    """One track per CTA (K <= 8), so a sample's state holds one fresh row
+    pair, h, c and scratch row per CTA; the gate admits each of these,
+    also where V, W, Wuh and Wuv do not all fit a CTA (the launch then
+    reads the rest from global memory; the placement and the samples per
+    cluster are the launch's, tested on the card)."""
+    assert gen_common.cluster_shape(n_tracks) == (n_tracks, 1)
+    cfg = dataclasses.replace(FLAGSHIP, n_tracks=n_tracks,
+                              n_hidden=n_hidden, n_rnn=n_rnn)
+    scratch = max(4 * n_rnn, 2 * 84 + n_hidden)
+    sample = (4 * (n_tracks * 84 + 2 * 84 + 2 * n_rnn + scratch)
+              + (n_tracks + 1) * (4 + 2 * 84))
+    assert gen_fused_nade._sample_bytes(_args(cfg)) == -(-sample // 16) * 16
+    assert gen_fused.supported_nade(cfg, 256)
+
+
+ADMITTED = {"jsb_rnnrbm.json": False, "lakh_16th_128bar.json": False,
+            "lpd5_feedback_rnnnade.json": False,
+            "lpd5_multinn_rnnrbm.json": False,
+            "nottingham_rnnnade.json": True, "synthetic_smoke.json": False}
+
+
+@pytest.mark.parametrize("name", sorted(ADMITTED))
+def test_configs_admitted_before_are_still_admitted(name):
+    """What the gate admitted with one CTA per sample it still admits."""
+    cfg = config.load_json(str(CONFIGS / name))
+    for batch in (1, 8, 256, 4096):
+        assert (gen_fused.supported_nade(cfg.model, batch, 1024)
+                == ADMITTED[name])

@@ -5,6 +5,7 @@ and per-track modes, one and two layers, LSTM and vanilla cells, and the
 given-track merge."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -17,12 +18,15 @@ import jax.numpy as jnp  # noqa: E402
 from multinn_tpu.models import multinn as jax_multinn  # noqa: E402
 from multinn_tpu.ops import gen_fused as jax_gen_fused  # noqa: E402
 from multinn_torch.models import multinn, rnn_rbm  # noqa: E402
-from multinn_torch.ops import gen_fused, gen_fused_rbm, sampling  # noqa: E402
+from multinn_torch.ops import (gen_common, gen_fused,  # noqa: E402
+                               gen_fused_rbm, sampling)
+from multinn_torch.utils import config  # noqa: E402
 from multinn_torch.utils.convert import from_jax  # noqa: E402
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 K, D, H, U, B, T = 3, 8, 6, 4, 3, 5
+CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
 
 
 def _primed(mode, cell, layers, seed=0):
@@ -30,7 +34,7 @@ def _primed(mode, cell, layers, seed=0):
         n_tracks=K, n_pitches=D, mode=mode, n_hidden=H, n_rnn=U, cell=cell,
         rnn_layers=layers, gen_k=2, w_std=0.5)
     jp = jax_multinn.init(jax.random.PRNGKey(seed), cfg)
-    tp = from_jax(jp)
+    tp = from_jax(jp, device="cpu")
     roll = (np.random.default_rng(seed + 1).random((B, 4, K, D)) < 0.3
             ).astype(np.float32)
     js = jax_multinn.prime(jp, jax_multinn.init_state(jp, B),
@@ -99,10 +103,21 @@ def test_generate_rbm_argument_checks():
     assert torch.equal(r1, r2)
 
 
+def _flagship_args(cfg, batch=1):
+    params = gen_fused_rbm._decoder_param_shapes(cfg, rnn_rbm)
+    st = torch.empty((cfg.rnn_layers, cfg.n_tracks, batch, cfg.n_rnn),
+                     device="meta")
+    return gen_fused_rbm._rbm_args(
+        params, st, st,
+        torch.empty((cfg.n_tracks, batch, cfg.n_pitches), device="meta"))
+
+
+FLAGSHIP = multinn.MultINNConfig(n_tracks=5, n_pitches=84, mode="feedback",
+                                 n_hidden=150, n_rnn=100, gen_k=10)
+
+
 def test_gate_is_a_shared_memory_check():
-    flagship = multinn.MultINNConfig(n_tracks=5, n_pitches=84,
-                                     mode="feedback", n_hidden=150,
-                                     n_rnn=100, gen_k=10)
+    flagship = FLAGSHIP
     for batch in (1, 8, 128, 4096):
         assert gen_fused.supported(flagship, batch, 1024)
     assert not gen_fused.supported(flagship, 0, 1024)
@@ -112,13 +127,58 @@ def test_gate_is_a_shared_memory_check():
         dataclasses.replace(flagship, encoder_hidden=(64,)), 8)
     assert not gen_fused.supported(
         dataclasses.replace(flagship, mode="joint"), 8)
-    # state rows beyond one CTA's shared memory are refused
+    # one sample's state rows beyond one CTA's shared memory are refused:
+    # at n_rnn=16384 the gate row alone takes 256 KB
     assert not gen_fused.supported(
-        dataclasses.replace(flagship, n_rnn=4096), 8)
-    # the count the gate uses: flagship state rows of one sample
-    params = gen_fused_rbm._decoder_param_shapes(flagship, rnn_rbm)
-    st = torch.empty((1, 5, 1, 100), device="meta")
-    args = gen_fused_rbm._rbm_args(params, st, st,
-                                   torch.empty((5, 1, 84), device="meta"))
-    assert gen_fused_rbm._cta_smem_bytes(args) == 4 * (
-        2 * 500 + 3 * 420 + 2 * 750 + 2000)
+        dataclasses.replace(flagship, n_rnn=16384), 8)
+    # K <= 31: the given-track merge is a 32-bit mask
+    assert gen_fused.supported(
+        dataclasses.replace(flagship, n_tracks=31, mode="per-track"), 8)
+    assert not gen_fused.supported(
+        dataclasses.replace(flagship, n_tracks=32, mode="per-track"), 8)
+    # the count the gate uses: one flagship sample's state
+    # previous frames, fresh rows of both parities, h and c, a scratch row
+    # of max(G, 2 (D + H)) floats; the lists of 5 previous and 1 fresh row
+    sample = 4 * (5 * 84 + 2 * 84 + 2 * 100 + max(400, 2 * (84 + 150))) \
+        + (5 + 1) * (4 + 2 * 84)
+    assert (gen_fused_rbm._sample_bytes(_flagship_args(flagship))
+            == -(-sample // 16) * 16 == 6064)
+
+
+@pytest.mark.parametrize("n_tracks,cluster,tpc", [
+    (1, 1, 1), (5, 5, 1), (8, 8, 1), (9, 8, 2), (12, 8, 2), (31, 8, 4)])
+def test_tracks_per_cta(n_tracks, cluster, tpc):
+    """C = min(K, 8) CTAs per cluster; CTA r owns tracks r, r + C, ...:
+    ceil(K / C) track slots, each with its fresh rows, h, c and scratch in
+    a sample's state (the weight placement and the samples per cluster
+    are the launch's, tested on the card)."""
+    assert gen_common.cluster_shape(n_tracks) == (cluster, tpc)
+    cfg = dataclasses.replace(FLAGSHIP, n_tracks=n_tracks, mode="per-track")
+    sample = (4 * (n_tracks * 84 + tpc * (2 * 84 + 2 * 100 + 468))
+              + (n_tracks + tpc) * (4 + 2 * 84))
+    assert gen_fused_rbm._sample_bytes(_flagship_args(cfg)) == \
+        -(-sample // 16) * 16
+    assert gen_fused.supported(cfg, 256)
+
+
+def test_weights_beyond_shared_memory_are_admitted():
+    """The lakh config (H=200, U=150) and K=12 (two tracks per CTA): not
+    every per-step weight matrix fits a CTA beside one sample's state, so
+    the launch reads those from global memory; the gate admits both."""
+    lakh = dataclasses.replace(FLAGSHIP, n_hidden=200, n_rnn=150)
+    two = dataclasses.replace(FLAGSHIP, n_tracks=12, mode="per-track")
+    assert gen_fused.supported(lakh, 256) and gen_fused.supported(two, 256)
+
+
+ADMITTED = {"jsb_rnnrbm.json": True, "lakh_16th_128bar.json": True,
+            "lpd5_feedback_rnnnade.json": False,
+            "lpd5_multinn_rnnrbm.json": False,
+            "nottingham_rnnnade.json": False, "synthetic_smoke.json": True}
+
+
+@pytest.mark.parametrize("name", sorted(ADMITTED))
+def test_configs_admitted_before_are_still_admitted(name):
+    """What the gate admitted with one CTA per sample it still admits."""
+    cfg = config.load_json(str(CONFIGS / name))
+    for batch in (1, 8, 256, 4096):
+        assert gen_fused.supported(cfg.model, batch, 1024) == ADMITTED[name]

@@ -100,7 +100,7 @@ def _model(mode="feedback", cell="lstm", layers=1, seed=0):
         n_tracks=K, n_pitches=D, mode=mode, decoder_type="rnn-nade",
         n_hidden=H, n_rnn=U, cell=cell, rnn_layers=layers, w_std=0.5)
     jp = jax_multinn.init(jax.random.PRNGKey(seed), cfg)
-    return jp, from_jax(jp)
+    return jp, from_jax(jp, device="cpu")
 
 
 def test_registry_and_init_match_jax_shapes():
@@ -111,7 +111,7 @@ def test_registry_and_init_match_jax_shapes():
         f: getattr(jp.cfg, f) for f in ("n_tracks", "n_pitches", "mode",
                                         "decoder_type", "n_hidden", "n_rnn",
                                         "w_std")})
-    tp = multinn.init(cfg, torch.Generator().manual_seed(0))
+    tp = multinn.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     tleaves = [tp.decoder.cell[0].wx, tp.decoder.cell[0].wh,
                tp.decoder.cell[0].b, tp.decoder.w, tp.decoder.v,
                tp.decoder.bv, tp.decoder.bh, tp.decoder.wuv, tp.decoder.wuh]
@@ -197,7 +197,7 @@ def test_scan_branch_matches_jax_scan_in_distribution():
     dec = jp.decoder
     jp = jp.replace(decoder=dec.replace(
         bv=dec.bv + jnp.linspace(-2.0, 2.0, D)[None, :]))
-    tp = from_jax(jp)
+    tp = from_jax(jp, device="cpu")
     batch, steps = 8, 64
     _, jroll = jax_multinn.generate(jp, jax.random.PRNGKey(1),
                                     jax_multinn.init_state(jp, batch), steps,

@@ -115,7 +115,7 @@ def _model(mode="feedback", cell="lstm", layers=1):
         n_tracks=K, n_pitches=D, mode=mode, n_hidden=H, n_rnn=U, cell=cell,
         rnn_layers=layers, gen_k=2, w_std=0.5)
     jp = jax_multinn.init(jax.random.PRNGKey(0), cfg)
-    return jp, from_jax(jp)
+    return jp, from_jax(jp, device="cpu")
 
 
 def test_conditioned_biases_match_stacked_and_single():

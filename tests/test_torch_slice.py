@@ -56,7 +56,7 @@ def _experiment():
 
 def test_from_jax_keeps_the_layout():
     jp = _jax_params()
-    tp = from_jax(jp)
+    tp = from_jax(jp, device="cpu")
     assert dataclasses.asdict(tp.cfg) == dataclasses.asdict(jp.cfg)
     assert tp.encoder == ()
     for name in ("w", "bv", "bh", "wuv", "wuh"):
@@ -77,7 +77,7 @@ def test_from_jax_keeps_the_layout():
 
 def test_init_matches_jax_shapes():
     cfg = multinn.MultINNConfig(**MODEL)
-    tp = multinn.init(cfg, torch.Generator().manual_seed(0))
+    tp = multinn.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     jp = _jax_params()
     jleaves = jax.tree.leaves(jp.decoder)
     tleaves = [tp.decoder.cell[0].wx, tp.decoder.cell[0].wh,
@@ -145,7 +145,7 @@ def _jax_generation(jp, seed_roll, key_seed, batch):
 @pytest.mark.parametrize("seeded", [False, True])
 def test_generator_bit_equal_to_jax(seeded):
     jp = _jax_params(1)
-    gen = Generator(_experiment(), from_jax(jp))
+    gen = Generator(_experiment(), from_jax(jp, device="cpu"))
     seed_roll = ((np.random.default_rng(2).random((B, 4, K, D)) < 0.3)
                  .astype(np.float32) if seeded else None)
     want = _jax_generation(jp, seed_roll, 11, B)
@@ -161,7 +161,7 @@ def test_generator_bit_equal_to_jax(seeded):
 
 
 def test_service_answers_plain_and_seeded_requests():
-    tp = from_jax(_jax_params(2))
+    tp = from_jax(_jax_params(2), device="cpu")
     svc = service.GenerationService(_experiment(), tp, service.ServeConfig(
         batch=2, n_steps=T, seed_steps=3, seed=4, max_wait_ms=1.0))
     try:
@@ -201,7 +201,8 @@ def test_service_under_concurrent_submitters():
     at once, with a short switch interval: every future resolves, no
     (batch, row) is handed out twice, and the request counter loses no
     update."""
-    svc = service.GenerationService(_experiment(), from_jax(_jax_params(2)),
+    svc = service.GenerationService(_experiment(),
+                                    from_jax(_jax_params(2), device="cpu"),
                                     service.ServeConfig(
                                         batch=4, n_steps=2, seed_steps=3,
                                         max_wait_ms=0.5))
@@ -237,7 +238,7 @@ def test_service_under_concurrent_submitters():
 
 
 def test_service_refuses_what_is_not_ported():
-    tp = from_jax(_jax_params())
+    tp = from_jax(_jax_params(), device="cpu")
     cfg = _experiment()
     with pytest.raises(ValueError, match="accompan"):
         service.GenerationService(cfg, tp, service.ServeConfig(
@@ -263,7 +264,7 @@ def test_scan_path_matches_jax_scan_in_distribution():
     dec = jp.decoder
     jp = jp.replace(decoder=dec.replace(
         bv=dec.bv + jnp.linspace(-2.0, 2.0, D)[None, :]))
-    tp = from_jax(jp)
+    tp = from_jax(jp, device="cpu")
     batch, steps = 8, 64
     _, jroll = jax_multinn.generate(jp, jax.random.PRNGKey(1),
                                     jax_multinn.init_state(jp, batch), steps,
@@ -293,7 +294,7 @@ def _nade_experiment():
 
 def test_from_jax_round_trip_for_a_nade_model():
     jp = _nade_jax_params()
-    tp = from_jax(jp)
+    tp = from_jax(jp, device="cpu")
     assert dataclasses.asdict(tp.cfg) == dataclasses.asdict(jp.cfg)
     assert type(tp.decoder).__module__.endswith("rnn_nade")
     for name in ("w", "v", "bv", "bh", "wuv", "wuh"):
@@ -312,7 +313,7 @@ def test_from_jax_round_trip_for_a_nade_model():
 @pytest.mark.parametrize("seeded", [False, True])
 def test_nade_generator_bit_equal_to_jax(seeded):
     jp = _nade_jax_params(1)
-    gen = Generator(_nade_experiment(), from_jax(jp))
+    gen = Generator(_nade_experiment(), from_jax(jp, device="cpu"))
     seed_roll = ((np.random.default_rng(3).random((B, 4, K, D)) < 0.3)
                  .astype(np.float32) if seeded else None)
     want = _jax_generation(jp, seed_roll, 12, B)
@@ -324,7 +325,7 @@ def test_nade_generator_bit_equal_to_jax(seeded):
 
 def test_nade_service_answers_plain_and_seeded_requests():
     svc = service.GenerationService(
-        _nade_experiment(), from_jax(_nade_jax_params(2)),
+        _nade_experiment(), from_jax(_nade_jax_params(2), device="cpu"),
         service.ServeConfig(batch=2, n_steps=T, seed_steps=3, seed=4,
                             max_wait_ms=1.0))
     try:
@@ -381,7 +382,8 @@ def test_port_imports_and_serves_without_jax():
                                         mode="feedback", n_hidden=4,
                                         n_rnn=3, gen_k=2),
             data=config.DataConfig(n_tracks=2, pitch_min=24, pitch_max=31))
-        params = multinn.init(cfg.model, torch.Generator().manual_seed(0))
+        params = multinn.init(cfg.model, torch.Generator().manual_seed(0),
+                              device="cpu")
         svc = GenerationService(cfg, params, ServeConfig(batch=2, n_steps=3))
         roll = svc.submit().result(timeout=60).roll
         svc.close()

@@ -43,7 +43,7 @@ def _model(mode, seed=0, **kw):
         n_tracks=K, n_pitches=D, mode=mode, decoder_type="rnn-nade",
         n_hidden=H, n_rnn=U, w_std=0.5, **kw)
     jp = jax_multinn.init(jax.random.PRNGKey(seed), cfg)
-    return jp, from_jax(jp)
+    return jp, from_jax(jp, device="cpu")
 
 
 def _batch(seed):
@@ -158,7 +158,8 @@ def test_golden_rnn_nade_loss_is_reproduced():
     cfg = jax_multinn.MultINNConfig(n_tracks=2, n_pitches=16, mode="feedback",
                                     decoder_type="rnn-nade", n_hidden=8,
                                     n_rnn=6, cd_k=1, gen_k=2, w_std=0.1)
-    params = from_jax(jax_multinn.init(jax.random.PRNGKey(1234), cfg))
+    params = from_jax(jax_multinn.init(jax.random.PRNGKey(1234), cfg),
+                      device="cpu")
     x = jax.random.bernoulli(jax.random.PRNGKey(5678), 0.3,
                              (2, 6, 2, 16)).astype(jnp.float32)
     loss, metrics = multinn.loss(params, sampling.PRNGKey(99), t(x))

@@ -141,7 +141,7 @@ def _model(mode, seed=0):
         n_tracks=K, n_pitches=D, mode=mode, n_hidden=H, n_rnn=U, gen_k=2,
         cd_k=1, w_std=0.5)
     jp = jax_multinn.init(jax.random.PRNGKey(seed), cfg)
-    return jp, from_jax(jp)
+    return jp, from_jax(jp, device="cpu")
 
 
 def _batch(seed):

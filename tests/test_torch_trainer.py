@@ -168,7 +168,8 @@ def test_three_adam_steps_match_the_jax_step(decoder, interpret_chain):
         def batches(self, split, epoch=0, **kw):
             return iter(batches)
 
-    tr = trainer.Trainer(cfg, ThreeBatches(), params=from_jax(jp))
+    tr = trainer.Trainer(cfg, ThreeBatches(),
+                         params=from_jax(jp, device="cpu"))
     losses = []
     real_step = tr.train_step
 
@@ -197,7 +198,7 @@ def test_steps_per_call_runs_groups_and_leftovers():
         train=config.TrainConfig(steps_per_call=2, log_every_steps=2))
     tr = trainer.Trainer(cfg, ds, params=from_jax(jax_multinn.init(
         jax.random.PRNGKey(0), jax_multinn.MultINNConfig(
-            **dict(MODEL, decoder_type="rnn-nade")))))
+            **dict(MODEL, decoder_type="rnn-nade"))), device="cpu"))
     first = to_numpy(tr.params).decoder.w
     last = tr.train_epoch()
     assert tr.step == ds.n_batches("train") == 5
@@ -217,7 +218,7 @@ def test_evaluate_matches_the_jax_eval_math(decoder, interpret_chain):
     cfg = config.ExperimentConfig(
         model=multinn.MultINNConfig(**dict(MODEL, decoder_type=decoder)),
         train=config.TrainConfig(seed=5))
-    tr = trainer.Trainer(cfg, ds, params=from_jax(jp))
+    tr = trainer.Trainer(cfg, ds, params=from_jax(jp, device="cpu"))
     got = tr.evaluate("valid")
 
     @jax.jit
@@ -261,11 +262,12 @@ def test_unported_features_raise():
         cfg = config.ExperimentConfig(model=base.model,
                                       train=config.TrainConfig(**train))
         with pytest.raises(NotImplementedError):
-            trainer.Trainer(cfg, ds)
+            trainer.Trainer(cfg, ds, device="cpu")
     with pytest.raises(NotImplementedError):
         trainer.Trainer(config.ExperimentConfig(
-            model=base.model, mesh=config.MeshConfig(use_mesh=True)), ds)
-    tr = trainer.Trainer(base, ds)
+            model=base.model, mesh=config.MeshConfig(use_mesh=True)), ds,
+            device="cpu")
+    tr = trainer.Trainer(base, ds, device="cpu")
     assert tr.device == torch.device("cpu")
     for call in (tr.train, tr.save_checkpoint, tr.restore, tr.maybe_resume,
                  tr.pretrain_encoders):
@@ -276,8 +278,8 @@ def test_unported_features_raise():
 def test_to_numpy_is_the_inverse_of_from_jax():
     jp = jax_multinn.init(jax.random.PRNGKey(4), jax_multinn.MultINNConfig(
         **dict(MODEL, decoder_type="rnn-nade", rnn_layers=2)))
-    tp = from_jax(jp)
-    back = from_jax(to_numpy(tp))
+    tp = from_jax(jp, device="cpu")
+    back = from_jax(to_numpy(tp), device="cpu")
     for a, b in zip(multinn.tree_leaves(back), multinn.tree_leaves(tp)):
         assert torch.equal(a, b)
     np.testing.assert_array_equal(to_numpy(tp).decoder.v,
