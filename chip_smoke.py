@@ -14,9 +14,11 @@ family).
   3. Threefry: the kernel's stream bit-equal to its plain version on
      (4096, 750) for three seed/salt pairs, and at the main path's shape;
   4. Gibbs chain: kernel vs plain version (same inputs, on the card) at
-     N=1040, D=84, H=150, k=25 — at most 1% of rows may differ (a row
+     N=1040, D=84, H=150, k=25 and at the flagship's sweeps/s shape, N=4096,
+     k=25 (``bench.py``'s GIBBS) — at most 1% of rows may differ (a row
      differs only after a last-ulp difference in a probability flips a
-     draw) — and at the scan path's shape;
+     draw) — and at the scan path's shape; at N=4096 the kernel and plain
+     ms, sweeps/s (N k / time) and the bound;
   5. fused RBM generation at the flagship widths from primed states:
      B=8, T=16 with at least 7 of 8 samples identical (final h within
      1e-4 on those), then T=1024 with per-track note density within 0.01;
@@ -58,14 +60,22 @@ family).
      time, frames/s and the device-busy share.
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window), error, times (the fused kernels at B=8, the service's
-batch) and bound (``bound_ms``: the larger of the bytes it must move at
-3.35 TB/s and the operations this run's inputs need at 67 TFLOP/s, the
-H100 SXM's f32 rate outside the tensor cores; work that depends on draws
-the kernel does not show, the RBM's visible passes, is left out, so the
-bound stays a lower bound; ``library_ms`` is null: no single PyTorch call
-computes any of these functions), the ``nvidia-smi`` name/power-limit
-line, and the result line
+its path's window), error, times and bound. ``ms`` is the device time per
+call of the kernel's wrapper (its launches and any small PyTorch kernel it
+runs, such as the key's two words, the backward's second pass included):
+calls captured in one CUDA graph and its replay timed by CUDA events, since
+a short kernel finishes before Python has issued the next call and events
+around back-to-back calls would time the host; the fused kernels, at B=8
+(the service's batch), take tens of ms, and their ``ms`` is the sweep's
+CUDA-event time. ``plain_ms`` is the plain version's
+CUDA-event time. ``bound_ms`` is the larger of the bytes the kernel must
+move at 3.35 TB/s and the operations this run's inputs need at 67 TFLOP/s,
+the H100 SXM's f32 rate outside the tensor cores (Threefry's 32-bit integer
+operations, about 80 a draw, counted at the same rate); work that depends
+on draws the kernel does not show, the RBM's visible passes, is left out,
+so the bound stays a lower bound; ``library_ms`` is null: no single
+PyTorch call computes any of these functions. Then the ``nvidia-smi``
+name/power-limit line, and the result line
 ``{"ok": true, "device": {...}}``. The check needs a CUDA device: without
 one it exits 1 and prints no result.
 """
@@ -132,6 +142,18 @@ def fused_work(params, roll, v0, gen_k: int):
     return nbytes, ops
 
 
+def gibbs_work(n: int, k: int, out, d: int = 84, h: int = 150):
+    """(bytes, operations) of a k-sweep Gibbs chain over n rows: v0, bv and
+    the output (n, d), bh (n, h) and W once each; per sweep the hidden
+    pass's products over the nonzero visible entries (each sweep's chain
+    taken at the output's density) and d + h Threefry draws per row of
+    about 80 integer operations each. The visible pass, whose products run
+    over hidden samples the kernel does not show, is left out: a lower
+    bound. A multiply-add counts 2."""
+    return (4 * (3 * n * d + d * h + n * h),
+            2 * k * h * float(out.sum()) + 80 * n * k * (d + h))
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -155,6 +177,29 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph after a warm call, its replay timed by CUDA events, so
+    no host time between launches enters."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -251,7 +296,8 @@ def main() -> None:
     tf_err = max([tf_err] + [word_err(p, q) for p, q in zip(yk, yp)])
     if not all(torch.equal(p, q) for p, q in zip(yk, yp)):
         fail("threefry: fold_in-shaped call differs from plain")
-    ms = cuda_ms(lambda: kernel_prng.threefry2x32(key, x0, x1), 200)
+    call_ms = cuda_ms(lambda: kernel_prng.threefry2x32(key, x0, x1), 200)
+    ms = graph_ms(lambda: kernel_prng.threefry2x32(key, x0, x1), 50)
     plain_ms = cuda_ms(
         lambda: kernel_prng.threefry2x32(key, x0, x1, impl="plain"), 50)
     big = torch.arange(4096 * 750, dtype=torch.int32, device=dev)
@@ -266,7 +312,8 @@ def main() -> None:
                                        ("bound_ms", "bound_by"),
                                        bound(24, 80))))
     say(f"phase 3 threefry: bit-equal on (4096, 750) x 3 keys and at the "
-        f"fold_in shape; fold_in-shaped call {ms:.4f} ms (plain "
+        f"fold_in shape; fold_in-shaped call {call_ms:.4f} ms (kernel "
+        f"{ms:.4f} ms; plain "
         f"{plain_ms:.4f} ms); 3.07M counters {big_ms:.4f} ms (plain "
         f"{big_plain_ms:.3f} ms)")
 
@@ -295,23 +342,34 @@ def main() -> None:
     small_differ = float((sk != sp).any(dim=1).float().mean())
     if small_differ > 1 / 8:
         fail(f"gibbs: {small_differ} of the 8 scan-path rows differ")
-    ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain(key, *small, 10), 100)
+    call_ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain(key, *small, 10), 100)
+    ms = graph_ms(lambda: gibbs_cuda.gibbs_chain(key, *small, 10), 50)
     plain_ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain_plain(key, *small, 10),
                        10)
-    # per sweep: the hidden pass over the nonzero visible entries (each
-    # sweep's chain taken at the output's density); the visible pass,
-    # whose products run over hidden samples the kernel does not show, is
-    # left out (a lower bound)
     results["gibbs_chain"] = dict(max_abs_err=small_err, ms=ms,
                                   plain_ms=plain_ms, **dict(zip(
-                                      ("bound_ms", "bound_by"), bound(
-                                          4 * (3 * 8 * 84 + 84 * 150
-                                               + 8 * 150),
-                                          2 * 10 * 150 * float(sk.sum())))))
+                                      ("bound_ms", "bound_by"),
+                                      bound(*gibbs_work(8, 10, sk)))))
+    bench = gibbs_inputs(4096)              # bench.py's GIBBS: BB=4096, k=25
+    bk = gibbs_cuda.gibbs_chain(key, *bench, 25)
+    bp = gibbs_cuda.gibbs_chain_plain(key, *bench, 25)
+    bench_differ = float((bk != bp).any(dim=1).float().mean())
+    if bench_differ > 0.01:
+        fail(f"gibbs at N=4096 k=25: {bench_differ:.4f} of rows differ")
+    bench_ms = graph_ms(lambda: gibbs_cuda.gibbs_chain(key, *bench, 25), 20)
+    bench_plain = cuda_ms(
+        lambda: gibbs_cuda.gibbs_chain_plain(key, *bench, 25), 2)
+    bench_bound, bench_by = bound(*gibbs_work(4096, 25, bk))
     say(f"phase 4 gibbs: N=1040 k=25 rows differing {differ:.4f} (limit "
         f"0.01), kernel {n1040_ms:.3f} ms, plain {n1040_plain:.3f} ms; "
-        f"scan-path shape (8 rows, k=10) rows differing {small_differ}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+        f"N=4096 k=25 rows differing {bench_differ:.4f} (limit 0.01), "
+        f"kernel {bench_ms:.4f} ms = {4096 * 25 / bench_ms * 1e3:.4g} "
+        f"sweeps/s, plain {bench_plain:.3f} ms = "
+        f"{4096 * 25 / bench_plain * 1e3:.4g} sweeps/s, bound "
+        f"{bench_bound:.4f} ms ({bench_by}); scan-path shape (8 rows, k=10) "
+        f"rows differing {small_differ}, kernel {ms:.4f} ms (call "
+        f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms; {smi}")
+    del bench, bk, bp
 
     # 5. fused RBM generation at flagship widths ---------------------------------
     def primed(params, batch):
@@ -464,7 +522,8 @@ def main() -> None:
     if nade_differ > 1:
         fail(f"nade_sample: {nade_differ} of 8 rows differ from plain "
              f"(limit 1)")
-    ms = cuda_ms(lambda: nade_cuda.nade_sample(key, *nargs, (8,)), 100)
+    call_ms = cuda_ms(lambda: nade_cuda.nade_sample(key, *nargs, (8,)), 100)
+    ms = graph_ms(lambda: nade_cuda.nade_sample(key, *nargs, (8,)), 50)
     plain_ms = cuda_ms(lambda: nade_cuda.nade_sample_plain(key, *nargs, (8,)),
                        10)
     # dense V . sigmoid(a) per dim, W updates for the sampled ones
@@ -477,7 +536,7 @@ def main() -> None:
                                           + 150 * float(nk.sum())))))
     say(f"phase 7 nade sampler: D=84 H=150, 8 rows, rows differing "
         f"{nade_differ} (limit 1), density {float(nk.mean()):.4f}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms")
+        f"{ms:.4f} ms (call {call_ms:.4f} ms), plain {plain_ms:.3f} ms")
 
     # 8. fused NADE generation at flagship widths --------------------------------
     ncfg = multinn.MultINNConfig(**dict(NADE_FLAGSHIP, w_std=0.1))
@@ -614,9 +673,14 @@ def main() -> None:
     fwd_ms = cuda_ms(lambda: nade_ll.nade_ll_fwd(xl, wl, vl, bvl, bhl), 20)
     fwd_plain = cuda_ms(
         lambda: nade_ll.nade_ll_fwd_plain(xl, wl, vl, bvl, bhl), 3)
+    fwd_dev = graph_ms(lambda: nade_ll.nade_ll_fwd(xl, wl, vl, bvl, bhl), 20)
     bwd_ms = cuda_ms(lambda: nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak,
                                                  want_dx=False), 20)
     bwd_dx_ms = cuda_ms(lambda: nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak), 20)
+    bwd_dev = graph_ms(lambda: nade_ll.nade_ll_bwd(
+        xl, wl, vl, cot, ak, want_dx=False), 20)
+    bwd_dx_dev = graph_ms(lambda: nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak),
+                          20)
     bwd_plain = cuda_ms(lambda: nade_ll.nade_ll_bwd_plain(
         xl, wl, vl, cot, ap, want_dx=False), 3)
 
@@ -632,21 +696,22 @@ def main() -> None:
     kk, nn, dd, hh = 5, 4096, 84, 150
     nnz_x = float(xl.sum())
     results["nade_ll_fwd"] = dict(
-        max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain, **dict(zip(
+        max_abs_err=fwd_err, ms=fwd_dev, plain_ms=fwd_plain, **dict(zip(
             ("bound_ms", "bound_by"), bound(
                 4 * (3 * kk * nn * dd + 2 * kk * nn * hh + 2 * kk * dd * hh),
                 2 * kk * nn * dd * hh + hh * nnz_x))))
     results["nade_ll_bwd"] = dict(
-        max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain, **dict(zip(
+        max_abs_err=bwd_err, ms=bwd_dev, plain_ms=bwd_plain, **dict(zip(
             ("bound_ms", "bound_by"), bound(
                 4 * (2 * kk * nn * dd + 2 * kk * nn * hh + 4 * kk * dd * hh),
                 4 * kk * nn * dd * hh + 2 * hh * nnz_x))))
     say(f"phase 10 nade likelihood: K=5 N=4096 D=84 H=150; logits max err "
         f"{fwd_err:.2e} (limit 1e-4); backward error / tolerance "
         f"{ {n: round(r, 4) for n, r in ratios.items()} }; forward kernel "
-        f"{fwd_ms:.4f} ms, plain {fwd_plain:.3f} ms; backward kernel "
-        f"{bwd_ms:.4f} ms ({bwd_dx_ms:.4f} ms with dx), plain "
-        f"{bwd_plain:.3f} ms; autograd step through the kernels "
+        f"{fwd_dev:.4f} ms (call {fwd_ms:.4f} ms), plain {fwd_plain:.3f} ms; "
+        f"backward kernel {bwd_dev:.4f} ms ({bwd_dx_dev:.4f} ms with dx; "
+        f"calls {bwd_ms:.4f} / {bwd_dx_ms:.4f} ms), plain {bwd_plain:.3f} "
+        f"ms; {smi}; autograd step through the kernels "
         f"{step_kernel:.3f} ms, through the cumsum form {step_cumsum:.3f} ms")
     del lk, ak, lp, ap, bk, bp, fk, fp, gk, gp
 
@@ -756,7 +821,7 @@ def main() -> None:
     cd_differ = float((ck != cp).any(dim=1).float().mean())
     if cd_differ > 0.01:
         fail(f"gibbs at N=1024 k=1: {cd_differ:.4f} of rows differ")
-    cd_ms = cuda_ms(lambda: gibbs_cuda.gibbs_chain(key, *cd_args, 1), 50)
+    cd_ms = graph_ms(lambda: gibbs_cuda.gibbs_chain(key, *cd_args, 1), 50)
     cd_plain = cuda_ms(
         lambda: gibbs_cuda.gibbs_chain_plain(key, *cd_args, 1), 5)
     x16 = trainer._to_device(next(src.batches("train", shuffle=False)))

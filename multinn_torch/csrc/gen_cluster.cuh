@@ -38,6 +38,7 @@
 
 #include "launchers.h"
 #include "reduce.cuh"
+#include "sigmoid.cuh"
 #include "threefry.cuh"
 
 namespace multinn_torch {
@@ -165,19 +166,6 @@ const char* launch(void (*kernel)(Args, Plan), const Args& a, Plan p,
   if (e != cudaSuccess) return failed(e);
   e = cudaGetLastError();
   return e == cudaSuccess ? nullptr : cudaGetErrorString(e);
-}
-
-// sigmoid(x) = 1 / (1 + exp(-x)) without the IEEE division's slow-path
-// branch, which keeps independent sigmoids from overlapping: the hardware
-// reciprocal estimate refined by one Newton step, within an ulp of the
-// rounded quotient (the plain versions' torch.sigmoid); exp(-x) = inf
-// gives 0.
-__device__ __forceinline__ float sigmoid_nr(float x) {
-  const float y = 1.0f + expf(-x);
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
-  r = fmaf(r, fmaf(-y, r, 1.0f), r);
-  return isinf(y) ? 0.f : r;
 }
 
 // A weight as f32: float as is, bf16 (its 16-bit word) widened exactly.

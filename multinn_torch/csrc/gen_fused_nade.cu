@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int q = 0; q < kMaxLaneRounds; ++q) {
         const int jj = lane + 32 * q;
         act[q] = jj < H ? sc[2 * D + jj] : 0.f;
-        sg[q] = jj < H ? gen_cluster::sigmoid_nr(act[q]) : 0.f;
+        sg[q] = jj < H ? sigmoid_nr(act[q]) : 0.f;
         vn[q] = jj < H ? bf16_to_f32(vm[jj]) : 0.f;
       }
       uint32_t bits = 0;                 // bit c: dim 32c + lane sampled 1
@@ -170,14 +170,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           part = fmaf(vq, sg[q], part);
         }
         const float logit = warp_allsum(part);
-        const bool x = sc[D + i] < gen_cluster::sigmoid_nr(logit + sc[i]);
+        const bool x = sc[D + i] < sigmoid_nr(logit + sc[i]);
         if (x) {                          // the same in every lane
 #pragma unroll
           for (int q = 0; q < kMaxLaneRounds; ++q) {
             const int jj = lane + 32 * q;
             if (jj < H) {
               act[q] = act[q] + bf16_to_f32(wm[i * H + jj]);
-              sg[q] = gen_cluster::sigmoid_nr(act[q]);
+              sg[q] = sigmoid_nr(act[q]);
             }
           }
         }

@@ -137,7 +137,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* v = sw == 0 ? ct.prev(s) + k * D : sc + D + H;
         const float acc =
             gen_cluster::dot(v, ct.matrix(kW, j, a.w, D * H) + jj, ldw, D);
-        const float pr = gen_cluster::sigmoid_nr(acc + sc[D + jj]);
+        const float pr = sigmoid_nr(acc + sc[D + jj]);
         const float uu = random_uniform_at(
             seed0, salt_h,
             static_cast<uint32_t>(ct.b0 + s) * KH + k * H + jj);
@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         float* sc = ct.scratch(s, j);
         const float acc = gen_cluster::dot(
             sc + 2 * D + H, ct.matrix(kW, j, a.w, D * H) + i * ldw, 1, H);
-        const float pr = gen_cluster::sigmoid_nr(acc + sc[i]);
+        const float pr = sigmoid_nr(acc + sc[i]);
         const float uu = random_uniform_at(
             seed0, salt_h + 1u,
             static_cast<uint32_t>(ct.b0 + s) * KD + k * D + i);

@@ -19,12 +19,14 @@ const char* launch_threefry2x32(const int32_t* key, const int32_t* x0,
                                 const int32_t* x1, int32_t* y0, int32_t* y1,
                                 int64_t n, void* stream);
 
-// k sweeps of block Gibbs over n rows (see gibbs_chain.cu).
+// k sweeps of block Gibbs over n rows (see gibbs_chain.cu) under the launch
+// plan (rows per CTA, threads, lanes per dot) of ops/gibbs_cuda.launch_plan.
 const char* launch_gibbs_chain(const float* v0, const float* w,
-                               const float* wt, const float* bv,
-                               const float* bh, const int32_t* seed,
-                               float* out, int64_t n, int64_t d, int64_t h,
-                               int64_t k, int64_t bb, void* stream);
+                               const float* bv, const float* bh,
+                               const int32_t* seed, float* out, int64_t n,
+                               int64_t d, int64_t h, int64_t k, int64_t bb,
+                               int64_t rows_per_cta, int64_t threads,
+                               int64_t lanes, void* stream);
 
 // Inputs of the whole-generation RNN-RBM kernel (see gen_fused_rbm.cu and
 // multinn_torch/ops/gen_fused_rbm.py::_rbm_args for the layouts).
@@ -107,8 +109,8 @@ struct NadeArgs {
 const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
                                   int64_t* shape = nullptr);
 
-// Rows per CTA of the NADE likelihood kernels; the backward's dW / dV
-// partials have ceil(n / kNadeLLTileRows) tiles per track.
+// Rows per tile of the NADE likelihood kernels: the forward runs one CTA
+// per tile and track, the backward walks the tiles with a persistent grid.
 constexpr int kNadeLLTileRows = 32;
 
 // Teacher-forced NADE logits of k tracks x n rows (see nade_ll.cu): x, bv,
@@ -119,13 +121,15 @@ const char* launch_nade_ll_fwd(const float* x, const float* w, const float* v,
                                int64_t n, int64_t d, int64_t h,
                                void* stream);
 
-// Its reverse sweep from a_end for the logits' cotangent g (k, n, d): dw, dv
-// (k, d, h) through the per-tile partials dw_part, dv_part (k, tiles, d, h);
-// dx (k, n, d), or nullptr when no input gradient is wanted; dbh (k, n, h).
+// Its reverse sweep from a_end for the logits' cotangent g (k, n, d), on
+// n_ctas CTAs per track: dw, dv (k, d, h) through the per-CTA partials
+// dw_part, dv_part (k, n_ctas, d, h); dx (k, n, d), or nullptr when no input
+// gradient is wanted; dbh (k, n, h).
 const char* launch_nade_ll_bwd(const float* x, const float* w, const float* v,
                                const float* g, const float* a_end,
                                float* dw_part, float* dv_part, float* dw,
                                float* dv, float* dx, float* dbh, int64_t k,
-                               int64_t n, int64_t d, int64_t h, void* stream);
+                               int64_t n, int64_t d, int64_t h, int64_t n_ctas,
+                               void* stream);
 
 }  // namespace multinn_torch

@@ -26,6 +26,7 @@
 
 #include "launchers.h"
 #include "reduce.cuh"
+#include "sigmoid.cuh"
 #include "threefry.cuh"
 
 namespace multinn_torch {

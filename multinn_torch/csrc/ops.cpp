@@ -58,27 +58,28 @@ void threefry2x32(at::Tensor y0, at::Tensor y1, const at::Tensor& key,
 }
 
 void gibbs_chain(at::Tensor out, const at::Tensor& v0, const at::Tensor& w,
-                 const at::Tensor& wt, const at::Tensor& bv,
-                 const at::Tensor& bh, const at::Tensor& seed, int64_t k,
-                 int64_t bb, int64_t stream) {
+                 const at::Tensor& bv, const at::Tensor& bh,
+                 const at::Tensor& seed, int64_t k, int64_t bb,
+                 int64_t rows_per_cta, int64_t threads, int64_t lanes,
+                 int64_t stream) {
   check(out, at::kFloat, "out");
   check(v0, at::kFloat, "v0");
   check(w, at::kFloat, "w");
-  check(wt, at::kFloat, "wt");
   check(bv, at::kFloat, "bv");
   check(bh, at::kFloat, "bh");
   check(seed, at::kInt, "seed");
   TORCH_CHECK(w.dim() == 2 && v0.dim() == 2, "gibbs_chain: v0, w must be 2D");
   const int64_t n = v0.size(0), d = w.size(0), h = w.size(1);
   TORCH_CHECK(v0.size(1) == d && out.sizes() == v0.sizes() &&
-                  wt.size(0) == h && wt.size(1) == d && bv.numel() == n * d &&
-                  bh.numel() == n * h && seed.numel() == 2 && bb > 0 &&
-                  k >= 0,
+                  bv.numel() == n * d && bh.numel() == n * h &&
+                  seed.numel() == 2 && bb > 0 && k >= 0 && d > 0 && h > 0,
               "gibbs_chain: inconsistent shapes");
+  TORCH_CHECK(rows_per_cta > 0 && threads > 0 && lanes > 0,
+              "gibbs_chain: the launch plan must be positive");
   raise_on(launch_gibbs_chain(v0.data_ptr<float>(), w.data_ptr<float>(),
-                              wt.data_ptr<float>(), bv.data_ptr<float>(),
-                              bh.data_ptr<float>(), seed.data_ptr<int32_t>(),
-                              out.data_ptr<float>(), n, d, h, k, bb,
+                              bv.data_ptr<float>(), bh.data_ptr<float>(),
+                              seed.data_ptr<int32_t>(), out.data_ptr<float>(),
+                              n, d, h, k, bb, rows_per_cta, threads, lanes,
                               as_stream(stream)),
            "gibbs_chain");
 }
@@ -321,14 +322,14 @@ void nade_ll_bwd(at::Tensor dw, at::Tensor dv, at::Tensor dx, at::Tensor dbh,
     check(*t, at::kFloat, name);
   TORCH_CHECK(x.dim() == 3 && w.dim() == 3, "nade_ll_bwd: x, w must be 3D");
   const int64_t k = w.size(0), n = x.size(1), d = w.size(1), h = w.size(2);
-  const int64_t tiles = (n + kNadeLLTileRows - 1) / kNadeLLTileRows;
+  // the partials' second dim is the launch plan's CTAs per track
   TORCH_CHECK(x.size(0) == k && x.size(2) == d && v.sizes() == w.sizes() &&
                   g.sizes() == x.sizes() && dw.sizes() == w.sizes() &&
                   dv.sizes() == w.sizes() && a_end.dim() == 3 &&
                   a_end.size(0) == k && a_end.size(1) == n &&
                   a_end.size(2) == h && dbh.sizes() == a_end.sizes() &&
                   dw_part.dim() == 4 && dw_part.size(0) == k &&
-                  dw_part.size(1) == tiles && dw_part.size(2) == d &&
+                  dw_part.size(1) >= 1 && dw_part.size(2) == d &&
                   dw_part.size(3) == h && dv_part.sizes() == dw_part.sizes(),
               "nade_ll_bwd: inconsistent shapes");
   TORCH_CHECK(dx.numel() == 0 || dx.sizes() == x.sizes(),
@@ -340,7 +341,7 @@ void nade_ll_bwd(at::Tensor dw, at::Tensor dv, at::Tensor dx, at::Tensor dbh,
                               dv_part.data_ptr<float>(), dw.data_ptr<float>(),
                               dv.data_ptr<float>(), optional_out(dx, "dx"),
                               dbh.data_ptr<float>(), k, n, d, h,
-                              as_stream(stream)),
+                              dw_part.size(1), as_stream(stream)),
            "nade_ll_bwd");
 }
 
@@ -350,8 +351,9 @@ void nade_ll_bwd(at::Tensor dw, at::Tensor dv, at::Tensor dx, at::Tensor dbh,
 TORCH_LIBRARY(multinn_torch, m) {
   m.def("threefry2x32(Tensor(a!) y0, Tensor(b!) y1, Tensor key, Tensor x0, "
         "Tensor x1, int stream) -> ()");
-  m.def("gibbs_chain(Tensor(a!) out, Tensor v0, Tensor w, Tensor wt, "
-        "Tensor bv, Tensor bh, Tensor seed, int k, int bb, int stream) -> ()");
+  m.def("gibbs_chain(Tensor(a!) out, Tensor v0, Tensor w, Tensor bv, "
+        "Tensor bh, Tensor seed, int k, int bb, int rows_per_cta, "
+        "int threads, int lanes, int stream) -> ()");
   m.def("gen_fused_rbm(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
         "Tensor w, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "

@@ -51,11 +51,4 @@ __device__ __forceinline__ float random_uniform_at(uint32_t seed,
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
-// The plain versions compute torch.sigmoid; without fast-math this agrees
-// with it to a few ulps, and a draw flips only when a uniform lands between
-// the two values.
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
 }  // namespace multinn_torch

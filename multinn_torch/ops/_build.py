@@ -20,6 +20,7 @@ show that its main path went through the kernels.
 from __future__ import annotations
 
 import collections
+import functools
 import hashlib
 import os
 import shutil
@@ -36,7 +37,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 _SOURCES = ("threefry.cu", "gibbs_chain.cu", "gen_fused_rbm.cu",
             "nade_sample.cu", "gen_fused_nade.cu", "nade_ll.cu", "ops.cpp")
-_HEADERS = ("threefry.cuh", "reduce.cuh", "gen_cluster.cuh", "launchers.h")
+_HEADERS = ("threefry.cuh", "sigmoid.cuh", "reduce.cuh", "gen_cluster.cuh",
+            "launchers.h")
 _LIB = "multinn_torch_ops.so"
 _CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3",
                "-Xptxas=-v"]
@@ -64,6 +66,17 @@ def impl_for(impl, x: torch.Tensor) -> str:
 def stream_of(x: torch.Tensor) -> int:
     """The current CUDA stream of ``x``'s device, as the ops take it."""
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(x: torch.Tensor) -> int:
+    """The streaming multiprocessors of ``x``'s card (launch plans)."""
+    return _sm_count(x.device.index if x.device.index is not None
+                     else torch.cuda.current_device())
 
 
 def ops():

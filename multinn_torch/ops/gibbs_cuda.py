@@ -12,8 +12,9 @@ the kernel equals the plain version up to the rare draw a last-ulp
 difference in a probability flips.
 
 The Pallas dispatch gate (8 <= B <= 2048) was a TPU performance crossover;
-the kernel here takes any row count, and its crossover against plain
-PyTorch on the H100 is not measured yet (ROADMAP queue 2).
+the kernel here takes any row count and picks one of two launch plans from
+it (``launch_plan``): a latency plan for the scan path's few rows and a
+throughput plan for the training and k=25 shapes.
 """
 
 from __future__ import annotations
@@ -44,19 +45,45 @@ def _rows(v0, w, bv, bh):
             bh.expand(*shape[:-1], h).reshape(-1, h).contiguous())
 
 
+# launch plans of csrc/gibbs_chain.cu: (rows per CTA, threads, lanes per dot)
+LATENCY_PLAN = (1, 256, 8)
+_WARPS = 8                     # warps per CTA of the throughput plan
+
+
+def launch_plan(n: int, sm_count: int) -> tuple[int, int, int]:
+    """The kernel's launch plan for n rows on a card with ``sm_count`` SMs.
+
+    Up to three rows per SM (the CTAs an SM holds at once), the latency
+    plan: one row per CTA, each output's dot product split over 8 lanes, so
+    a pass is a short chain. Beyond that, the throughput plan: each of a
+    CTA's 8 warps carries its rows through all sweeps, one lane per output
+    with a register block of rows — 2 rows a warp once that still gives
+    every SM a CTA, else 1, so the card holds more warps. The crossovers
+    are measured ones (``scripts/torch_kernel_sweep.py --plans``)."""
+    if n <= 3 * sm_count:
+        return LATENCY_PLAN
+    rows_per_warp = 2 if -(-n // (2 * _WARPS)) >= sm_count else 1
+    return _WARPS * rows_per_warp, _WARPS * 32, 1
+
+
 def gibbs_chain(key, v0, w, bv, bh, k: int) -> torch.Tensor:
     """The chain on the card: v0 (..., D) float32 CUDA tensors, biases
     broadcastable to v0 / (..., H); returns the k-th visible sample."""
+    n = v0.numel() // w.shape[0]
+    return _launch(key, v0, w, bv, bh, k, launch_plan(n, _build.sm_count(v0)))
+
+
+def _launch(key, v0, w, bv, bh, k: int, plan) -> torch.Tensor:
+    """``gibbs_chain`` under a given launch plan."""
     v0_2d, bv_2d, bh_2d = _rows(v0, w, bv, bh)
     d, h = w.shape
     out = torch.empty_like(v0_2d)
     seeds = key_to_seeds(key).to(v0.device)
     bb = block_rows(v0_2d.shape[0], d, h)
-    w = w.contiguous()
     with torch.cuda.device(v0.device):
         _build.launches["gibbs_chain"] += 1
-        _build.ops().gibbs_chain(out, v0_2d, w, w.t().contiguous(), bv_2d,
-                                 bh_2d, seeds, k, bb, _build.stream_of(v0))
+        _build.ops().gibbs_chain(out, v0_2d, w.contiguous(), bv_2d, bh_2d,
+                                 seeds, k, bb, *plan, _build.stream_of(v0))
     return out.reshape(v0.shape)
 
 

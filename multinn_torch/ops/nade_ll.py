@@ -29,7 +29,11 @@ import torch
 
 from multinn_torch.ops import _build
 
-TILE_ROWS = 32     # rows per CTA of csrc/nade_ll.cu (one per warp lane)
+TILE_ROWS = 32     # rows per tile of csrc/nade_ll.cu (one per warp lane)
+# an H100 SM: shared memory, the part reserved per CTA, resident threads
+_SM_SMEM_BYTES = 228 * 1024
+_CTA_RESERVED_BYTES = 1024
+_SM_THREADS = 2048
 
 
 def nade_ll_fwd_plain(x, w, v, bv, bh):
@@ -74,13 +78,28 @@ def nade_ll_fwd(x, w, v, bv, bh):
     return logits, a_end
 
 
+def bwd_plan(k: int, n: int, d: int, h: int, sm_count: int) -> int:
+    """CTAs per track G of the backward's persistent grid: as many as fill
+    the card's resident CTA slots once across the k tracks (a CTA's shared
+    memory, csrc/nade_ll.cu bwd_smem_bytes, sets how many fit on an SM),
+    but no more than the track's tiles."""
+    threads = -(-h // 32) * 32
+    smem = 4 * (-(-2 * d * h // 4) * 4 + (TILE_ROWS + 4) * d
+                + 2 * (threads // 32) * TILE_ROWS + 2 * d)
+    per_sm = max(1, min(_SM_THREADS // threads,
+                        _SM_SMEM_BYTES // (smem + _CTA_RESERVED_BYTES)))
+    return max(1, min(-(-n // TILE_ROWS), per_sm * sm_count // k))
+
+
 def nade_ll_bwd(x, w, v, g, a_end, want_dx: bool = True):
-    """The backward kernel on the card. dW and dV come from per-tile
-    partials (K, tiles, D, H) summed in tile order by a second pass, so the
-    result is deterministic (no float atomics)."""
+    """The backward kernel on the card. Each of its G CTAs per track sums
+    dW and dV over its tiles; the (K, G, D, H) partials are summed over the
+    CTAs in order by a second pass, so the result is deterministic (no
+    float atomics). Its sigmoid is the card's exp2 and reciprocal
+    estimates (a few ulp), well inside the gradients' tolerance."""
     k, n, d = x.shape
-    tiles = -(-n // TILE_ROWS)
-    dwp = x.new_empty((k, tiles, *w.shape[1:]))
+    ctas = bwd_plan(k, n, d, w.shape[-1], _build.sm_count(x))
+    dwp = x.new_empty((k, ctas, *w.shape[1:]))
     dvp = torch.empty_like(dwp)
     dw, dv = torch.empty_like(w), torch.empty_like(v)
     dx = torch.empty_like(x) if want_dx else x.new_empty(0)

@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from multinn_torch.models import multinn  # noqa: E402
 from multinn_torch.ops import (_build, gen_common,  # noqa: E402
                                gen_fused_nade, gen_fused_rbm, gibbs,
-                               kernel_prng, nade_ll, nade_ops, sampling)
+                               gibbs_cuda, kernel_prng, nade_ll, nade_ops,
+                               sampling)
 from multinn_torch.serving.service import (GenerationService,  # noqa: E402
                                            ServeConfig)
 from multinn_torch.utils import config  # noqa: E402
@@ -483,4 +484,89 @@ def test_training_loss_gradients_kernel_vs_plain(dev, model):
         loss, _ = multinn.loss(params, key, x, detailed=False, impl=impl)
         out[impl] = [loss.detach()] + list(torch.autograd.grad(loss, leaves))
     for a, b in zip(out["cuda"], out["plain"]):
+        assert _within(a, b)
+
+
+def _gibbs_inputs(dev, n, seed=8, d=84, h=150):
+    g = torch.Generator().manual_seed(seed)
+    v0 = (torch.rand(n, d, generator=g) < 0.2).float().to(dev)
+    w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+    bv = (-1.0 + 0.5 * torch.randn(n, d, generator=g)).to(dev)
+    bh = (0.5 * torch.randn(n, h, generator=g)).to(dev)
+    return v0, w, bv, bh
+
+
+def _rows_differing(a, b):
+    return int((a != b).any(dim=1).sum())
+
+
+@pytest.mark.parametrize("k", [1, 10, 25])
+@pytest.mark.parametrize("n", [1, 8, 13, 1024, 1040, 4096, 4109])
+def test_gibbs_kernel_matches_plain_under_both_plans(dev, n, k):
+    """Both launch plans (the latency plan up to 4 rows per SM, the
+    throughput plan beyond; 4109 rows straddle a 1024-row stream block and
+    end in a partial warp): at most 1 % of rows differ from the plain
+    version, at most one where N <= 13 (a row differs only after a
+    last-ulp difference in a probability flips a draw)."""
+    args = _gibbs_inputs(dev, n)
+    key = sampling.PRNGKey(n + k, device=dev)
+    _build.launches.clear()
+    out_k = gibbs.gibbs_chain(key, *args, k)
+    out_p = gibbs.gibbs_chain(key, *args, k, impl="plain")
+    assert _build.launches["gibbs_chain"] == 1
+    assert out_k.shape == (n, 84)
+    assert torch.isin(out_k, torch.tensor([0.0, 1.0], device=dev)).all()
+    limit = 1 if n <= 13 else n // 100
+    assert _rows_differing(out_k, out_p) <= limit
+
+
+@pytest.mark.parametrize("plan", [gibbs_cuda.LATENCY_PLAN, (8, 256, 1),
+                                  (16, 256, 1)])
+def test_gibbs_every_plan_matches_plain(dev, plan):
+    """Each plan the kernel takes, forced at one row count (600 rows, 10
+    sweeps), draws the plain version's chain."""
+    args = _gibbs_inputs(dev, 600, seed=9)
+    key = sampling.PRNGKey(4, device=dev)
+    out_k = gibbs_cuda._launch(key, *args, 10, plan)
+    out_p = gibbs.gibbs_chain(key, *args, 10, impl="plain")
+    assert _rows_differing(out_k, out_p) <= 6
+
+
+@pytest.mark.parametrize("n", [8, 4109])
+def test_gibbs_replay_is_bit_equal(dev, n):
+    args = _gibbs_inputs(dev, n, seed=10)
+    key = sampling.PRNGKey(11, device=dev)
+    assert torch.equal(gibbs.gibbs_chain(key, *args, 25),
+                       gibbs.gibbs_chain(key, *args, 25))
+
+
+@pytest.mark.parametrize("want_dx", [True, False])
+@pytest.mark.parametrize("k,n", [(1, 40), (5, 40), (1, 1037), (5, 1037),
+                                 (1, 4096), (5, 4096), (1, 5000), (5, 5000)])
+def test_nade_ll_bwd_matches_plain(dev, k, n, want_dx):
+    """The persistent backward at N=40 (fewer tiles than CTA slots), ragged
+    N and the training shape: every output within 1e-4 * max|ref| + 1e-5
+    of the plain version, and a replay bit-equal."""
+    x, w, v, bv, bh, cot = _ll_inputs(dev, k, n, seed=5)
+    _, a_end = nade_ll.nade_ll_fwd_plain(x, w, v, bv, bh)
+    got = nade_ll.nade_ll_bwd(x, w, v, cot, a_end, want_dx)
+    want = nade_ll.nade_ll_bwd_plain(x, w, v, cot, a_end, want_dx)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert _within(a, b)
+    again = nade_ll.nade_ll_bwd(x, w, v, cot, a_end, want_dx)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_nade_ll_bwd_takes_x_that_is_not_binary(dev):
+    """x outside {0, 1} takes the general downdate; the result still
+    equals the plain version's."""
+    x, w, v, bv, bh, cot = _ll_inputs(dev, 2, 300, seed=6)
+    x = x * torch.linspace(0.5, 2.0, 84, device=dev)
+    _, a_end = nade_ll.nade_ll_fwd_plain(x, w, v, bv, bh)
+    got = nade_ll.nade_ll_bwd(x, w, v, cot, a_end)
+    want = nade_ll.nade_ll_bwd_plain(x, w, v, cot, a_end)
+    for a, b in zip(got, want):
         assert _within(a, b)
