@@ -318,11 +318,11 @@ def main() -> None:
         f"{big_plain_ms:.3f} ms)")
 
     # 4. Gibbs chain -------------------------------------------------------------
-    def gibbs_inputs(n, d=84, h=150):
-        v0 = (torch.rand(n, d, generator=g) < 0.2).float().to(dev)
-        w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
-        bv = (-1.0 + 0.5 * torch.randn(n, d, generator=g)).to(dev)
-        bh = (0.5 * torch.randn(n, h, generator=g)).to(dev)
+    def gibbs_inputs(n, d=84, h=150, gen=g):
+        v0 = (torch.rand(n, d, generator=gen) < 0.2).float().to(dev)
+        w = (0.1 * torch.randn(d, h, generator=gen)).to(dev)
+        bv = (-1.0 + 0.5 * torch.randn(n, d, generator=gen)).to(dev)
+        bh = (0.5 * torch.randn(n, h, generator=gen)).to(dev)
         return v0, w, bv, bh
 
     key = sampling.PRNGKey(1, device=dev)
@@ -360,6 +360,23 @@ def main() -> None:
     bench_plain = cuda_ms(
         lambda: gibbs_cuda.gibbs_chain_plain(key, *bench, 25), 2)
     bench_bound, bench_by = bound(*gibbs_work(4096, 25, bk))
+    # RBMs wider than the flagship: (84, 600) and (168, 400), whose W at
+    # N=4096 or at any N stays in device memory (the launch plan says so).
+    # Their inputs come from a generator of their own, so that every later
+    # phase draws what it drew before these checks were added.
+    wide, wide_g = [], torch.Generator().manual_seed(4)
+    for d_w, h_w in ((84, 600), (168, 400)):
+        wa = gibbs_inputs(64, d_w, h_w, gen=wide_g)
+        wk = gibbs_cuda.gibbs_chain(key, *wa, 5)
+        wp = gibbs_cuda.gibbs_chain_plain(key, *wa, 5)
+        w_differ = float((wk != wp).any(dim=1).float().mean())
+        if w_differ > 0.01:
+            fail(f"gibbs at N=64 D={d_w} H={h_w} k=5: {w_differ:.4f} of "
+                 f"rows differ (limit 0.01)")
+        plans = [gibbs_cuda.launch_plan(n, _build.sm_count(wk), d_w, h_w)
+                 for n in (64, 4096)]
+        wide.append(f"D={d_w} H={h_w} N=64 k=5 rows differing "
+                    f"{w_differ:.4f} (plan {plans[0]}, at N=4096 {plans[1]})")
     say(f"phase 4 gibbs: N=1040 k=25 rows differing {differ:.4f} (limit "
         f"0.01), kernel {n1040_ms:.3f} ms, plain {n1040_plain:.3f} ms; "
         f"N=4096 k=25 rows differing {bench_differ:.4f} (limit 0.01), "
@@ -368,7 +385,8 @@ def main() -> None:
         f"{4096 * 25 / bench_plain * 1e3:.4g} sweeps/s, bound "
         f"{bench_bound:.4f} ms ({bench_by}); scan-path shape (8 rows, k=10) "
         f"rows differing {small_differ}, kernel {ms:.4f} ms (call "
-        f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms; {smi}")
+        f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms; {'; '.join(wide)}; "
+        f"{smi}")
     del bench, bk, bp
 
     # 5. fused RBM generation at flagship widths ---------------------------------
@@ -505,11 +523,11 @@ def main() -> None:
     rbm_launches = launches
 
     # 7. NADE sampler -------------------------------------------------------------
-    def nade_inputs(n, d=84, h=150):
-        w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
-        v = (0.1 * torch.randn(d, h, generator=g)).to(dev)
-        bv = (-1.0 + 0.5 * torch.randn(n, d, generator=g)).to(dev)
-        bh = (0.5 * torch.randn(n, h, generator=g)).to(dev)
+    def nade_inputs(n, d=84, h=150, bias=-1.0, gen=g):
+        w = (0.1 * torch.randn(d, h, generator=gen)).to(dev)
+        v = (0.1 * torch.randn(d, h, generator=gen)).to(dev)
+        bv = (bias + 0.5 * torch.randn(n, d, generator=gen)).to(dev)
+        bh = (0.5 * torch.randn(n, h, generator=gen)).to(dev)
         return w, v, bv, bh
 
     key = sampling.PRNGKey(3, device=dev)
@@ -534,9 +552,22 @@ def main() -> None:
                                                + 8 * 150),
                                           2 * 8 * 84 * 150
                                           + 150 * float(nk.sum())))))
+    # the same at music's density: bv about -3 draws about 0.06 of the dims
+    # (its own generator, as phase 4's wide chains)
+    sparse = nade_inputs(8, bias=-3.0, gen=torch.Generator().manual_seed(7))
+    sk = nade_cuda.nade_sample(key, *sparse, (8,))
+    if int((sk != nade_cuda.nade_sample_plain(key, *sparse, (8,))).any(
+            dim=1).sum()) > 1:
+        fail("nade_sample: more than 1 of 8 rows differ at density 0.06")
+    sparse_ms = graph_ms(lambda: nade_cuda.nade_sample(key, *sparse, (8,)),
+                         50)
     say(f"phase 7 nade sampler: D=84 H=150, 8 rows, rows differing "
-        f"{nade_differ} (limit 1), density {float(nk.mean()):.4f}; kernel "
-        f"{ms:.4f} ms (call {call_ms:.4f} ms), plain {plain_ms:.3f} ms")
+        f"{nade_differ} (limit 1), W and V staged "
+        f"{nade_cuda.sample_plan(84, 150)}, window 16 dims; density "
+        f"{float(nk.mean()):.4f}: kernel {ms:.4f} ms = {ms * 1e3 / 84:.4f} us per dim (call "
+        f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms; density "
+        f"{float(sk.mean()):.4f}: kernel {sparse_ms:.4f} ms = "
+        f"{sparse_ms * 1e3 / 84:.4f} us per dim; {smi}")
 
     # 8. fused NADE generation at flagship widths --------------------------------
     ncfg = multinn.MultINNConfig(**dict(NADE_FLAGSHIP, w_std=0.1))
@@ -636,13 +667,13 @@ def main() -> None:
     from multinn_torch.nn import nade as nade_nn
     from multinn_torch.ops import nade_ll
 
-    def ll_inputs(k, n, d=84, h=150):
-        x = (torch.rand(k, n, d, generator=g) < 0.06).float()
-        w = 0.1 * torch.randn(k, d, h, generator=g)
-        v = 0.1 * torch.randn(k, d, h, generator=g)
-        bv = -1.0 + 0.5 * torch.randn(k, n, d, generator=g)
-        bh = 0.5 * torch.randn(k, n, h, generator=g)
-        cot = torch.randn(k, n, d, generator=g)
+    def ll_inputs(k, n, d=84, h=150, gen=g):
+        x = (torch.rand(k, n, d, generator=gen) < 0.06).float()
+        w = 0.1 * torch.randn(k, d, h, generator=gen)
+        v = 0.1 * torch.randn(k, d, h, generator=gen)
+        bv = -1.0 + 0.5 * torch.randn(k, n, d, generator=gen)
+        bh = 0.5 * torch.randn(k, n, h, generator=gen)
+        cot = torch.randn(k, n, d, generator=gen)
         return [t.to(dev) for t in (x, w, v, bv, bh, cot)]
 
     def grad_err(a, b):            # the stated backward tolerance, as a ratio
@@ -714,6 +745,27 @@ def main() -> None:
         f"ms; {smi}; autograd step through the kernels "
         f"{step_kernel:.3f} ms, through the cumsum form {step_cumsum:.3f} ms")
     del lk, ak, lp, ap, bk, bp, fk, fp, gk, gp
+    # widths beyond the flagship's: H=600 (the kernels split H into chunks)
+    # and D=420 (the joint mode's one track of K D), at small N, from a
+    # generator of their own (as phase 4's wide chains)
+    wide, wide_g = [], torch.Generator().manual_seed(10)
+    for d_w, h_w in ((84, 600), (420, 150)):
+        xw, ww, vw, bvw, bhw, cw = ll_inputs(2, 300, d_w, h_w, gen=wide_g)
+        lk, ak = nade_ll.nade_ll_fwd(xw, ww, vw, bvw, bhw)
+        lp, ap = nade_ll.nade_ll_fwd_plain(xw, ww, vw, bvw, bhw)
+        w_err = float((lk - lp).abs().max())
+        got = nade_ll.nade_ll_bwd(xw, ww, vw, cw, ak, want_dx=True)
+        want = nade_ll.nade_ll_bwd_plain(xw, ww, vw, cw, ap, want_dx=True)
+        w_ratio = max(grad_err(a, b) for a, b in zip(got, want))
+        if not (w_err <= 1e-4 and w_ratio <= 1.0):
+            fail(f"nade likelihood at D={d_w} H={h_w}: logits err {w_err}, "
+                 f"gradients at {w_ratio} of the tolerance")
+        sms = _build.sm_count(xw)
+        wide.append(f"D={d_w} H={h_w} logits err {w_err:.2e}, gradients at "
+                    f"{w_ratio:.4f} of the tolerance (plans: forward "
+                    f"{nade_ll.fwd_plan(2, 300, d_w, h_w, sms)}, backward "
+                    f"{nade_ll.bwd_plan(2, 300, d_w, h_w, sms)})")
+    say(f"phase 10 wider likelihoods, K=2 N=300: {'; '.join(wide)}")
 
     # 11. RBM training --------------------------------------------------------
     from multinn_torch.training.trainer import Trainer

@@ -38,6 +38,10 @@
 //     split over L lanes and closed by a fixed xor-shuffle sum, so a pass is
 //     a chain of about D / L (or H / 4L float4) steps; two more warps draw
 //     the next sweep's uniforms into shared memory while this sweep runs.
+// Where W at its pitch and the plan's rows exceed a CTA's 227 KB, the
+// launch plan is the throughput plan with W left in device memory and read
+// through L1 / L2 (W stays resident in L2); only the rows' v and h are in
+// shared memory, so any (D, H) that a warp's rows fit runs.
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
@@ -103,7 +107,13 @@ __device__ __forceinline__ float component(const float4& x, int q) {
 }
 
 // Throughput plan: warp w of CTA b owns rows (b * kWarps + w) * kRpw + r.
-template <int kRpw>
+// kWSmem false is the device-memory plan: W is too large for shared memory
+// beside the rows, so it stays in device memory at its own pitch and is read
+// through L1 / L2, as the first port of this kernel did; the rows' v and h
+// stay in shared memory. Its reads of the padding (rows past d, columns past
+// h) are clamped to W's last row or column, whose products with the zero v
+// and h padding add nothing.
+template <int kRpw, bool kWSmem>
 __global__ void __launch_bounds__(kWarps * 32)
     gibbs_rows_kernel(const float* __restrict__ v0,
                       const float* __restrict__ w,   // (d, h)
@@ -113,12 +123,14 @@ __global__ void __launch_bounds__(kWarps * 32)
                       float* __restrict__ out, int n, int d, int h, int k,
                       int bb) {
   extern __shared__ __align__(16) float smem[];
-  const int dq = round4(d), hq = round4(h), p = w_pitch(h);
+  const int dq = round4(d), hq = round4(h);
+  const int p = kWSmem ? w_pitch(h) : h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* w_s = smem;                                   // (dq, p)
-  float* v_s = w_s + dq * p + warp * kRpw * (dq + hq);  // (kRpw, dq)
-  float* h_s = v_s + kRpw * dq;                         // (kRpw, hq)
-  stage_w(w, w_s, d, h, p);
+  float* w_s = smem;  // (dq, p) when kWSmem
+  float* v_s = w_s + (kWSmem ? dq * p : 0) + warp * kRpw * (dq + hq);
+  float* h_s = v_s + kRpw * dq;  // (kRpw, hq); v_s (kRpw, dq)
+  if (kWSmem) stage_w(w, w_s, d, h, p);
+  const float* wr = kWSmem ? w_s : w;
   const int row0 = (blockIdx.x * kWarps + warp) * kRpw;
   const uint32_t s0 = static_cast<uint32_t>(seed[0]);
   const uint32_t s1 = static_cast<uint32_t>(seed[1]);
@@ -164,7 +176,8 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int q = 0; q < 4; ++q) {
           float wv[kCols];
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) wv[c] = w_s[(i + q) * p + jc[c]];
+          for (int c = 0; c < kCols; ++c)
+            wv[c] = wr[(kWSmem ? i + q : min(i + q, d - 1)) * p + jc[c]];
 #pragma unroll
           for (int r = 0; r < kRpw; ++r)
 #pragma unroll
@@ -210,7 +223,8 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int q = 0; q < 4; ++q) {
           float wv[kDims];
 #pragma unroll
-          for (int c = 0; c < kDims; ++c) wv[c] = w_s[io[c] + j + q];
+          for (int c = 0; c < kDims; ++c)
+            wv[c] = wr[io[c] + (kWSmem ? j + q : min(j + q, h - 1))];
 #pragma unroll
           for (int r = 0; r < kRpw; ++r)
 #pragma unroll
@@ -386,7 +400,7 @@ __global__ void __launch_bounds__(kSplitThreads + 32 * kDrawWarps)
 template <typename Kernel>
 const char* allow_smem(Kernel kernel, size_t bytes) {
   if (bytes > static_cast<size_t>(kSmemLimitBytes))
-    return "gibbs_chain: W and the rows do not fit in shared memory";
+    return "gibbs_chain: the plan's W and rows do not fit in shared memory";
   if (bytes <= 48 * 1024) return nullptr;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -408,14 +422,15 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
                                const int32_t* seed, float* out, int64_t n,
                                int64_t d, int64_t h, int64_t k, int64_t bb,
                                int64_t rows_per_cta, int64_t threads,
-                               int64_t lanes, void* stream) {
+                               int64_t lanes, int64_t w_smem, void* stream) {
   if (n <= 0) return nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ni = static_cast<int>(n), di = static_cast<int>(d),
             hi = static_cast<int>(h), ki = static_cast<int>(k),
             bbi = static_cast<int>(bb), rpc = static_cast<int>(rows_per_cta);
   const int blocks = static_cast<int>((n + rows_per_cta - 1) / rows_per_cta);
-  const size_t w_floats = static_cast<size_t>(round4(di)) * w_pitch(hi);
+  const size_t w_floats =
+      w_smem ? static_cast<size_t>(round4(di)) * w_pitch(hi) : 0;
   if (lanes == 1) {
     if (threads != kWarps * 32 || rpc % kWarps != 0)
       return "gibbs_chain: the throughput plan takes 256 threads and a "
@@ -429,15 +444,17 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
                                                di, hi, ki, bbi);
       return last_error();
     };
-    switch (rpc / kWarps) {
-      case 1:
-        return go(gibbs_rows_kernel<1>);
-      case 2:
-        return go(gibbs_rows_kernel<2>);
-      default:
-        return "gibbs_chain: rows per warp must be 1 or 2";
-    }
+    const int rpw = rpc / kWarps;
+    if (rpw != 1 && rpw != 2)
+      return "gibbs_chain: rows per warp must be 1 or 2";
+    if (w_smem)
+      return rpw == 1 ? go(gibbs_rows_kernel<1, true>)
+                      : go(gibbs_rows_kernel<2, true>);
+    return rpw == 1 ? go(gibbs_rows_kernel<1, false>)
+                    : go(gibbs_rows_kernel<2, false>);
   }
+  if (!w_smem)
+    return "gibbs_chain: the latency plan keeps W in shared memory";
   if (threads != kSplitThreads || rpc != 1 || lanes != kSplitLanes)
     return "gibbs_chain: the latency plan takes 256 threads, one row per "
            "CTA and 8 lanes per dot";

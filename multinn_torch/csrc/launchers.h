@@ -20,13 +20,14 @@ const char* launch_threefry2x32(const int32_t* key, const int32_t* x0,
                                 int64_t n, void* stream);
 
 // k sweeps of block Gibbs over n rows (see gibbs_chain.cu) under the launch
-// plan (rows per CTA, threads, lanes per dot) of ops/gibbs_cuda.launch_plan.
+// plan (rows per CTA, threads, lanes per dot, W in shared memory 1 / in
+// device memory 0) of ops/gibbs_cuda.launch_plan.
 const char* launch_gibbs_chain(const float* v0, const float* w,
                                const float* bv, const float* bh,
                                const int32_t* seed, float* out, int64_t n,
                                int64_t d, int64_t h, int64_t k, int64_t bb,
                                int64_t rows_per_cta, int64_t threads,
-                               int64_t lanes, void* stream);
+                               int64_t lanes, int64_t w_smem, void* stream);
 
 // Inputs of the whole-generation RNN-RBM kernel (see gen_fused_rbm.cu and
 // multinn_torch/ops/gen_fused_rbm.py::_rbm_args for the layouts).
@@ -69,11 +70,14 @@ const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
                                  int64_t* shape = nullptr);
 
 // NADE ancestral sampling sweep over n rows with per-row biases (see
-// nade_sample.cu).
+// nade_sample.cu), one CTA a row, under the plan of
+// ops/nade_cuda.sample_plan: W and V staged in shared memory (1; both must
+// be 16-byte aligned) or read from L2 (0).
 const char* launch_nade_sample(const float* w, const float* v,
                                const float* bv, const float* bh,
                                const int32_t* seed, float* out, int64_t n,
-                               int64_t d, int64_t h, void* stream);
+                               int64_t d, int64_t h, int64_t staged,
+                               void* stream);
 
 // Inputs of the whole-generation RNN-NADE kernel (see gen_fused_nade.cu and
 // multinn_torch/ops/gen_fused_nade.py::_nade_args for the layouts). bf16
@@ -109,27 +113,31 @@ struct NadeArgs {
 const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
                                   int64_t* shape = nullptr);
 
-// Rows per tile of the NADE likelihood kernels: the forward runs one CTA
-// per tile and track, the backward walks the tiles with a persistent grid.
+// Rows per tile of the NADE likelihood kernels, which walk the tiles with
+// persistent grids (ops/nade_ll.fwd_plan, bwd_plan).
 constexpr int kNadeLLTileRows = 32;
 
 // Teacher-forced NADE logits of k tracks x n rows (see nade_ll.cu): x, bv,
-// logits (k, n, d); bh, a_end (k, n, h); w, v (k, d, h).
+// logits (k, n, d); bh, a_end (k, n, h); w, v (k, d, h). The plan: n_ctas
+// CTAs per track and hidden chunk of `chunk` lanes; with more than one
+// chunk, part (chunks, k, n, d) holds their partial logits, else nullptr.
 const char* launch_nade_ll_fwd(const float* x, const float* w, const float* v,
                                const float* bv, const float* bh,
-                               float* logits, float* a_end, int64_t k,
-                               int64_t n, int64_t d, int64_t h,
-                               void* stream);
+                               float* logits, float* part, float* a_end,
+                               int64_t k, int64_t n, int64_t d, int64_t h,
+                               int64_t n_ctas, int64_t chunk, void* stream);
 
 // Its reverse sweep from a_end for the logits' cotangent g (k, n, d), on
-// n_ctas CTAs per track: dw, dv (k, d, h) through the per-CTA partials
-// dw_part, dv_part (k, n_ctas, d, h); dx (k, n, d), or nullptr when no input
-// gradient is wanted; dbh (k, n, h).
+// n_ctas CTAs per track and hidden chunk: dw, dv (k, d, h) through the
+// per-CTA partials dw_part, dv_part (k, n_ctas, d, h); dx (k, n, d), or
+// nullptr when no input gradient is wanted, through dx_part (chunks, k, n,
+// d) when there is more than one chunk; dbh (k, n, h).
 const char* launch_nade_ll_bwd(const float* x, const float* w, const float* v,
                                const float* g, const float* a_end,
                                float* dw_part, float* dv_part, float* dw,
-                               float* dv, float* dx, float* dbh, int64_t k,
-                               int64_t n, int64_t d, int64_t h, int64_t n_ctas,
+                               float* dv, float* dx, float* dx_part,
+                               float* dbh, int64_t k, int64_t n, int64_t d,
+                               int64_t h, int64_t n_ctas, int64_t chunk,
                                void* stream);
 
 }  // namespace multinn_torch

@@ -14,30 +14,34 @@
 // the NADE flagship's training shape): the running activation lives in
 // registers and device memory sees O(N (D + H)) floats per direction.
 //
-// Layout: tiles of 32 rows, one thread per hidden lane (H rounded up to a
-// warp; lanes past H carry zeros). Each thread keeps a[lane, row] (and,
-// backward, the suffix sum r) for the tile's 32 rows in registers, so the
-// two reductions over rows are in-thread. The reductions over H (the
-// logits, dx) cross threads: a transposed shuffle reduction leaves warp w's
-// sum for row l in lane l (31 shuffles for 32 rows, not 5 per row), and the
-// warps' sums are added in warp order. No float atomics anywhere, so a
-// launch reproduces its results bit for bit.
+// Layout: tiles of 32 rows. The backward runs one thread per hidden lane (H
+// rounded up to a warp; lanes past H carry zeros), each keeping a[lane,
+// row] and the suffix sum r for the tile's 32 rows in registers, so the two
+// reductions over rows are in-thread; its dx sum over H crosses threads in a
+// transposed shuffle reduction (warp w's sum for row l ends in lane l, 31
+// shuffles for 32 rows), and the warps' sums are added in warp order. The
+// forward splits the tile's 32 rows x 32 lanes of a warp into 8 x 4 per
+// thread (see nade_ll_fwd_kernel). No float atomics anywhere, so a launch
+// reproduces its results bit for bit.
 //
-// Bound: arithmetic, not memory. Each (row, dim, lane) costs one sigmoid
-// (an exp and a reciprocal on the SFU, 16 a clock per SM) and a few FMAs:
-// 5 tracks x 4096 rows x 84 dims x 160 lanes = 275 M triples per direction
-// at the flagship shape, about 0.15 ms of SFU time on the H100, against
-// about 20 MB of traffic.
+// Bound: arithmetic, not memory. The backward pays one sigmoid per (row,
+// dim, lane) (an exp and a reciprocal on the SFU, 16 a clock per SM) and a
+// few FMAs: 5 tracks x 4096 rows x 84 dims x 160 lanes = 275 M triples at
+// the flagship shape, about 0.15 ms of SFU time on the H100, against about
+// 20 MB of traffic. The forward refreshes h only where x_i != 0 (at
+// training density about 15 times fewer sigmoids) and is bound by issuing
+// its dot products and shuffle sums.
 //
-// The forward runs one CTA per (tile, track). The backward is a persistent
-// grid of G CTAs per track (ops/nade_ll.bwd_plan: one wave of the card's
-// resident CTA slots, two 115 KB CTAs per SM at the flagship), each walking
-// tiles c, c + G, ... in order. What it does about its costs:
+// Both are persistent grids: G CTAs per track and H chunk
+// (ops/nade_ll.fwd_plan and bwd_plan: one wave of the card's resident CTA
+// slots), each walking tiles c, c + G, ... in order; H is split into chunks
+// when its lanes exceed a CTA's threads or, backward, its accumulators a
+// CTA's shared memory. What the backward does about its costs:
 //   * dV_i and dW_i are summed per thread over a tile's rows, then into the
-//     CTA's (D, H) accumulators in shared memory (thread `lane` owns column
-//     `lane`, so neither a barrier nor an atomic), written once per CTA as
-//     (K, G, D, H) partials and summed over the CTAs in order by a second
-//     pass;
+//     CTA's (D, chunk) accumulators in shared memory (thread `lane` owns
+//     column `lane`, so neither a barrier nor an atomic), written once per
+//     CTA as (K, G, D, H) partials and summed over the CTAs in order by a
+//     second pass;
 //   * the activations are kept as -a log2(e), and the sigmoid is the SFU's
 //     ex2 and reciprocal estimates (sigmoid_exp2): no exp range reduction
 //     and no IEEE division, whose slow-path branch would keep the rows'
@@ -49,7 +53,9 @@
 //     from x itself;
 //   * W_i and V_i are loaded a dim ahead, g is read as float4s of 4 rows,
 //     and a tile's loads are issued together;
-//   * dx (and with it a barrier per dim) only when asked for.
+//   * dx (and with it a barrier per dim) only when asked for; with C > 1
+//     chunks each writes its part of dx to (C, K, N, D), summed in chunk
+//     order by a third pass.
 // At the training shape on the H100 the sweep runs at about twice its SFU
 // floor, with 10 warps on an SM's 4 schedulers; dx adds a 32-row
 // transposed shuffle sum and a barrier per dim.
@@ -62,7 +68,13 @@ namespace multinn_torch {
 namespace {
 
 constexpr int kRows = kNadeLLTileRows;  // rows per tile: one per warp lane
-constexpr int kMaxThreads = 512;        // H <= 512; 128 registers a thread
+constexpr int kMaxThreads = 512;    // backward: lanes of an H chunk
+constexpr int kFwdMaxLanes = 256;  // forward: lanes of an H chunk
+constexpr int kFwdLanes = 4;       // forward: hidden lanes a thread
+constexpr int kFwdDims = 32;       // forward: dims per block of partials
+// the forward's partials: a dim's 32 rows at an odd pitch, so the block
+// sums (threads over dims) read 32 different banks
+constexpr int kRedPitch = kRows + 1;
 static_assert(kRows == 32, "the transposed reduction maps rows to lanes");
 constexpr float kLog2e = 1.44269504f;
 // the backward's g tile: a dim's 32 rows at a pitch that keeps float4
@@ -75,8 +87,8 @@ __host__ __device__ constexpr int64_t round4(int64_t x) {
 
 // One level of the transposed reduction: lanes exchange half of their
 // window with the lane S away, and each keeps the half its bit S selects.
-template <int S>
-__device__ __forceinline__ void reduce_level(float (&v)[kRows], int lane) {
+template <int S, int N>
+__device__ __forceinline__ void reduce_level(float (&v)[N], int lane) {
   const bool upper = (lane & S) != 0;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -111,57 +123,176 @@ __device__ __forceinline__ float block_row_sum(float* red, float s, int i,
   return t;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// The forward: a persistent grid (G, K, C) of CTAs, ops/nade_ll.fwd_plan.
+// CTA (g, k, c) walks the tiles g, g + G, ... of track k over the hidden
+// lanes [c * chunk, c * chunk + chunk) of H. Each thread carries 8 rows x
+// kFwdLanes hidden lanes of the tile in registers, a and h = sigmoid(a):
+// lane group lg = lane & 7 owns lanes warp * 32 + lg + 8 c (c < kFwdLanes)
+// of the chunk, row group rg = lane >> 3 owns rows 8 rg + e (e < 8). At
+// dim i:
+//   * each thread sums V_i h over its lanes for its 8 rows, and a 3-level
+//     transposed shuffle sum over the warp's 8 lane groups leaves row
+//     `lane`'s partial in lane `lane` (7 shuffles a warp, where one hidden
+//     lane a thread needed 31); the warp writes it to shared memory as its
+//     partial of dim i: no barrier and no cross-warp sum per dim. Every
+//     kFwdDims dims one barrier, then the CTA sums the block's partials over
+//     its warps, in warp order, into the logits;
+//   * a and h move only for the rows whose x_i != 0 (the per-dim row masks;
+//     a branch per row of the thread's row group), so the sigmoids follow
+//     the nonzeros of x, not N D H; a += x_i W_i in dim order, as before
+//     (a + 0 W = a).
+// W_i and V_i come from L2 a dim ahead. With C > 1 chunks each writes its
+// partial logits to part (C, K, N, D), and a second pass adds them in
+// chunk order to bv.
+__global__ void __launch_bounds__(kFwdMaxLanes, 2)
     nade_ll_fwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ w,
                        const float* __restrict__ v,
                        const float* __restrict__ bv,
                        const float* __restrict__ bh,
-                       float* __restrict__ logits, float* __restrict__ a_end,
-                       int n, int d, int h) {
+                       float* __restrict__ logits, float* __restrict__ part,
+                       float* __restrict__ a_end, int n, int d, int h,
+                       int chunk) {
+  constexpr int kL = kFwdLanes;
+  static_assert(8 * kL == 32, "a warp's lane groups cover 32 hidden lanes");
   extern __shared__ float smem[];
-  float* x_s = smem;              // (kRows, d) the tile's x
-  float* o_s = x_s + kRows * d;   // (kRows, d) bv, then the logits
-  float* red = o_s + kRows * d;   // (2, n_warps, kRows)
-  const int tid = threadIdx.x, lane = tid & 31, n_warps = blockDim.x >> 5;
-  const int track = blockIdx.y, row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n - row0);
-  const size_t xo = (static_cast<size_t>(track) * n + row0) * d;
-  const size_t ho = (static_cast<size_t>(track) * n + row0) * h;
-  for (int o = tid; o < kRows * d; o += blockDim.x) {
-    const bool in = o < rows * d;
-    x_s[o] = in ? x[xo + o] : 0.f;
-    o_s[o] = in ? bv[xo + o] : 0.f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lg = lane & 7, rg = lane >> 3;
+  const int n_warps = blockDim.x >> 5;
+  const int block_floats = n_warps * kFwdDims * kRedPitch;
+  float* red = smem;  // (2, n_warps, kFwdDims, kRedPitch) by block parity
+  uint32_t* one_s = reinterpret_cast<uint32_t*>(red + 2 * block_floats);
+  uint32_t* gen_s = one_s + d;  // per dim: rows where x = 1, x not 0 or 1
+  const int track = blockIdx.y, c0 = blockIdx.z, n_chunks = gridDim.z;
+  const int j0 = c0 * chunk, lanes = min(chunk, h - j0);
+  bool on[kL];
+  size_t wo[kL];
+#pragma unroll
+  for (int c = 0; c < kL; ++c) {
+    const int jl = warp * 8 * kL + lg + 8 * c;
+    on[c] = jl < lanes;
+    wo[c] = static_cast<size_t>(track) * d * h + j0 + jl;
   }
-  const bool on = tid < h;  // a real hidden lane
-  const float* wk = w + static_cast<size_t>(track) * d * h + tid;
-  const float* vk = v + static_cast<size_t>(track) * d * h + tid;
-  float a[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    a[r] = (on && r < rows) ? bh[ho + static_cast<size_t>(r) * h + tid] : 0.f;
-  __syncthreads();
-
-  for (int i = 0; i < d; ++i) {
-    const float wi = on ? wk[static_cast<size_t>(i) * h] : 0.f;
-    const float vi = on ? vk[static_cast<size_t>(i) * h] : 0.f;
-    float p[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      p[r] = vi * sigmoid_f32(a[r]);
-      a[r] = fmaf(x_s[r * d + i], wi, a[r]);
+  const int tiles = (n + kRows - 1) / kRows;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kRows, rows = min(kRows, n - row0);
+    const size_t xo = (static_cast<size_t>(track) * n + row0) * d;
+    const size_t ho = (static_cast<size_t>(track) * n + row0) * h + j0;
+    __syncthreads();  // the last tile's masks and partials are read
+    for (int i = tid; i < d; i += blockDim.x) {
+      uint32_t one = 0, gen = 0;
+#pragma unroll 8
+      for (int r = 0; r < kRows; ++r) {
+        const float xv = r < rows ? x[xo + static_cast<size_t>(r) * d + i]
+                                  : 0.f;
+        one |= static_cast<uint32_t>(xv == 1.f) << r;
+        gen |= static_cast<uint32_t>(xv != 0.f && xv != 1.f) << r;
+      }
+      one_s[i] = one;
+      gen_s[i] = gen;
     }
-    const float t = block_row_sum(red, warp_transpose_sum(p, lane), i, tid,
-                                  n_warps);
-    if (tid < kRows) o_s[tid * d + i] += t;
-  }
-  __syncthreads();
-  for (int o = tid; o < rows * d; o += blockDim.x) logits[xo + o] = o_s[o];
-  if (on) {
+    float a[8][kL], hv[8][kL];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < rows) a_end[ho + static_cast<size_t>(r) * h + tid] = a[r];
+    for (int e = 0; e < 8; ++e) {
+      const int r = rg * 8 + e;
+#pragma unroll
+      for (int c = 0; c < kL; ++c) {
+        const int jl = warp * 8 * kL + lg + 8 * c;
+        a[e][c] = (on[c] && r < rows)
+                      ? bh[ho + static_cast<size_t>(r) * h + jl] : 0.f;
+        hv[e][c] = sigmoid_exp2(a[e][c] * -kLog2e);
+      }
+    }
+    __syncthreads();
+    float wn[kL], vn[kL];
+#pragma unroll
+    for (int c = 0; c < kL; ++c) {
+      wn[c] = on[c] ? w[wo[c]] : 0.f;
+      vn[c] = on[c] ? v[wo[c]] : 0.f;
+    }
+    for (int i0 = 0; i0 < d; i0 += kFwdDims) {
+      float* rb = red + ((i0 / kFwdDims) & 1) * block_floats;
+      const int nd = min(kFwdDims, d - i0);
+      for (int ii = 0; ii < nd; ++ii) {
+        const int i = i0 + ii;
+        float wi[kL], vi[kL];
+#pragma unroll
+        for (int c = 0; c < kL; ++c) {
+          wi[c] = wn[c];
+          vi[c] = vn[c];
+          if (on[c] && i + 1 < d) {
+            wn[c] = w[wo[c] + static_cast<size_t>(i + 1) * h];
+            vn[c] = v[wo[c] + static_cast<size_t>(i + 1) * h];
+          }
+        }
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float t = 0.f;
+#pragma unroll
+          for (int c = 0; c < kL; ++c) t = fmaf(vi[c], hv[e][c], t);
+          p[e] = t;
+        }
+        reduce_level<4>(p, lane);
+        reduce_level<2>(p, lane);
+        reduce_level<1>(p, lane);
+        rb[(warp * kFwdDims + ii) * kRedPitch + lane] = p[0];
+        // the masks are the same for every thread; the bits of its rows
+        const uint32_t gen = gen_s[i] >> (8 * rg);
+        const uint32_t any = (one_s[i] >> (8 * rg) | gen) & 0xFFu;
+        if (any == 0) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (((any >> e) & 1u) == 0) continue;
+          const float xr =
+              ((gen >> e) & 1u)
+                  ? x[xo + static_cast<size_t>(rg * 8 + e) * d + i]
+                  : 1.f;
+#pragma unroll
+          for (int c = 0; c < kL; ++c) {
+            a[e][c] = fmaf(xr, wi[c], a[e][c]);
+            hv[e][c] = sigmoid_exp2(a[e][c] * -kLog2e);
+          }
+        }
+      }
+      __syncthreads();  // the block's partials are written
+      for (int o = tid; o < rows * nd; o += blockDim.x) {
+        const int r = o / nd, ii = o - r * nd;
+        float t = 0.f;
+        for (int q = 0; q < n_warps; ++q)
+          t += rb[(q * kFwdDims + ii) * kRedPitch + r];
+        const size_t at = xo + static_cast<size_t>(r) * d + i0 + ii;
+        if (n_chunks == 1)
+          logits[at] = bv[at] + t;
+        else
+          part[static_cast<size_t>(c0) * gridDim.y * n * d + at] = t;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = rg * 8 + e;
+#pragma unroll
+      for (int c = 0; c < kL; ++c)
+        if (on[c] && r < rows)
+          a_end[ho + static_cast<size_t>(r) * h + warp * 8 * kL + lg + 8 * c] =
+              a[e][c];
+    }
   }
+}
+
+// out[e] = (bias ? bias[e] : 0) + sum over c < n_parts, in order, of
+// part[c * total + e]: the chunks' partial logits (with bv) or dx.
+__global__ void sum_chunks_kernel(const float* __restrict__ part,
+                                  const float* __restrict__ bias,
+                                  float* __restrict__ out, int n_parts,
+                                  int64_t total) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (e >= total) return;
+  float s = bias != nullptr ? bias[e] : 0.f;
+  float t = 0.f;
+  for (int c = 0; c < n_parts; ++c) t += part[c * total + e];
+  out[e] = s + t;
 }
 
 // One dim i of the reverse sweep over a tile's rows, for one hidden lane.
@@ -211,12 +342,12 @@ __global__ void __launch_bounds__(kMaxThreads)
                        float* __restrict__ dw_part,  // (K, G, d, h)
                        float* __restrict__ dv_part,  // (K, G, d, h)
                        float* __restrict__ dx, float* __restrict__ dbh,
-                       int n, int d, int h) {
+                       int n, int d, int h, int chunk) {
   extern __shared__ float smem[];
-  float* dv_acc = smem;               // (d, h): this CTA's dV over its tiles
-  float* dw_acc = dv_acc + d * h;     // (d, h): its dW
+  float* dv_acc = smem;               // (d, chunk): this CTA's dV, its tiles
+  float* dw_acc = dv_acc + d * chunk;  // (d, chunk): its dW
   // (d, kGPitch): the tile's g by dim, a dim's rows read as float4s
-  float* g_s = smem + round4(2 * d * h);
+  float* g_s = smem + round4(2 * d * chunk);
   float* red = g_s + kGPitch * d;  // (2, n_warps, kRows), when kWantDx
   const int tid = threadIdx.x, lane = tid & 31, n_warps = blockDim.x >> 5;
   // per dim of the tile: the rows where x = 1, and where x is neither 0
@@ -225,16 +356,24 @@ __global__ void __launch_bounds__(kMaxThreads)
   uint32_t* gen_s = one_s + d;
   const int track = blockIdx.y, n_ctas = gridDim.x;
   const int tiles = (n + kRows - 1) / kRows;
-  const bool on = tid < h;  // a real hidden lane; it alone owns column tid
-  const size_t wo = static_cast<size_t>(track) * d * h + tid;
+  // the CTA's chunk of hidden lanes: [j0, j0 + chunk) of H; dx is this
+  // chunk's part, written to (C, K, N, D) when there are C > 1 chunks
+  const int j0 = blockIdx.z * chunk;
+  // a real hidden lane; it alone owns column tid of the accumulators
+  const bool on = tid < min(chunk, h - j0);
+  const size_t wo = static_cast<size_t>(track) * d * h + j0 + tid;
+  float* dx_c =
+      dx == nullptr
+          ? nullptr
+          : dx + static_cast<size_t>(blockIdx.z) * gridDim.y * n * d;
   if (on)
     for (int i = 0; i < d; ++i)
-      dv_acc[i * h + tid] = dw_acc[i * h + tid] = 0.f;
+      dv_acc[i * chunk + tid] = dw_acc[i * chunk + tid] = 0.f;
 
   for (int tile = blockIdx.x; tile < tiles; tile += n_ctas) {
     const int row0 = tile * kRows, rows = min(kRows, n - row0);
     const size_t xo = (static_cast<size_t>(track) * n + row0) * d;
-    const size_t ho = (static_cast<size_t>(track) * n + row0) * h;
+    const size_t ho = (static_cast<size_t>(track) * n + row0) * h + j0;
     __syncthreads();  // the last tile's g_s and masks are no longer read
     // the tile's loads are unrolled so that they are in flight together
 #pragma unroll 8
@@ -282,7 +421,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         for (int r = 0; r < kRows; ++r) p[r] = wi * r_[r];
         const float t = block_row_sum(red, warp_transpose_sum(p, lane), i,
                                       tid, n_warps);
-        if (tid < rows) dx[xo + static_cast<size_t>(tid) * d + i] = t;
+        if (tid < rows) dx_c[xo + static_cast<size_t>(tid) * d + i] = t;
       }
       // warp-uniform: every thread of the CTA reads the same masks
       const uint32_t one = one_s[i], gen = gen_s[i];
@@ -300,8 +439,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         sweep_dim<false, false>(t, r_, g_dim, x_col, d, one, gen, wl, vi, dv,
                                 dw);
       if (on) {
-        dv_acc[i * h + tid] += dv;
-        dw_acc[i * h + tid] += dw;
+        dv_acc[i * chunk + tid] += dv;
+        dw_acc[i * chunk + tid] += dw;
       }
     }
     if (on) {
@@ -312,10 +451,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   if (on) {
     const size_t po =
-        (static_cast<size_t>(track) * n_ctas + blockIdx.x) * d * h + tid;
+        (static_cast<size_t>(track) * n_ctas + blockIdx.x) * d * h + j0 + tid;
     for (int i = 0; i < d; ++i) {
-      dv_part[po + static_cast<size_t>(i) * h] = dv_acc[i * h + tid];
-      dw_part[po + static_cast<size_t>(i) * h] = dw_acc[i * h + tid];
+      dv_part[po + static_cast<size_t>(i) * h] = dv_acc[i * chunk + tid];
+      dw_part[po + static_cast<size_t>(i) * h] = dw_acc[i * chunk + tid];
     }
   }
 }
@@ -338,30 +477,45 @@ __global__ void sum_parts_kernel(const float* __restrict__ dw_part,
   (is_v ? dv : dw)[idx] = s;
 }
 
-int threads_for(int64_t h) {
-  return static_cast<int>(((h + 31) / 32) * 32);
+int threads_for(int64_t lanes) {
+  return static_cast<int>(((lanes + 31) / 32) * 32);
 }
 
-// The backward's dynamic shared memory: the dV and dW accumulators, the
-// tile's g, the row-sum buffer and the two x masks per dim. The launch plan
-// (ops/nade_ll.bwd_plan) counts the same bytes.
-size_t bwd_smem_bytes(int64_t d, int64_t h) {
-  return sizeof(float) * static_cast<size_t>(round4(2 * d * h) +
+// The backward's dynamic shared memory for a chunk of `chunk` hidden lanes:
+// the dV and dW accumulators, the tile's g, the row-sum buffer and the two
+// x masks per dim. The launch plan (ops/nade_ll.bwd_plan) counts the same
+// bytes.
+size_t bwd_smem_bytes(int64_t d, int64_t chunk) {
+  return sizeof(float) * static_cast<size_t>(round4(2 * d * chunk) +
                                              kGPitch * d +
-                                             2 * (threads_for(h) / 32) *
+                                             2 * (threads_for(chunk) / 32) *
                                                  kRows) +
          sizeof(uint32_t) * 2 * static_cast<size_t>(d);
 }
 
-// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+// The forward's: the two blocks of warp partials and the x masks
+// (ops/nade_ll.fwd_plan counts the same bytes).
+size_t fwd_smem_bytes(int64_t d, int64_t chunk) {
+  return sizeof(float) * 2 * static_cast<size_t>(threads_for(chunk) / 32) *
+             kFwdDims * kRedPitch +
+         sizeof(uint32_t) * 2 * static_cast<size_t>(d);
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in,
+// and the plans count on the SM's whole 228 KB as shared memory, not L1.
 // A refusal is also cleared from CUDA's last-error state: the caller
 // raises, and the next launch in the process must not report it again.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  cudaError_t e = cudaSuccess;
+  if (bytes > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) cudaGetLastError();
   return e;
 }
@@ -371,64 +525,86 @@ const char* last_error() {
   return err == cudaSuccess ? nullptr : cudaGetErrorString(err);
 }
 
+// The C chunks' parts (C, total) summed in order into out (plus bias).
+const char* sum_chunks(const float* part, const float* bias, float* out,
+                       int64_t n_chunks, int64_t total, cudaStream_t s) {
+  sum_chunks_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+      part, bias, out, static_cast<int>(n_chunks), total);
+  return last_error();
+}
+
+// The plan's sizes, checked where a bad one would fault.
+const char* check_plan(int64_t n_ctas, int64_t chunk, int64_t max_lanes,
+                       size_t smem) {
+  if (n_ctas <= 0 || chunk <= 0 || chunk > max_lanes)
+    return "nade_ll: the launch plan's CTAs or hidden chunk are out of range";
+  if (smem > static_cast<size_t>(kSmemLimitBytes))
+    return "nade_ll: the launch plan needs more than a CTA's 227 KB of "
+           "shared memory";
+  return nullptr;
+}
+
 }  // namespace
 
 const char* launch_nade_ll_fwd(const float* x, const float* w, const float* v,
                                const float* bv, const float* bh,
-                               float* logits, float* a_end, int64_t k,
-                               int64_t n, int64_t d, int64_t h,
-                               void* stream) {
+                               float* logits, float* part, float* a_end,
+                               int64_t k, int64_t n, int64_t d, int64_t h,
+                               int64_t n_ctas, int64_t chunk, void* stream) {
   if (k <= 0 || n <= 0 || d <= 0) return nullptr;
-  const int threads = threads_for(h);
-  const size_t smem =
-      sizeof(float) * (2 * kRows * static_cast<size_t>(d) +
-                       2 * static_cast<size_t>(threads / 32) * kRows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = fwd_smem_bytes(d, chunk);
+  if (const char* err = check_plan(n_ctas, chunk, kFwdMaxLanes, smem))
+    return err;
+  const int64_t n_chunks = (h + chunk - 1) / chunk;
+  if (n_chunks > 1 && part == nullptr)
+    return "nade_ll_fwd: more than one hidden chunk needs the partials";
+  const dim3 grid(static_cast<unsigned>(n_ctas), static_cast<unsigned>(k),
+                  static_cast<unsigned>(n_chunks));
   const cudaError_t e = allow_smem(nade_ll_fwd_kernel, smem);
   if (e != cudaSuccess) return cudaGetErrorString(e);
-  const dim3 grid(static_cast<unsigned>((n + kRows - 1) / kRows),
-                  static_cast<unsigned>(k));
-  nade_ll_fwd_kernel<<<grid, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, w, v, bv, bh, logits, a_end, static_cast<int>(n),
-      static_cast<int>(d), static_cast<int>(h));
-  return last_error();
+  nade_ll_fwd_kernel<<<grid, threads_for(chunk), smem, s>>>(
+      x, w, v, bv, bh, logits, part, a_end, static_cast<int>(n),
+      static_cast<int>(d), static_cast<int>(h), static_cast<int>(chunk));
+  if (const char* err = last_error()) return err;
+  return n_chunks > 1 ? sum_chunks(part, bv, logits, n_chunks, k * n * d, s)
+                      : nullptr;
 }
 
 const char* launch_nade_ll_bwd(const float* x, const float* w, const float* v,
                                const float* g, const float* a_end,
                                float* dw_part, float* dv_part, float* dw,
-                               float* dv, float* dx, float* dbh, int64_t k,
-                               int64_t n, int64_t d, int64_t h, int64_t n_ctas,
+                               float* dv, float* dx, float* dx_part,
+                               float* dbh, int64_t k, int64_t n, int64_t d,
+                               int64_t h, int64_t n_ctas, int64_t chunk,
                                void* stream) {
   if (k <= 0 || d <= 0 || h <= 0) return nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for(h);
-  const size_t smem = bwd_smem_bytes(d, h);
-  const dim3 grid(static_cast<unsigned>(n_ctas), static_cast<unsigned>(k));
+  const size_t smem = bwd_smem_bytes(d, chunk);
+  if (const char* err = check_plan(n_ctas, chunk, kMaxThreads, smem))
+    return err;
+  const int64_t n_chunks = (h + chunk - 1) / chunk;
+  if (dx != nullptr && n_chunks > 1 && dx_part == nullptr)
+    return "nade_ll_bwd: dx over more than one hidden chunk needs partials";
+  const dim3 grid(static_cast<unsigned>(n_ctas), static_cast<unsigned>(k),
+                  static_cast<unsigned>(n_chunks));
   const auto kernel =
       dx != nullptr ? nade_ll_bwd_kernel<true> : nade_ll_bwd_kernel<false>;
-  cudaError_t e = allow_smem(kernel, smem);
-  // two CTAs of the flagship's 113.5 KB per SM (the plan counts on them)
-  // need the whole of the SM's 228 KB as shared memory, not L1
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return cudaGetErrorString(e);
-  }
-  kernel<<<grid, threads, smem, s>>>(x, w, v, g, a_end, dw_part, dv_part, dx,
-                                     dbh, static_cast<int>(n),
-                                     static_cast<int>(d),
-                                     static_cast<int>(h));
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return cudaGetErrorString(e);
+  float* dx_out = dx != nullptr && n_chunks > 1 ? dx_part : dx;
+  kernel<<<grid, threads_for(chunk), smem, s>>>(
+      x, w, v, g, a_end, dw_part, dv_part, dx_out, dbh, static_cast<int>(n),
+      static_cast<int>(d), static_cast<int>(h), static_cast<int>(chunk));
   if (const char* err = last_error()) return err;
   const int64_t per_track = d * h, total = k * per_track;
   const int blocks = static_cast<int>((2 * total + 255) / 256);
   sum_parts_kernel<<<blocks, 256, 0, s>>>(dw_part, dv_part, dw, dv,
                                           static_cast<int>(n_ctas), per_track,
                                           total);
-  return last_error();
+  if (const char* err = last_error()) return err;
+  return dx_out != dx ? sum_chunks(dx_part, nullptr, dx, n_chunks, k * n * d, s)
+                      : nullptr;
 }
 
 }  // namespace multinn_torch

@@ -61,7 +61,7 @@ void gibbs_chain(at::Tensor out, const at::Tensor& v0, const at::Tensor& w,
                  const at::Tensor& bv, const at::Tensor& bh,
                  const at::Tensor& seed, int64_t k, int64_t bb,
                  int64_t rows_per_cta, int64_t threads, int64_t lanes,
-                 int64_t stream) {
+                 int64_t w_smem, int64_t stream) {
   check(out, at::kFloat, "out");
   check(v0, at::kFloat, "v0");
   check(w, at::kFloat, "w");
@@ -80,7 +80,7 @@ void gibbs_chain(at::Tensor out, const at::Tensor& v0, const at::Tensor& w,
                               bv.data_ptr<float>(), bh.data_ptr<float>(),
                               seed.data_ptr<int32_t>(), out.data_ptr<float>(),
                               n, d, h, k, bb, rows_per_cta, threads, lanes,
-                              as_stream(stream)),
+                              w_smem, as_stream(stream)),
            "gibbs_chain");
 }
 
@@ -156,7 +156,7 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
 
 void nade_sample(at::Tensor out, const at::Tensor& w, const at::Tensor& v,
                  const at::Tensor& bv, const at::Tensor& bh,
-                 const at::Tensor& seed, int64_t stream) {
+                 const at::Tensor& seed, int64_t staged, int64_t stream) {
   check(out, at::kFloat, "out");
   check(w, at::kFloat, "w");
   check(v, at::kFloat, "v");
@@ -172,7 +172,7 @@ void nade_sample(at::Tensor out, const at::Tensor& w, const at::Tensor& v,
   raise_on(launch_nade_sample(w.data_ptr<float>(), v.data_ptr<float>(),
                               bv.data_ptr<float>(), bh.data_ptr<float>(),
                               seed.data_ptr<int32_t>(), out.data_ptr<float>(),
-                              n, d, h, as_stream(stream)),
+                              n, d, h, staged, as_stream(stream)),
            "nade_sample");
 }
 
@@ -285,9 +285,11 @@ std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
   return shape;
 }
 
-void nade_ll_fwd(at::Tensor logits, at::Tensor a_end, const at::Tensor& x,
-                 const at::Tensor& w, const at::Tensor& v,
-                 const at::Tensor& bv, const at::Tensor& bh, int64_t stream) {
+void nade_ll_fwd(at::Tensor logits, at::Tensor a_end, at::Tensor part,
+                 const at::Tensor& x, const at::Tensor& w,
+                 const at::Tensor& v, const at::Tensor& bv,
+                 const at::Tensor& bh, int64_t n_ctas, int64_t chunk,
+                 int64_t stream) {
   check(logits, at::kFloat, "logits");
   check(a_end, at::kFloat, "a_end");
   check(x, at::kFloat, "x");
@@ -302,19 +304,25 @@ void nade_ll_fwd(at::Tensor logits, at::Tensor a_end, const at::Tensor& x,
                   bh.dim() == 3 && bh.size(0) == k && bh.size(1) == n &&
                   bh.size(2) == h && a_end.sizes() == bh.sizes(),
               "nade_ll_fwd: inconsistent shapes");
+  TORCH_CHECK(chunk > 0, "nade_ll_fwd: the hidden chunk must be positive");
+  const int64_t n_chunks = (h + chunk - 1) / chunk;
+  TORCH_CHECK(n_chunks == 1 ? part.numel() == 0
+                            : part.numel() == n_chunks * x.numel(),
+              "nade_ll_fwd: part must be empty or (chunks, k, n, d)");
   raise_on(launch_nade_ll_fwd(x.data_ptr<float>(), w.data_ptr<float>(),
                               v.data_ptr<float>(), bv.data_ptr<float>(),
                               bh.data_ptr<float>(), logits.data_ptr<float>(),
-                              a_end.data_ptr<float>(), k, n, d, h,
-                              as_stream(stream)),
+                              optional_out(part, "part"),
+                              a_end.data_ptr<float>(), k, n, d, h, n_ctas,
+                              chunk, as_stream(stream)),
            "nade_ll_fwd");
 }
 
 void nade_ll_bwd(at::Tensor dw, at::Tensor dv, at::Tensor dx, at::Tensor dbh,
-                 at::Tensor dw_part, at::Tensor dv_part, const at::Tensor& x,
-                 const at::Tensor& w, const at::Tensor& v,
-                 const at::Tensor& g, const at::Tensor& a_end,
-                 int64_t stream) {
+                 at::Tensor dw_part, at::Tensor dv_part, at::Tensor dx_part,
+                 const at::Tensor& x, const at::Tensor& w,
+                 const at::Tensor& v, const at::Tensor& g,
+                 const at::Tensor& a_end, int64_t chunk, int64_t stream) {
   for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&dw, "dw"},
                          {&dv, "dv"}, {&dbh, "dbh"}, {&dw_part, "dw_part"},
                          {&dv_part, "dv_part"}, {&x, "x"}, {&w, "w"},
@@ -334,14 +342,21 @@ void nade_ll_bwd(at::Tensor dw, at::Tensor dv, at::Tensor dx, at::Tensor dbh,
               "nade_ll_bwd: inconsistent shapes");
   TORCH_CHECK(dx.numel() == 0 || dx.sizes() == x.sizes(),
               "nade_ll_bwd: dx must be empty or x's shape");
+  TORCH_CHECK(chunk > 0, "nade_ll_bwd: the hidden chunk must be positive");
+  const int64_t n_chunks = (h + chunk - 1) / chunk;
+  TORCH_CHECK((dx.numel() == 0 || n_chunks == 1)
+                  ? dx_part.numel() == 0
+                  : dx_part.numel() == n_chunks * x.numel(),
+              "nade_ll_bwd: dx_part must be empty or (chunks, k, n, d)");
   raise_on(launch_nade_ll_bwd(x.data_ptr<float>(), w.data_ptr<float>(),
                               v.data_ptr<float>(), g.data_ptr<float>(),
                               a_end.data_ptr<float>(),
                               dw_part.data_ptr<float>(),
                               dv_part.data_ptr<float>(), dw.data_ptr<float>(),
                               dv.data_ptr<float>(), optional_out(dx, "dx"),
+                              optional_out(dx_part, "dx_part"),
                               dbh.data_ptr<float>(), k, n, d, h,
-                              dw_part.size(1), as_stream(stream)),
+                              dw_part.size(1), chunk, as_stream(stream)),
            "nade_ll_bwd");
 }
 
@@ -353,14 +368,14 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor x1, int stream) -> ()");
   m.def("gibbs_chain(Tensor(a!) out, Tensor v0, Tensor w, Tensor bv, "
         "Tensor bh, Tensor seed, int k, int bb, int rows_per_cta, "
-        "int threads, int lanes, int stream) -> ()");
+        "int threads, int lanes, int w_smem, int stream) -> ()");
   m.def("gen_fused_rbm(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
         "Tensor w, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "
         "Tensor h0, Tensor c0, Tensor v0, Tensor given, Tensor seed, "
         "int gen_k, int lstm, int given_mask, int stream) -> ()");
   m.def("nade_sample(Tensor(a!) out, Tensor w, Tensor v, Tensor bv, "
-        "Tensor bh, Tensor seed, int stream) -> ()");
+        "Tensor bh, Tensor seed, int staged, int stream) -> ()");
   m.def("gen_fused_nade(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
         "Tensor w, Tensor v, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wxg, Tensor wx_r, Tensor wh, Tensor wctx, "
@@ -370,11 +385,13 @@ TORCH_LIBRARY(multinn_torch, m) {
   m.def("gen_fused_plan(int nade, int k, int d, int hid, int u, "
         "int n_layers, int lstm, int batch) -> int[]",
         &multinn_torch::gen_fused_plan);
-  m.def("nade_ll_fwd(Tensor(a!) logits, Tensor(b!) a_end, Tensor x, "
-        "Tensor w, Tensor v, Tensor bv, Tensor bh, int stream) -> ()");
+  m.def("nade_ll_fwd(Tensor(a!) logits, Tensor(b!) a_end, Tensor(c!) part, "
+        "Tensor x, Tensor w, Tensor v, Tensor bv, Tensor bh, int n_ctas, "
+        "int chunk, int stream) -> ()");
   m.def("nade_ll_bwd(Tensor(a!) dw, Tensor(b!) dv, Tensor(c!) dx, "
-        "Tensor(d!) dbh, Tensor(e!) dw_part, Tensor(f!) dv_part, Tensor x, "
-        "Tensor w, Tensor v, Tensor g, Tensor a_end, int stream) -> ()");
+        "Tensor(d!) dbh, Tensor(e!) dw_part, Tensor(f!) dv_part, "
+        "Tensor(g!) dx_part, Tensor x, Tensor w, Tensor v, Tensor g, "
+        "Tensor a_end, int chunk, int stream) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(multinn_torch, CUDA, m) {

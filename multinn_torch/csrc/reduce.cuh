@@ -6,16 +6,6 @@
 
 namespace multinn_torch {
 
-// Sum of x over the 32 lanes of a warp, by a fixed shuffle-down tree, so a
-// launch reproduces its own sums bit for bit. The total is valid in lane 0.
-// Every lane of the warp must call it.
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_down_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // Sum of x over the 32 lanes of a warp by a fixed xor butterfly: every lane
 // gets the same bits (each level adds the same two values, in either
 // order). Every lane of the warp must call it.

@@ -14,7 +14,9 @@ difference in a probability flips.
 The Pallas dispatch gate (8 <= B <= 2048) was a TPU performance crossover;
 the kernel here takes any row count and picks one of two launch plans from
 it (``launch_plan``): a latency plan for the scan path's few rows and a
-throughput plan for the training and k=25 shapes.
+throughput plan for the training and k=25 shapes. Where W at its pitch and
+the plan's rows exceed a CTA's shared memory, the throughput plan reads W
+from device memory instead, so every (D, H) the reference runs is launched.
 """
 
 from __future__ import annotations
@@ -45,13 +47,32 @@ def _rows(v0, w, bv, bh):
             bh.expand(*shape[:-1], h).reshape(-1, h).contiguous())
 
 
-# launch plans of csrc/gibbs_chain.cu: (rows per CTA, threads, lanes per dot)
-LATENCY_PLAN = (1, 256, 8)
+# launch plans of csrc/gibbs_chain.cu: (rows per CTA, threads, lanes per
+# dot, W in shared memory 1 / in device memory 0)
+LATENCY_PLAN = (1, 256, 8, 1)
 _WARPS = 8                     # warps per CTA of the throughput plan
+CTA_SMEM_LIMIT = 227 * 1024    # a CTA's dynamic shared memory
 
 
-def launch_plan(n: int, sm_count: int) -> tuple[int, int, int]:
-    """The kernel's launch plan for n rows on a card with ``sm_count`` SMs.
+def _r4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def plan_smem_bytes(plan, d: int, h: int) -> int:
+    """The shared memory csrc/gibbs_chain.cu's launcher asks for under
+    ``plan``: W at the plan's pitch (when it stays in shared memory) and
+    the rows' state."""
+    rows, _, lanes, w_smem = plan
+    if lanes > 1:          # latency plan: pitch H rounded to 32, plus 4
+        h32 = -(-h // 32) * 32
+        return 4 * (_r4(d) * (h32 + 4) + _r4(d) + h32 + 3 * (d + h))
+    return 4 * (w_smem * _r4(d) * (_r4(h) + 1) + rows * (_r4(d) + _r4(h)))
+
+
+def launch_plan(n: int, sm_count: int, d: int,
+                h: int) -> tuple[int, int, int, int]:
+    """The kernel's launch plan for n rows of an RBM (D, H) on a card with
+    ``sm_count`` SMs.
 
     Up to three rows per SM (the CTAs an SM holds at once), the latency
     plan: one row per CTA, each output's dot product split over 8 lanes, so
@@ -59,18 +80,30 @@ def launch_plan(n: int, sm_count: int) -> tuple[int, int, int]:
     CTA's 8 warps carries its rows through all sweeps, one lane per output
     with a register block of rows — 2 rows a warp once that still gives
     every SM a CTA, else 1, so the card holds more warps. The crossovers
-    are measured ones (``scripts/torch_kernel_sweep.py --plans``)."""
-    if n <= 3 * sm_count:
-        return LATENCY_PLAN
+    are measured ones (``scripts/torch_kernel_sweep.py --plans``). Where W
+    at its pitch and the chosen plan's rows exceed a CTA's 227 KB, the
+    throughput plan with W in device memory (read through L2); a shape
+    whose rows alone do not fit raises before any launch."""
     rows_per_warp = 2 if -(-n // (2 * _WARPS)) >= sm_count else 1
-    return _WARPS * rows_per_warp, _WARPS * 32, 1
+    plan = (LATENCY_PLAN if n <= 3 * sm_count
+            else (_WARPS * rows_per_warp, _WARPS * 32, 1, 1))
+    if plan_smem_bytes(plan, d, h) <= CTA_SMEM_LIMIT:
+        return plan
+    plan = (_WARPS * rows_per_warp, _WARPS * 32, 1, 0)
+    if plan_smem_bytes(plan, d, h) <= CTA_SMEM_LIMIT:
+        return plan
+    raise ValueError(
+        f"gibbs_chain: D={d}, H={h} needs {plan_smem_bytes(plan, d, h)} "
+        f"bytes of shared memory for a CTA's rows, over the card's "
+        f"{CTA_SMEM_LIMIT} (227 KB) limit")
 
 
 def gibbs_chain(key, v0, w, bv, bh, k: int) -> torch.Tensor:
     """The chain on the card: v0 (..., D) float32 CUDA tensors, biases
     broadcastable to v0 / (..., H); returns the k-th visible sample."""
     n = v0.numel() // w.shape[0]
-    return _launch(key, v0, w, bv, bh, k, launch_plan(n, _build.sm_count(v0)))
+    return _launch(key, v0, w, bv, bh, k,
+                   launch_plan(n, _build.sm_count(v0), *w.shape))
 
 
 def _launch(key, v0, w, bv, bh, k: int, plan) -> torch.Tensor:

@@ -14,6 +14,11 @@ interpret=True)`` bit for bit up to the rare draw that a last-ulp
 difference in a logit flips, and the kernel equals the plain version the
 same way. Weights are float32: the Pallas gate refuses anything else, and
 so does the kernel's binding.
+
+The kernel runs one CTA a row and looks ahead over runs of zeros: the
+logits of a window of 16 dims come from the same h, and the first one
+drawn ends the window (``sample_plan``: whether W and V are staged in
+shared memory or read from L2).
 """
 
 from __future__ import annotations
@@ -30,17 +35,59 @@ def _rows(w, bv, bh, batch_shape):
             bh.expand(*batch_shape, h).reshape(-1, h).contiguous())
 
 
+# csrc/nade_sample.cu: one CTA of 128 threads a row
+ROW_THREADS = 128
+GROUP_DIMS = 4            # dims a bulk copy of W and V carries
+CTA_SMEM_LIMIT = 227 * 1024
+
+
+def _r4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def sample_smem_bytes(d: int, h: int, staged: bool) -> int:
+    """csrc/nade_sample.cu nade_sample_smem_bytes: when staged, the bulk
+    copies' mbarriers and W and V; the row's a, h (H rounded to 32 each), u
+    and bv (D each) and the warps' hit bits."""
+    bars = _r4(2 * -(-d // GROUP_DIMS))
+    return 4 * ((bars + 2 * _r4(d * h) if staged else 0)
+                + 2 * (-(-h // 32) * 32) + 2 * d + 2 * (ROW_THREADS // 32))
+
+
+def sample_plan(d: int, h: int, aligned: bool = True) -> int:
+    """W and V staged in shared memory (1) or read from L2 (0) by the
+    sampler kernel, which runs one CTA a row: staged where they fit beside
+    the row's state and both are 16-byte aligned (the bulk copies need it),
+    else from L2; a shape whose row alone does not fit raises before any
+    launch."""
+    for staged in (1, 0) if aligned else (0,):
+        if sample_smem_bytes(d, h, staged) <= CTA_SMEM_LIMIT:
+            return staged
+    raise ValueError(
+        f"nade_sample: D={d}, H={h} needs {sample_smem_bytes(d, h, False)} "
+        f"bytes of shared memory for one row, over the card's "
+        f"{CTA_SMEM_LIMIT} (227 KB) limit")
+
+
 def nade_sample(key, w, v, bv, bh, batch_shape=()) -> torch.Tensor:
     """The sweep on the card: w, v (D, H) float32 CUDA tensors, bv / bh
     broadcastable to batch_shape + (D,) / (H,). Returns (*batch_shape, D)
     binary float32."""
+    w, v = w.contiguous(), v.contiguous()
+    aligned = (w.data_ptr() | v.data_ptr()) % 16 == 0
+    return _launch(key, w, v, bv, bh, batch_shape,
+                   sample_plan(*w.shape, aligned))
+
+
+def _launch(key, w, v, bv, bh, batch_shape, staged) -> torch.Tensor:
+    """``nade_sample`` under a given plan (staged 1 / 0)."""
     bv_2d, bh_2d = _rows(w, bv, bh, batch_shape)
     out = torch.empty_like(bv_2d)
     seeds = key_to_seeds(key).to(w.device)
     with torch.cuda.device(w.device):
         _build.launches["nade_sample"] += 1
         _build.ops().nade_sample(out, w.contiguous(), v.contiguous(), bv_2d,
-                                 bh_2d, seeds, _build.stream_of(w))
+                                 bh_2d, seeds, staged, _build.stream_of(w))
     return out.reshape(*batch_shape, w.shape[0])
 
 

@@ -18,7 +18,10 @@ tolerance.
 
 The kernels' layout is row-major and track-stacked: x, bv, logits
 (K, N, D); bh, a_D (K, N, H); w, v (K, D, H). One launch covers every
-track, where the JAX package vmaps the Pallas kernel over tracks. The plain
+track, where the JAX package vmaps the Pallas kernel over tracks, on a
+persistent grid whose plan (``fwd_plan``, ``bwd_plan``) splits H into
+chunks where a CTA's threads or shared memory need it; a shape no plan can
+launch raises a ValueError before any launch. The plain
 versions are the same sequential dim loops in torch ops (not autograd of
 the cumsum form) and take float64 too, for gradcheck.
 """
@@ -30,10 +33,88 @@ import torch
 from multinn_torch.ops import _build
 
 TILE_ROWS = 32     # rows per tile of csrc/nade_ll.cu (one per warp lane)
-# an H100 SM: shared memory, the part reserved per CTA, resident threads
+FWD_MAX_LANES = 256   # forward: hidden lanes per CTA (an H chunk)
+BWD_MAX_LANES = 512   # backward: hidden lanes per CTA
+FWD_DIMS = 32         # forward: dims per block of warp partials
+FWD_REGS = 128        # forward: registers a thread (__launch_bounds__)
+# an H100 SM: shared memory, the part reserved per CTA, resident threads and
+# registers; a CTA's dynamic shared memory
 _SM_SMEM_BYTES = 228 * 1024
 _CTA_RESERVED_BYTES = 1024
 _SM_THREADS = 2048
+_SM_REGS = 65536
+CTA_SMEM_LIMIT = 227 * 1024
+
+
+def _threads(lanes: int) -> int:
+    return -(-lanes // 32) * 32
+
+
+def fwd_smem_bytes(d: int, chunk: int) -> int:
+    """csrc/nade_ll.cu fwd_smem_bytes: two blocks of the warps' partials
+    and the two x masks per dim."""
+    return 4 * 2 * (_threads(chunk) // 32) * FWD_DIMS * TILE_ROWS + 8 * d
+
+
+def bwd_smem_bytes(d: int, chunk: int) -> int:
+    """csrc/nade_ll.cu bwd_smem_bytes: the dV and dW accumulators of the
+    chunk's lanes, the tile's g, the row-sum buffer, the x masks."""
+    return 4 * (-(-2 * d * chunk // 4) * 4 + (TILE_ROWS + 4) * d
+                + 2 * (_threads(chunk) // 32) * TILE_ROWS + 2 * d)
+
+
+def _chunk(h: int, d: int, max_lanes: int, smem, name: str) -> int:
+    """The fewest H chunks whose lanes fit a CTA's threads and whose bytes
+    fit its shared memory: the lanes per chunk, or a ValueError before any
+    launch when even one lane a CTA does not fit."""
+    for n_chunks in range(-(-h // max_lanes), h + 1):
+        chunk = -(-h // n_chunks)
+        if smem(d, chunk) <= CTA_SMEM_LIMIT:
+            return chunk
+    raise ValueError(
+        f"{name}: D={d}, H={h} needs {smem(d, 1)} bytes of shared memory a "
+        f"CTA even with one hidden lane, over the card's {CTA_SMEM_LIMIT} "
+        f"(227 KB) limit")
+
+
+def _grid(k, n, h, chunk, per_sm, sm_count) -> tuple[int, int]:
+    """(CTAs per track and chunk, chunk): one wave of the card's resident
+    CTA slots across the k tracks and chunks, no more than a track's
+    tiles."""
+    n_chunks = -(-h // chunk)
+    ctas = per_sm * sm_count // (k * n_chunks)
+    return max(1, min(-(-n // TILE_ROWS), ctas)), chunk
+
+
+def fwd_plan(k: int, n: int, d: int, h: int,
+             sm_count: int) -> tuple[int, int]:
+    """The forward's persistent grid: (CTAs G per track and H chunk, lanes
+    per chunk). H is split into the fewest chunks of at most 256 lanes; an
+    SM holds as many CTAs as its threads, registers (FWD_REGS a thread) and
+    shared memory allow, and G fills the card once."""
+    chunk = _chunk(h, d, FWD_MAX_LANES, fwd_smem_bytes, "nade_ll_fwd")
+    threads = _threads(chunk)
+    per_sm = max(1, min(_SM_THREADS // threads,
+                        _SM_REGS // (FWD_REGS * threads),
+                        _SM_SMEM_BYTES // (fwd_smem_bytes(d, chunk)
+                                           + _CTA_RESERVED_BYTES)))
+    return _grid(k, n, h, chunk, per_sm, sm_count)
+
+
+def bwd_plan(k: int, n: int, d: int, h: int,
+             sm_count: int) -> tuple[int, int]:
+    """The backward's persistent grid: (CTAs G per track and H chunk, lanes
+    per chunk). H is split into the fewest chunks whose lanes fit 512
+    threads and whose dV / dW accumulators fit a CTA's shared memory (the
+    reverse sweep is independent per lane; only dx sums across chunks, in
+    a second pass); G fills the card's resident CTA slots once across the
+    tracks and chunks (a CTA's shared memory sets how many fit an SM), but
+    no more than a track's tiles."""
+    chunk = _chunk(h, d, BWD_MAX_LANES, bwd_smem_bytes, "nade_ll_bwd")
+    per_sm = max(1, min(_SM_THREADS // _threads(chunk),
+                        _SM_SMEM_BYTES // (bwd_smem_bytes(d, chunk)
+                                           + _CTA_RESERVED_BYTES)))
+    return _grid(k, n, h, chunk, per_sm, sm_count)
 
 
 def nade_ll_fwd_plain(x, w, v, bv, bh):
@@ -70,44 +151,40 @@ def nade_ll_bwd_plain(x, w, v, g, a_end, want_dx: bool = True):
 def nade_ll_fwd(x, w, v, bv, bh):
     """The forward kernel on the card: float32 CUDA tensors in the layout
     above. Returns (logits, a_D)."""
+    k, n, d = x.shape
+    ctas, chunk = fwd_plan(k, n, d, w.shape[-1], _build.sm_count(x))
+    n_chunks = -(-w.shape[-1] // chunk)
     logits, a_end = torch.empty_like(x), torch.empty_like(bh)
+    part = x.new_empty((n_chunks, k, n, d) if n_chunks > 1 else 0)
     with torch.cuda.device(x.device):
         _build.launches["nade_ll_fwd"] += 1
-        _build.ops().nade_ll_fwd(logits, a_end, x, w, v, bv, bh,
-                                 _build.stream_of(x))
+        _build.ops().nade_ll_fwd(logits, a_end, part, x, w, v, bv, bh, ctas,
+                                 chunk, _build.stream_of(x))
     return logits, a_end
 
 
-def bwd_plan(k: int, n: int, d: int, h: int, sm_count: int) -> int:
-    """CTAs per track G of the backward's persistent grid: as many as fill
-    the card's resident CTA slots once across the k tracks (a CTA's shared
-    memory, csrc/nade_ll.cu bwd_smem_bytes, sets how many fit on an SM),
-    but no more than the track's tiles."""
-    threads = -(-h // 32) * 32
-    smem = 4 * (-(-2 * d * h // 4) * 4 + (TILE_ROWS + 4) * d
-                + 2 * (threads // 32) * TILE_ROWS + 2 * d)
-    per_sm = max(1, min(_SM_THREADS // threads,
-                        _SM_SMEM_BYTES // (smem + _CTA_RESERVED_BYTES)))
-    return max(1, min(-(-n // TILE_ROWS), per_sm * sm_count // k))
-
-
 def nade_ll_bwd(x, w, v, g, a_end, want_dx: bool = True):
-    """The backward kernel on the card. Each of its G CTAs per track sums
-    dW and dV over its tiles; the (K, G, D, H) partials are summed over the
-    CTAs in order by a second pass, so the result is deterministic (no
-    float atomics). Its sigmoid is the card's exp2 and reciprocal
-    estimates (a few ulp), well inside the gradients' tolerance."""
+    """The backward kernel on the card. Each of its G CTAs per track and H
+    chunk sums dW and dV over its tiles; the (K, G, D, H) partials are
+    summed over the CTAs in order by a second pass, and dx over the chunks
+    in order by a third where there are several, so the result is
+    deterministic (no float atomics). Its sigmoid is the card's exp2 and
+    reciprocal estimates (a few ulp), well inside the gradients'
+    tolerance."""
     k, n, d = x.shape
-    ctas = bwd_plan(k, n, d, w.shape[-1], _build.sm_count(x))
+    h = w.shape[-1]
+    ctas, chunk = bwd_plan(k, n, d, h, _build.sm_count(x))
+    n_chunks = -(-h // chunk)
     dwp = x.new_empty((k, ctas, *w.shape[1:]))
     dvp = torch.empty_like(dwp)
     dw, dv = torch.empty_like(w), torch.empty_like(v)
     dx = torch.empty_like(x) if want_dx else x.new_empty(0)
+    dxp = x.new_empty((n_chunks, k, n, d) if want_dx and n_chunks > 1 else 0)
     dbh = torch.empty_like(a_end)
     with torch.cuda.device(x.device):
         _build.launches["nade_ll_bwd"] += 1
-        _build.ops().nade_ll_bwd(dw, dv, dx, dbh, dwp, dvp, x, w, v, g,
-                                 a_end, _build.stream_of(x))
+        _build.ops().nade_ll_bwd(dw, dv, dx, dbh, dwp, dvp, dxp, x, w, v, g,
+                                 a_end, chunk, _build.stream_of(x))
     return dw, dv, (dx if want_dx else None), dbh
 
 

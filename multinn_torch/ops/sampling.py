@@ -104,4 +104,6 @@ def key_to_seeds(key: torch.Tensor) -> torch.Tensor:
     Threefry key of the in-kernel PRNG (first and last word, as the JAX
     version)."""
     words = key.reshape(-1).view(torch.int32)
+    if words.numel() == 2:     # the key itself: no copy, no kernel
+        return words
     return torch.stack([words[0], words[-1]])

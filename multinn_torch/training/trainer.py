@@ -147,7 +147,9 @@ def _refuse_unported(cfg) -> None:
                       or train.pretrain_encoder_epochs > 0,
                       "DBN encoders and their pre-training"),
                      (train.image_summaries, "image summaries"),
-                     (train.fault_inject_step > 0, "fault injection")):
+                     (train.fault_inject_step > 0, "fault injection"),
+                     (cfg.model.matmul_dtype in ("bf16", "bfloat16"),
+                      "the bf16 matmul policy (matmul_dtype)")):
         if on:
             raise NotImplementedError(f"{what}: {_LATER}")
 

@@ -42,6 +42,17 @@ class DataConfig:
         if self.encoding not in ("frame", "onset_hold"):
             raise ValueError(f"data.encoding must be 'frame' or "
                              f"'onset_hold', got {self.encoding!r}")
+        if self.transpose_range < 0:
+            raise ValueError(f"data.transpose_range must be >= 0, got "
+                             f"{self.transpose_range}")
+        if self.transpose_range >= self.n_pitches:
+            raise ValueError(f"data.transpose_range={self.transpose_range} "
+                             f"must be < n_pitches={self.n_pitches}")
+        bad = [k for k in self.transpose_exclude
+               if not 0 <= k < self.n_tracks]
+        if bad:
+            raise ValueError(f"data.transpose_exclude indices {bad} out of "
+                             f"range for n_tracks={self.n_tracks}")
 
     @property
     def n_pitches(self) -> int:

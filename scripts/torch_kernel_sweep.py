@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Time multinn_torch's Gibbs chain and NADE likelihood kernels on one
-NVIDIA GPU, for the package found under ``--root``:
+"""Time multinn_torch's Gibbs chain, NADE likelihood kernels and NADE
+sampler on one NVIDIA GPU, for the package found under ``--root``:
 
-    python3 scripts/torch_kernel_sweep.py [--root DIR] [--reps 20]
-                                          [--plans]
+    python3 scripts/torch_kernel_sweep.py [--root DIR] [--reps 20] [--plans]
 
 ``--root`` is a checkout of the repository (default: this one), so one
 call on the card can time two versions in turns: unpack the other commit
@@ -13,8 +12,12 @@ Shapes (D=84, H=150, inputs from a torch.Generator seeded with 0, as
 ``chip_smoke.py`` makes them):
   * ``gibbs_chain`` at 8 rows, k=10 (the scan path), 1024 rows, k=1 (CD-1
     training) and 4096 rows, k=25 (the flagship's sweeps/s workload);
-  * ``nade_ll_bwd`` at K=5, N=4096 without and with dx (the NADE training
-    shape), and ``nade_ll_fwd`` there as a control.
+  * ``nade_ll_bwd`` at K=5, N=4096 without and with dx and ``nade_ll_fwd``
+    (the NADE training shape, x at density 0.06);
+  * ``nade_sample`` for 8 rows (the scan path's batch of one track) at two
+    densities: bv about -1 (``chip_smoke.py`` phase 7's inputs, about 0.27
+    of the dims drawn 1) and about -3 (near music's 0.06), with the density
+    drawn and the device microseconds per dim.
 
 Each is timed two ways after a warm call: ``ms``, CUDA events around
 ``--reps`` back-to-back calls of the wrapper (what a caller's stream sees,
@@ -52,7 +55,8 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_sweep: needs a CUDA device")
-    from multinn_torch.ops import _build, gibbs_cuda, nade_ll, sampling
+    from multinn_torch.ops import (_build, gibbs_cuda, nade_cuda, nade_ll,
+                                   sampling)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -120,14 +124,32 @@ def main() -> None:
         ms, kms = timed(fn)
         out["nade_ll"][name] = dict(ms=ms, kernel_ms=kms)
 
+    out["nade_sample"] = []
+    skey = sampling.PRNGKey(3, device=dev)
+    for bias in (-1.0, -3.0):
+        w, v = (0.1 * torch.randn(dd, hh, generator=g).to(dev)
+                for _ in range(2))
+        bv = (bias + 0.5 * torch.randn(8, dd, generator=g)).to(dev)
+        bh = (0.5 * torch.randn(8, hh, generator=g)).to(dev)
+        density = float(nade_cuda.nade_sample(skey, w, v, bv, bh,
+                                              (8,)).mean())
+        ms, kms = timed(lambda: nade_cuda.nade_sample(skey, w, v, bv, bh,
+                                                      (8,)))
+        out["nade_sample"].append(dict(bias=bias, density=density, ms=ms,
+                                       kernel_ms=kms,
+                                       us_per_dim=kms * 1e3 / dd))
+
     if args.plans and hasattr(gibbs_cuda, "launch_plan"):
-        plans = [gibbs_cuda.LATENCY_PLAN, (8, 256, 1), (16, 256, 1)]
+        four = len(gibbs_cuda.LATENCY_PLAN) == 4   # W placement in the plan
+        plans = [gibbs_cuda.LATENCY_PLAN] + [
+            (r, 256, 1) + ((1,) if four else ()) for r in (8, 16)]
         out["plans"] = []
         for n in PLAN_ROWS:
             a = gibbs_inputs(n)
             for k in (1, 10):
+                dims = (84, 150) if four else ()
                 row = dict(n=n, k=k, chosen=list(gibbs_cuda.launch_plan(
-                    n, _build.sm_count(a[0]))))
+                    n, _build.sm_count(a[0]), *dims)))
                 for plan in plans:
                     row[str(plan)] = timed(
                         lambda: gibbs_cuda._launch(key, *a, k, plan))[1]

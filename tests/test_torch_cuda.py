@@ -127,14 +127,24 @@ def test_service_runs_on_the_kernels(dev):
     assert _build.launches["threefry2x32"] >= 2
 
 
-@pytest.mark.parametrize("rows", [1, 8, 1040])
-def test_nade_sampler_kernel_matches_plain(dev, rows):
-    g = torch.Generator().manual_seed(3)
-    d, h = 84, 150
+def _sampler_inputs(dev, rows, d=84, h=150, seed=3, bias=-1.0):
+    g = torch.Generator().manual_seed(seed)
     w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
     v = (0.1 * torch.randn(d, h, generator=g)).to(dev)
-    bv = (-1.0 + 0.5 * torch.randn(rows, d, generator=g)).to(dev)
+    bv = (bias + 0.5 * torch.randn(rows, d, generator=g)).to(dev)
     bh = (0.5 * torch.randn(rows, h, generator=g)).to(dev)
+    return w, v, bv, bh
+
+
+@pytest.mark.parametrize("rows,d,h", [(1, 84, 150), (8, 84, 150),
+                                      (256, 84, 150), (1040, 84, 150),
+                                      (8, 168, 400), (256, 168, 400)])
+def test_nade_sampler_kernel_matches_plain(dev, rows, d, h):
+    """One row, the scan path's 8 rows, many CTAs of one row each (256 and
+    1040 rows, more than a wave), and a (D, H) whose W and V exceed shared
+    memory (read from L2): at most one row in a hundred differs (a draw flips only where a uniform lands within the
+    last ulp of its probability)."""
+    w, v, bv, bh = _sampler_inputs(dev, rows, d, h)
     key = sampling.PRNGKey(2, device=dev)
     _build.launches.clear()
     out_k = nade_ops.nade_sample(key, w, v, bv, bh, (rows,))
@@ -144,6 +154,41 @@ def test_nade_sampler_kernel_matches_plain(dev, rows):
     differ = int((out_k != out_p).any(dim=1).sum())
     assert differ <= max(1, rows // 100)
     assert 0.05 < float(out_k.mean()) < 0.95
+
+
+@pytest.mark.parametrize("staged", [1, 0])
+@pytest.mark.parametrize("bias", [-1.0, -3.0])
+def test_nade_sampler_each_plan_matches_plain(dev, staged, bias):
+    """W and V staged or read from L2, at a density near 0.27 (bv about -1)
+    and near 0.06 (bv about -3): the same draws as the serial plain sweep,
+    and the same bits on a replay."""
+    from multinn_torch.ops import nade_cuda
+    w, v, bv, bh = _sampler_inputs(dev, 64, seed=4, bias=bias)
+    key = sampling.PRNGKey(5, device=dev)
+    out_k = nade_cuda._launch(key, w, v, bv, bh, (64,), staged)
+    out_p = nade_cuda.nade_sample_plain(key, w, v, bv, bh, (64,))
+    assert int((out_k != out_p).any(dim=1).sum()) <= 1
+    assert torch.equal(out_k, nade_cuda._launch(key, w, v, bv, bh, (64,),
+                                                staged))
+    assert 0.01 < float(out_k.mean()) < 0.5
+
+
+def test_nade_sampler_misaligned_weights(dev):
+    """An offset view of W (not 16-byte aligned) runs from L2 on the
+    kernel and matches the plain version; the launcher refuses a staged
+    plan on it rather than run another plan than it was given."""
+    from multinn_torch.ops import nade_cuda
+    w, v, bv, bh = _sampler_inputs(dev, 8)
+    w_off = torch.empty(w.numel() + 1, device=dev)[1:].view_as(w).copy_(w)
+    assert w_off.data_ptr() % 16
+    key = sampling.PRNGKey(2, device=dev)
+    _build.launches.clear()
+    out_k = nade_cuda.nade_sample(key, w_off, v, bv, bh, (8,))
+    assert _build.launches["nade_sample"] == 1
+    out_p = nade_cuda.nade_sample_plain(key, w, v, bv, bh, (8,))
+    assert int((out_k != out_p).any(dim=1).sum()) <= 1
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        nade_cuda._launch(key, w_off, v, bv, bh, (8,), 1)
 
 
 @pytest.mark.parametrize("mode,cell,layers", [
@@ -441,16 +486,66 @@ def test_nade_ll_function_on_the_card_and_replay_is_bit_equal(dev):
         assert _within(a, p)
 
 
-@pytest.mark.parametrize("d,h", [(84, 600), (2000, 150)])
+@pytest.mark.parametrize("d,h", [(2000, 150)])
 def test_nade_ll_refused_launch_raises(dev, d, h):
-    """H=600 asks for 608 threads, over the kernels' 512-thread bound;
-    D=2000 asks for 500 KB of shared memory, over the card's 227 KB. CUDA
-    refuses either launch, and the op raises instead of returning what
-    the output buffers held."""
-    x, w, v, bv, bh, _ = _ll_inputs(dev, 1, 40, d=d, h=h)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        nade_ll.nade_ll_fwd(x, w, v, bv, bh)
-        torch.cuda.synchronize()
+    """D=2000 needs 320 KB of the backward's shared memory even with one
+    hidden lane, over the card's 227 KB: the wrapper raises before any
+    launch instead of returning what the output buffers held."""
+    x, w, v, bv, bh, cot = _ll_inputs(dev, 1, 40, d=d, h=h)
+    _, a_end = nade_ll.nade_ll_fwd(x, w, v, bv, bh)
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="227 KB"):
+        nade_ll.nade_ll_bwd(x, w, v, cot, a_end)
+    assert not _build.launches["nade_ll_bwd"]
+
+
+@pytest.mark.parametrize("want_dx", [True, False])
+@pytest.mark.parametrize("d,h", [(84, 600), (420, 150)])
+def test_nade_ll_kernels_take_wide_shapes(dev, d, h, want_dx):
+    """H=600 (two backward chunks of 300 lanes, three forward chunks of
+    200) and D=420 (the joint width: three backward chunks of 50 lanes) run
+    on the kernels and match the plain versions: logits within 1e-4, every
+    gradient within 1e-4 * max|ref| + 1e-5, and a replay bit-equal."""
+    x, w, v, bv, bh, cot = _ll_inputs(dev, 2, 300, d=d, h=h, seed=7)
+    _build.launches.clear()
+    lk, ak = nade_ll.nade_ll_fwd(x, w, v, bv, bh)
+    lp, ap = nade_ll.nade_ll_fwd_plain(x, w, v, bv, bh)
+    assert float((lk - lp).abs().max()) <= 1e-4
+    assert _within(ak, ap)
+    got = nade_ll.nade_ll_bwd(x, w, v, cot, ak, want_dx)
+    want = nade_ll.nade_ll_bwd_plain(x, w, v, cot, ap, want_dx)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert _within(a, b)
+    again = nade_ll.nade_ll_bwd(x, w, v, cot, ak, want_dx)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(lk, nade_ll.nade_ll_fwd(x, w, v, bv, bh)[0])
+    assert _build.launches["nade_ll_fwd"] == 2
+    assert _build.launches["nade_ll_bwd"] == 2
+
+
+@pytest.mark.parametrize("x_kind", ["zeros", "ones", "general"])
+@pytest.mark.parametrize("d", [1, 84, 420])
+@pytest.mark.parametrize("h", [1, 31, 150, 600])
+def test_nade_ll_fwd_matches_plain(dev, h, d, x_kind):
+    """The forward at ragged N (777 = 24 * 32 + 9), H from one lane to
+    three chunks, D from 1 to the joint width, with x all zeros (no
+    sigmoid after the first), all ones (every row refreshed at every dim)
+    and non-binary (the general update read from x): logits within 1e-4,
+    a_D within the stated tolerance."""
+    x, w, v, bv, bh, _ = _ll_inputs(dev, 2, 777, d=d, h=h, seed=8)
+    if x_kind == "zeros":
+        x = torch.zeros_like(x)
+    elif x_kind == "ones":
+        x = torch.ones_like(x)
+    else:
+        x = x * torch.linspace(0.5, 2.0, d, device=dev) - 0.25 * (x == 0)
+    lk, ak = nade_ll.nade_ll_fwd(x, w, v, bv, bh)
+    lp, ap = nade_ll.nade_ll_fwd_plain(x, w, v, bv, bh)
+    assert float((lk - lp).abs().max()) <= 1e-4
+    assert _within(ak, ap)
 
 
 def test_gibbs_kernel_at_the_training_shape(dev):
@@ -520,16 +615,35 @@ def test_gibbs_kernel_matches_plain_under_both_plans(dev, n, k):
     assert _rows_differing(out_k, out_p) <= limit
 
 
-@pytest.mark.parametrize("plan", [gibbs_cuda.LATENCY_PLAN, (8, 256, 1),
-                                  (16, 256, 1)])
+@pytest.mark.parametrize("plan", [gibbs_cuda.LATENCY_PLAN, (8, 256, 1, 1),
+                                  (16, 256, 1, 1), (8, 256, 1, 0),
+                                  (16, 256, 1, 0)])
 def test_gibbs_every_plan_matches_plain(dev, plan):
     """Each plan the kernel takes, forced at one row count (600 rows, 10
-    sweeps), draws the plain version's chain."""
+    sweeps), W in shared or in device memory, draws the plain version's
+    chain."""
     args = _gibbs_inputs(dev, 600, seed=9)
     key = sampling.PRNGKey(4, device=dev)
     out_k = gibbs_cuda._launch(key, *args, 10, plan)
     out_p = gibbs.gibbs_chain(key, *args, 10, impl="plain")
     assert _rows_differing(out_k, out_p) <= 6
+
+
+@pytest.mark.parametrize("n,d,h", [(8, 84, 600), (64, 84, 600),
+                                   (1024, 84, 600), (4096, 84, 600),
+                                   (8, 168, 400), (1040, 168, 400)])
+def test_gibbs_wide_rbm_matches_plain(dev, n, d, h):
+    """RBMs whose W does not fit beside the rows in shared memory run (the
+    device-memory plan at N=4096, (84, 600) and at (168, 400)) and draw the
+    plain version's chain: at most 1 % of rows differ, one at N <= 64."""
+    args = _gibbs_inputs(dev, n, seed=12, d=d, h=h)
+    key = sampling.PRNGKey(6, device=dev)
+    _build.launches.clear()
+    out_k = gibbs.gibbs_chain(key, *args, 5)
+    out_p = gibbs.gibbs_chain(key, *args, 5, impl="plain")
+    assert _build.launches["gibbs_chain"] == 1
+    assert _rows_differing(out_k, out_p) <= max(1, n // 100)
+    assert torch.equal(out_k, gibbs.gibbs_chain(key, *args, 5))
 
 
 @pytest.mark.parametrize("n", [8, 4109])

@@ -121,6 +121,25 @@ def test_config_fields_and_defaults_equal_jax(ours, theirs):
     assert defaults(ours) == defaults(theirs)
 
 
+@pytest.mark.parametrize("fields", [
+    dict(transpose_range=-1), dict(transpose_range=84),
+    dict(transpose_range=100), dict(transpose_exclude=(5,)),
+    dict(transpose_exclude=(-1, 2)), dict(encoding="piano"),
+    dict(transpose_range=83, transpose_exclude=(0, 4))])
+def test_data_config_refuses_what_jax_refuses(fields):
+    """The port's DataConfig refuses exactly the dicts the reference's
+    refuses (transpose range outside [0, n_pitches), track indices outside
+    [0, n_tracks), an unknown encoding), and accepts the rest alike."""
+    kw = dict(pitch_min=24, pitch_max=107, n_tracks=5, **fields)
+    try:
+        want = dataclasses.asdict(jax_config.DataConfig(**kw))
+    except ValueError:
+        with pytest.raises(ValueError):
+            config.DataConfig(**kw)
+        return
+    assert dataclasses.asdict(config.DataConfig(**kw)) == want
+
+
 def test_bitpack_matches_jax_and_round_trips():
     roll = (np.random.default_rng(0).random((2, 7, K, 13)) < 0.4
             ).astype(np.float32)

@@ -275,6 +275,21 @@ def test_unported_features_raise():
             call()
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "bfloat16"])
+def test_bf16_matmul_policy_is_refused(dtype):
+    """The JAX trainer runs its step under matmul_dtype's precision policy;
+    the port has none yet, so it refuses bf16 rather than train in f32."""
+    ds = types.SimpleNamespace(n_batches=lambda split: 1)
+    cfg = config.ExperimentConfig(model=multinn.MultINNConfig(
+        **dict(MODEL, matmul_dtype=dtype)))
+    with pytest.raises(NotImplementedError, match="matmul_dtype"):
+        trainer.Trainer(cfg, ds, device="cpu")
+    f32 = config.ExperimentConfig(model=multinn.MultINNConfig(
+        **dict(MODEL, matmul_dtype="f32")))
+    assert trainer.Trainer(f32, ds, device="cpu").cfg.model.matmul_dtype \
+        == "f32"
+
+
 def test_to_numpy_is_the_inverse_of_from_jax():
     jp = jax_multinn.init(jax.random.PRNGKey(4), jax_multinn.MultINNConfig(
         **dict(MODEL, decoder_type="rnn-nade", rnn_layers=2)))
