@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs twelve
+Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs thirteen
 phases, one line each; any failure exits non-zero before the result line.
 Phases 4-6 drive the RNN-RBM serving path, 7-9 the RNN-NADE serving path,
 10-12 training (the NADE likelihood kernels, then the Trainer on each
-family).
+family), 13 the train entry point with its steps captured as CUDA graphs.
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -57,7 +57,22 @@ family).
      on one fixed batch: its NLL falls, both likelihood kernels launch at
      least 20 times in the window, one step's gradients through the
      kernels equal the plain versions' within phase 10's tolerance; step
-     time, frames/s and the device-busy share.
+     time, frames/s and the device-busy share;
+ 13. the train entry point: for each family (RBM B=16, NADE B=64, T=64)
+     one group of 24 steps eagerly and by CUDA-graph replay from the same
+     params, optimizer state and key, the params within 1e-6 max|p| per
+     leaf; a replay adds the launches its capture recorded, 24 times one
+     eager step's for the family's kernels; graph and eager step ms (CUDA
+     events), frames/s, the device-busy share (profiler), capture seconds
+     and the graph pool's bytes. Then ``multinn_torch.train.main`` on
+     ``configs/synthetic_smoke.json`` at the flagship widths (H=150, U=100,
+     T=64, B=16, steps_per_call=24, 2 epochs, periodic saves every 24
+     steps, keep_last=1) in a temporary run dir, with its own launch
+     window (the chain at least once a step): it writes config.json,
+     metrics.jsonl, TensorBoard events and checkpoints that follow the
+     retention policy (the last plus the best); a run of epoch 1, resumed
+     by a second call into epoch 2, ends with the uninterrupted run's
+     params within 1e-6 max|p|.
 
 Then the total wall time, one JSON line with each kernel's launches (from
 its path's window), error, times and bound. ``ms`` is the device time per
@@ -82,6 +97,7 @@ one it exits 1 and prints no result.
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -768,8 +784,12 @@ def main() -> None:
     say(f"phase 10 wider likelihoods, K=2 N=300: {'; '.join(wide)}")
 
     # 11. RBM training --------------------------------------------------------
+    import tempfile
+
+    from multinn_torch.training.checkpoint import Checkpointer
     from multinn_torch.training.trainer import Trainer
     from multinn_torch.utils.config import TrainConfig
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")     # the trainers' run dirs
 
     class RollSource:
         """Seeded Bernoulli(0.06) pianorolls (bench.py's density) behind the
@@ -829,7 +849,7 @@ def main() -> None:
     def train_phase(model, batch, fixed, seed):
         tcfg = ExperimentConfig(
             model=multinn.MultINNConfig(**model),
-            train=TrainConfig(log_every_steps=20))
+            train=TrainConfig(log_every_steps=20, run_dir=f"{tmp}/{seed}"))
         src = RollSource(20, 2 * batch + batch // 2, batch, seed, fixed)
         p0 = multinn.init(tcfg.model, torch.Generator().manual_seed(seed),
                           device=dev)
@@ -925,6 +945,157 @@ def main() -> None:
         f"step {nade_ms:.2f} ms = {64 * 64 / nade_ms * 1e3:.0f} frames/s; "
         f"{nade_busy}")
 
+    # 13. the train entry point on the card --------------------------------
+    t13 = time.perf_counter()
+    from multinn_torch import train as train_cli
+
+    spc = 24
+
+    def rel_diff(got, want):
+        """The largest difference of two lists of tensors, as a share of
+        each reference tensor's max |p|."""
+        return max(float((a - b).detach().abs().max()
+                         / b.detach().abs().max().clamp(min=1e-30))
+                   for a, b in zip(got, want))
+
+    def group_check(model, batch, seed):
+        """One group of 24 steps eagerly and by graph replay from the same
+        params, optimizer state and key; then the graph's step time by CUDA
+        events over replays, the kernels' share of it (profiler) and the
+        launches a replay adds against one eager step's."""
+        cfg = ExperimentConfig(
+            model=multinn.MultINNConfig(**model),
+            train=TrainConfig(steps_per_call=spc, log_every_steps=1000,
+                              run_dir=f"{tmp}/group_{seed}"))
+        src = RollSource(spc, 2, batch, seed)
+        xs = np.stack(list(src.batches("train", shuffle=False)))
+        p0 = multinn.init(cfg.model, torch.Generator().manual_seed(seed),
+                          device=dev)
+        graph, eager = Trainer(cfg, src, params=p0), Trainer(cfg, src,
+                                                             params=p0)
+        eager.capture_groups = False
+        key = sampling.PRNGKey(seed, device=dev)
+        eager_ms = cuda_ms(lambda: eager.run_group(xs, key), 1,
+                           warm=False) / spc
+        graph.run_group(xs, key)                 # warm-up, capture, replay
+        torch.cuda.synchronize()
+        g = graph.group_graph
+        diff = rel_diff(graph._leaves, eager._leaves)
+        if not diff <= 1e-6:
+            fail(f"phase 13: graph vs eager group, params differ by "
+                 f"{diff:.3e} of max|p| (> 1e-6)")
+        _build.launches.clear()
+        eager.train_step(eager._to_device(xs[0]), key)
+        torch.cuda.synchronize()
+        per_step = dict(_build.launches)
+        _build.launches.clear()
+        graph.run_group(xs, key)
+        torch.cuda.synchronize()
+        if dict(_build.launches) != dict(g.launches):
+            fail(f"phase 13: a replay added {dict(_build.launches)}, the "
+                 f"capture recorded {dict(g.launches)}")
+        fam = [k for k in ("gibbs_chain", "nade_ll_fwd", "nade_ll_bwd")
+               if per_step.get(k)]
+        if not fam or any(g.launches[k] != spc * per_step[k] for k in fam):
+            fail(f"phase 13: replay launches {dict(g.launches)} vs {spc} x "
+                 f"one eager step's {per_step}")
+        graph_ms = cuda_ms(lambda: graph.run_group(xs, key), 3) / spc
+        busy_ms, _ = device_busy_fn(lambda: graph.run_group(xs, key), 1,
+                                    spc)
+        return dict(diff=diff, eager_ms=eager_ms, graph_ms=graph_ms,
+                    frames=batch * 64 / graph_ms * 1e3, busy_ms=busy_ms,
+                    capture_s=g.capture_s, pool=g.graph.pool_bytes,
+                    per_step={k: v / spc for k, v in g.launches.items()})
+
+    def device_busy_fn(fn, reps, steps):
+        """The profiler's kernel time per step over ``reps`` calls."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in kernels) / 1e3
+                / (reps * steps)), kernels
+
+    groups = {"rbm": group_check(FLAGSHIP, 16, 13),
+              "nade": group_check(NADE_FLAGSHIP, 64, 14)}
+
+    def run_main(run_dir, epochs):
+        rc = train_cli.main([
+            "--config", "configs/synthetic_smoke.json", "--device", "cuda",
+            "--model.n_hidden=150", "--model.n_rnn=100",
+            "--data.window=64", "--data.batch_size=16",
+            "--data.synthetic_songs=500", f"--train.steps_per_call={spc}",
+            f"--train.epochs={epochs}", "--train.ckpt_every_steps=24",
+            "--train.keep_last=1", f"--train.run_dir={run_dir}"])
+        if rc != 0:
+            fail(f"phase 13: multinn_torch.train.main exited {rc}")
+
+    main_dir = f"{tmp}/main"
+    _build.launches.clear()                  # the train entry point starts
+    t_main = time.perf_counter()
+    run_main(main_dir, 2)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    main_launches = dict(_build.launches)    # ... and ends here
+    ck = Checkpointer(f"{main_dir}/ckpt", keep_last=1)
+    steps, best = ck.all_steps(), ck.best_step()
+    from multinn_torch.data.datasets import Dataset
+    from multinn_torch.utils.config import load_json
+    n_batches = Dataset(load_json(f"{main_dir}/config.json").data).n_batches()
+    n_steps = 2 * n_batches
+    if n_batches < 2 * spc:
+        fail(f"phase 13: an epoch of {n_batches} batches holds fewer than "
+             f"two groups of {spc}")
+    if steps[-1] != n_steps or best is None or set(steps) != {n_steps, best}:
+        fail(f"phase 13: checkpoints {steps} (best {best}) break the "
+             f"retention policy at {n_steps} steps")
+    with open(f"{main_dir}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    events = [n for n in os.listdir(f"{main_dir}/tb")
+              if n.startswith("events.out.tfevents.")]
+    if not (os.path.exists(f"{main_dir}/config.json") and events
+            and {r["split"] for r in rows} == {"train", "valid"}
+            and all(np.isfinite(r["loss"]) for r in rows)):
+        fail(f"phase 13: the run's files: {sorted(os.listdir(main_dir))}, "
+             f"{len(rows)} metric rows")
+    per_gibbs = groups["rbm"]["per_step"]["gibbs_chain"]
+    if main_launches.get("gibbs_chain", 0) < (n_steps + 2) * per_gibbs:
+        fail(f"phase 13: the chain launched {main_launches} times in "
+             f"{n_steps} steps (at least {(n_steps + 2) * per_gibbs})")
+    # resume: epoch 1 alone, then a second call resumes into epoch 2
+    run_main(f"{tmp}/resume", 1)
+    run_main(f"{tmp}/resume", 2)
+    want, _ = ck.restore(n_steps)
+    got, _ = Checkpointer(f"{tmp}/resume/ckpt", keep_last=1).restore(n_steps)
+    resume_diff = rel_diff(got["params"], want["params"])
+    if not resume_diff <= 1e-6:
+        fail(f"phase 13: the resumed run's params differ by "
+             f"{resume_diff:.3e} of max|p| from the uninterrupted run's")
+    for fam, r in groups.items():
+        busy = (f"kernel time per step {r['busy_ms']:.3f} ms (device busy "
+                f"{r['busy_ms'] / r['graph_ms']:.1%})" if r["busy_ms"] else
+                "device busy share not measured (the profiler saw no "
+                "device time)")
+        say(f"phase 13 {fam} group of {spc} (B={16 if fam == 'rbm' else 64}"
+            f" T=64): graph vs eager params max diff {r['diff']:.3e} of "
+            f"max|p|; graph step {r['graph_ms']:.3f} ms = "
+            f"{r['frames']:.0f} frames/s, eager step {r['eager_ms']:.3f} "
+            f"ms in the same call; {busy}; capture {r['capture_s']:.2f} s, "
+            f"graph pool {r['pool']} bytes; launches per replayed step "
+            f"{r['per_step']}")
+    say(f"phase 13 train entry point: main() {n_steps} steps in 2 epochs "
+        f"({main_s:.1f} s, capture included), checkpoints {steps} (best "
+        f"{best}), {len(rows)} metric rows, events {events[0]}; launches "
+        f"{main_launches}; resumed run vs uninterrupted {resume_diff:.3e} "
+        f"of max|p|; phase {time.perf_counter() - t13:.1f} s")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -954,6 +1125,7 @@ def main() -> None:
                "nade_ll_bwd": ("multinn_torch/csrc/nade_ll.cu",
                                "multinn_tpu/ops/nade_ll_pallas.py:153",
                                nade_train_launches)}
+    shutil.rmtree(tmp, ignore_errors=True)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,

@@ -4,61 +4,84 @@ multinn_tpu/training/trainer.py.
 An epoch loop over windowed pianoroll batches; Adam, AdamW or SGD with
 momentum behind the global-norm clip, written as optax writes them;
 CD-k updates for RBM decoders and exact-likelihood updates for NADE
-decoders, both through ``multinn.loss``. The step runs eagerly: the
-teacher-forced recurrence, then the family's kernels (the Gibbs chain per
-track, or one launch of the NADE likelihood kernels for all tracks), then
-autograd and the optimizer, in place on the parameters. ``steps_per_call``
-N runs N steps in a Python loop with no host synchronisation between them
-(capturing them as one CUDA graph is later work, ROADMAP queue 2).
+decoders, both through ``multinn.loss``; per-epoch validation, early
+stopping, checkpoints (the last ``keep_last`` plus the best) with exact
+mid-epoch resume, and a JSONL + TensorBoard metrics log under ``run_dir``.
+
+A step runs the teacher-forced recurrence, then the family's kernels (the
+Gibbs chain per track, or one launch of the NADE likelihood kernels for all
+tracks), then autograd and the optimizer, in place on the parameters. The
+optimizer's state lives on the device, its step count included, and the
+learning rate and Adam's bias corrections are tensor functions of that
+count, so no step reads the host. ``steps_per_call`` N > 1 runs each group
+of N steps as one CUDA graph on the card (``StepGroupGraph``): captured at
+the first group, then replayed with the group's batch and key copied into
+its static input buffers; the CPU runs the same N steps in a Python loop.
 
 Keys follow the JAX trainer: ``rng = PRNGKey(seed)``, ``rng, init_key =
 split(rng)`` at construction, then ``rng, key = split(rng)`` per step (per
 group of N steps, whose keys are ``split(key, N)``), so a step draws the
 Gibbs chain's stream from the same key as the JAX step.
 
-Not ported yet (ROADMAP queue 1), each refused with NotImplementedError:
-checkpoints (so ``train()``, which saves every epoch, and the periodic
-saves of ``train_epoch``, which the port leaves out), Hessian-free
-training, meshes, DBN encoders and their pre-training, image summaries and
-fault injection.
+Not ported yet (ROADMAP queue 1), each refused with NotImplementedError at
+construction: Hessian-free training, meshes, DBN encoders, image summaries
+and the bf16 matmul policy.
 """
 
 from __future__ import annotations
 
+import collections
+import gc
 import math
+import os
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from multinn_torch.models import multinn
-from multinn_torch.ops import sampling
+from multinn_torch.ops import _build, sampling
+from multinn_torch.training.checkpoint import Checkpointer
 from multinn_torch.utils.device import entry_device
+from multinn_torch.utils.logging import (MetricsLogger, format_metrics,
+                                         setup_logger)
 
 _LATER = "not ported to multinn_torch yet (ROADMAP queue 1)"
 
 
-def _linear_schedule(init: float, end: float, steps: int):
-    """optax.linear_schedule(init, end, steps)."""
-    if steps <= 0:
-        return lambda step: init
+class FaultInjected(RuntimeError):
+    """Raised by ``train.fault_inject_step`` (the resume path's test)."""
 
-    def schedule(step: int) -> float:
-        frac = 1 - min(max(step, 0), steps) / steps
+
+def _f32(count) -> torch.Tensor:
+    return torch.as_tensor(count).to(torch.float32)
+
+
+def _linear_schedule(init: float, end: float, steps: int):
+    """optax.linear_schedule(init, end, steps) on a float32 count."""
+    if steps <= 0:
+        return lambda c: torch.full_like(c, init)
+
+    def schedule(c: torch.Tensor) -> torch.Tensor:
+        frac = 1 - torch.clamp(c, 0, steps) / steps
         return (init - end) * frac + end
     return schedule
 
 
-def make_schedule(cfg, steps_per_epoch: int = 0):
-    """The learning rate as a function of the optimizer step (0-based), with
-    optax's values: constant, linear warmup into constant, or warmup into
-    cosine decay to ``lr_min`` over ``decay_steps`` (0 = epochs x
-    steps_per_epoch, which includes the warmup)."""
+def make_schedule(cfg, steps_per_epoch: int = 0
+                  ) -> Callable[[Any], torch.Tensor]:
+    """The learning rate as a function of the optimizer step (0-based; an
+    int or an integer tensor on any device), with optax's values in
+    float32: constant, linear warmup into constant, or warmup into cosine
+    decay to ``lr_min`` over ``decay_steps`` (0 = epochs x steps_per_epoch,
+    which includes the warmup). Tensor ops only, so a captured graph
+    computes the rate of each replay's own step."""
     lr = cfg.lr
     if cfg.lr_schedule == "constant":
-        return _linear_schedule(0.0, lr, cfg.warmup_steps) \
-            if cfg.warmup_steps else (lambda step: lr)
+        inner = (_linear_schedule(0.0, lr, cfg.warmup_steps)
+                 if cfg.warmup_steps else _linear_schedule(lr, lr, 0))
+        return lambda count: inner(_f32(count))
     if cfg.lr_schedule == "cosine":
         warm = cfg.warmup_steps
         decay = cfg.decay_steps or max(cfg.epochs * max(steps_per_epoch, 1),
@@ -67,12 +90,12 @@ def make_schedule(cfg, steps_per_epoch: int = 0):
         alpha = 0.0 if lr == 0.0 else cfg.lr_min / lr
         warmup = _linear_schedule(0.0 if warm else lr, lr, warm)
 
-        def schedule(step: int) -> float:
-            if step < warm:
-                return warmup(step)
-            count = min(step - warm, span)
-            cosine = 0.5 * (1 + math.cos(math.pi * count / span))
-            return lr * ((1 - alpha) * cosine + alpha)
+        def schedule(count) -> torch.Tensor:
+            c = _f32(count)
+            t = torch.clamp(c - warm, max=span)
+            cosine = 0.5 * (1 + torch.cos(math.pi * t / span))
+            out = lr * ((1 - alpha) * cosine + alpha)
+            return torch.where(c < warm, warmup(c), out) if warm else out
         return schedule
     raise ValueError(f"unknown lr_schedule '{cfg.lr_schedule}'")
 
@@ -80,7 +103,8 @@ def make_schedule(cfg, steps_per_epoch: int = 0):
 class Optimizer:
     """optax's ``chain(clip_by_global_norm(grad_clip), adam(lr))`` —
     ``adamw`` with weight decay, or ``add_decayed_weights`` + ``sgd(lr,
-    momentum=0.9)`` — on a list of parameter tensors, updated in place."""
+    momentum=0.9)`` — on a list of parameter tensors, updated in place. The
+    state's ``count`` is an int32 device tensor advanced in place."""
 
     B1, B2, EPS, MOMENTUM = 0.9, 0.999, 1e-8, 0.9
 
@@ -94,9 +118,10 @@ class Optimizer:
 
     def init(self, params) -> Dict[str, Any]:
         zeros = lambda: [torch.zeros_like(p) for p in params]
+        count = torch.zeros((), dtype=torch.int32, device=params[0].device)
         if self.kind == "adam":
-            return {"count": 0, "mu": zeros(), "nu": zeros()}
-        return {"count": 0, "trace": zeros()}
+            return {"count": count, "mu": zeros(), "nu": zeros()}
+        return {"count": count, "trace": zeros()}
 
     @torch.no_grad()
     def update(self, params, grads, state) -> torch.Tensor:
@@ -109,18 +134,20 @@ class Optimizer:
             scale = torch.where(norm < self.clip, torch.ones_like(norm),
                                 self.clip / norm)
             grads = torch._foreach_mul(grads, scale)
-        lr = self.lr(state["count"])
-        state["count"] += 1
+        count = state["count"]
+        lr = self.lr(count)
+        count.add_(1)
         if self.kind == "adam":
-            count, mu, nu = state["count"], state["mu"], state["nu"]
+            mu, nu = state["mu"], state["nu"]
             torch._foreach_mul_(mu, self.B1)
             torch._foreach_add_(mu, grads, alpha=1 - self.B1)
             torch._foreach_mul_(nu, self.B2)
             torch._foreach_addcmul_(nu, grads, grads, value=1 - self.B2)
-            denom = torch._foreach_div(nu, 1 - self.B2 ** count)
+            steps = count.to(torch.float32)
+            denom = torch._foreach_div(nu, 1 - torch.pow(self.B2, steps))
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, self.EPS)
-            upd = torch._foreach_div(mu, 1 - self.B1 ** count)
+            upd = torch._foreach_div(mu, 1 - torch.pow(self.B1, steps))
             torch._foreach_div_(upd, denom)
             if self.weight_decay:                 # adamw: decoupled decay
                 torch._foreach_add_(upd, params, alpha=self.weight_decay)
@@ -128,10 +155,11 @@ class Optimizer:
             if self.weight_decay:                 # classic L2 before momentum
                 grads = torch._foreach_add(grads, params,
                                            alpha=self.weight_decay)
-            upd = state["trace"]
-            torch._foreach_mul_(upd, self.MOMENTUM)
-            torch._foreach_add_(upd, grads)
-        torch._foreach_add_(params, upd, alpha=-lr)
+            trace = state["trace"]
+            torch._foreach_mul_(trace, self.MOMENTUM)
+            torch._foreach_add_(trace, grads)
+            upd = list(trace)
+        torch._foreach_sub_(params, torch._foreach_mul(upd, lr))
         return norm
 
 
@@ -143,11 +171,9 @@ def _refuse_unported(cfg) -> None:
     train = cfg.train
     for on, what in ((train.optimizer == "hf", "Hessian-free training"),
                      (cfg.mesh.use_mesh, "mesh training"),
-                     (bool(cfg.model.encoder_hidden)
-                      or train.pretrain_encoder_epochs > 0,
+                     (bool(cfg.model.encoder_hidden),
                       "DBN encoders and their pre-training"),
                      (train.image_summaries, "image summaries"),
-                     (train.fault_inject_step > 0, "fault injection"),
                      (cfg.model.matmul_dtype in ("bf16", "bfloat16"),
                       "the bf16 matmul policy (matmul_dtype)")):
         if on:
@@ -159,23 +185,115 @@ def _host(v: torch.Tensor):
     return float(a) if a.ndim == 0 else a
 
 
+class CudaGraph:
+    """Capture and replay of one CUDA graph, PyTorch's whole-network recipe:
+    warm-up on a side stream, then capture on the same stream into the
+    graph's private memory pool. ``pool_bytes`` is the device memory the
+    capture reserved."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = torch.cuda.Stream(device)
+        self.pool_bytes = 0
+
+    def warmup(self, fn) -> None:
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            fn()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def capture(self, fn):
+        # torch.cuda.graph empties the allocator's cache on entry: empty it
+        # first, so the reserved bytes grow by the graph's pool alone
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            out = fn()
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class StepGroupGraph:
+    """A group of N train steps as one replayable graph — the port of
+    ``Trainer._build_multi_step``: ``split(key, N)`` on the device, steps
+    1 to N-1 on the hot loss, the last one detailed with ``loss_mean``.
+
+    The stacked uint8 batch (N, B, T, K, D) and the key enter through
+    static buffers filled by ``copy_`` before each replay; the metrics come
+    out in the graph's own tensors, overwritten by the next replay. The
+    graph holds the addresses of the trainer's parameters and optimizer
+    state, so they must be updated in place, never rebound (``restore``
+    copies into them). Neither the warm-up (two steps) nor the capture
+    advances the trainer: its state is copied back after both.
+
+    Launch counts: a replay runs the captured kernels without running their
+    wrappers' Python, so the counts the wrappers add during the capture
+    (where nothing runs) are taken back out of ``_build.launches`` and
+    added again at every replay (``launches``)."""
+
+    def __init__(self, trainer: "Trainer", n: int, batch_shape, graph):
+        dev = trainer.device
+        self.graph = graph
+        self.x = torch.zeros((n, *batch_shape), dtype=torch.uint8,
+                             device=dev)
+        self.key = torch.zeros(2, dtype=torch.uint32, device=dev)
+        saved = [t.detach().clone() for t in trainer._state_tensors()]
+        graph.warmup(lambda: trainer._group_body(
+            self.x[:min(n, 2)].to(torch.float32), self.key))
+        counts = collections.Counter(_build.launches)
+        t0 = time.perf_counter()
+        self.out = graph.capture(lambda: trainer._group_body(
+            self.x.to(torch.float32), self.key))
+        self.capture_s = time.perf_counter() - t0
+        self.launches = collections.Counter(_build.launches) - counts
+        _build.launches.clear()
+        _build.launches.update(counts)
+        trainer._load_state_tensors(saved)
+
+    def __call__(self, stacked: np.ndarray, key: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        if tuple(stacked.shape) != tuple(self.x.shape):
+            raise ValueError(f"a captured group takes {tuple(self.x.shape)} "
+                             f"batches, got {tuple(stacked.shape)}")
+        src = torch.from_numpy(np.ascontiguousarray(stacked))
+        if self.x.is_cuda:                # pinned: the copy does not block
+            src = src.pin_memory()
+        self.x.copy_(src, non_blocking=True)
+        self.key.copy_(key)
+        self.graph.replay()
+        _build.launches.update(self.launches)
+        return self.out
+
+
 class Trainer:
     """Trains ``params`` (the port's MultINNParams; their tensors' device is
-    the training device) on ``dataset``, duck-typed on the JAX ``Dataset``:
-    ``batches(split, epoch=, shuffle=, drop_remainder=, with_masks=,
-    augment=)`` yields uint8 (B, T, K, D) arrays, plus (B, T) masks with
-    ``with_masks``; ``n_batches(split)`` counts the training batches.
-    Without ``params`` the model is initialised on ``device`` (the CUDA
-    card when None, which raises without one) from a torch.Generator
-    seeded with the init key's words (the port has no
-    jax.random.normal)."""
+    the training device) on ``dataset``: the port's ``Dataset`` built from
+    ``cfg.data`` when None, or any object with its interface
+    (``batches(split, epoch=, shuffle=, drop_remainder=, with_masks=,
+    augment=)`` yielding uint8 (B, T, K, D) arrays, plus (B, T) masks with
+    ``with_masks``; ``n_batches(split)``). Without ``params`` the model is
+    initialised on ``device`` (the CUDA card when None, which raises without
+    one) from a torch.Generator seeded with the init key's words (the port
+    has no jax.random.normal). The run's files go under
+    ``cfg.train.run_dir``: ``train.log``, ``metrics.jsonl``, ``tb/`` and
+    ``ckpt/``."""
 
-    def __init__(self, cfg, dataset, params=None, device=None):
+    def __init__(self, cfg, dataset=None, params=None, device=None):
         _refuse_unported(cfg)
         self.cfg = cfg
-        self.dataset = dataset
         self.device = (entry_device(device) if params is None
                        else params.decoder.w.device)
+        self.log = setup_logger(run_dir=cfg.train.run_dir)
+        if dataset is None:
+            from multinn_torch.data.datasets import Dataset
+            dataset = Dataset(cfg.data)
+        self.dataset = dataset
         self.rng = sampling.PRNGKey(cfg.train.seed, device=self.device)
         self.rng, init_key = sampling.split(self.rng)
         if params is None:
@@ -187,11 +305,47 @@ class Trainer:
             lambda t: t.detach().clone().requires_grad_(True), params)
         self._leaves = multinn.tree_leaves(self.params)
         self.optimizer = make_optimizer(
-            cfg.train, steps_per_epoch=dataset.n_batches("train"))
+            cfg.train, steps_per_epoch=self.dataset.n_batches("train"))
         self.opt_state = self.optimizer.init(self._leaves)
         self.step = 0
         self.epoch = 0
+        # the global step at the start of the current epoch: step -
+        # epoch_step0 batches of this epoch are consumed (the resume cursor)
+        self.epoch_step0 = 0
+        self.best_valid = float("inf")
+        self._bad_epochs = 0
+        self._epoch_final_step = -1
         self.history: list = []          # (step, metrics) of logged steps
+        self.metrics_log = MetricsLogger(cfg.train.run_dir)
+        self.ckpt = Checkpointer(os.path.join(cfg.train.run_dir, "ckpt"),
+                                 keep_last=cfg.train.keep_last,
+                                 keep_best=cfg.train.keep_best)
+        # groups of steps_per_call steps run as a CUDA graph on the card
+        self.capture_groups = self.device.type == "cuda"
+        self.group_graph: Optional[StepGroupGraph] = None
+
+    # -- state -------------------------------------------------------------
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step updates in place, in a fixed order."""
+        out = list(self._leaves)
+        for v in self.opt_state.values():
+            out += v if isinstance(v, list) else [v]
+        return out
+
+    @torch.no_grad()
+    def _load_state_tensors(self, values) -> None:
+        """Copy ``values`` into the state tensors (never rebinding them: a
+        captured graph holds their addresses)."""
+        dst = self._state_tensors()
+        if len(values) != len(dst):
+            raise ValueError(f"state has {len(values)} tensors, the trainer "
+                             f"{len(dst)}")
+        for t, v in zip(dst, values):
+            if tuple(t.shape) != tuple(v.shape):
+                raise ValueError(f"state tensor shape {tuple(v.shape)} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(v)
 
     # -- steps ---------------------------------------------------------------
 
@@ -204,37 +358,89 @@ class Trainer:
     def train_step(self, x: torch.Tensor, key: torch.Tensor,
                    detailed: bool = False) -> Dict[str, torch.Tensor]:
         """One optimizer step on the float batch x (B, T, K, D): the loss,
-        its gradients, the clipped update. Returns the metrics as device
-        tensors (the detailed form adds the monitoring metrics), with
+        its gradients, the clipped update. Returns the metrics as detached
+        device tensors (the detailed form adds the monitoring metrics), with
         ``grad_norm``, the gradients' norm before the clip."""
         loss, metrics = multinn.loss(self.params, key, x, detailed=detailed)
         grads = torch.autograd.grad(loss, self._leaves)
+        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = self.optimizer.update(self._leaves, grads,
                                                      self.opt_state)
         return metrics
 
+    def _group_body(self, xs: torch.Tensor, key: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+        """len(xs) steps under ``split(key, len(xs))``: the hot form, then
+        the detailed last step with ``loss_mean`` (JAX ``multi_fn``)."""
+        n = xs.shape[0]
+        keys = sampling.split(key, n)
+        losses = []
+        for i in range(n):
+            metrics = self.train_step(xs[i], keys[i], detailed=i == n - 1)
+            losses.append(metrics["loss"])
+        metrics["loss_mean"] = torch.stack(losses).mean()
+        return metrics
+
+    def _new_graph(self):
+        return CudaGraph(self.device)
+
+    def run_group(self, stacked: np.ndarray, key: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+        """One group of steps on the stacked uint8 batches (N, B, T, K, D):
+        by replay of the captured graph when ``capture_groups`` (the card;
+        the first group captures it), else eagerly."""
+        if not self.capture_groups:
+            return self._group_body(self._to_device(stacked), key)
+        if self.group_graph is None:
+            self.group_graph = StepGroupGraph(self, len(stacked),
+                                              stacked.shape[1:],
+                                              self._new_graph())
+        return self.group_graph(stacked, key)
+
     def _post_step(self, metrics, timing, n_steps: int) -> Dict[str, Any]:
-        """Advance the step count; on log boundaries (the only host
-        synchronisation of the loop) fetch the metrics and record them."""
-        every = self.cfg.train.log_every_steps
+        """Advance the step count; raise an injected fault; on log
+        boundaries (the only host synchronisation of the loop) fetch the
+        metrics and log them; save on ``ckpt_every_steps`` boundaries but
+        the epoch's last step, where ``train()`` saves with metrics."""
+        cfg = self.cfg.train
         prev = self.step
         self.step += n_steps
-        if prev // every == self.step // every:
-            return {}
-        out = {k: _host(v) for k, v in metrics.items()}
-        now = time.perf_counter()
-        out["steps_per_sec"] = (self.step - timing[0]) / max(now - timing[1],
-                                                            1e-9)
-        timing[0], timing[1] = self.step, now
-        self.history.append((self.step, out))
+        out: Dict[str, Any] = {}
+        if (cfg.fault_inject_step > 0
+                and prev < cfg.fault_inject_step <= self.step):
+            raise FaultInjected(f"fault injected at step {self.step}")
+        every = cfg.log_every_steps
+        if prev // every != self.step // every:
+            out = {k: _host(v) for k, v in metrics.items()}
+            now = time.perf_counter()
+            out["steps_per_sec"] = (self.step - timing[0]) / max(
+                now - timing[1], 1e-9)
+            timing[0], timing[1] = self.step, now
+            self.history.append((self.step, out))
+            self.metrics_log.log(self.step, out, "train")
+            self.log.info("step %d %s", self.step, format_metrics(
+                out, ("loss", "f1", "grad_norm", "steps_per_sec")))
+        every = cfg.ckpt_every_steps
+        if (every and prev // every != self.step // every
+                and self.step != self._epoch_final_step):
+            self.save_checkpoint()
         return out
 
     def train_epoch(self) -> Dict[str, Any]:
         """One pass over the train split (augmented, in the dataset's order
-        for this epoch), then the epoch advances. Returns the metrics of the
-        last logged step. Logging steps run the detailed step."""
+        for this epoch), resumed after the batches this epoch already took
+        (``step - epoch_step0``). Returns the metrics of the last logged
+        step. Logging steps run the detailed step. ``train()`` advances the
+        epoch."""
         cfg = self.cfg.train
+        self._epoch_final_step = (self.epoch_step0
+                                  + self.dataset.n_batches("train"))
         spc = max(cfg.steps_per_call, 1)
+        # an injected fault must fire at its exact step: no groups then
+        fuse = spc > 1 and cfg.fault_inject_step <= 0
+        skip = self.step - self.epoch_step0
+        if skip:
+            self.log.info("resuming epoch %d at batch %d", self.epoch, skip)
         timing = [self.step, time.perf_counter()]
         last: Dict[str, Any] = {}
 
@@ -245,31 +451,22 @@ class Trainer:
                 self.train_step(self._to_device(batch), key, detailed),
                 timing, 1)
 
-        def run_group(batches):
-            self.rng, key = sampling.split(self.rng)
-            xs = self._to_device(np.stack(batches))
-            keys = sampling.split(key, len(batches))
-            losses = []
-            for i in range(len(batches)):
-                metrics = self.train_step(xs[i], keys[i],
-                                          detailed=i == len(batches) - 1)
-                losses.append(metrics["loss"])
-            metrics["loss_mean"] = torch.stack(losses).mean()
-            return self._post_step(metrics, timing, len(batches))
-
         pending: list = []
-        for batch in self.dataset.batches("train", epoch=self.epoch,
-                                          augment=True):
-            if spc == 1:
+        for i, batch in enumerate(self.dataset.batches(
+                "train", epoch=self.epoch, augment=True)):
+            if i < skip:
+                continue
+            if not fuse:
                 last = run_single(batch) or last
                 continue
             pending.append(batch)
             if len(pending) == spc:
-                last = run_group(pending) or last
+                self.rng, key = sampling.split(self.rng)
+                metrics = self.run_group(np.stack(pending), key)
                 pending = []
+                last = self._post_step(metrics, timing, spc) or last
         for batch in pending:                 # leftover < spc: single steps
             last = run_single(batch) or last
-        self.epoch += 1
         return last
 
     @torch.no_grad()
@@ -313,21 +510,135 @@ class Trainer:
                     out[f"{name}_{i}"] = float(vi) / denom
         return out
 
-    # -- not ported yet --------------------------------------------------------
+    # -- checkpoints -------------------------------------------------------
 
-    def train(self):
-        raise NotImplementedError(
-            f"Trainer.train() saves a checkpoint every epoch; checkpoints are "
-            f"{_LATER}. Loop train_epoch() and evaluate() instead.")
+    def _state_dict(self) -> Dict[str, Any]:
+        cpu = lambda t: t.detach().cpu()
+        return {"params": [cpu(p) for p in self._leaves],
+                "opt_state": {k: ([cpu(t) for t in v] if isinstance(v, list)
+                                  else cpu(v))
+                              for k, v in self.opt_state.items()},
+                "rng": cpu(self.rng).view(torch.int32),
+                "step": self.step, "epoch": self.epoch,
+                "epoch_step0": self.epoch_step0,
+                "best_valid": self.best_valid}
 
-    def save_checkpoint(self, metrics=None):
-        raise NotImplementedError(f"checkpoints are {_LATER}")
+    def save_checkpoint(self, metrics: Optional[Dict[str, float]] = None
+                        ) -> None:
+        if not self.ckpt.save(self.step, self._state_dict(), metrics=metrics):
+            self.log.warning("checkpoint save at step %d was refused "
+                             "(duplicate step?)", self.step)
 
-    def restore(self, step=None):
-        raise NotImplementedError(f"checkpoints are {_LATER}")
+    def restore(self, step: Optional[int] = None) -> int:
+        """Load checkpoint ``step`` (the latest when None) into the
+        trainer's existing tensors; returns the step restored."""
+        state, at = self.ckpt.restore(step)
+        opt = state["opt_state"]
+        if set(opt) != set(self.opt_state):
+            raise ValueError(f"checkpoint @ step {at} has optimizer state "
+                             f"{sorted(opt)}, the trainer "
+                             f"{sorted(self.opt_state)}")
+        values = list(state["params"])
+        for k in self.opt_state:
+            values += opt[k] if isinstance(opt[k], list) else [opt[k]]
+        self._load_state_tensors(values)
+        self.rng = state["rng"].view(torch.uint32).to(self.device)
+        self.step = int(state["step"])
+        self.epoch = int(state["epoch"])
+        self.epoch_step0 = int(state.get("epoch_step0", -1))
+        if self.epoch_step0 < 0:
+            self.epoch_step0 = self.step
+        self.best_valid = float(state["best_valid"])
+        self.log.info("restored checkpoint @ step %d (epoch %d, %d batches "
+                      "into the epoch)", self.step, self.epoch,
+                      self.step - self.epoch_step0)
+        return at
 
-    def maybe_resume(self):
-        raise NotImplementedError(f"checkpoints are {_LATER}")
+    def maybe_resume(self) -> bool:
+        if self.ckpt.latest_step() is not None:
+            self.restore()
+            return True
+        return False
 
-    def pretrain_encoders(self):
-        raise NotImplementedError(f"DBN pre-training is {_LATER}")
+    # -- loops -------------------------------------------------------------
+
+    def pretrain_encoders(self) -> None:
+        """Greedy DBN pre-training: a no-op for pass-through encoders (DBN
+        encoders are refused at construction)."""
+
+    def profile_steps(self, n_steps: int) -> str:
+        """A torch.profiler trace of ``n_steps`` warm train steps on the
+        first batch into ``<run_dir>/trace``. The state is copied before and
+        back after, so training is not perturbed."""
+        from torch.profiler import ProfilerActivity, profile
+        trace_dir = os.path.join(self.cfg.train.run_dir, "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        x = self._to_device(next(iter(self.dataset.batches("train",
+                                                           epoch=0))))
+        saved = [t.detach().clone() for t in self._state_tensors()]
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else lambda: None)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            self.train_step(x, sampling.PRNGKey(0, device=self.device))
+            sync()
+            with profile(activities=activities) as prof:
+                for i in range(n_steps):
+                    self.train_step(x, sampling.PRNGKey(i + 1,
+                                                        device=self.device))
+                sync()
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        finally:
+            self._load_state_tensors(saved)
+        self.log.info("wrote a trace of %d steps to %s", n_steps, trace_dir)
+        return trace_dir
+
+    def train(self) -> Dict[str, float]:
+        """Epochs up to ``train.epochs``: validation every
+        ``eval_every_epochs`` with a checkpoint carrying ``valid_loss`` =
+        -ll_per_frame (the CD surrogate is no likelihood), the best tracked,
+        early stopping after ``early_stop_patience`` epochs without gain;
+        other epochs end in a save without metrics. Returns the last
+        validation metrics."""
+        cfg = self.cfg.train
+        self.log.info("training '%s': %d train batches, model=%s/%s mode=%s",
+                      self.cfg.name, self.dataset.n_batches("train"),
+                      self.cfg.model.decoder_type, self.cfg.model.cell,
+                      self.cfg.model.mode)
+        if self.epoch == 0 and self.step == 0:
+            self.pretrain_encoders()
+        final_eval: Dict[str, float] = {}
+        while self.epoch < cfg.epochs:
+            t0 = time.perf_counter()
+            self.train_epoch()
+            self.epoch += 1
+            self.epoch_step0 = self.step
+            if self.epoch % cfg.eval_every_epochs:
+                self.save_checkpoint()
+                continue
+            ev = self.evaluate("valid")
+            final_eval = ev
+            self.metrics_log.log(self.step, ev, "valid")
+            self.log.info("epoch %d (%.1fs) valid %s", self.epoch,
+                          time.perf_counter() - t0,
+                          format_metrics(ev, ("loss", "f1", "ll_per_frame")))
+            valid_loss = (-float(ev["ll_per_frame"]) if "ll_per_frame" in ev
+                          else float(ev.get("loss", np.inf)))
+            self.save_checkpoint(metrics={"valid_loss": valid_loss})
+            if valid_loss < self.best_valid - 1e-6:
+                self.best_valid = valid_loss
+                self._bad_epochs = 0
+            else:
+                self._bad_epochs += 1
+                if (cfg.early_stop_patience
+                        and self._bad_epochs >= cfg.early_stop_patience):
+                    self.log.info("early stop at epoch %d", self.epoch)
+                    break
+        self.ckpt.wait()
+        return final_eval
+
+    def close(self) -> None:
+        self.metrics_log.close()
+        self.ckpt.close()

@@ -1,22 +1,47 @@
 """Typed experiment configs — mirror of multinn_tpu/utils/config.py.
 
 Same dataclasses, field names and defaults, so every ``configs/*.json``
-loads into either package (a test holds the field sets equal).
-``MultINNConfig`` lives in models/multinn.py as in the reference.
-``DataConfig`` (multinn_tpu/data/datasets.py) and ``MeshConfig``
-(multinn_tpu/parallel/mesh.py) are mirrored here: the port has no data
-pipeline or parallel package yet (ROADMAP queue 1), so they only parse and
-validate, and the serving path runs without importing the JAX package.
+loads into either package (a test holds the field sets equal), plus the
+helpers of the reference's CLIs: ``validate``, ``save_json``,
+``load_run_config`` and ``apply_overrides`` (dot-path ``a.b.c=value``
+overrides; an unknown path raises). ``MultINNConfig`` lives in
+models/multinn.py as in the reference. ``DataConfig`` (with its corpus
+``PRESETS``; multinn_tpu/data/datasets.py) and ``MeshConfig``
+(multinn_tpu/parallel/mesh.py) live here: ``data/datasets.py`` imports
+``DataConfig`` from this module, and the port has no parallel package yet
+(ROADMAP queue 1), so ``MeshConfig`` only parses and validates.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import typing
 from typing import Any, Dict, List, Tuple, get_args, get_origin
 
+from multinn_torch.data import pianoroll as pr
 from multinn_torch.models.multinn import MultINNConfig
+
+PRESETS: Dict[str, dict] = {
+    # dataset -> spec knobs and canonical source. Non-synthetic presets name
+    # their real source, so a preset without data.path fails loudly instead
+    # of training on synthetic data under a corpus's name. Multi-track
+    # presets leave track 0 (drums) out of the transposition augmentation.
+    "jsb": dict(n_tracks=1, pitch_min=21, pitch_max=108, steps_per_quarter=4,
+                source="pickle"),
+    "nottingham": dict(n_tracks=1, pitch_min=21, pitch_max=108,
+                       steps_per_quarter=4, source="pickle"),
+    "lpd5": dict(n_tracks=5, pitch_min=24, pitch_max=107,
+                 steps_per_quarter=4, source="midi_dir",
+                 transpose_exclude=(0,)),
+    "lakh": dict(n_tracks=5, pitch_min=24, pitch_max=107,
+                 steps_per_quarter=4, source="midi_dir",
+                 transpose_exclude=(0,)),
+    "synthetic": dict(n_tracks=5, pitch_min=24, pitch_max=107,
+                      steps_per_quarter=4, source="synthetic",
+                      transpose_exclude=(0,)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +78,18 @@ class DataConfig:
         if bad:
             raise ValueError(f"data.transpose_exclude indices {bad} out of "
                              f"range for n_tracks={self.n_tracks}")
+
+    @staticmethod
+    def from_preset(dataset: str, **overrides) -> "DataConfig":
+        base = dict(PRESETS[dataset], dataset=dataset)
+        base.update(overrides)
+        return DataConfig(**base)
+
+    def spec(self) -> pr.RollSpec:
+        return pr.RollSpec(steps_per_quarter=self.steps_per_quarter,
+                           pitch_min=self.pitch_min,
+                           pitch_max=self.pitch_max,
+                           n_tracks=self.n_tracks)
 
     @property
     def n_pitches(self) -> int:
@@ -131,6 +168,49 @@ class ExperimentConfig:
         default_factory=GenerateConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
+    def validate(self) -> "ExperimentConfig":
+        """The reference's cross-section checks; returns self."""
+        if self.model.n_tracks != self.data.n_tracks:
+            raise ValueError(
+                f"model.n_tracks={self.model.n_tracks} != "
+                f"data.n_tracks={self.data.n_tracks}")
+        if self.model.n_pitches != self.data.frame_dim:
+            hint = (" (data.encoding=onset_hold doubles the visible width: "
+                    f"set model.n_pitches={self.data.frame_dim})"
+                    if self.data.encoding != "frame" else "")
+            raise ValueError(
+                f"model.n_pitches={self.model.n_pitches} != data frame dim "
+                f"{self.data.frame_dim}{hint}")
+        mesh = self.mesh
+        if mesh.use_mesh and mesh.track > 1:
+            if mesh.style != "gspmd":
+                raise ValueError("track sharding requires mesh.style=gspmd")
+            if self.model.mode == "joint":
+                raise ValueError("joint mode has no track axis to shard")
+            if self.model.n_tracks % mesh.track:
+                raise ValueError(
+                    f"n_tracks={self.model.n_tracks} not divisible by "
+                    f"mesh.track={mesh.track}")
+        if mesh.use_mesh and mesh.model > 1:
+            if mesh.style != "gspmd":
+                raise ValueError(
+                    "tensor (model-axis) sharding requires mesh.style=gspmd")
+            if self.model.n_hidden % mesh.model:
+                raise ValueError(
+                    f"n_hidden={self.model.n_hidden} not divisible by "
+                    f"mesh.model={mesh.model}")
+        if mesh.use_mesh and mesh.seq > 1:
+            if mesh.style != "seqpipe":
+                raise ValueError(
+                    "time (seq-axis) sharding requires mesh.style=seqpipe")
+            if self.data.window % mesh.seq:
+                raise ValueError(
+                    f"data.window={self.data.window} not divisible by "
+                    f"mesh.seq={mesh.seq}")
+        if mesh.style == "seqpipe" and mesh.seq <= 1:
+            raise ValueError("mesh.style=seqpipe requires mesh.seq > 1")
+        return self
+
 
 def _coerce(value: Any, typ: Any) -> Any:
     origin = get_origin(typ)
@@ -152,6 +232,16 @@ def _coerce(value: Any, typ: Any) -> Any:
         return typ(value)
     if typ is float and isinstance(value, int):
         return float(value)
+    if origin is typing.Union:           # Optional[...]
+        for arg in get_args(typ):
+            if arg is type(None):
+                if value is None or value == "none":
+                    return None
+                continue
+            try:
+                return _coerce(value, arg)
+            except (TypeError, ValueError):
+                continue
     return value
 
 
@@ -180,3 +270,52 @@ def _migrate(d: Dict[str, Any]) -> Dict[str, Any]:
 def load_json(path: str) -> ExperimentConfig:
     with open(path) as f:
         return from_dict(ExperimentConfig, _migrate(json.load(f)))
+
+
+def save_json(cfg: ExperimentConfig, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2)
+        f.write("\n")
+
+
+def load_run_config(run_dir, config_path, overrides) -> ExperimentConfig:
+    """The config of a run: ``config_path`` if given, else
+    ``<run_dir>/config.json``; applies the overrides and pins
+    ``train.run_dir`` to ``run_dir``. Raises FileNotFoundError if absent."""
+    path = config_path or os.path.join(run_dir or "", "config.json")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"config not found: {path}")
+    cfg = load_json(path)
+    ovs = list(overrides or [])
+    if run_dir:
+        ovs.insert(0, f"train.run_dir={run_dir}")
+    if ovs:
+        cfg = apply_overrides(cfg, ovs)
+    return cfg.validate()
+
+
+def apply_overrides(cfg: ExperimentConfig,
+                    overrides: List[str]) -> ExperimentConfig:
+    """Apply ``a.b.c=value`` dot-path overrides (a leading ``--`` allowed).
+    Values parse as JSON where they can, else stay strings, then coerce by
+    field type; an unknown path raises ValueError."""
+    d = to_dict(cfg)
+    for ov in overrides:
+        ov = ov.lstrip("-")
+        if "=" not in ov:
+            raise ValueError(f"override '{ov}' is not key=value")
+        path, raw = ov.split("=", 1)
+        try:
+            value = json.loads(raw)
+        except json.JSONDecodeError:
+            value = raw
+        node = d
+        keys = path.split(".")
+        for k in keys[:-1]:
+            if k not in node:
+                raise ValueError(f"unknown config path '{path}'")
+            node = node[k]
+        if keys[-1] not in node:
+            raise ValueError(f"unknown config path '{path}'")
+        node[keys[-1]] = value
+    return from_dict(ExperimentConfig, d)

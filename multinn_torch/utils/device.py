@@ -8,12 +8,11 @@ import torch
 
 
 def entry_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means ``cuda``, and raises when
-    torch sees no CUDA device."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``device`` as a torch.device; None means ``cuda``. A CUDA device
+    raises when torch sees none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port's entry points run on the card; pass "
             "device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return device

@@ -684,3 +684,80 @@ def test_nade_ll_bwd_takes_x_that_is_not_binary(dev):
     want = nade_ll.nade_ll_bwd_plain(x, w, v, cot, a_end)
     for a, b in zip(got, want):
         assert _within(a, b)
+
+
+def _group_trainers(dev, model, tmp_path, n=4):
+    """Two trainers from the same params on the card, one replaying its
+    groups of n steps from a CUDA graph and one running them eagerly."""
+    from multinn_torch.training.trainer import Trainer
+    data = config.DataConfig.from_preset("synthetic", window=16, batch_size=4,
+                                         synthetic_songs=12,
+                                         synthetic_steps=64)
+    params = _params(multinn.MultINNConfig(**model), dev)
+    out = []
+    for name in ("graph", "eager"):
+        cfg = config.ExperimentConfig(
+            data=data, model=multinn.MultINNConfig(**model),
+            train=config.TrainConfig(steps_per_call=n,
+                                     run_dir=str(tmp_path / name)))
+        out.append(Trainer(cfg, params=params))
+    out[1].capture_groups = False
+    assert out[0].capture_groups
+    batches = np.stack(list(out[0].dataset.batches("train", epoch=0)))
+    return out, [batches[i * n:(i + 1) * n] for i in range(2)]
+
+
+def _params_close(a, b):
+    """Equal within 1e-6 max|p| per leaf; returns the largest difference."""
+    worst = 0.0
+    for x, y in zip(a._leaves, b._leaves):
+        diff = float((x - y).detach().abs().max())
+        assert diff <= 1e-6 * float(y.detach().abs().max()), diff
+        worst = max(worst, diff)
+    return worst
+
+
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+def test_graph_groups_equal_eager_groups(dev, model, tmp_path):
+    """Two groups of 4 steps by replay and eagerly from the same state and
+    keys: the params agree, and each replay adds 4 steps' launches."""
+    (graph, eager), groups = _group_trainers(dev, model, tmp_path)
+    for i, xs in enumerate(groups):
+        key = sampling.PRNGKey(30 + i, device=dev)
+        _build.launches.clear()
+        got = graph.run_group(xs, key)
+        torch.cuda.synchronize()
+        replayed = dict(_build.launches)
+        want = eager.run_group(xs, key)
+        if i:                        # the first call also warmed up
+            assert replayed == dict(graph.group_graph.launches)
+        for name in ("loss", "loss_mean", "grad_norm"):
+            assert torch.allclose(got[name], want[name], rtol=1e-5), name
+        _params_close(graph, eager)
+    kernel = ("nade_ll_bwd" if model.get("decoder_type") == "rnn-nade"
+              else "gibbs_chain")
+    _build.launches.clear()
+    eager.train_step(eager._to_device(groups[0][0]),
+                     sampling.PRNGKey(1, device=dev))
+    per_replay = graph.group_graph.launches[kernel]
+    assert per_replay == 4 * _build.launches[kernel] > 0
+    assert int(graph.opt_state["count"]) == 8
+
+
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+def test_restore_under_a_live_graph(dev, model, tmp_path):
+    """A checkpoint restored while a graph holds the state's addresses:
+    the addresses stay, and the next replay equals the eager run."""
+    (graph, eager), (x1, x2) = _group_trainers(dev, model, tmp_path)
+    k1, k2 = (sampling.PRNGKey(s, device=dev) for s in (40, 41))
+    graph.run_group(x1, k1)
+    graph.save_checkpoint()
+    ptrs = [t.data_ptr() for t in graph._state_tensors()]
+    graph.run_group(x2, k2)
+    graph.restore()
+    assert [t.data_ptr() for t in graph._state_tensors()] == ptrs
+    graph.run_group(x2, k2)
+    eager.run_group(x1, k1)
+    eager.run_group(x2, k2)
+    _params_close(graph, eager)
+    assert int(graph.opt_state["count"]) == 8

@@ -95,6 +95,12 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "multinn_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    assert {"multinn_torch/train.py", "multinn_torch/data/datasets.py",
+            "multinn_torch/data/midi.py", "multinn_torch/data/cache.py",
+            "multinn_torch/data/native.py", "multinn_torch/utils/tb.py",
+            "multinn_torch/utils/logging.py",
+            "multinn_torch/training/checkpoint.py"} <= scanned
     bad = {str(f.relative_to(ROOT)): n for f in files for n in _imports(f)
            if n.split(".")[0] in ("jax", "jaxlib", "flax", "multinn_tpu")}
     assert not bad

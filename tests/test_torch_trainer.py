@@ -181,7 +181,7 @@ def test_three_adam_steps_match_the_jax_step(decoder, interpret_chain):
 
     tr.train_step = recording_step
     tr.train_epoch()
-    assert tr.step == 3 and tr.epoch == 1
+    assert tr.step == 3 and tr.epoch == 0     # train() advances the epoch
     tol = dict(rtol=1e-4, atol=2e-6)
     for (loss, gnorm, tparams), (jloss, jgnorm, jparams) in zip(losses, want):
         np.testing.assert_allclose(loss, jloss, rtol=1e-5)
@@ -189,19 +189,22 @@ def test_three_adam_steps_match_the_jax_step(decoder, interpret_chain):
         _compare_params(tparams, jparams, tol)
 
 
-def test_steps_per_call_runs_groups_and_leftovers():
+def test_steps_per_call_runs_groups_and_leftovers(tmp_path):
     """steps_per_call=2 over 5 batches: two groups (keys split(key, 2)) and
-    one single step; the logged step is the detailed group end."""
+    one single step; the logged step is the detailed group end. The epoch
+    is train()'s to advance, not train_epoch()'s."""
     ds = _dataset()
     cfg = config.ExperimentConfig(
         model=multinn.MultINNConfig(**dict(MODEL, decoder_type="rnn-nade")),
-        train=config.TrainConfig(steps_per_call=2, log_every_steps=2))
+        train=config.TrainConfig(steps_per_call=2, log_every_steps=2,
+                                 run_dir=str(tmp_path)))
     tr = trainer.Trainer(cfg, ds, params=from_jax(jax_multinn.init(
         jax.random.PRNGKey(0), jax_multinn.MultINNConfig(
             **dict(MODEL, decoder_type="rnn-nade"))), device="cpu"))
     first = to_numpy(tr.params).decoder.w
     last = tr.train_epoch()
-    assert tr.step == ds.n_batches("train") == 5
+    assert tr.step == ds.n_batches("train") == 5 and tr.epoch == 0
+    assert not tr.capture_groups               # the CPU runs groups eagerly
     assert [s for s, _ in tr.history] == [2, 4]
     assert {"loss_mean", "grad_norm", "f1", "nll"} <= set(last)
     assert np.isfinite(last["loss_mean"])
@@ -253,26 +256,41 @@ def test_evaluate_matches_the_jax_eval_math(decoder, interpret_chain):
                                    atol=1e-6, err_msg=name)
 
 
-def test_unported_features_raise():
-    ds = types.SimpleNamespace(n_batches=lambda split: 1)
-    base = config.ExperimentConfig(model=multinn.MultINNConfig(**MODEL))
-    for train in (dict(optimizer="hf"), dict(image_summaries=True),
-                  dict(fault_inject_step=3),
-                  dict(pretrain_encoder_epochs=1)):
+def test_unported_features_raise(tmp_path):
+    """Hessian-free training, meshes, DBN encoders and image summaries are
+    refused at construction; checkpoints, train(), resume and fault
+    injection are ported, and pre-training is the reference's no-op for a
+    pass-through encoder."""
+    ds = types.SimpleNamespace(n_batches=lambda split: 1,
+                               batches=lambda *a, **k: iter(()))
+    base = config.ExperimentConfig(
+        model=multinn.MultINNConfig(**MODEL),
+        train=config.TrainConfig(run_dir=str(tmp_path), epochs=1,
+                                 fault_inject_step=3,
+                                 pretrain_encoder_epochs=1))
+    for train in (dict(optimizer="hf"), dict(image_summaries=True)):
         cfg = config.ExperimentConfig(model=base.model,
                                       train=config.TrainConfig(**train))
         with pytest.raises(NotImplementedError):
             trainer.Trainer(cfg, ds, device="cpu")
+    with pytest.raises(NotImplementedError, match="DBN"):
+        trainer.Trainer(config.ExperimentConfig(
+            model=multinn.MultINNConfig(**dict(MODEL, encoder_hidden=(8,))),
+            train=base.train), ds, device="cpu")
     with pytest.raises(NotImplementedError):
         trainer.Trainer(config.ExperimentConfig(
             model=base.model, mesh=config.MeshConfig(use_mesh=True)), ds,
             device="cpu")
     tr = trainer.Trainer(base, ds, device="cpu")
     assert tr.device == torch.device("cpu")
-    for call in (tr.train, tr.save_checkpoint, tr.restore, tr.maybe_resume,
-                 tr.pretrain_encoders):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    tr.pretrain_encoders()
+    assert not tr.maybe_resume()
+    with pytest.raises(FileNotFoundError):
+        tr.restore()
+    assert tr.train() == {} and tr.epoch == 1
+    tr.save_checkpoint()
+    assert tr.ckpt.latest_step() == 0 and tr.maybe_resume()
+    tr.close()
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "bfloat16"])
