@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs thirteen
+Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs fifteen
 phases, one line each; any failure exits non-zero before the result line.
 Phases 4-6 drive the RNN-RBM serving path, 7-9 the RNN-NADE serving path,
 10-12 training (the NADE likelihood kernels, then the Trainer on each
-family), 13 the train entry point with its steps captured as CUDA graphs.
+family), 13 the train entry point with its steps captured as CUDA graphs,
+14 the two DBN configs, 15 accompaniment.
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -73,9 +74,39 @@ family), 13 the train entry point with its steps captured as CUDA graphs.
      retention policy (the last plus the best); a run of epoch 1, resumed
      by a second call into epoch 2, ends with the uninterrupted run's
      params within 1e-6 max|p|.
+ 14. DBN encoders at the published widths (K=5, D=84 -> 64 latents,
+     H=150, U=100, T=64, B=16): the pre-training chains, kernel vs plain
+     version with at most 1% of rows differing, at the shared encoder's
+     N = K*B*T = 5120 rows (D=84, H=64, k=1), at each track's 1024 rows on
+     its own key, and at the upper layer of a two-layer DBN (64 -> 32),
+     whose visible units are real sigmoid values (the same 1% gate). Then
+     for ``configs/lpd5_feedback_rnnnade.json`` and
+     ``configs/lpd5_multinn_rnnrbm.json`` on the synthetic source:
+     ``pretrain_encoders`` (the configs' two epochs, its own launch
+     window: the CD loss,
+     the decode calibration within 0.5-2x, seconds); a group of 24 steps
+     by replay against eager from the pre-trained params (params within
+     1e-6 max|p|, the encoder bit-identical; step ms, frames/s, device
+     busy); the family's fused kernel at D=64 against its plain version
+     (T=16 B=8, at least 7 of 8 samples identical; latent density gap at
+     most 0.01 at T=1024 B=8 for the NADE, at T=128 B=64 for the RBM,
+     whose plain version at gen_k=25 takes about 0.14 s a step); the
+     kernel's B=8 time and bound, the 64-bar latency at B=1 with the
+     decode; a service at batch 8 (16 plain, 8 seeded requests, its own
+     launch window): songs/s, p50 / p95;
+ 15. accompaniment, given track 0 (drums) of synthetic songs, on the RBM
+     and NADE flagships (pass-through encoder) and the DBN NADE config
+     (pre-trained in phase 14): the fused path against its plain version
+     at T=16 B=8 (given tracks bit-equal, at least 7 of 8 samples
+     identical), against the scan path at T=1024 B=8 (per-track density
+     gap at most 0.01), the fused time; a service with
+     ``accompany_tracks=(0,)`` answering 16 accompaniment and 8 plain
+     requests at batch 8, the given track passed through bit for bit,
+     songs/s and p50 / p95; each config's launch window.
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window), error, times and bound. ``ms`` is the device time per
+its path's window plus the windows of phases 14 and 15), error, times and
+bound. ``ms`` is the device time per
 call of the kernel's wrapper (its launches and any small PyTorch kernel it
 runs, such as the key's two words, the backward's second pass included):
 calls captured in one CUDA graph and its replay timed by CUDA events, since
@@ -134,7 +165,7 @@ def fused_work(params, roll, v0, gen_k: int):
     out: a lower bound. A multiply-add counts 2."""
     from multinn_torch.models import multinn
     cfg = params.cfg
-    k, d, h, u, n_layers = (cfg.n_tracks, cfg.n_pitches, cfg.n_hidden,
+    k, d, h, u, n_layers = (cfg.n_tracks, cfg.feature_dim(), cfg.n_hidden,
                             cfg.n_rnn, cfg.rnn_layers)
     g = 4 * u if cfg.cell == "lstm" else u
     b, t = roll.shape[:2]
@@ -958,19 +989,22 @@ def main() -> None:
                          / b.detach().abs().max().clamp(min=1e-30))
                    for a, b in zip(got, want))
 
-    def group_check(model, batch, seed):
+    def group_check(model, batch, seed, p0=None):
         """One group of 24 steps eagerly and by graph replay from the same
-        params, optimizer state and key; then the graph's step time by CUDA
-        events over replays, the kernels' share of it (profiler) and the
-        launches a replay adds against one eager step's."""
+        params (``p0``, else drawn from ``seed``), optimizer state and key;
+        a DBN encoder bit-identical through both; then the graph's step
+        time by CUDA events over replays, the kernels' share of it
+        (profiler) and the launches a replay adds against one eager
+        step's."""
         cfg = ExperimentConfig(
             model=multinn.MultINNConfig(**model),
             train=TrainConfig(steps_per_call=spc, log_every_steps=1000,
                               run_dir=f"{tmp}/group_{seed}"))
         src = RollSource(spc, 2, batch, seed)
         xs = np.stack(list(src.batches("train", shuffle=False)))
-        p0 = multinn.init(cfg.model, torch.Generator().manual_seed(seed),
-                          device=dev)
+        if p0 is None:
+            p0 = multinn.init(cfg.model, torch.Generator().manual_seed(seed),
+                              device=dev)
         graph, eager = Trainer(cfg, src, params=p0), Trainer(cfg, src,
                                                              params=p0)
         eager.capture_groups = False
@@ -984,6 +1018,11 @@ def main() -> None:
         if not diff <= 1e-6:
             fail(f"phase 13: graph vs eager group, params differ by "
                  f"{diff:.3e} of max|p| (> 1e-6)")
+        enc0 = multinn.tree_leaves(p0.encoder)
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
+                multinn.tree_leaves(graph.params.encoder),
+                multinn.tree_leaves(eager.params.encoder), enc0)):
+            fail("a group changed the frozen DBN encoder")
         _build.launches.clear()
         eager.train_step(eager._to_device(xs[0]), key)
         torch.cuda.synchronize()
@@ -1096,6 +1135,269 @@ def main() -> None:
         f"{main_launches}; resumed run vs uninterrupted {resume_diff:.3e} "
         f"of max|p|; phase {time.perf_counter() - t13:.1f} s")
 
+    # 14. DBN encoders at the published widths ------------------------------
+    t14 = time.perf_counter()
+    import logging
+
+    from multinn_torch.data.datasets import synthetic_song
+    from multinn_torch.utils.config import apply_overrides
+    from multinn_torch.utils.logging import setup_logger
+
+    def windows_sum(*windows):
+        out = {}
+        for w in windows:
+            for name, n in w.items():
+                out[name] = out.get(name, 0) + n
+        return out
+
+    def rows_differ(a, b):
+        return float((a != b).any(dim=1).float().mean())
+
+    # the pre-training chains: CD-1 at D=84, H=64 over the shared encoder's
+    # K*B*T = 5120 rows, and over each track's B*T = 1024 rows on its own
+    # key (the per-track encoders); the configs' w_std and a visible bias
+    # at the data's density, logit(0.06)
+    g14 = torch.Generator().manual_seed(14)
+
+    def pre_chain(n, d, h, v0=None):
+        if v0 is None:
+            v0 = (torch.rand(n, d, generator=g14) < 0.06).float()
+        return [x.to(dev) for x in (
+            v0, 0.01 * torch.randn(d, h, generator=g14),
+            torch.full((d,), -2.75), torch.zeros(h))]
+
+    key = sampling.PRNGKey(14, device=dev)
+    shared = pre_chain(5120, 84, 64)
+    sk, sp = (gibbs_cuda.gibbs_chain(key, *shared, 1),
+              gibbs_cuda.gibbs_chain_plain(key, *shared, 1))
+    pre_differ = rows_differ(sk, sp)
+    pre_ms = graph_ms(lambda: gibbs_cuda.gibbs_chain(key, *shared, 1), 50)
+    pre_plain = cuda_ms(lambda: gibbs_cuda.gibbs_chain_plain(key, *shared, 1),
+                        5)
+    pre_bound = bound(*gibbs_work(5120, 1, sk, 84, 64))
+    tracks = [pre_chain(1024, 84, 64) for _ in range(5)]
+    tkeys = sampling.split(key, 5)
+    track_differ = max(rows_differ(gibbs_cuda.gibbs_chain(kk, *a, 1),
+                                   gibbs_cuda.gibbs_chain_plain(kk, *a, 1))
+                       for kk, a in zip(tkeys, tracks))
+    tracks_ms = graph_ms(lambda: [gibbs_cuda.gibbs_chain(kk, *a, 1)
+                                  for kk, a in zip(tkeys, tracks)], 20)
+    # the upper layer of a two-layer DBN (64, 32): its visible units are
+    # layer 0's sigmoid probabilities, not 0/1, so the hidden pass's
+    # products round; the same gate as for binary rows
+    x84 = shared[0]
+    w0 = shared[1]
+    upper = pre_chain(5120, 64, 32, v0=torch.sigmoid(
+        (x84 @ w0) + 0.5 * torch.randn(64, generator=g14).to(dev)).cpu())
+    upper_differ = rows_differ(gibbs_cuda.gibbs_chain(key, *upper, 1),
+                               gibbs_cuda.gibbs_chain_plain(key, *upper, 1))
+    if max(pre_differ, track_differ, upper_differ) > 0.01:
+        fail(f"pre-training chains: rows differing {pre_differ} (5120 rows)"
+             f", {track_differ} (per track), {upper_differ} (upper layer "
+             f"64 -> 32); limit 0.01")
+    say(f"phase 14 pre-training chains, D=84 H=64 k=1: N=5120 rows "
+        f"differing {pre_differ:.4f}, kernel {pre_ms:.4f} ms, plain "
+        f"{pre_plain:.3f} ms, bound {pre_bound[0]:.5f} ms ({pre_bound[1]}); "
+        f"5 tracks x 1024 rows on their own keys: worst rows differing "
+        f"{track_differ:.4f}, the five {tracks_ms:.4f} ms; upper layer "
+        f"(64 -> 32, real-valued v0) N=5120 rows differing "
+        f"{upper_differ:.4f} (limit 0.01 for all); {smi}")
+
+    log_lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: log_lines.append(record.getMessage())
+    setup_logger().addHandler(handler)
+    dbn = {}
+    for fam, path, fused_gen in (
+            ("nade", "configs/lpd5_feedback_rnnnade.json",
+             lambda p, k, h0, c0, v0, n, impl: gen_fused_nade.generate_nade(
+                 k, p.decoder, h0, c0, v0, n, impl=impl)),
+            ("rbm", "configs/lpd5_multinn_rnnrbm.json",
+             lambda p, k, h0, c0, v0, n, impl: gen_fused_rbm.generate_rbm(
+                 k, p.decoder, h0, c0, v0, n, p.cfg.gen_k, impl=impl))):
+        t_fam = time.perf_counter()
+        cfg14 = apply_overrides(load_json(path), [
+            "data.source=synthetic", f"train.run_dir={tmp}/dbn_{fam}"])
+        mcfg = cfg14.model
+        p0 = multinn.init(mcfg, torch.Generator().manual_seed(140),
+                          device=dev)
+        trainer = Trainer(cfg14, params=p0)
+        log_lines.clear()
+        _build.launches.clear()              # pre-training starts here
+        t0 = time.perf_counter()
+        trainer.pretrain_encoders()
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        pre_launches = dict(_build.launches)     # ... and ends here
+        cd = [ln for ln in log_lines if "cd-loss" in ln]
+        cal = trainer.calibration
+        if (not cd or not np.isfinite(float(cd[-1].split()[-1]))
+                or cal is None or not 0.5 <= cal["ratio"] <= 2.0
+                or pre_launches.get("gibbs_chain", 0)
+                < trainer.dataset.n_batches("train")):
+            fail(f"phase 14 {fam}: pre-training {cd} {cal} {pre_launches}")
+        params = multinn.tree_map(lambda t: t.detach().clone(),
+                                  trainer.params)
+        del trainer
+        # one group of 24 steps by replay against eager, from the
+        # pre-trained params; the encoder stays bit-identical
+        grp = group_check(dataclasses.asdict(mcfg), 16, 141, p0=params)
+        # the kernel at the latent width against its plain version
+        gk = sampling.PRNGKey(142, device=dev)
+        run = lambda *a: fused_gen(params, gk, *a)
+        rows = primed(params, 8)
+        same8, h_err = match16(run, rows, 7, f"dbn {fam}")
+        if fam == "nade":
+            dens, gap = density_gap(run, rows, f"dbn {fam}")
+            gap_at = "T=1024 B=8"
+        else:
+            # gen_k=25: the plain version takes about 0.14 s a step, so the
+            # same 8192 frames per track come from T=128 at B=64
+            rows64 = primed(params, 64)
+            dens = [run(*rows64, 128, impl)[0].mean(dim=(0, 1, 3))
+                    for impl in ("cuda", "plain")]
+            gap = float((dens[0] - dens[1]).abs().max())
+            if not gap <= 0.01:
+                fail(f"phase 14 rbm: per-track density gap {gap} (limit "
+                     f"0.01)")
+            dens = [[round(float(x), 4) for x in d] for d in dens]
+            gap_at = "T=128 B=64"
+        st8 = multinn.init_state(params, 8)
+        lat8 = run(*[torch.stack([getattr(c, n) for c in st8.decoder.cell])
+                     for n in ("h", "c")], st8.decoder.v_prev, 1024,
+                   "cuda")[0]
+        kern_ms = cuda_ms(lambda: run(
+            *[torch.stack([getattr(c, n) for c in st8.decoder.cell])
+              for n in ("h", "c")], st8.decoder.v_prev, 1024, "cuda"), 3)
+        kb = bound(*fused_work(params, lat8, st8.decoder.v_prev,
+                               mcfg.gen_k))
+        st1 = multinn.init_state(params, 1)
+        b1_ms = cuda_ms(lambda: multinn._generate_fused(
+            params, gk, st1, 1024, impl="cuda"), 3)
+        # the service at batch 8: 16 plain and 8 seeded requests
+        seeds14 = (np.random.default_rng(143).random((8, 64, 5, 84)) < 0.1
+                   ).astype(np.uint8)
+        _build.launches.clear()              # the DBN serving path starts
+        svc = GenerationService(cfg14, params, ServeConfig(
+            batch=8, n_steps=1024, seed_steps=64, seed=0))
+        futs = svc.submit_many(16) + [svc.submit(seed=x) for x in seeds14]
+        served = [f.result(timeout=600) for f in futs]
+        stats = svc.stats()
+        svc.close()
+        torch.cuda.synchronize()
+        serve_launches = dict(_build.launches)   # ... and ends here
+        kern = "gen_fused_" + fam
+        if (stats["errors"] or stats["batches"] != 3
+                or not serve_launches.get(kern)
+                or any(r.roll.shape != (1024, 5, 84)
+                       or not np.isin(r.roll, (0, 1)).all()
+                       for r in served)):
+            fail(f"phase 14 {fam}: service {stats} {serve_launches}")
+        density = float(np.mean([r.roll.mean() for r in served]))
+        lat = stats["latency_ms"]
+        dbn[fam] = dict(params=params, cfg=cfg14,
+                        windows=(pre_launches, serve_launches))
+        busy = (f"{grp['busy_ms'] / grp['graph_ms']:.1%}" if grp["busy_ms"]
+                else "not measured")
+        say(f"phase 14 {path} (synthetic source, K=5 D=84 -> "
+            f"{mcfg.feature_dim()} latents, H=150 U=100, B=16 T=64): "
+            f"pre-training {cfg14.train.pretrain_encoder_epochs} epochs "
+            f"{pre_s:.2f} s, {cd[-1]}, decode "
+            f"calibration {cal['ratio']:.3f}x (data {cal['data_mean']:.4f},"
+            f" decode {cal['decode_mean']:.4f}), launches {pre_launches}; "
+            f"group of {spc}: graph vs eager {grp['diff']:.3e} of max|p|, "
+            f"encoder bit-identical, graph step {grp['graph_ms']:.3f} ms = "
+            f"{grp['frames']:.0f} frames/s (eager {grp['eager_ms']:.3f} ms)"
+            f", device busy {busy}; fused at D={mcfg.feature_dim()}: T=16 "
+            f"B=8 {same8}/8 identical (final h err {h_err:.2e}), {gap_at} "
+            f"per-track latent density kernel {dens[0]} plain {dens[1]} "
+            f"(gap {gap:.4f}); kernel B=8 T=1024 {kern_ms:.3f} ms (bound "
+            f"{kb[0]:.4f} ms, {kb[1]}); 64-bar latency B=1 with the decode "
+            f"{b1_ms:.3f} ms; service batch 8: {stats.get('songs_per_s', 0):.2f}"
+            f" songs/s, p50 {lat['p50']:.1f} ms p95 {lat['p95']:.1f} ms, "
+            f"note density {density:.4f}, launches {serve_launches}; "
+            f"{time.perf_counter() - t_fam:.1f} s; {smi}")
+    setup_logger().removeHandler(handler)
+    say(f"phase 14 {time.perf_counter() - t14:.1f} s")
+
+    # 15. accompaniment ------------------------------------------------------
+    t15 = time.perf_counter()
+    song_rng = np.random.default_rng(15)
+    given_np = np.stack([synthetic_song(song_rng, 1024, 5, 84)
+                         for _ in range(8)]).astype(np.float32)
+    given = torch.from_numpy(given_np).to(dev)   # track 0 (drums) is given
+    acc_windows = []
+    for name, cfg15, params in (
+            ("RBM flagship", cfg, p5),
+            ("NADE flagship", ncfg9, p8),
+            ("lpd5_feedback_rnnnade", dbn["nade"]["cfg"],
+             dbn["nade"]["params"])):
+        t_acc = time.perf_counter()
+        key = sampling.PRNGKey(150, device=dev)
+        st = multinn.init_state(params, 8)
+        with torch.inference_mode():
+            ak, ap = (multinn._generate_accomp_fused(
+                params, key, st, given[:, :16], (0,), impl=impl)[1]
+                for impl in ("cuda", "plain"))
+            if not (torch.equal(ak[:, :, 0], given[:, :16, 0])
+                    and torch.equal(ap[:, :, 0], given[:, :16, 0])):
+                fail(f"phase 15 {name}: a given track did not pass through")
+            a_same = int((ak == ap).flatten(1).all(dim=1).sum())
+            if a_same < 7:
+                fail(f"phase 15 {name}: {a_same} of 8 samples match plain")
+            acc_ms = cuda_ms(lambda: multinn._generate_accomp_fused(
+                params, key, st, given, (0,), impl="cuda"), 3)
+            gen_ms = cuda_ms(lambda: multinn._generate_fused(
+                params, key, st, 1024, impl="cuda"), 3)
+            _build.launches.clear()          # the accompaniment path starts
+            fk = multinn.generate_accompaniment(params, key, st, given,
+                                                (0,))[1]
+            sc = multinn.generate_accompaniment(params, key, st, given,
+                                                (0,), fused=False)[1]
+            torch.cuda.synchronize()
+        dens = [r[:, :, 1:].mean(dim=(0, 1, 3)) for r in (fk, sc)]
+        gap = float((dens[0] - dens[1]).abs().max())
+        if not (gap <= 0.01 and torch.equal(fk[:, :, 0], given[:, :, 0])
+                and torch.equal(sc[:, :, 0], given[:, :, 0])):
+            fail(f"phase 15 {name}: fused vs scan density gap {gap}, or a "
+                 f"given track changed")
+        svc = GenerationService(cfg15, params, ServeConfig(
+            batch=8, n_steps=1024, seed=0, accompany_tracks=(0,),
+            accompany_steps=1024))
+        g_req = given_np.astype(np.uint8)
+        futs = (svc.submit_many(8, given=g_req[0])
+                + svc.submit_many(8, given=g_req[1]) + svc.submit_many(8))
+        served = [f.result(timeout=600) for f in futs]
+        stats = svc.stats()
+        svc.close()
+        torch.cuda.synchronize()
+        window = dict(_build.launches)       # ... and ends here
+        acc_windows.append(window)
+        passed = all(np.array_equal(served[i].roll[:, 0],
+                                    g_req[i // 8, :, 0]) for i in range(16))
+        if (not passed or stats["errors"] or stats["accompany_batches"] != 2
+                or stats["batches"] != 3):
+            fail(f"phase 15 {name}: service passed the given track "
+                 f"{passed}, stats {stats}")
+        lat = stats["latency_ms"]
+        # the bound of the kernel's work (pass-through: the roll is its
+        # output; a DBN's kernel bound is phase 14's)
+        acc_bound = ("" if params.encoder else
+                     ", bound {:.4f} ms ({})".format(*bound(*fused_work(
+                         params, fk, st.decoder.v_prev, params.cfg.gen_k))))
+        say(f"phase 15 accompaniment, {name}, given track 0 of a synthetic "
+            f"roll: T=16 B=8 given tracks bit-equal, {a_same}/8 samples "
+            f"identical to plain; T=1024 B=8 per-track density fused "
+            f"{[round(float(x), 4) for x in dens[0]]} scan "
+            f"{[round(float(x), 4) for x in dens[1]]} (gap {gap:.4f}); "
+            f"fused B=8 T=1024 {acc_ms:.3f} ms{acc_bound} (unconditioned "
+            f"{gen_ms:.3f} ms); service (16 accompaniment, "
+            f"8 plain, batch 8): given track bit for bit, "
+            f"{stats.get('songs_per_s', 0):.2f} songs/s, p50 "
+            f"{lat['p50']:.1f} ms p95 {lat['p95']:.1f} ms; launches "
+            f"{window}; {time.perf_counter() - t_acc:.1f} s; {smi}")
+    say(f"phase 15 {time.perf_counter() - t15:.1f} s")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -1125,11 +1427,17 @@ def main() -> None:
                "nade_ll_bwd": ("multinn_torch/csrc/nade_ll.cu",
                                "multinn_tpu/ops/nade_ll_pallas.py:153",
                                nade_train_launches)}
+    # each kernel's launches: its path's window above plus the windows of
+    # the DBN paths (pre-training, serving) and of accompaniment
+    new_windows = windows_sum(*dbn["nade"]["windows"], *dbn["rbm"]["windows"],
+                              *acc_windows)
+    say(f"launches in the DBN and accompaniment windows: {new_windows}")
     shutil.rmtree(tmp, ignore_errors=True)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,
-             launches=counts[n], **results[n], library_ms=None)
+             launches=counts[n] + new_windows.get(n, 0), **results[n],
+             library_ms=None)
         for n, (src, rep, counts) in sources.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

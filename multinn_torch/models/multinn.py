@@ -1,14 +1,17 @@
 """MultINN — the multi-track model — port of multinn_tpu/models/multinn.py.
 
-Inter-track modes ``per-track``, ``feedback`` and ``hybrid`` (with the
-pass-through encoder, hybrid differs from per-track only in config).
-Both decoder families, RNN-RBM and RNN-NADE. Per-track decoder params are
-STACKED along a leading track axis K, as in the JAX package; where it vmaps
-over tracks the port batches the same computation over that axis
-(nn/rnn.py), and loops over tracks only where a kernel takes one decoder
-(the scan path's Gibbs chain or NADE sweep, the CD chain). Pianorolls
-are (B, T, K, D). ``joint`` mode and accompaniment wait for later slices
-(ROADMAP queue 1).
+Inter-track modes ``per-track``, ``feedback`` and ``hybrid``, pass-through
+and DBN encoders (one shared encoder in feedback / hybrid mode, one per
+track in per-track mode), both decoder families, RNN-RBM and RNN-NADE.
+Per-track decoder and encoder params are STACKED along a leading track
+axis K, as in the JAX package; where it vmaps over tracks the port batches
+the same computation over that axis (nn/rnn.py), and loops over tracks
+only where a kernel or a function takes one decoder or encoder (the scan
+path's Gibbs chain or NADE sweep, the CD chain, a per-track encoder).
+Generation, accompaniment included, runs in the decoders' feature space;
+with a DBN the latent frames are decoded to pianoroll by sampling the
+decode conditional. Pianorolls are (B, T, K, D). ``joint`` mode waits for
+a later slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -147,23 +150,68 @@ def init(cfg: MultINNConfig, generator: Optional[torch.Generator] = None,
          device=None) -> MultINNParams:
     """Random params with the JAX package's shapes and init distributions
     (normal(0, w_std) weights, zero biases, LSTM forget-gate bias 1),
-    drawn on the CPU from ``generator`` (so a seed gives the same values on
+    drawn on the CPU from ``generator`` (the decoders track by track, then
+    the encoder or each track's encoder, so a seed gives the same values on
     every device) and placed on ``device``: the CUDA card when None, which
     raises without one."""
     _check_mode(cfg)
     device = entry_device(device)
     dec = get_decoder(cfg.decoder_type)
-    dcfg = cfg.decoder_config()
+    dcfg, ecfg = cfg.decoder_config(), cfg.encoder_config()
     decoder = stack_trees([dec.init(dcfg, generator=generator, device="cpu")
                            for _ in range(cfg.n_tracks)])
-    decoder = tree_map(lambda x: x.to(device), decoder)
-    return MultINNParams(encoder=enc_mod.init(cfg.encoder_config()),
-                         decoder=decoder, cfg=cfg)
+    if cfg.shared_encoder:
+        encoder = enc_mod.init(ecfg, generator=generator, device="cpu")
+    else:
+        encoder = stack_trees([enc_mod.init(ecfg, generator=generator,
+                                            device="cpu")
+                               for _ in range(cfg.n_tracks)])
+    move = lambda x: x.to(device)
+    return MultINNParams(encoder=tree_map(move, encoder),
+                         decoder=tree_map(move, decoder), cfg=cfg)
+
+
+def _per_track_encoder(params: MultINNParams) -> bool:
+    """True when each track has a DBN encoder of its own (stacked)."""
+    return bool(params.encoder) and not params.cfg.shared_encoder
 
 
 def _encode_tracks(params: MultINNParams, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, T, K, D) -> decoder-facing features, tracks-first (K, B, T, F)."""
-    return enc_mod.features(params.encoder, x.movedim(2, 0))
+    """x: (B, T, K, D) -> decoder-facing features, tracks-first (K, B, T, F):
+    the frames for pass-through encoders, binary and detached DBN features
+    otherwise (enc_mod.features), one encoder for all tracks or each
+    track's own."""
+    xk = x.movedim(2, 0)
+    if not _per_track_encoder(params):
+        return enc_mod.features(params.encoder, xk)
+    return torch.stack([enc_mod.features(index_tree(params.encoder, i),
+                                         xk[i])
+                        for i in range(params.cfg.n_tracks)])
+
+
+def _decode_sample(encoder, key: torch.Tensor, lat: torch.Tensor,
+                   beta: float = 1.0) -> torch.Tensor:
+    """Latent -> binary pianoroll by sampling the DBN decode conditional
+    p(v | h) (a threshold at 0.5 would emit silence for sparse music, whose
+    decode probabilities sit far below it). ``beta`` = 1 / temperature
+    scales the conditional's logits."""
+    logits = enc_mod.decode_logits(encoder, lat)
+    if beta != 1.0:
+        logits = logits * beta
+    return sampling.bernoulli(key, torch.sigmoid(logits))
+
+
+def _decode_tracks(params: MultINNParams, key: torch.Tensor,
+                   lat_k: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Track-major latents (K, ...) -> pianoroll frames (K, ...): the
+    shared encoder decodes all tracks under ``key``, per-track encoders
+    decode track i under ``split(key, K)[i]``."""
+    if not _per_track_encoder(params):
+        return _decode_sample(params.encoder, key, lat_k, beta)
+    keys = sampling.split(key, params.cfg.n_tracks)
+    return torch.stack([_decode_sample(index_tree(params.encoder, i),
+                                       keys[i], lat_k[i], beta)
+                        for i in range(params.cfg.n_tracks)])
 
 
 def _flatten_latents(vs: torch.Tensor) -> torch.Tensor:
@@ -289,29 +337,56 @@ def tempered_params(params: MultINNParams,
         params, decoder=dec.tempered_params(params.decoder, temperature))
 
 
+def sample_step(params: MultINNParams, key: torch.Tensor,
+                state: MultINNState, k: Optional[int] = None,
+                temperature: float = 1.0
+                ) -> Tuple[MultINNState, torch.Tensor]:
+    """One generation step over all tracks -> (state, frame (B, K, D)
+    binary pianoroll). ``temperature`` tempers the decoder params and the
+    DBN decode conditional's logits; in a loop of your own, temper once
+    with ``tempered_params`` and call ``_sample_step`` with the decode beta
+    (``generate`` does)."""
+    return _sample_step(tempered_params(params, temperature), key, state,
+                        k, 1.0 / temperature)
+
+
 def _sample_step(params: MultINNParams, key: torch.Tensor,
-                 state: MultINNState, k: Optional[int] = None
+                 state: MultINNState, k: Optional[int] = None,
+                 dec_beta: float = 1.0
                  ) -> Tuple[MultINNState, torch.Tensor]:
     """One generation step over all tracks on already-tempered params ->
     (state, frame (B, K, D)). Keys as the JAX package: ``key, kd =
-    split(key)``, then one key per track."""
+    split(key)``, one key per track from ``key``, and ``kd`` for the DBN
+    decode; ``dec_beta`` tempers only that decode."""
     cfg = params.cfg
     dec = get_decoder(cfg.decoder_type)
-    key, _ = sampling.split(key)
+    key, kd = sampling.split(key)
     keys = sampling.split(key, cfg.n_tracks)
     vs = torch.stack([
         dec.sample_frame(index_tree(params.decoder, i), keys[i],
                          index_tree(state.decoder, i), k=k)
         for i in range(cfg.n_tracks)])                   # (K, B, F)
-    if cfg.mode == "feedback":
-        ctx_k = state.ctx.expand(cfg.n_tracks, *state.ctx.shape)
-        states = dec.forced_step(params.decoder, state.decoder, vs, ctx_k)
-        new_state = MultINNState(decoder=states, ctx=_flatten_latents(vs))
-    else:
-        new_state = MultINNState(
+    new_state = _forced_step(params, state, vs)
+    if cfg.encoder_hidden:
+        vs = _decode_tracks(params, kd, vs, dec_beta)
+    return new_state, vs.movedim(0, 1)                   # (B, K, D)
+
+
+def _forced_step(params: MultINNParams, state: MultINNState,
+                 vs: torch.Tensor) -> MultINNState:
+    """Advance every track's decoder on the frame features vs (K, B, F);
+    in feedback mode the carried context conditions the advance and vs
+    becomes the next context."""
+    cfg = params.cfg
+    dec = get_decoder(cfg.decoder_type)
+    if cfg.mode != "feedback":
+        return MultINNState(
             decoder=dec.forced_step(params.decoder, state.decoder, vs),
             ctx=None)
-    return new_state, vs.movedim(0, 1)                   # (B, K, D)
+    ctx_k = state.ctx.expand(cfg.n_tracks, *state.ctx.shape)
+    return MultINNState(
+        decoder=dec.forced_step(params.decoder, state.decoder, vs, ctx_k),
+        ctx=_flatten_latents(vs))
 
 
 def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
@@ -321,11 +396,12 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
     """Autoregressive multi-track generation. Returns (state, pianoroll
     (B, n_steps, K, D) float32).
 
-    ``fused``: True runs the whole-generation kernel (ops/gen_fused.py),
-    False the step loop (scan path: a Gibbs-chain or NADE-sweep launch per
-    track and step); None picks the kernel whenever its gate admits the
-    config and batch. On CPU tensors each kernel runs as its plain
-    version."""
+    ``fused``: True runs the whole-generation kernel (ops/gen_fused.py; a
+    DBN's latent roll is decoded after it), False the step loop (scan
+    path: a Gibbs-chain or NADE-sweep launch per track and step); None
+    picks the kernel whenever its gate admits the config and batch. On CPU
+    tensors each kernel runs as its plain version. ``temperature`` tempers
+    the decoder params and the DBN decode conditional's logits."""
     cfg = params.cfg
     batch = state.decoder.v_prev.shape[1]
     if fused is None:
@@ -333,22 +409,128 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
         fused = (gen_fused.supported(cfg, batch, n_steps, gen_k=k)
                  or gen_fused.supported_nade(cfg, batch, n_steps))
     params = tempered_params(params, temperature)
+    dec_beta = 1.0 / temperature
     if fused:
-        return _generate_fused(params, key, state, n_steps, k=k)
+        return _generate_fused(params, key, state, n_steps, k=k,
+                               dec_beta=dec_beta)
     keys = sampling.split(key, n_steps)
     frames = []
     for t in range(n_steps):
-        state, frame = _sample_step(params, keys[t], state, k=k)
+        state, frame = _sample_step(params, keys[t], state, k=k,
+                                    dec_beta=dec_beta)
         frames.append(frame)
     return state, torch.stack(frames, dim=1)
 
 
+def _check_given(cfg: MultINNConfig, given: torch.Tensor,
+                 given_tracks) -> Tuple[int, ...]:
+    """The accompaniment request's checks (the JAX package's); returns the
+    sorted given tracks."""
+    if cfg.mode == "joint":
+        raise ValueError(
+            "accompaniment needs per-track decoders; joint mode has one "
+            "decoder over all tracks (within-frame conditional sampling "
+            "is not supported)")
+    given_tracks = tuple(sorted(set(int(i) for i in given_tracks)))
+    if not given_tracks:
+        raise ValueError("given_tracks is empty — use generate()")
+    if any(not 0 <= i < cfg.n_tracks for i in given_tracks):
+        raise ValueError(f"given_tracks {given_tracks} out of range for "
+                         f"n_tracks={cfg.n_tracks}")
+    if len(given_tracks) == cfg.n_tracks:
+        raise ValueError("all tracks given — nothing to sample")
+    _, _, kk, d = given.shape
+    if kk != cfg.n_tracks or d != cfg.n_pitches:
+        raise ValueError(f"given roll (B, T, K, D)={tuple(given.shape)} does "
+                         f"not match model (K={cfg.n_tracks}, "
+                         f"D={cfg.n_pitches})")
+    return given_tracks
+
+
+def generate_accompaniment(params: MultINNParams, key: torch.Tensor,
+                           state: MultINNState, given: torch.Tensor,
+                           given_tracks: Tuple[int, ...],
+                           k: Optional[int] = None,
+                           temperature: float = 1.0,
+                           fused: Optional[bool] = None,
+                           subset: bool = True
+                           ) -> Tuple[MultINNState, torch.Tensor]:
+    """Track-conditional generation: the tracks in ``given_tracks`` take the
+    frames of ``given`` (B, T, K, D) and the others are sampled. Returns
+    (state, roll (B, T, K, D)) with roll[:, :, given_tracks] equal to
+    given's slices bit for bit (never re-encoded).
+
+    In ``feedback`` mode the given tracks' features enter every track's
+    cross-track context each step, so the sampled tracks condition on
+    them; in ``per-track`` / ``hybrid`` mode the decoders are independent
+    and the given tracks are only merged into the output. ``joint`` mode
+    raises.
+
+    Per step every sampled track runs the decoder's ``sample_frame``, the
+    given tracks take their teacher-forced features, and all tracks advance
+    by ``forced_step``. ``temperature`` tempers the sampled tracks only.
+    ``fused`` (None = the kernel when its gate admits the batch): run the
+    loop in the whole-generation kernel, the given features streamed into
+    it. ``subset`` (scan path): True samples only the sampled tracks,
+    False samples all K and keeps the given tracks by a select (the JAX
+    package's track-sharded form); the two are bit-equal, since track i
+    draws under key i either way."""
+    cfg = params.cfg
+    given_tracks = _check_given(cfg, given, given_tracks)
+    b, n_steps = given.shape[:2]
+    if fused is None:
+        from multinn_torch.ops import gen_fused
+        fused = (gen_fused.supported(cfg, b, n_steps, gen_k=k,
+                                     conditioned=True)
+                 or gen_fused.supported_nade(cfg, b, n_steps,
+                                             n_given=len(given_tracks)))
+    dec = get_decoder(cfg.decoder_type)
+    params = tempered_params(params, temperature)
+    dec_beta = 1.0 / temperature
+    given = given.to(torch.float32)
+    if fused:
+        return _generate_accomp_fused(params, key, state, given,
+                                      given_tracks, k=k, dec_beta=dec_beta)
+    feats_g = _encode_tracks(params, given)              # (K, B, T, F)
+    mask = torch.zeros(cfg.n_tracks, 1, 1, dtype=torch.bool,
+                       device=given.device)
+    mask[list(given_tracks)] = True
+    sampled = [i for i in range(cfg.n_tracks)
+               if not subset or i not in given_tracks]
+    keys = sampling.split(key, n_steps)
+    rolls = []
+    for t in range(n_steps):
+        key1, kd = sampling.split(keys[t])
+        tkeys = sampling.split(key1, cfg.n_tracks)
+        vs = list(feats_g[:, :, t])
+        for i in sampled:
+            vs[i] = dec.sample_frame(index_tree(params.decoder, i), tkeys[i],
+                                     index_tree(state.decoder, i), k=k)
+        # select, don't blend: a non-finite sample must not reach a given
+        # track
+        v_final = torch.where(mask, feats_g[:, :, t], torch.stack(vs))
+        state = _forced_step(params, state, v_final)
+        if cfg.encoder_hidden:
+            v_final = torch.where(mask, given[:, t].movedim(1, 0),
+                                  _decode_tracks(params, kd, v_final,
+                                                 dec_beta))
+        rolls.append(v_final)
+    return state, torch.stack(rolls).permute(2, 0, 1, 3)  # (B, T, K, D)
+
+
 def _generate_fused(params: MultINNParams, key: torch.Tensor,
                     state: MultINNState, n_steps: int, impl=None,
-                    k: Optional[int] = None
+                    k: Optional[int] = None, dec_beta: float = 1.0,
+                    given: Optional[torch.Tensor] = None,
+                    given_tracks: Tuple[int, ...] = ()
                     ) -> Tuple[MultINNState, torch.Tensor]:
     """Dispatch to the whole-generation kernel and rebuild the state
-    contract from its outputs (``params`` already tempered)."""
+    contract from its outputs (``params`` already tempered). The kernel
+    runs in feature space; with a DBN its latent roll is decoded to
+    pianoroll after it, under ``fold_in(key, 0x5eed)`` (per-track encoders:
+    ``split`` of that key over the tracks), ``dec_beta`` tempering that
+    decode. ``given`` (B, T, K, F) features with ``given_tracks``: those
+    tracks' frames in the kernel (accompaniment)."""
     from multinn_torch.ops import gen_fused
     cfg = params.cfg
     vanilla = cfg.cell == "vanilla"
@@ -359,12 +541,14 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
     if cfg.decoder_type == "rnn-nade":
         roll, h_f, c_f = gen_fused.generate_nade(
             key, params.decoder, h0, c0, dec_state.v_prev, n_steps,
-            impl=impl)                                   # (B, T, K, D)
+            impl=impl, given=given,
+            given_tracks=given_tracks)                   # (B, T, K, F)
     else:
         roll, h_f, c_f = gen_fused.generate_rbm(
             key, params.decoder, h0, c0, dec_state.v_prev, n_steps,
-            cfg.gen_k if k is None else k, impl=impl)
-    v_last = roll[:, -1].movedim(0, 1)                   # (K, B, D)
+            cfg.gen_k if k is None else k, impl=impl, given=given,
+            given_tracks=given_tracks)
+    v_last = roll[:, -1].movedim(0, 1)                   # (K, B, F)
 
     def cell_state(h, c):
         return (rnn_nn.VanillaRNNState(h=h) if vanilla
@@ -374,4 +558,27 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
         cell=tuple(cell_state(h_f[l], c_f[l]) for l in range(len(h_f))),
         v_prev=v_last)
     ctx = _flatten_latents(v_last) if cfg.mode == "feedback" else None
+    if cfg.encoder_hidden:
+        kd = sampling.fold_in(key, 0x5eed)
+        roll = _decode_tracks(params, kd, roll.movedim(2, 0),
+                              dec_beta).movedim(0, 2)
     return MultINNState(decoder=new_dec, ctx=ctx), roll
+
+
+def _generate_accomp_fused(params: MultINNParams, key: torch.Tensor,
+                           state: MultINNState, given: torch.Tensor,
+                           given_tracks: Tuple[int, ...],
+                           k: Optional[int] = None, dec_beta: float = 1.0,
+                           impl=None) -> Tuple[MultINNState, torch.Tensor]:
+    """generate_accompaniment on the whole-generation kernels: the given
+    tracks' teacher-forced features stream into the kernel and replace
+    those tracks' frames each step (``params`` already tempered). With a
+    DBN the decoded roll's given rows then take ``given`` verbatim."""
+    feats = _encode_tracks(params, given).permute(1, 2, 0, 3)  # (B, T, K, F)
+    state, roll = _generate_fused(params, key, state, given.shape[1],
+                                  impl=impl, k=k, dec_beta=dec_beta,
+                                  given=feats, given_tracks=given_tracks)
+    if params.cfg.encoder_hidden:
+        gt = list(given_tracks)
+        roll[:, :, gt] = given[:, :, gt]
+    return state, roll

@@ -12,12 +12,29 @@ instead (ops/gibbs.py).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from multinn_torch.ops import sampling
+
+
+@dataclasses.dataclass
+class RBMParams:
+    w: torch.Tensor         # (D, H)
+    bv: torch.Tensor        # (D,)
+    bh: torch.Tensor        # (H,)
+
+
+def init(n_visible: int, n_hidden: int, w_std: float = 0.01,
+         generator=None, device=None) -> RBMParams:
+    """Normal(0, w_std) weights from ``generator``, zero biases."""
+    w = w_std * torch.randn((n_visible, n_hidden), generator=generator,
+                            device=device)
+    return RBMParams(w=w, bv=torch.zeros(n_visible, device=device),
+                     bh=torch.zeros(n_hidden, device=device))
 
 
 def free_energy(v, w, bv, bh) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Shared helpers of the whole-generation kernels — port of
 multinn_tpu/ops/gen_common.py.
 
-The kernels run in the decoder's feature space with per-track layouts.
+The kernels run in the decoder's feature space with per-track layouts:
+the pianoroll pitches for pass-through encoders, the DBN latents
+otherwise (the dispatch decodes the latent roll after the kernel).
 ``_decoder_param_shapes`` builds the track-stacked decoder params on the
 ``meta`` device, so a gate can run the real argument builder and size the
 launch without allocating anything. ``_ctx_rows`` and ``_state_rows`` /
@@ -45,15 +47,22 @@ def sample_bytes(k: int, d: int, u: int, n_layers: int, scratch: int) -> int:
 
 
 def _common_gate(cfg, decoder_type: str) -> bool:
-    """Configs the port's kernels take: this decoder family, pass-through
-    encoders, per-track / feedback / hybrid modes (joint mode and DBN
-    encoders are not ported yet)."""
-    return (cfg.decoder_type == decoder_type and not cfg.encoder_hidden
-            and cfg.mode != "joint")
+    """Configs the port's kernels take: this decoder family, any encoder
+    (a DBN's kernels run at D = feature_dim, the feedback context K
+    latents wide), per-track / feedback / hybrid modes (joint mode is not
+    ported yet)."""
+    return cfg.decoder_type == decoder_type and cfg.mode != "joint"
+
+
+def _given_fits(cfg, n_given: int) -> bool:
+    """An accompaniment leaves at least one track to sample. The kernels
+    read the given stream from device memory, one row per sample and step,
+    so it takes no shared memory and the plan does not change."""
+    return 0 <= n_given < cfg.n_tracks
 
 
 def _eff_dims(cfg):
-    """(K, D) as the kernels see them."""
+    """(K, D) as the kernels see them: D is the decoder's feature width."""
     return cfg.n_tracks, cfg.feature_dim()
 
 

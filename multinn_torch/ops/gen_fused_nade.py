@@ -44,7 +44,7 @@ from multinn_torch.ops import _build, gen_common, kernel_prng
 from multinn_torch.ops.gen_common import (SMEM_LIMIT_BYTES, _common_gate,
                                           _ctx_rows, _decoder_param_shapes,
                                           _eff_dims, _from_state_rows,
-                                          _state_rows)
+                                          _given_fits, _state_rows)
 from multinn_torch.ops.sampling import key_to_seeds
 
 STREAM_ROWS = 8             # tracks per dim in the random stream: K <= 8
@@ -131,12 +131,16 @@ def _fits(args: NadeArgs) -> bool:
             and _sample_bytes(args) <= SMEM_LIMIT_BYTES)
 
 
-def supported_nade(cfg, batch: int, n_steps: int = 2048) -> bool:
+def supported_nade(cfg, batch: int, n_steps: int = 2048,
+                   n_given: int = 0) -> bool:
     """Gate for the auto-dispatch: the config is one the kernel takes, one
     sample's state rows fit a CTA's shared memory and a track's hidden
     lanes fit a warp's registers (batch sets only the samples per cluster
-    and the grid; n_steps only the loop trip count)."""
-    if not _common_gate(cfg, "rnn-nade") or batch < 1 or n_steps < 1:
+    and the grid; n_steps only the loop trip count). ``n_given``: the
+    given tracks of an accompaniment, whose stream and f32 input rows the
+    kernel reads from device memory (gen_common._given_fits)."""
+    if (not _common_gate(cfg, "rnn-nade") or batch < 1 or n_steps < 1
+            or not _given_fits(cfg, n_given)):
         return False
     from multinn_torch.models import rnn_nade
     (k, d), u, nl = _eff_dims(cfg), cfg.n_rnn, cfg.rnn_layers

@@ -34,7 +34,7 @@ from multinn_torch.ops import _build, gen_common, kernel_prng
 from multinn_torch.ops.gen_common import (SMEM_LIMIT_BYTES, _common_gate,
                                           _ctx_rows, _decoder_param_shapes,
                                           _eff_dims, _from_state_rows,
-                                          _state_rows)
+                                          _given_fits, _state_rows)
 from multinn_torch.ops.sampling import key_to_seeds
 
 MAX_TRACKS = 31             # the given-track merge is a 32-bit lane mask
@@ -113,8 +113,10 @@ def supported(cfg, batch: int, n_steps: int = 2048,
     """Gate for the auto-dispatch: the config is one the kernel takes and
     one sample's state rows fit a CTA's shared memory (batch sets only the
     samples per cluster and the grid; n_steps and gen_k set only the loop
-    trip counts)."""
-    if not _common_gate(cfg, "rnn-rbm") or batch < 1 or n_steps < 1:
+    trip counts). ``conditioned``: an accompaniment's given stream, which
+    the kernel reads from device memory (gen_common._given_fits)."""
+    if (not _common_gate(cfg, "rnn-rbm") or batch < 1 or n_steps < 1
+            or not _given_fits(cfg, int(conditioned))):
         return False
     from multinn_torch.models import rnn_rbm
     (k, d), u, nl = _eff_dims(cfg), cfg.n_rnn, cfg.rnn_layers

@@ -1,8 +1,9 @@
 """Continuous-batching generation service — port of
-multinn_tpu/serving/service.py (plain and seeded requests).
+multinn_tpu/serving/service.py (plain, seeded and accompaniment requests).
 
 A request queue -> ONE dispatcher thread that coalesces up to ``batch``
-requests of one kind (plain or seeded) per device call, waiting at most
+requests of one kind (plain, seeded or accompaniment) per device call,
+waiting at most
 ``max_wait_ms`` after the first (under-full batches run padded, so the
 program shape never changes) -> a bounded window of ``pipeline_depth``
 dispatched batches -> ONE drainer thread that waits on each batch's CUDA
@@ -17,9 +18,15 @@ RNG contract: batch ``i`` samples under ``fold_in(PRNGKey(seed), i)`` — the
 same kernel seeds as the JAX service's batch ``i``; a request's provenance
 ``(batch_index, row)`` pins its sample stream.
 
-Accompaniment requests and the sparse transport are not ported yet
-(ROADMAP queue 1): a service refuses ``accompany_tracks`` and ``given``
-rolls with a ValueError, and ``transport="auto"`` means packed.
+With ``accompany_tracks`` a request may carry a frame-space ``given``
+roll: those tracks are fixed and the others sampled
+(``Generator.accompany_async``), every roll normalized to
+``accompany_steps`` frames, so accompaniment is one more program shape;
+such requests have their own queue and never share a batch with plain or
+seeded ones.
+
+The sparse transport is not ported yet (ROADMAP queue 1): ``transport=
+"auto"`` means packed.
 """
 
 from __future__ import annotations
@@ -49,8 +56,10 @@ class ServeConfig:
     history: int = 1024        # latency samples kept for percentile stats
     seed_steps: int = 0        # >0 enables seeded requests (seed rolls are
     #                            cropped / left-padded to this many frames)
-    accompany_tracks: tuple = ()  # accompaniment: not ported, must be empty
-    accompany_steps: int = 0
+    accompany_tracks: tuple = ()  # non-empty enables accompaniment requests:
+    #                            these tracks of a given roll are fixed, the
+    #                            rest sampled
+    accompany_steps: int = 0   # accompaniment length (0 = n_steps)
     transport: str = "auto"    # "auto" | "packed" (both bit-packed frames);
     #                            "sparse" is not ported
 
@@ -66,15 +75,20 @@ class ServeResult:
 
 
 class _Request:
-    __slots__ = ("future", "t_enqueue", "seed")
+    __slots__ = ("future", "t_enqueue", "seed", "given")
 
-    def __init__(self, seed: Optional[np.ndarray] = None):
+    def __init__(self, seed: Optional[np.ndarray] = None,
+                 given: Optional[np.ndarray] = None):
         self.future = Future()
         self.t_enqueue = time.time()
         self.seed = seed       # normalized model-space (seed_steps, K, D)
+        self.given = given     # normalized model-space (accompany_steps,K,D)
 
     @property
     def kind(self) -> str:
+        """One program shape per kind; a batch holds one kind."""
+        if self.given is not None:
+            return "accompany"
         return "seeded" if self.seed is not None else "plain"
 
 
@@ -100,10 +114,6 @@ class GenerationService:
 
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
-        if self.serve_cfg.accompany_tracks:
-            raise ValueError("accompaniment requests are not ported yet "
-                             "(ROADMAP queue 1): accompany_tracks must be "
-                             "empty")
         if self.serve_cfg.transport not in ("auto", "packed"):
             raise ValueError(f"transport must be auto|packed (sparse is not "
                              f"ported), got {self.serve_cfg.transport!r}")
@@ -116,9 +126,15 @@ class GenerationService:
         self._base_key = sampling.PRNGKey(self.serve_cfg.seed,
                                           device=self.device)
 
+        self._accompany_tracks = tuple(
+            int(i) for i in self.serve_cfg.accompany_tracks)
+        self._accompany_steps = (self.serve_cfg.accompany_steps
+                                 or self.n_steps)
+
         self._lock = threading.Condition()
         self._queues = {"plain": collections.deque(),
-                        "seeded": collections.deque()}
+                        "seeded": collections.deque(),
+                        "accompany": collections.deque()}
         self._closed = False
         self._inflight = threading.Semaphore(self.serve_cfg.pipeline_depth)
         self._done_q: collections.deque = collections.deque()
@@ -128,6 +144,7 @@ class GenerationService:
         self._n_requests = 0
         self._n_batches = 0
         self._n_seeded_batches = 0
+        self._n_accompany_batches = 0
         self._n_padded_rows = 0
         self._n_errors = 0
         self._t_started = time.time()
@@ -141,13 +158,19 @@ class GenerationService:
                            else cfg.model.n_pitches)
 
         # warm every program shape before accepting traffic (the first call
-        # builds the kernels): one unseeded, plus one seeded iff seed_steps
+        # builds the kernels): one unseeded, plus one seeded iff seed_steps,
+        # plus one accompaniment iff accompany_tracks
         self.generator.fetch_rolls(self._dispatch(self._base_key, None))
+        frame = (cfg.model.n_tracks, cfg.model.n_pitches)
         if self.serve_cfg.seed_steps > 0:
-            zeros = np.zeros((self.batch, self.serve_cfg.seed_steps,
-                              cfg.model.n_tracks, cfg.model.n_pitches),
+            zeros = np.zeros((self.batch, self.serve_cfg.seed_steps, *frame),
                              np.float32)
             self.generator.fetch_rolls(self._dispatch(self._base_key, zeros))
+        if self._accompany_tracks:
+            zeros = np.zeros((self.batch, self._accompany_steps, *frame),
+                             np.float32)
+            self.generator.fetch_rolls(self._dispatch(self._base_key, None,
+                                                      zeros))
 
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
                                             name="multinn-serve-dispatch",
@@ -158,8 +181,11 @@ class GenerationService:
         self._dispatcher.start()
         self._drainer.start()
 
-    def _dispatch(self, key, seed_arr):
+    def _dispatch(self, key, seed_arr, given_arr=None):
         with torch.cuda.stream(self._stream):
+            if given_arr is not None:
+                return self.generator.accompany_async(
+                    key, given_arr, self._accompany_tracks)
             return self.generator.generate_async(key, self.n_steps,
                                                  self.batch, seed=seed_arr)
 
@@ -187,22 +213,49 @@ class GenerationService:
             enc = np.concatenate([pad, enc], axis=0)
         return enc.astype(np.float32)
 
+    def _normalize_given(self, given: np.ndarray) -> np.ndarray:
+        """User frame-space accompaniment roll (T, K, D_frame) ->
+        model-space (accompany_steps, K, D) float32: encode the full roll,
+        keep the FIRST accompany_steps frames (the given music plays from
+        the start), right-pad zeros."""
+        if not self._accompany_tracks:
+            raise ValueError(
+                "this service has no accompany_tracks: accompaniment "
+                "requests are disabled")
+        given = np.asarray(given)
+        k, d = self.cfg.model.n_tracks, self._frame_dim
+        if given.ndim != 3 or given.shape[1:] != (k, d) or given.shape[0] < 1:
+            raise ValueError(f"accompaniment roll must be (T>=1, {k}, {d}) "
+                             f"frame-space, got {given.shape}")
+        enc = pianoroll.encode_rolls((given > 0).astype(np.uint8),
+                                     self.cfg.data.encoding)
+        s = self._accompany_steps
+        enc = enc[:s]
+        if enc.shape[0] < s:
+            pad = np.zeros((s - enc.shape[0],) + enc.shape[1:], enc.dtype)
+            enc = np.concatenate([enc, pad], axis=0)
+        return enc.astype(np.float32)
+
     def submit(self, seed: Optional[np.ndarray] = None,
                given: Optional[np.ndarray] = None) -> Future:
         """Enqueue one generation request; returns its future (resolving to
         a ServeResult). ``seed``: optional frame-space roll (T, K, D_frame)
-        to prime on (requires ServeConfig.seed_steps > 0)."""
+        to prime on (requires ServeConfig.seed_steps > 0). ``given``:
+        optional frame-space roll whose ServeConfig.accompany_tracks are
+        fixed while the other tracks are sampled."""
         return self.submit_many(1, seed=seed, given=given)[0]
 
     def submit_many(self, n: int, seed: Optional[np.ndarray] = None,
                     given: Optional[np.ndarray] = None) -> List[Future]:
-        """Enqueue ``n`` requests atomically, all with the same seed (or
-        none). Returns their futures in submission order."""
-        if given is not None:
-            raise ValueError("this service has no accompany_tracks: "
-                             "accompaniment requests are disabled")
-        norm = self._normalize_seed(seed) if seed is not None else None
-        reqs = [_Request(norm) for _ in range(n)]
+        """Enqueue ``n`` requests atomically, all with the same seed or
+        given roll (or neither). Returns their futures in submission
+        order."""
+        if seed is not None and given is not None:
+            raise ValueError("a request carries either a priming seed or "
+                             "an accompaniment roll, not both")
+        norm_s = self._normalize_seed(seed) if seed is not None else None
+        norm_g = self._normalize_given(given) if given is not None else None
+        reqs = [_Request(norm_s, norm_g) for _ in range(n)]
         if not reqs:
             return []
         with self._lock:
@@ -227,6 +280,8 @@ class GenerationService:
                 "requests": self._n_requests,
                 "batches": self._n_batches,
                 "seeded_batches": self._n_seeded_batches,
+                "accompany_batches": self._n_accompany_batches,
+                "accompany_tracks": list(self._accompany_tracks),
                 "seed_steps": self.serve_cfg.seed_steps,
                 "padded_rows": self._n_padded_rows,
                 "errors": self._n_errors,
@@ -289,6 +344,13 @@ class GenerationService:
                     deadline = None
                     self._lock.wait(0.1)
 
+    def _rows(self, rolls: List[np.ndarray]) -> np.ndarray:
+        """The requests' rolls as one batch, zero rows padding it."""
+        out = np.zeros((self.batch,) + rolls[0].shape, np.float32)
+        for row, roll in enumerate(rolls):
+            out[row] = roll
+        return out
+
     def _dispatch_loop(self) -> None:
         while True:
             reqs = self._take_batch()
@@ -300,18 +362,18 @@ class GenerationService:
                 bi = self._n_batches
                 self._n_batches += 1
                 self._n_seeded_batches += int(kind == "seeded")
+                self._n_accompany_batches += int(kind == "accompany")
                 self._n_padded_rows += self.batch - len(reqs)
-            seed_arr = None
+            seed_arr = given_arr = None
             if kind == "seeded":               # pad rows prime on zeros
-                seed_arr = np.zeros(
-                    (self.batch,) + reqs[0].seed.shape, np.float32)
-                for row, r in enumerate(reqs):
-                    seed_arr[row] = r.seed
+                seed_arr = self._rows([r.seed for r in reqs])
+            elif kind == "accompany":          # pad rows accompany silence
+                given_arr = self._rows([r.given for r in reqs])
             t_dispatch = time.time()
             try:
                 with torch.cuda.stream(self._stream):
                     key = sampling.fold_in(self._base_key, bi)
-                out = self._dispatch(key, seed_arr)
+                out = self._dispatch(key, seed_arr, given_arr)
             except Exception as e:            # pragma: no cover - defensive
                 self._inflight.release()
                 with self._stats_lock:

@@ -1,18 +1,21 @@
 """Generation engine — port of multinn_tpu/training/generator.py (the
-generate / generate_async / fetch_rolls / finalize surface).
+generate / generate_async / accompany / accompany_async / fetch_rolls /
+finalize surface).
 
 One generation primes the model state on an optional seed roll, runs
-``multinn.generate`` (the whole-generation kernel whenever its gate admits
-the batch) and bit-packs the roll on the device; the host unpacks it. The
-packed transport is the only one for now (``ops/sparsebytes`` is not
-ported, ROADMAP queue 1), and mesh generation and accompaniment wait for
-later slices.
+``multinn.generate`` (or ``multinn.generate_accompaniment``, which fixes
+some tracks to a given roll and samples the rest; the whole-generation
+kernel whenever its gate admits the batch) and bit-packs the roll on the
+device; the host unpacks it. The packed transport is the only one for now
+(``ops/sparsebytes`` is not ported, ROADMAP queue 1), and mesh generation
+waits for a later slice.
 
-``generate_async`` enqueues everything on the caller's current CUDA stream
-without a host synchronisation (the key is derived on the card, the seed
-copy is pinned and non-blocking) and returns the packed device tensor with
-a CUDA event recorded after it; ``fetch_rolls`` waits on that event only,
-so a serving loop can dispatch the next batch while this one runs.
+``generate_async`` and ``accompany_async`` enqueue everything on the
+caller's current CUDA stream without a host synchronisation (the key is
+derived on the card, the seed and given rolls copy from pinned memory
+without blocking) and return the packed device tensor with a CUDA event
+recorded after it; ``fetch_rolls`` waits on that event only, so a serving
+loop can dispatch the next batch while this one runs.
 """
 
 from __future__ import annotations
@@ -74,11 +77,46 @@ class Generator:
                                        state, n_steps, k=self._gibbs_k,
                                        temperature=self._temperature)
             out = bitpack.pack_rolls(roll)
-        event = None
-        if out.is_cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return AsyncRolls(out, event)
+        return AsyncRolls(out, self._record(out))
+
+    def accompany_async(self, key: torch.Tensor, given: np.ndarray,
+                        given_tracks, seed: Optional[np.ndarray] = None
+                        ) -> AsyncRolls:
+        """Dispatch one track-conditional generation without blocking: the
+        tracks ``given_tracks`` take the model-space roll ``given`` (B, T,
+        K, D), the others are sampled (multinn.generate_accompaniment);
+        ``seed``: optional (B, T_seed, K, D) priming roll. Returns
+        AsyncRolls; decode with fetch_rolls."""
+        if seed is not None and np.shape(seed)[0] != np.shape(given)[0]:
+            raise ValueError(f"seed batch {np.shape(seed)[0]} != given "
+                             f"batch {np.shape(given)[0]}")
+        with torch.inference_mode():
+            given_dev = self._to_device(given)
+            state = multinn.init_state(self.params, given_dev.shape[0])
+            if seed is not None:
+                state = multinn.prime(self.params, state,
+                                      self._to_device(seed))
+            _, roll = multinn.generate_accompaniment(
+                self.params, key.to(self.device), state, given_dev,
+                tuple(int(i) for i in given_tracks), k=self._gibbs_k,
+                temperature=self._temperature)
+            out = bitpack.pack_rolls(roll)
+        return AsyncRolls(out, self._record(out))
+
+    def accompany(self, key: torch.Tensor, given: np.ndarray, given_tracks,
+                  seed: Optional[np.ndarray] = None) -> np.ndarray:
+        """Blocking accompany_async: a binary (B, T, K, D) uint8 pianoroll
+        on the host whose given tracks equal ``given`` bit for bit."""
+        return self.fetch_rolls(self.accompany_async(key, given, given_tracks,
+                                                     seed=seed))
+
+    def _record(self, out: torch.Tensor) -> Optional[torch.cuda.Event]:
+        """An event after the work queued for ``out`` (None on the CPU)."""
+        if not out.is_cuda:
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
 
     def generate(self, key: torch.Tensor, n_steps: int,
                  seed: Optional[np.ndarray] = None,

@@ -7,6 +7,10 @@ CD-k updates for RBM decoders and exact-likelihood updates for NADE
 decoders, both through ``multinn.loss``; per-epoch validation, early
 stopping, checkpoints (the last ``keep_last`` plus the best) with exact
 mid-epoch resume, and a JSONL + TensorBoard metrics log under ``run_dir``.
+DBN encoders are pre-trained greedily by CD before the first epoch
+(``pretrain_encoders``) and frozen afterwards: the optimizer holds only
+the decoder's tensors, so the encoder's get no update of any kind (no
+Adam moment, no weight decay), in a captured group as well.
 
 A step runs the teacher-forced recurrence, then the family's kernels (the
 Gibbs chain per track, or one launch of the NADE likelihood kernels for all
@@ -24,8 +28,8 @@ group of N steps, whose keys are ``split(key, N)``), so a step draws the
 Gibbs chain's stream from the same key as the JAX step.
 
 Not ported yet (ROADMAP queue 1), each refused with NotImplementedError at
-construction: Hessian-free training, meshes, DBN encoders, image summaries
-and the bf16 matmul policy.
+construction: Hessian-free training, meshes, image summaries and the bf16
+matmul policy.
 """
 
 from __future__ import annotations
@@ -171,8 +175,6 @@ def _refuse_unported(cfg) -> None:
     train = cfg.train
     for on, what in ((train.optimizer == "hf", "Hessian-free training"),
                      (cfg.mesh.use_mesh, "mesh training"),
-                     (bool(cfg.model.encoder_hidden),
-                      "DBN encoders and their pre-training"),
                      (train.image_summaries, "image summaries"),
                      (cfg.model.matmul_dtype in ("bf16", "bfloat16"),
                       "the bf16 matmul policy (matmul_dtype)")):
@@ -301,9 +303,12 @@ class Trainer:
             params = multinn.init(cfg.model, torch.Generator().manual_seed(
                 (words[0] & 0xFFFFFFFF) << 32 | words[1] & 0xFFFFFFFF),
                 device=self.device)
-        self.params = multinn.tree_map(
-            lambda t: t.detach().clone().requires_grad_(True), params)
-        self._leaves = multinn.tree_leaves(self.params)
+        self.params = multinn.tree_map(lambda t: t.detach().clone(), params)
+        # the optimizer's tensors: the decoder's; a DBN encoder is frozen
+        self._leaves = [t.requires_grad_(True)
+                        for t in multinn.tree_leaves(self.params.decoder)]
+        # every parameter tensor, encoder first (checkpoints, graph state)
+        self._all_leaves = multinn.tree_leaves(self.params)
         self.optimizer = make_optimizer(
             cfg.train, steps_per_epoch=self.dataset.n_batches("train"))
         self.opt_state = self.optimizer.init(self._leaves)
@@ -316,6 +321,8 @@ class Trainer:
         self._bad_epochs = 0
         self._epoch_final_step = -1
         self.history: list = []          # (step, metrics) of logged steps
+        # pretrain_encoders' decode calibration (marginals and their ratio)
+        self.calibration: Optional[Dict[str, float]] = None
         self.metrics_log = MetricsLogger(cfg.train.run_dir)
         self.ckpt = Checkpointer(os.path.join(cfg.train.run_dir, "ckpt"),
                                  keep_last=cfg.train.keep_last,
@@ -327,8 +334,9 @@ class Trainer:
     # -- state -------------------------------------------------------------
 
     def _state_tensors(self) -> List[torch.Tensor]:
-        """Every tensor a step updates in place, in a fixed order."""
-        out = list(self._leaves)
+        """Every parameter and optimizer tensor, in a fixed order (a step
+        updates all but the encoder's in place)."""
+        out = list(self._all_leaves)
         for v in self.opt_state.values():
             out += v if isinstance(v, list) else [v]
         return out
@@ -514,7 +522,7 @@ class Trainer:
 
     def _state_dict(self) -> Dict[str, Any]:
         cpu = lambda t: t.detach().cpu()
-        return {"params": [cpu(p) for p in self._leaves],
+        return {"params": [cpu(p) for p in self._all_leaves],
                 "opt_state": {k: ([cpu(t) for t in v] if isinstance(v, list)
                                   else cpu(v))
                               for k, v in self.opt_state.items()},
@@ -563,8 +571,108 @@ class Trainer:
     # -- loops -------------------------------------------------------------
 
     def pretrain_encoders(self) -> None:
-        """Greedy DBN pre-training: a no-op for pass-through encoders (DBN
-        encoders are refused at construction)."""
+        """Greedy layer-wise CD pre-training of a DBN encoder (a no-op for
+        pass-through encoders), as the JAX trainer's: the visible biases
+        set to the marginals of the first 2048 train windows, then per
+        layer a fresh Adam at ``pretrain_lr`` over
+        ``pretrain_encoder_epochs`` epochs of augmented train batches, one
+        ``rng, key = split(rng)`` per batch (per-track encoders: track i on
+        ``split(key, K)[i]``, the loss their mean). Logs the decode
+        calibration and warns outside 0.5-2x. The trained values are copied
+        into the encoder's tensors and the optimizer state is zeroed in
+        place (a captured group holds their addresses)."""
+        cfg = self.cfg
+        n_layers = len(cfg.model.encoder_hidden)
+        if n_layers == 0:
+            return
+        if cfg.train.pretrain_encoder_epochs == 0:
+            self.log.warning(
+                "DBN encoder (%s) with pretrain_encoder_epochs=0: the "
+                "encoder is FROZEN during joint training, so it keeps "
+                "whatever weights it was constructed/restored with — "
+                "random init unless pre-trained externally; set "
+                "train.pretrain_encoder_epochs>0 unless that is deliberate",
+                cfg.model.encoder_hidden)
+            return
+        from types import SimpleNamespace
+
+        from multinn_torch.models import encoders as enc_mod
+        k_tracks = cfg.model.n_tracks
+        shared = cfg.model.shared_encoder
+        per_track = lambda fn, enc, *xs: [
+            fn(multinn.index_tree(enc, i), *(x[i] for x in xs))
+            for i in range(k_tracks)]
+        adam = SimpleNamespace(optimizer="adam", grad_clip=0.0,
+                               weight_decay=0.0, lr=cfg.train.pretrain_lr,
+                               lr_schedule="constant", warmup_steps=0)
+
+        def tracks_first(batch):                 # (B, T, K, D) -> (K, ...)
+            return self._to_device(batch).movedim(2, 0)
+
+        # start the decode conditional calibrated to the data marginal
+        x_cal = tracks_first(self.dataset.windows["train"][:2048])
+        enc = multinn.tree_map(lambda t: t.detach().clone(),
+                               self.params.encoder)
+        if shared:
+            enc = enc_mod.init_visible_biases(enc, x_cal)
+        else:
+            enc = multinn.stack_trees(per_track(enc_mod.init_visible_biases,
+                                                enc, x_cal))
+        for layer in range(n_layers):
+            leaves = [t.requires_grad_(True) for t in
+                      multinn.tree_leaves(enc[layer])]
+            opt = Optimizer(adam)
+            opt_state = opt.init(leaves)
+            for ep in range(cfg.train.pretrain_encoder_epochs):
+                losses = []
+                for batch in self.dataset.batches("train", epoch=ep,
+                                                  augment=True):
+                    self.rng, key = sampling.split(self.rng)
+                    x = tracks_first(batch)
+                    if shared:
+                        loss = enc_mod.pretrain_loss(enc, key, x, layer)
+                    else:
+                        loss = torch.stack(per_track(
+                            lambda e, kk, xx: enc_mod.pretrain_loss(
+                                e, kk, xx, layer),
+                            enc, sampling.split(key, k_tracks), x)).mean()
+                    grads = torch.autograd.grad(loss, leaves)
+                    opt.update(leaves, grads, opt_state)
+                    losses.append(loss.detach())
+                self.log.info("pretrain layer %d epoch %d cd-loss %.4f",
+                              layer, ep,
+                              float(torch.stack(losses).mean()) if losses
+                              else float("nan"))
+            for t in leaves:
+                t.requires_grad_(False)
+        with torch.no_grad():
+            if shared:
+                cal = enc_mod.decode_calibration(enc, x_cal)
+            else:
+                rows = per_track(enc_mod.decode_calibration, enc, x_cal)
+                cal = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        cal = {k: float(v.mean()) for k, v in cal.items()}
+        ratio = cal["decode_mean"] / max(cal["data_mean"], 1e-9)
+        self.log.info(
+            "pretrained decode calibration: data marginal %.4f, decode "
+            "marginal %.4f (%.2fx), P(on|on-bit) %.3f, P(on|off-bit) %.4f",
+            cal["data_mean"], cal["decode_mean"], ratio,
+            cal["p_on_given_on"], cal["p_on_given_off"])
+        if not 0.5 <= ratio <= 2.0:
+            self.log.warning(
+                "DBN decode conditional is MISCALIBRATED (decode marginal "
+                "%.4f vs data %.4f): generated pianorolls will be ~%.1fx "
+                "too %s; increase train.pretrain_encoder_epochs or "
+                "train.pretrain_lr", cal["decode_mean"], cal["data_mean"],
+                ratio if ratio > 1 else 1 / max(ratio, 1e-9),
+                "dense" if ratio > 1 else "sparse")
+        self.calibration = dict(cal, ratio=ratio)
+        with torch.no_grad():
+            for dst, src in zip(multinn.tree_leaves(self.params.encoder),
+                                multinn.tree_leaves(enc)):
+                dst.copy_(src)
+            for t in self._state_tensors()[len(self._all_leaves):]:
+                t.zero_()
 
     def profile_steps(self, n_steps: int) -> str:
         """A torch.profiler trace of ``n_steps`` warm train steps on the

@@ -5,7 +5,9 @@ Duck-typed on the JAX pytree (attributes, ``np.asarray`` on each leaf), so
 this module imports no jax. The layout is kept as is: the track-stacked
 leading axis K; LSTM ``wx`` (in, 4U), ``wh`` (U, 4U), ``b`` (4U) in gate
 order i, f, g, o; RBM ``w`` (F, H) and NADE ``w``, ``v`` (F, H);
-``wuv`` (U, F); ``wuh`` (U, H).
+``wuv`` (U, F); ``wuh`` (U, H); a DBN encoder is a tuple of RBM params
+``w`` (D_in, D_out), ``bv``, ``bh``, shared (feedback and hybrid modes) or
+with a leading K axis (per-track mode).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from multinn_torch.models import multinn
 from multinn_torch.models.base import get_decoder
+from multinn_torch.nn import rbm as rbm_nn
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.utils.device import entry_device
 
@@ -35,12 +38,10 @@ def _cell(p, device):
 
 def from_jax(params, device=None) -> multinn.MultINNParams:
     """A JAX ``MultINNParams`` (RNN-RBM or RNN-NADE decoder, pass-through
-    encoder) -> the port's MultINNParams on ``device``: the CUDA card when
-    None, which raises without one."""
+    or DBN encoder) -> the port's MultINNParams on ``device``: the CUDA
+    card when None, which raises without one."""
     device = entry_device(device)
     cfg = multinn.MultINNConfig(**dataclasses.asdict(params.cfg))
-    if cfg.encoder_hidden:
-        raise NotImplementedError("from_jax covers pass-through encoders")
     mod = get_decoder(cfg.decoder_type)
     d = params.decoder
     decoder = mod.Params(
@@ -49,7 +50,11 @@ def from_jax(params, device=None) -> multinn.MultINNParams:
         **{f.name: _tensor(getattr(d, f.name), device)
            for f in dataclasses.fields(mod.Params)
            if f.name not in ("cell", "cfg")})
-    return multinn.MultINNParams(encoder=(), decoder=decoder, cfg=cfg)
+    encoder = tuple(rbm_nn.RBMParams(w=_tensor(e.w, device),
+                                     bv=_tensor(e.bv, device),
+                                     bh=_tensor(e.bh, device))
+                    for e in params.encoder)
+    return multinn.MultINNParams(encoder=encoder, decoder=decoder, cfg=cfg)
 
 
 def to_numpy(params: multinn.MultINNParams) -> SimpleNamespace:
@@ -66,4 +71,6 @@ def to_numpy(params: multinn.MultINNParams) -> SimpleNamespace:
     decoder = SimpleNamespace(cell=cell, **{
         f.name: arr(getattr(d, f.name)) for f in dataclasses.fields(d)
         if f.name not in ("cell", "cfg")})
-    return SimpleNamespace(cfg=params.cfg, encoder=(), decoder=decoder)
+    encoder = tuple(SimpleNamespace(w=arr(e.w), bv=arr(e.bv), bh=arr(e.bh))
+                    for e in params.encoder)
+    return SimpleNamespace(cfg=params.cfg, encoder=encoder, decoder=decoder)

@@ -26,6 +26,9 @@ pytestmark = pytest.mark.cuda
 FLAGSHIP = dict(n_tracks=5, n_pitches=84, mode="feedback", n_hidden=150,
                 n_rnn=100, gen_k=10)
 NADE = dict(FLAGSHIP, decoder_type="rnn-nade")
+# the two shipped DBN configs' models (configs/lpd5_*.json)
+DBN_NADE = dict(NADE, encoder_hidden=(64,))
+DBN_RBM = dict(FLAGSHIP, mode="per-track", encoder_hidden=(64,), gen_k=25)
 
 
 @pytest.fixture
@@ -717,7 +720,7 @@ def _params_close(a, b):
     return worst
 
 
-@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE, DBN_NADE, DBN_RBM])
 def test_graph_groups_equal_eager_groups(dev, model, tmp_path):
     """Two groups of 4 steps by replay and eagerly from the same state and
     keys: the params agree, and each replay adds 4 steps' launches."""
@@ -742,9 +745,14 @@ def test_graph_groups_equal_eager_groups(dev, model, tmp_path):
     per_replay = graph.group_graph.launches[kernel]
     assert per_replay == 4 * _build.launches[kernel] > 0
     assert int(graph.opt_state["count"]) == 8
+    # a DBN encoder is frozen: bit-identical through replayed groups
+    for a, b in zip(multinn.tree_leaves(graph.params.encoder),
+                    multinn.tree_leaves(_params(
+                        multinn.MultINNConfig(**model), dev).encoder)):
+        assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE, DBN_NADE])
 def test_restore_under_a_live_graph(dev, model, tmp_path):
     """A checkpoint restored while a graph holds the state's addresses:
     the addresses stay, and the next replay equals the eager run."""
@@ -761,3 +769,56 @@ def test_restore_under_a_live_graph(dev, model, tmp_path):
     eager.run_group(x2, k2)
     _params_close(graph, eager)
     assert int(graph.opt_state["count"]) == 8
+
+
+@pytest.mark.parametrize("model", [DBN_NADE, DBN_RBM])
+def test_dbn_fused_kernels_match_plain(dev, model):
+    """The whole-generation kernels at the DBN configs' latent width (64;
+    the feedback context 320 wide): at least 7 of 8 samples identical to
+    the plain version at T=16, the decoded rolls binary pianorolls."""
+    params = _params(multinn.MultINNConfig(**model), dev)
+    seed = (torch.rand(8, 16, 5, 84, generator=torch.Generator()
+                       .manual_seed(2)) < 0.1).float().to(dev)
+    state = multinn.prime(params, multinn.init_state(params, 8), seed)
+    key = sampling.PRNGKey(6, device=dev)
+    _, rk = multinn._generate_fused(params, key, state, 16, impl="cuda")
+    _, rp = multinn._generate_fused(params, key, state, 16, impl="plain")
+    assert rk.shape == (8, 16, 5, 84)
+    assert torch.isin(rk, torch.tensor([0.0, 1.0], device=dev)).all()
+    assert int((rk == rp).flatten(1).all(dim=1).sum()) >= 7
+
+
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE, DBN_NADE])
+def test_accompaniment_on_the_card(dev, model):
+    """generate_accompaniment through the kernels' given-track merge: the
+    given track passes through bit for bit, and at least 7 of 8 samples
+    equal the plain version's."""
+    params = _params(multinn.MultINNConfig(**dict(model, w_std=0.1)), dev)
+    given = (torch.rand(8, 16, 5, 84, generator=torch.Generator()
+                        .manual_seed(3)) < 0.1).float().to(dev)
+    state = multinn.init_state(params, 8)
+    key = sampling.PRNGKey(7, device=dev)
+    _build.launches.clear()
+    _, rk = multinn.generate_accompaniment(params, key, state, given, (0,))
+    family = ("gen_fused_nade" if model.get("decoder_type") == "rnn-nade"
+              else "gen_fused_rbm")
+    assert _build.launches[family] == 1
+    _, rp = multinn._generate_accomp_fused(params, key, state, given, (0,),
+                                           impl="plain")
+    assert torch.equal(rk[:, :, 0], given[:, :, 0])
+    assert int((rk == rp).flatten(1).all(dim=1).sum()) >= 7
+
+
+@pytest.mark.parametrize("n", [5120, 1024])
+def test_pretraining_chain_matches_plain(dev, n):
+    """CD-1 at the DBN pre-training shapes, D=84, H=64: the shared
+    encoder's K*B*T rows and one track's B*T."""
+    g = torch.Generator().manual_seed(n)
+    v0 = (torch.rand(n, 84, generator=g) < 0.06).float().to(dev)
+    w = (0.01 * torch.randn(84, 64, generator=g)).to(dev)
+    bv = torch.full((84,), -4.0).to(dev)
+    bh = torch.zeros(64).to(dev)
+    key = sampling.PRNGKey(n, device=dev)
+    out_k = gibbs.gibbs_chain(key, v0, w, bv, bh, 1)
+    out_p = gibbs.gibbs_chain(key, v0, w, bv, bh, 1, impl="plain")
+    assert float((out_k != out_p).any(dim=1).float().mean()) <= 0.01

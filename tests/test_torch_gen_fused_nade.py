@@ -198,7 +198,8 @@ def test_gate_is_a_hopper_resource_check():
     assert not gen_fused.supported_nade(flagship, 0, 1024)
     assert not gen_fused.supported_nade(
         dataclasses.replace(flagship, decoder_type="rnn-rbm"), 8)
-    assert not gen_fused.supported_nade(
+    # DBN encoders: the kernel runs at the latent width
+    assert gen_fused.supported_nade(
         dataclasses.replace(flagship, encoder_hidden=(64,)), 8)
     # the random stream has 8 rows per dim
     assert gen_fused.supported_nade(
@@ -245,14 +246,16 @@ def test_one_track_per_cta_and_the_sample_count(n_tracks, n_hidden, n_rnn):
 
 
 ADMITTED = {"jsb_rnnrbm.json": False, "lakh_16th_128bar.json": False,
-            "lpd5_feedback_rnnnade.json": False,
+            "lpd5_feedback_rnnnade.json": True,      # a DBN encoder
             "lpd5_multinn_rnnrbm.json": False,
             "nottingham_rnnnade.json": True, "synthetic_smoke.json": False}
 
 
 @pytest.mark.parametrize("name", sorted(ADMITTED))
 def test_configs_admitted_before_are_still_admitted(name):
-    """What the gate admitted with one CTA per sample it still admits."""
+    """What the gate admitted with one CTA per sample it still admits, and
+    the DBN config of this family, whose kernel runs at the latent
+    width."""
     cfg = config.load_json(str(CONFIGS / name))
     for batch in (1, 8, 256, 4096):
         assert (gen_fused.supported_nade(cfg.model, batch, 1024)

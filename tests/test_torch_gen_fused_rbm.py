@@ -123,7 +123,8 @@ def test_gate_is_a_shared_memory_check():
     assert not gen_fused.supported(flagship, 0, 1024)
     assert not gen_fused.supported(
         dataclasses.replace(flagship, decoder_type="rnn-nade"), 8)
-    assert not gen_fused.supported(
+    # DBN encoders: the kernel runs at the latent width
+    assert gen_fused.supported(
         dataclasses.replace(flagship, encoder_hidden=(64,)), 8)
     assert not gen_fused.supported(
         dataclasses.replace(flagship, mode="joint"), 8)
@@ -172,13 +173,15 @@ def test_weights_beyond_shared_memory_are_admitted():
 
 ADMITTED = {"jsb_rnnrbm.json": True, "lakh_16th_128bar.json": True,
             "lpd5_feedback_rnnnade.json": False,
-            "lpd5_multinn_rnnrbm.json": False,
+            "lpd5_multinn_rnnrbm.json": True,       # DBN encoders
             "nottingham_rnnnade.json": False, "synthetic_smoke.json": True}
 
 
 @pytest.mark.parametrize("name", sorted(ADMITTED))
 def test_configs_admitted_before_are_still_admitted(name):
-    """What the gate admitted with one CTA per sample it still admits."""
+    """What the gate admitted with one CTA per sample it still admits, and
+    the DBN config of this family, whose kernel runs at the latent
+    width."""
     cfg = config.load_json(str(CONFIGS / name))
     for batch in (1, 8, 256, 4096):
         assert gen_fused.supported(cfg.model, batch, 1024) == ADMITTED[name]

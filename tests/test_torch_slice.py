@@ -259,9 +259,13 @@ def test_service_under_concurrent_submitters():
 def test_service_refuses_what_is_not_ported():
     tp = from_jax(_jax_params(), device="cpu")
     cfg = _experiment()
-    with pytest.raises(ValueError, match="accompan"):
-        service.GenerationService(cfg, tp, service.ServeConfig(
-            batch=2, n_steps=T, accompany_tracks=(0,)))
+    # accompaniment is ported: a service takes accompany_tracks
+    acc = service.GenerationService(cfg, tp, service.ServeConfig(
+        batch=2, n_steps=T, accompany_tracks=(0,)))
+    try:
+        assert acc.stats()["accompany_tracks"] == [0]
+    finally:
+        acc.close()
     with pytest.raises(ValueError, match="sparse"):
         service.GenerationService(cfg, tp, service.ServeConfig(
             batch=2, n_steps=T, transport="sparse"))

@@ -257,9 +257,10 @@ def test_evaluate_matches_the_jax_eval_math(decoder, interpret_chain):
 
 
 def test_unported_features_raise(tmp_path):
-    """Hessian-free training, meshes, DBN encoders and image summaries are
-    refused at construction; checkpoints, train(), resume and fault
-    injection are ported, and pre-training is the reference's no-op for a
+    """Hessian-free training, meshes and image summaries are refused at
+    construction; DBN encoders, checkpoints, train(), resume and fault
+    injection are ported (a DBN encoder is frozen: its tensors are not the
+    optimizer's), and pre-training is the reference's no-op for a
     pass-through encoder."""
     ds = types.SimpleNamespace(n_batches=lambda split: 1,
                                batches=lambda *a, **k: iter(()))
@@ -273,10 +274,14 @@ def test_unported_features_raise(tmp_path):
                                       train=config.TrainConfig(**train))
         with pytest.raises(NotImplementedError):
             trainer.Trainer(cfg, ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="DBN"):
-        trainer.Trainer(config.ExperimentConfig(
-            model=multinn.MultINNConfig(**dict(MODEL, encoder_hidden=(8,))),
-            train=base.train), ds, device="cpu")
+    dbn = trainer.Trainer(config.ExperimentConfig(
+        model=multinn.MultINNConfig(**dict(MODEL, encoder_hidden=(8,))),
+        train=base.train), ds, device="cpu")
+    enc = multinn.tree_leaves(dbn.params.encoder)
+    assert len(enc) == 3 and not any(t.requires_grad for t in enc)
+    assert not {id(t) for t in enc} & {id(t) for t in dbn._leaves}
+    assert len(dbn._all_leaves) == len(enc) + len(dbn._leaves)
+    dbn.close()
     with pytest.raises(NotImplementedError):
         trainer.Trainer(config.ExperimentConfig(
             model=base.model, mesh=config.MeshConfig(use_mesh=True)), ds,
