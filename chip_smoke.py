@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs fifteen
+Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs sixteen
 phases, one line each; any failure exits non-zero before the result line.
 Phases 4-6 drive the RNN-RBM serving path, 7-9 the RNN-NADE serving path,
 10-12 training (the NADE likelihood kernels, then the Trainer on each
 family), 13 the train entry point with its steps captured as CUDA graphs,
-14 the two DBN configs, 15 accompaniment.
+14 the two DBN configs, 15 accompaniment, 16 the generate, evaluate and
+serve entry points, image summaries and the sparse transport.
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -103,10 +104,36 @@ family), 13 the train entry point with its steps captured as CUDA graphs,
      ``accompany_tracks=(0,)`` answering 16 accompaniment and 8 plain
      requests at batch 8, the given track passed through bit for bit,
      songs/s and p50 / p95; each config's launch window.
+ 16. the entry points, each in a launch window of its own: a NADE run of
+     20 steps at the flagship widths (``configs/synthetic_smoke.json``)
+     with ``train.image_summaries``: its TensorBoard file holds
+     valid/reference, equal to ``render_pianoroll`` of the first
+     validation window, and valid/sample, a render in the track palette,
+     and the summary launched the sampler at least once a step;
+     ``multinn_torch.generate.main`` on phase 13's RBM run and on the NADE
+     run (8 songs of 1024 steps): 8 MIDI files, 8 PNGs and an npz of
+     (8, 1024, 5, 84) bit-equal to ``Generator.generate`` then
+     ``finalize`` under ``PRNGKey(seed + 7)`` in this process, the fused
+     kernel launched, and the seconds of restore, generate and file
+     output; ``--accompany`` of a MIDI file the CLI wrote, its drum track
+     passed through bit for bit; ``multinn_torch.evaluate.main`` on both
+     runs (valid split, 32 songs): the reference's report keys, ``frame``
+     within 1e-6 (relative) of ``Trainer.evaluate``, the chain (RBM) or
+     the likelihood forward (NADE) and the fused kernel launched;
+     ``multinn_torch.serve.serve`` on the RBM run (batch 8): /healthz, 64
+     songs over HTTP as 8 concurrent requests of n=8 ``roll_packed``,
+     one midi, one ``seed_b64`` and one ``given_b64`` request (the given
+     track back bit for bit), /stats, a clean shutdown; HTTP songs/s
+     (64 over first request to last response) and p50 / p95 beside phase
+     6's; then the drain (dispatch to host roll, and the fetch after the
+     event) of the packed and the sparse transport at B=8 and B=128,
+     T=1024, on phase 5's params and on those params with the visible
+     bias lowered by 4.5 (about 1 % of cells on, the density the sparse
+     records are for), bit-equal rolls, and what ``auto`` resolves to.
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window plus the windows of phases 14 and 15), error, times and
-bound. ``ms`` is the device time per
+its path's window plus the windows of phases 14, 15 and 16), error, times
+and bound. ``ms`` is the device time per
 call of the kernel's wrapper (its launches and any small PyTorch kernel it
 runs, such as the key's two words, the backward's second pass included):
 calls captured in one CUDA graph and its replay timed by CUDA events, since
@@ -568,6 +595,8 @@ def main() -> None:
         f"launches {launches}")
 
     rbm_launches = launches
+    serve6 = dict(p50=lat["p50"], p95=lat["p95"],
+                  songs=stats.get("songs_per_s", 0.0))
 
     # 7. NADE sampler -------------------------------------------------------------
     def nade_inputs(n, d=84, h=150, bias=-1.0, gen=g):
@@ -1398,6 +1427,344 @@ def main() -> None:
             f"{window}; {time.perf_counter() - t_acc:.1f} s; {smi}")
     say(f"phase 15 {time.perf_counter() - t15:.1f} s")
 
+    # 16. the entry points on the card ----------------------------------------
+    t16 = time.perf_counter()
+    import base64
+    import contextlib
+    import http.client
+    import io
+    import threading
+
+    from multinn_torch import evaluate as evaluate_cli
+    from multinn_torch import generate as generate_cli
+    from multinn_torch import serve as serve_cli
+    from multinn_torch.data import midi as midi_mod
+    from multinn_torch.data import pianoroll as pr
+    from multinn_torch.data.datasets import parse_midi_file
+    from multinn_torch.serving.service import _resolve_transport
+    from multinn_torch.training.generator import Generator
+    from multinn_torch.utils import images, tb
+    from multinn_torch.utils.config import load_run_config
+
+    windows16 = []               # each entry point's launch window
+
+    def windowed(fn):
+        """``fn()`` in a launch window of its own: (result, launches,
+        seconds of wall time)."""
+        torch.cuda.synchronize()
+        _build.launches.clear()              # the window starts here
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        w = dict(_build.launches)            # ... and ends here
+        windows16.append(w)
+        return out, w, secs
+
+    def quiet(fn):
+        """``fn()`` with its standard output kept: (result, the output)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        return out, buf.getvalue()
+
+    # the NADE run: the same config at the NADE flagship's widths, 20 steps
+    # in one epoch, with image summaries
+    nade_dir = f"{tmp}/nade_run"
+    rc, w_img, img_s = windowed(lambda: train_cli.main([
+        "--config", "configs/synthetic_smoke.json", "--device", "cuda",
+        "--model.decoder_type=rnn-nade", "--model.n_hidden=150",
+        "--model.n_rnn=100", "--data.window=64", "--data.batch_size=16",
+        "--data.synthetic_songs=200", "--train.steps_per_call=10",
+        "--train.epochs=1", "--train.image_summaries=true",
+        f"--train.run_dir={nade_dir}"]))
+    if rc != 0:
+        fail(f"phase 16: the image-summary run exited {rc}")
+    (ev_path,) = [os.path.join(nade_dir, "tb", n)
+                  for n in os.listdir(os.path.join(nade_dir, "tb"))]
+    imgs = {tag: im for e in tb.read_events(ev_path)
+            for tag, im in e["images"].items()}
+    nade_cfg = load_run_config(nade_dir, None, [])
+    from multinn_torch.data.datasets import Dataset
+    ref_roll = Dataset(nade_cfg.data).windows["valid"][0]
+    if set(imgs) != {"valid/reference", "valid/sample"}:
+        fail(f"phase 16: the run's image summaries are {sorted(imgs)}")
+    if not np.array_equal(images.decode_png(imgs["valid/reference"]["png"]),
+                          images.render_pianoroll(ref_roll)):
+        fail("phase 16: valid/reference is not the first validation window")
+    sample_img = images.decode_png(imgs["valid/sample"]["png"])
+    # every colour a sum of track colours: the image render_pianoroll makes
+    palette = {tuple(np.clip(sum((images._TRACK_COLORS[i].astype(int)
+                                  for i in range(5) if m >> i & 1),
+                                 np.zeros(3, int)), 0, 255))
+               for m in range(32)}
+    colours = {tuple(c) for c in sample_img.reshape(-1, 3).tolist()}
+    if (sample_img.shape != (168, 128, 3) or not colours <= palette
+            or images.encode_png(sample_img) != imgs["valid/sample"]["png"]
+            or len(colours) < 2):
+        fail(f"phase 16: valid/sample {sample_img.shape} with colours "
+             f"{sorted(colours - palette)[:4]} outside the palette")
+    if w_img.get("nade_sample", 0) < 64:
+        fail(f"phase 16: the summary's 64 steps launched the sampler "
+             f"{w_img.get('nade_sample', 0)} times")
+    say(f"phase 16 image summaries: NADE flagship run of 20 steps "
+        f"({img_s:.1f} s), valid/reference equal to render_pianoroll of the "
+        f"first validation window, valid/sample {sample_img.shape} in the "
+        f"palette ({len(colours)} colours); launches {w_img}")
+
+    runs16 = {"rbm": main_dir, "nade": nade_dir}
+    gen_args = ["--generate.n_steps=1024", "--generate.n_samples=8"]
+    cli_times = {}
+    for fam, run in runs16.items():
+        fused = "gen_fused_rbm" if fam == "rbm" else "gen_fused_nade"
+        (rc, out), w_gen, gen_s = windowed(lambda: quiet(
+            lambda: generate_cli.main(["--run", run] + gen_args)))
+        if rc != 0 or not w_gen.get(fused):
+            fail(f"phase 16 {fam}: generate exited {rc}, launches {w_gen}")
+        sdir = os.path.join(run, "samples")
+        names = os.listdir(sdir)
+        n_mid = sum(n.endswith(".mid") for n in names)
+        n_png = sum(n.endswith(".png") for n in names)
+        with np.load(os.path.join(sdir, "pianorolls.npz")) as z:
+            cli_rolls = z["rolls"]
+        if (n_mid, n_png, cli_rolls.shape) != (8, 8, (8, 1024, 5, 84)):
+            fail(f"phase 16 {fam}: {n_mid} MIDI, {n_png} PNG, rolls "
+                 f"{cli_rolls.shape}")
+        # the same generation in this process, phase by phase
+        t0 = time.perf_counter()
+        cfg16 = load_run_config(run, None, gen_args)
+        tr16 = Trainer(cfg16, device="cuda")
+        tr16.restore(tr16.ckpt.best_step())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gen16 = Generator(cfg16, tr16.params)
+        seed16 = tr16.dataset.seed_windows("valid", n=8)[:, :16]
+        rolls16 = gen16.finalize(gen16.generate(
+            sampling.PRNGKey(cfg16.train.seed + 7, device=dev), 1024,
+            seed=seed16))
+        t2 = time.perf_counter()
+        gen16.write_files(rolls16, f"{tmp}/files_{fam}")
+        np.savez_compressed(f"{tmp}/files_{fam}/pianorolls.npz",
+                            rolls=rolls16)
+        t3 = time.perf_counter()
+        tr16.close()
+        if not np.array_equal(cli_rolls, rolls16):
+            fail(f"phase 16 {fam}: the CLI's rolls differ from Generator."
+                 f"generate with its key")
+        cli_times[fam] = dict(cli=gen_s, restore=t1 - t0, generate=t2 - t1,
+                              files=t3 - t2)
+        say(f"phase 16 generate {fam}: main() {gen_s:.2f} s for 8 songs of "
+            f"1024 steps ({n_mid} MIDI, {n_png} PNG, npz {cli_rolls.shape}, "
+            f"density {cli_rolls.mean():.4f}), bit-equal to Generator.generate"
+            f" with PRNGKey(seed + 7); in-process restore {t1 - t0:.2f} s, "
+            f"generate {t2 - t1:.3f} s, write files {t3 - t2:.2f} s; "
+            f"launches {w_gen}; {smi}")
+
+    # accompaniment from a MIDI file the port wrote: its drum track given
+    given_mid = os.path.join(main_dir, "samples", "sample_000.mid")
+    (rc, _), w_acc, acc_s = windowed(lambda: quiet(lambda: generate_cli.main(
+        ["--run", main_dir, "--accompany", given_mid,
+         "--accompany-tracks", "0", "--generate.out_dir=accomp"]
+        + gen_args)))
+    with np.load(os.path.join(main_dir, "accomp", "pianorolls.npz")) as z:
+        acc_rolls = z["rolls"]
+    given16 = parse_midi_file(given_mid, load_run_config(
+        main_dir, None, []).data.spec(), use_native=False)[:1024]
+    if (rc != 0 or acc_rolls.shape != (1,) + given16.shape
+            or not np.array_equal(acc_rolls[0, :, 0], given16[:, 0])):
+        fail(f"phase 16: accompaniment exited {rc}, rolls "
+             f"{acc_rolls.shape}, or the given track did not pass through")
+    say(f"phase 16 generate --accompany sample_000.mid --accompany-tracks 0: "
+        f"{acc_s:.2f} s, rolls {acc_rolls.shape}, the given track bit for "
+        f"bit; launches {w_acc}")
+
+    for fam, run in runs16.items():
+        fused = "gen_fused_rbm" if fam == "rbm" else "gen_fused_nade"
+        kernel = "gibbs_chain" if fam == "rbm" else "nade_ll_fwd"
+        (rc, _), w_ev, ev_s = windowed(lambda: quiet(
+            lambda: evaluate_cli.main(["--run", run, "--latest", "--split",
+                                       "valid", "--n-gen", "32"])))
+        with open(os.path.join(run, "eval_valid.json")) as f:
+            report = json.load(f)
+        keys = {"run", "step", "split", "encoding", "frame",
+                "musical_generated", "musical_corpus",
+                "musical_significance"}
+        if rc != 0 or set(report) != keys:
+            fail(f"phase 16 {fam}: evaluate exited {rc}, report keys "
+                 f"{sorted(report)}")
+        if not (w_ev.get(kernel) and w_ev.get(fused)):
+            fail(f"phase 16 {fam}: evaluate launched {w_ev}")
+        tr16 = Trainer(load_run_config(run, None, []), device="cuda")
+        tr16.restore()
+        frame = tr16.evaluate("valid")
+        tr16.close()
+        diff = max(abs(report["frame"][k] - v) / max(1.0, abs(v))
+                   for k, v in frame.items())
+        if set(frame) != set(report["frame"]) or not diff <= 1e-6:
+            fail(f"phase 16 {fam}: frame differs from Trainer.evaluate by "
+                 f"{diff}")
+        cli_times[fam]["evaluate"] = ev_s
+        sig = report["musical_significance"]
+        n_ev = load_run_config(run, None, []).generate.n_steps
+        say(f"phase 16 evaluate {fam}: main() {ev_s:.2f} s (valid split, 32 "
+            f"songs of the config's {n_ev} steps), frame vs Trainer.evaluate max rel diff "
+            f"{diff:.2e}, ll_per_frame {report['frame']['ll_per_frame']:.4f},"
+            f" note density generated "
+            f"{sig['note_density']['generated_mean']} corpus "
+            f"{sig['note_density']['corpus_mean']}; launches {w_ev}")
+
+    # serve the RBM run over HTTP, batch 8, at phase 6's gen_k
+    args16, ovr16 = serve_cli.parse_args([
+        "--run", main_dir, "--port", "0", "--batch", "8", "--n-steps",
+        "1024", "--seed-steps", "64", "--accompany-tracks", "0",
+        "--generate.gibbs_k=10"])           # phase 6's 10 sweeps a step
+    ready, box = threading.Event(), []
+
+    def post(port, payload):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", json.dumps(payload))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        t1 = time.perf_counter()
+        conn.close()
+        return resp.status, body, t0, t1
+
+    def serve_all():
+        th = threading.Thread(target=serve_cli.serve,
+                              args=(args16, ovr16, ready, box), daemon=True)
+        th.start()
+        if not ready.wait(timeout=600):
+            fail("phase 16: the server did not start")
+        httpd, svc16 = box[0]
+        port = httpd.server_port
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        res = [None] * 8
+
+        def one(i):
+            res[i] = post(port, {"format": "roll_packed", "n": 8})
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        seed = np.zeros((64, 5, 84), np.uint8)
+        seed[::4, 1, 40] = 1
+        buf = io.BytesIO()
+        np.savez_compressed(buf, roll=seed)
+        given = acc_rolls[0, :1024]
+        extra = [post(port, {"format": "midi"}),
+                 post(port, {"format": "roll", "seed_b64": base64.b64encode(
+                     buf.getvalue()).decode()}),
+                 post(port, {"format": "roll", "given_b64": base64.b64encode(
+                     midi_mod.dumps(pr.roll_to_midi(
+                         given, svc16.cfg.data.spec()))).decode()})]
+        conn.request("GET", "/stats")
+        st = json.loads(conn.getresponse().read())
+        conn.close()
+        httpd.shutdown()
+        th.join(timeout=120)
+        alive = (th.is_alive() or svc16._dispatcher.is_alive()
+                 or svc16._drainer.is_alive())
+        return health, res, extra, st, alive, given
+
+    (health, res, extra, st16, alive, given), w_srv, srv_s = windowed(
+        serve_all)
+    bulk_ok = all(r[0] == 200 and r[1]["shape"] == [8, 1024, 5, 84]
+                  for r in res)
+    given_back = None
+    if extra[2][0] == 200:
+        with np.load(io.BytesIO(base64.b64decode(
+                extra[2][1]["roll_b64"]))) as z:
+            given_back = z["roll"]
+    if (not health.get("ok") or not bulk_ok
+            or [e[0] for e in extra] != [200, 200, 200]
+            or given_back is None
+            or not np.array_equal(given_back[:len(given), 0], given[:, 0])
+            or given_back[len(given):, 0].any()
+            or st16["errors"] or st16["requests"] != 67 or alive
+            or not w_srv.get("gen_fused_rbm")):
+        fail(f"phase 16 serve: health {health}, bulk {bulk_ok}, extra "
+             f"{[e[0] for e in extra]}, stats {st16}, threads alive {alive}")
+    first = min(r[2] for r in res)
+    last = max(r[3] for r in res)
+    http_rtt = np.asarray([r[3] - r[2] for r in res]) * 1e3
+    http_songs = 64 / (last - first)
+    slat = st16["latency_ms"]
+    say(f"phase 16 serve (RBM run, batch 8, HTTP): 64 songs in 8 requests "
+        f"of n=8 roll_packed in {last - first:.2f} s = {http_songs:.1f} "
+        f"songs/s, request p50 {np.percentile(http_rtt, 50):.1f} ms p95 "
+        f"{np.percentile(http_rtt, 95):.1f} ms, service p50 "
+        f"{slat['p50']:.1f} ms p95 {slat['p95']:.1f} ms, transport "
+        f"{st16['transport']} (phase 6 in process: {serve6['songs']:.1f} "
+        f"songs/s, p50 {serve6['p50']:.1f} ms p95 {serve6['p95']:.1f} ms); "
+        f"midi, seed_b64 and given_b64 answered 200 (the given track bit "
+        f"for bit); stats {st16['requests']} requests {st16['batches']} "
+        f"batches; shut down clean; {srv_s:.1f} s with warm-up; launches "
+        f"{w_srv}")
+
+    # the transports: dispatch to host roll, packed against sparse
+    def drain(gen, b, packed):
+        key = sampling.PRNGKey(16, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate_async(key, 1024, b, packed=packed)
+        out.event.synchronize()
+        t1 = time.perf_counter()
+        rolls = gen.fetch_rolls(out)
+        t2 = time.perf_counter()
+        return rolls, (t2 - t0) * 1e3, (t2 - t1) * 1e3
+
+    def transports():
+        rows = []
+        # about 1 % of cells on, the density the sparse records are for
+        quiet_bv = dataclasses.replace(p5, decoder=dataclasses.replace(
+            p5.decoder, bv=p5.decoder.bv - 4.5))
+        for name, prm in (("phase 5", p5), ("phase 5, bv - 4.5", quiet_bv)):
+            gen = Generator(cfg, prm)
+            for b in (8, 128):
+                got = {True: [], "sparse": []}
+                for packed in (True, "sparse", "sparse", True):
+                    rolls, total, fetch = drain(gen, b, packed)
+                    got[packed].append((rolls, total, fetch,
+                                        gen.last_sparse_count,
+                                        gen.last_sparse_overflowed))
+                want = got[True][0][0]
+                if not all(np.array_equal(r[0], want)
+                           for r in got[True] + got["sparse"]):
+                    fail(f"phase 16 transport {name} B={b}: sparse and "
+                         f"packed rolls differ")
+                rows.append(dict(
+                    name=name, b=b, density=float(want.mean()),
+                    packed=[r[1] for r in got[True]],
+                    sparse=[r[1] for r in got["sparse"]],
+                    packed_fetch=[r[2] for r in got[True]],
+                    sparse_fetch=[r[2] for r in got["sparse"]],
+                    count=got["sparse"][0][3],
+                    overflow=got["sparse"][0][4],
+                    auto=_resolve_transport("auto", cfg, b, 1024, dev),
+                    auto_ref=_resolve_transport("auto", cfg, b, 1024)))
+        return rows
+
+    rows16, _, _ = windowed(transports)
+    for r in rows16:
+        say(f"phase 16 transport {r['name']} B={r['b']} T=1024 (density "
+            f"{r['density']:.4f}, sparse records {r['count']}, overflow "
+            f"{r['overflow']}): dispatch to host roll packed "
+            f"{min(r['packed']):.1f} ms sparse {min(r['sparse']):.1f} ms "
+            f"(fetch after the event packed {min(r['packed_fetch']):.2f} ms "
+            f"sparse {min(r['sparse_fetch']):.2f} ms; runs packed "
+            f"{[round(x, 1) for x in r['packed']]} sparse "
+            f"{[round(x, 1) for x in r['sparse']]}); rolls bit-equal; auto "
+            f"resolves to {'sparse' if r['auto'] == 'sparse' else 'packed'}"
+            f" on the card (the reference's rule: "
+            f"{'sparse' if r['auto_ref'] == 'sparse' else 'packed'}); {smi}")
+    say(f"phase 16 launches, its windows summed: {windows_sum(*windows16)}")
+    say(f"phase 16 {time.perf_counter() - t16:.1f} s; CLI seconds "
+        f"{ {k: {n: round(x, 2) for n, x in v.items()} for k, v in cli_times.items()} }")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -1430,8 +1797,9 @@ def main() -> None:
     # each kernel's launches: its path's window above plus the windows of
     # the DBN paths (pre-training, serving) and of accompaniment
     new_windows = windows_sum(*dbn["nade"]["windows"], *dbn["rbm"]["windows"],
-                              *acc_windows)
-    say(f"launches in the DBN and accompaniment windows: {new_windows}")
+                              *acc_windows, *windows16)
+    say(f"launches in the DBN, accompaniment and entry-point windows: "
+        f"{new_windows}")
     shutil.rmtree(tmp, ignore_errors=True)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [

@@ -61,6 +61,12 @@ class RollSpec:
         return self.pitch_max - self.pitch_min + 1
 
 
+def grid_steps(mid: midi_mod.MidiFile, spec: RollSpec) -> int:
+    """The grid length ``midi_to_roll`` gives ``mid`` when uncapped."""
+    ticks_per_step = mid.ticks_per_quarter / spec.steps_per_quarter
+    return max(1, int(round(mid.end_tick() / ticks_per_step)))
+
+
 def midi_to_roll(mid: midi_mod.MidiFile, spec: RollSpec,
                  max_steps: Optional[int] = None) -> np.ndarray:
     """Quantize+binarize a MidiFile to (T, K, D) uint8.
@@ -77,8 +83,7 @@ def midi_to_roll(mid: midi_mod.MidiFile, spec: RollSpec,
     clamped onto the final step).
     """
     ticks_per_step = mid.ticks_per_quarter / spec.steps_per_quarter
-    end_tick = mid.end_tick()
-    n_steps = max(1, int(round(end_tick / ticks_per_step)))
+    n_steps = grid_steps(mid, spec)
     if max_steps is not None:
         n_steps = min(n_steps, max(1, int(max_steps)))
     roll = np.zeros((n_steps, spec.n_tracks, spec.n_pitches), np.uint8)

@@ -25,8 +25,12 @@ roll: those tracks are fixed and the others sampled
 such requests have their own queue and never share a batch with plain or
 seeded ones.
 
-The sparse transport is not ported yet (ROADMAP queue 1): ``transport=
-"auto"`` means packed.
+The device -> host transport (``transport``) is the bit-packed roll
+("packed") or its nonzero bytes as records ("sparse", ops/sparsebytes,
+with the packed roll as the overflow fallback); "auto" picks sparse for
+large packed batches off the card, packed on it (``_resolve_transport``).
+Two consecutive overflows demote a sparse service: the drain reads the
+packed roll from then on.
 """
 
 from __future__ import annotations
@@ -60,8 +64,9 @@ class ServeConfig:
     #                            these tracks of a given roll are fixed, the
     #                            rest sampled
     accompany_steps: int = 0   # accompaniment length (0 = n_steps)
-    transport: str = "auto"    # "auto" | "packed" (both bit-packed frames);
-    #                            "sparse" is not ported
+    transport: str = "auto"    # "packed" (bit-packed frames) | "sparse"
+    #                            (nonzero packed bytes, packed fallback) |
+    #                            "auto" (_resolve_transport)
 
 
 @dataclasses.dataclass
@@ -92,6 +97,30 @@ class _Request:
         return "seeded" if self.seed is not None else "plain"
 
 
+def _resolve_transport(choice: str, cfg, batch: int, n_steps: int,
+                       device=None):
+    """ServeConfig.transport -> the Generator ``packed`` flag (True or
+    "sparse"). "auto" is packed on a CUDA device: its host link moves the
+    packed roll faster than the host decodes records (on the H100 the
+    sparse drain lost at B=128 even at 1 % of cells on, ROADMAP). Elsewhere
+    it is the reference's rule: sparse iff the bit-packed batch is at
+    least twice the sparse path's least fetch, one whole record chunk
+    (FETCH_CHUNK * RECORD_BYTES = 1.31 MB); below that sparse always moves
+    more bytes. ``n_steps`` is the longest program the service runs."""
+    if choice not in ("auto", "packed", "sparse"):
+        raise ValueError(f"transport must be auto|packed|sparse, "
+                         f"got {choice!r}")
+    if choice == "auto":
+        if device is not None and torch.device(device).type == "cuda":
+            return True
+        from multinn_torch.ops import bitpack, sparsebytes
+        packed_bytes = (batch * n_steps * cfg.model.n_tracks
+                        * bitpack.packed_width(cfg.model.n_pitches))
+        min_sparse = sparsebytes.FETCH_CHUNK * sparsebytes.RECORD_BYTES
+        return "sparse" if packed_bytes >= 2 * min_sparse else True
+    return "sparse" if choice == "sparse" else True
+
+
 def auto_batch(cfg, n_steps: int) -> int:
     """Largest fused-kernel-gate-admitted serving batch for this config,
     from the decoder family's candidates (the JAX service's lists); 8 when
@@ -114,9 +143,6 @@ class GenerationService:
 
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
-        if self.serve_cfg.transport not in ("auto", "packed"):
-            raise ValueError(f"transport must be auto|packed (sparse is not "
-                             f"ported), got {self.serve_cfg.transport!r}")
         self.n_steps = self.serve_cfg.n_steps or cfg.generate.n_steps
         self.batch = self.serve_cfg.batch or auto_batch(cfg, self.n_steps)
         self.generator = Generator(cfg, params)
@@ -130,6 +156,10 @@ class GenerationService:
             int(i) for i in self.serve_cfg.accompany_tracks)
         self._accompany_steps = (self.serve_cfg.accompany_steps
                                  or self.n_steps)
+        steps_max = max(self.n_steps, self._accompany_steps
+                        if self._accompany_tracks else 0)
+        self._packed = _resolve_transport(self.serve_cfg.transport, cfg,
+                                          self.batch, steps_max, self.device)
 
         self._lock = threading.Condition()
         self._queues = {"plain": collections.deque(),
@@ -142,6 +172,8 @@ class GenerationService:
 
         self._stats_lock = threading.Lock()
         self._n_requests = 0
+        self._n_sparse_overflows = 0   # consecutive; 2 demote to packed
+        self._transport_demoted = False
         self._n_batches = 0
         self._n_seeded_batches = 0
         self._n_accompany_batches = 0
@@ -185,9 +217,11 @@ class GenerationService:
         with torch.cuda.stream(self._stream):
             if given_arr is not None:
                 return self.generator.accompany_async(
-                    key, given_arr, self._accompany_tracks)
+                    key, given_arr, self._accompany_tracks,
+                    packed=self._packed)
             return self.generator.generate_async(key, self.n_steps,
-                                                 self.batch, seed=seed_arr)
+                                                 self.batch, seed=seed_arr,
+                                                 packed=self._packed)
 
     # -- front end -----------------------------------------------------------
 
@@ -275,7 +309,9 @@ class GenerationService:
             out = {
                 "batch": self.batch,
                 "n_steps": self.n_steps,
-                "transport": "packed",
+                "transport": ("sparse" if self._packed == "sparse"
+                              else "packed"),
+                "transport_demoted": self._transport_demoted,
                 "pipeline_depth": self.serve_cfg.pipeline_depth,
                 "requests": self._n_requests,
                 "batches": self._n_batches,
@@ -319,6 +355,19 @@ class GenerationService:
             self._done_cv.notify_all()
         self._dispatcher.join(timeout)
         self._drainer.join(timeout)
+
+    def _note_sparse_overflow(self, overflowed: bool) -> None:
+        """Demote a sparse service after two consecutive overflows (each
+        already served through the packed fallback): the model is too
+        dense for the records, so the drain reads every later batch's
+        packed roll directly. The dispatch keeps computing the records, as
+        the reference's does."""
+        if not overflowed:
+            self._n_sparse_overflows = 0
+            return
+        self._n_sparse_overflows += 1
+        if self._n_sparse_overflows >= 2:
+            self._transport_demoted = True
 
     # -- dispatcher thread ----------------------------------------------------
 
@@ -396,8 +445,17 @@ class GenerationService:
                     self._done_cv.wait(0.1)
                 out, reqs, bi, t_dispatch = self._done_q.popleft()
             try:
+                was_sparse = out.sparse is not None
+                if was_sparse and self._transport_demoted:
+                    out, was_sparse = out._replace(sparse=None,
+                                                   count=None), False
+                hint = (self.generator.last_sparse_count if was_sparse
+                        else None)
                 rolls = self.generator.finalize(
-                    self.generator.fetch_rolls(out))
+                    self.generator.fetch_rolls(out, size_hint=hint))
+                if was_sparse:
+                    self._note_sparse_overflow(
+                        self.generator.last_sparse_overflowed)
             except Exception as e:
                 self._inflight.release()
                 with self._stats_lock:

@@ -1,14 +1,17 @@
 """Generation engine — port of multinn_tpu/training/generator.py (the
 generate / generate_async / accompany / accompany_async / fetch_rolls /
-finalize surface).
+finalize surface and the file output: to_midi / write_files /
+generate_to_files).
 
 One generation primes the model state on an optional seed roll, runs
 ``multinn.generate`` (or ``multinn.generate_accompaniment``, which fixes
 some tracks to a given roll and samples the rest; the whole-generation
 kernel whenever its gate admits the batch) and bit-packs the roll on the
-device; the host unpacks it. The packed transport is the only one for now
-(``ops/sparsebytes`` is not ported, ROADMAP queue 1), and mesh generation
-waits for a later slice.
+device; the host unpacks it. With ``packed="sparse"`` the device also
+compacts the packed roll's nonzero bytes into records (ops/sparsebytes):
+the host then reads the count and as many record chunks as it needs, and
+reads the packed roll instead when the records overflowed their buffer.
+Mesh generation waits for a later slice.
 
 ``generate_async`` and ``accompany_async`` enqueue everything on the
 caller's current CUDA stream without a host synchronisation (the key is
@@ -20,22 +23,26 @@ loop can dispatch the next batch while this one runs.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import os
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from multinn_torch.data import pianoroll
 from multinn_torch.models import multinn
-from multinn_torch.ops import bitpack
+from multinn_torch.ops import bitpack, sparsebytes
 
 
 class AsyncRolls(NamedTuple):
     """A dispatched generation: the bit-packed roll (B, T, K, ceil(D/8))
-    uint8 on the device, and the event recorded after its last kernel
-    (None on the CPU)."""
+    uint8 on the device, the event recorded after its last kernel (None on
+    the CPU) and, for the sparse transport, the (cap, 5) uint8 records and
+    their int32 count (ops/sparsebytes)."""
     packed: torch.Tensor
     event: Optional[torch.cuda.Event]
+    sparse: Optional[torch.Tensor] = None
+    count: Optional[torch.Tensor] = None
 
 
 class Generator:
@@ -52,6 +59,10 @@ class Generator:
         self._temperature = float(getattr(cfg.generate, "temperature", 1.0))
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # set by sparse fetches: the record count (the next fetch's
+        # size_hint) and whether the records overflowed their buffer
+        self.last_sparse_count: Optional[int] = None
+        self.last_sparse_overflowed = False
 
     def _to_device(self, seed: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(np.ascontiguousarray(seed, np.float32))
@@ -60,12 +71,15 @@ class Generator:
         return host.to(self.device)
 
     def generate_async(self, key: torch.Tensor, n_steps: int,
-                       batch: int = 1, seed: Optional[np.ndarray] = None
-                       ) -> AsyncRolls:
+                       batch: int = 1, seed: Optional[np.ndarray] = None,
+                       packed=True) -> AsyncRolls:
         """Dispatch one generation without blocking. ``key``: a Threefry key
         (ops/sampling.py); ``seed``: optional (batch, T_seed, K, D)
-        model-space priming roll. Returns AsyncRolls; decode with
+        model-space priming roll; ``packed``: the transport, True (the
+        bit-packed roll) or ``"sparse"`` (its nonzero bytes as records, the
+        packed roll kept beside them). Returns AsyncRolls; decode with
         fetch_rolls."""
+        _check_transport(packed)
         if seed is not None and np.shape(seed)[0] != batch:
             raise ValueError(f"seed batch {np.shape(seed)[0]} != {batch}")
         with torch.inference_mode():
@@ -76,17 +90,17 @@ class Generator:
             _, roll = multinn.generate(self.params, key.to(self.device),
                                        state, n_steps, k=self._gibbs_k,
                                        temperature=self._temperature)
-            out = bitpack.pack_rolls(roll)
-        return AsyncRolls(out, self._record(out))
+            return self._transport(roll, packed)
 
     def accompany_async(self, key: torch.Tensor, given: np.ndarray,
-                        given_tracks, seed: Optional[np.ndarray] = None
-                        ) -> AsyncRolls:
+                        given_tracks, seed: Optional[np.ndarray] = None,
+                        packed=True) -> AsyncRolls:
         """Dispatch one track-conditional generation without blocking: the
         tracks ``given_tracks`` take the model-space roll ``given`` (B, T,
         K, D), the others are sampled (multinn.generate_accompaniment);
-        ``seed``: optional (B, T_seed, K, D) priming roll. Returns
-        AsyncRolls; decode with fetch_rolls."""
+        ``seed``: optional (B, T_seed, K, D) priming roll; ``packed`` as in
+        generate_async. Returns AsyncRolls; decode with fetch_rolls."""
+        _check_transport(packed)
         if seed is not None and np.shape(seed)[0] != np.shape(given)[0]:
             raise ValueError(f"seed batch {np.shape(seed)[0]} != given "
                              f"batch {np.shape(given)[0]}")
@@ -100,8 +114,7 @@ class Generator:
                 self.params, key.to(self.device), state, given_dev,
                 tuple(int(i) for i in given_tracks), k=self._gibbs_k,
                 temperature=self._temperature)
-            out = bitpack.pack_rolls(roll)
-        return AsyncRolls(out, self._record(out))
+            return self._transport(roll, packed)
 
     def accompany(self, key: torch.Tensor, given: np.ndarray, given_tracks,
                   seed: Optional[np.ndarray] = None) -> np.ndarray:
@@ -110,13 +123,29 @@ class Generator:
         return self.fetch_rolls(self.accompany_async(key, given, given_tracks,
                                                      seed=seed))
 
-    def _record(self, out: torch.Tensor) -> Optional[torch.cuda.Event]:
-        """An event after the work queued for ``out`` (None on the CPU)."""
-        if not out.is_cuda:
-            return None
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return event
+    def _transport(self, roll: torch.Tensor, packed) -> AsyncRolls:
+        """The device side of the transport: pack the roll, and for the
+        sparse transport compact its nonzero bytes; then the event."""
+        out = bitpack.pack_rolls(roll)
+        buf = count = None
+        if packed == "sparse":
+            buf, count = sparsebytes.sparse_pack(
+                out, sparsebytes.record_cap(out.numel()))
+        event = None
+        if out.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return AsyncRolls(out, event, buf, count)
+
+    def _host(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Copies of device tensors on the host, made on the copy stream
+        with one synchronisation (the tensors' work has finished)."""
+        if self._copy_stream is None:
+            return tensors
+        with torch.cuda.stream(self._copy_stream):
+            host = [t.to("cpu", non_blocking=True) for t in tensors]
+        self._copy_stream.synchronize()
+        return host
 
     def generate(self, key: torch.Tensor, n_steps: int,
                  seed: Optional[np.ndarray] = None,
@@ -134,18 +163,50 @@ class Generator:
         return self.fetch_rolls(self.generate_async(key, n_steps, batch,
                                                     seed=seed))
 
-    def fetch_rolls(self, out: AsyncRolls) -> np.ndarray:
+    def fetch_rolls(self, out: AsyncRolls, size_hint: Optional[int] = None
+                    ) -> np.ndarray:
         """Wait for a dispatched generation and decode it to (batch,
         n_steps, K, D) uint8 on the host — the transport's single decode
-        point. The copy runs on a stream of its own once the event fired,
-        so it does not queue behind generations dispatched after this one."""
+        point, for either transport. The copies run on a stream of their
+        own once the event fired, so they do not queue behind generations
+        dispatched after this one.
+
+        Sparse: the count and the first chunk(s) of records come in one
+        copy; ``size_hint`` (a serving loop passes the previous batch's
+        count) widens that first copy so a typical batch needs no second
+        one. The rest of the chunks the count needs follow; a count over
+        the buffer's rows reads the packed roll instead."""
         if out.event is not None:
             out.event.synchronize()
-            with torch.cuda.stream(self._copy_stream):
-                host = out.packed.to("cpu")
-        else:
-            host = out.packed
+        if out.sparse is not None:
+            return self._fetch_sparse_rolls(out, size_hint)
+        (host,) = self._host([out.packed])
         return bitpack.unpack_rolls(host.numpy(), self.cfg.model.n_pitches)
+
+    def _fetch_sparse_rolls(self, out: AsyncRolls,
+                            size_hint: Optional[int]) -> np.ndarray:
+        chunk = sparsebytes.FETCH_CHUNK
+        cap = out.sparse.shape[0]
+        n_pre = (sparsebytes.n_chunks(int(size_hint * 1.25), chunk)
+                 if size_hint else 1)
+        n_pre = min(n_pre, sparsebytes.n_chunks(cap, chunk))
+        got = self._host([out.count, out.sparse[:n_pre * chunk]])
+        count = int(got[0])
+        # an over-cap count is no size hint: it would prefetch the whole
+        # buffer before the next overflow shows
+        self.last_sparse_overflowed = count > cap
+        self.last_sparse_count = None if self.last_sparse_overflowed \
+            else count
+        if self.last_sparse_overflowed:      # truncated records: frames
+            return self.fetch_rolls(out._replace(sparse=None, count=None))
+        need = sparsebytes.n_chunks(count, chunk)
+        parts = [got[1].numpy()]
+        if need > n_pre:
+            parts.append(self._host([out.sparse[n_pre * chunk:
+                                                need * chunk]])[0].numpy())
+        buf = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        pk = sparsebytes.sparse_unpack(buf, count, tuple(out.packed.shape))
+        return bitpack.unpack_rolls(pk, self.cfg.model.n_pitches)
 
     def finalize(self, rolls: np.ndarray) -> np.ndarray:
         """Model-space rolls -> user-facing frame pianorolls: decode the data
@@ -158,3 +219,49 @@ class Generator:
         if gap or min_steps:
             rolls = pianoroll.postprocess_roll(rolls, gap, min_steps)
         return rolls
+
+    def to_midi(self, roll: np.ndarray, path: str,
+                bpm: float = 120.0) -> None:
+        """Write one frame pianoroll (T, K, D) as a .mid file (finalize()
+        model-space rolls first when data.encoding != 'frame')."""
+        from multinn_torch.data import midi as midi_mod
+        mid = pianoroll.roll_to_midi(roll, self.cfg.data.spec(), bpm=bpm)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        midi_mod.save(mid, path)
+
+    def write_files(self, rolls: np.ndarray, out_dir: str,
+                    prefix: str = "sample", bpm: float = 120.0,
+                    write_images: bool = True) -> list:
+        """Write finalized frame rolls (batch, T, K, D) as MIDI files (and a
+        pianoroll PNG each) into ``out_dir``; returns the MIDI paths."""
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        for i in range(rolls.shape[0]):
+            p = os.path.join(out_dir, f"{prefix}_{i:03d}.mid")
+            self.to_midi(rolls[i], p, bpm=bpm)
+            paths.append(p)
+        if write_images:
+            from multinn_torch.utils.images import save_sample_grid
+            save_sample_grid(rolls, out_dir, prefix=prefix)
+        return paths
+
+    def generate_to_files(self, key: torch.Tensor, out_dir: str,
+                          n_samples: int, n_steps: int,
+                          seed: Optional[np.ndarray] = None,
+                          bpm: float = 120.0,
+                          write_images: bool = True
+                          ) -> Tuple[np.ndarray, list]:
+        """Generate, finalize and write the first ``n_samples`` rolls;
+        returns (the finalized frame rolls, the written MIDI paths)."""
+        rolls = self.generate(key, n_steps, seed=seed,
+                              batch=(seed.shape[0] if seed is not None
+                                     else n_samples))
+        rolls = self.finalize(rolls)
+        paths = self.write_files(rolls[:n_samples], out_dir, bpm=bpm,
+                                 write_images=write_images)
+        return rolls, paths
+
+
+def _check_transport(packed) -> None:
+    if packed is not True and packed != "sparse":
+        raise ValueError(f"packed must be True or 'sparse', got {packed!r}")

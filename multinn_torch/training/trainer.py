@@ -27,9 +27,13 @@ split(rng)`` at construction, then ``rng, key = split(rng)`` per step (per
 group of N steps, whose keys are ``split(key, N)``), so a step draws the
 Gibbs chain's stream from the same key as the JAX step.
 
+With ``train.image_summaries`` every evaluation also logs a pianoroll
+image of one free-running sample (``valid/sample``: the scan path, B=1,
+``data.window`` steps, on the trainer's key stream) and, once, of the first
+validation window (``valid/reference``) to TensorBoard.
+
 Not ported yet (ROADMAP queue 1), each refused with NotImplementedError at
-construction: Hessian-free training, meshes, image summaries and the bf16
-matmul policy.
+construction: Hessian-free training, meshes and the bf16 matmul policy.
 """
 
 from __future__ import annotations
@@ -175,7 +179,6 @@ def _refuse_unported(cfg) -> None:
     train = cfg.train
     for on, what in ((train.optimizer == "hf", "Hessian-free training"),
                      (cfg.mesh.use_mesh, "mesh training"),
-                     (train.image_summaries, "image summaries"),
                      (cfg.model.matmul_dtype in ("bf16", "bfloat16"),
                       "the bf16 matmul policy (matmul_dtype)")):
         if on:
@@ -330,6 +333,7 @@ class Trainer:
         # groups of steps_per_call steps run as a CUDA graph on the card
         self.capture_groups = self.device.type == "cuda"
         self.group_graph: Optional[StepGroupGraph] = None
+        self._logged_reference = False     # valid/reference is logged once
 
     # -- state -------------------------------------------------------------
 
@@ -517,6 +521,28 @@ class Trainer:
                 for i, vi in enumerate(np.asarray(v)):
                     out[f"{name}_{i}"] = float(vi) / denom
         return out
+
+    def _log_image_summaries(self) -> None:
+        """TensorBoard pianoroll images at evaluation: a free-running
+        sample from the current params (``valid/sample``; the scan path,
+        so one Gibbs chain or NADE sampler launch per step and track) and,
+        once, the first validation window (``valid/reference``). The
+        sample is a picture, not an evaluation metric."""
+        if not self._logged_reference:
+            ref = np.asarray(self.dataset.windows["valid"][0])
+            self.metrics_log.log_image(
+                "valid/reference", self.dataset.decode(ref[None])[0],
+                self.step)
+            self._logged_reference = True
+        self.rng, key = sampling.split(self.rng)
+        with torch.no_grad():
+            state = multinn.init_state(self.params, 1)
+            _, roll = multinn.generate(self.params, key, state,
+                                       int(self.cfg.data.window),
+                                       fused=False)
+        roll = roll.to(torch.uint8).cpu().numpy()
+        self.metrics_log.log_image(
+            "valid/sample", self.dataset.decode(roll)[0], self.step)
 
     # -- checkpoints -------------------------------------------------------
 
@@ -729,6 +755,8 @@ class Trainer:
             ev = self.evaluate("valid")
             final_eval = ev
             self.metrics_log.log(self.step, ev, "valid")
+            if cfg.image_summaries:
+                self._log_image_summaries()
             self.log.info("epoch %d (%.1fs) valid %s", self.epoch,
                           time.perf_counter() - t0,
                           format_metrics(ev, ("loss", "f1", "ll_per_frame")))

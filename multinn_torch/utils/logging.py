@@ -75,6 +75,22 @@ class MetricsLogger:
             if scalars:
                 self._tb.add_scalars(scalars, step)
 
+    def log_image(self, tag: str, image, step: int) -> bool:
+        """A pianoroll image summary. ``image`` is an RGB uint8 (H, W, 3)
+        array or a binary pianoroll ((T, K, D) / (T, D)), rendered by
+        utils/images. Returns False (and writes nothing) when TensorBoard
+        output is off; the JSONL ledger stays scalars-only."""
+        if self._tb is None:
+            return False
+        from multinn_torch.utils.images import encode_png, render_pianoroll
+        img = np.asarray(image)
+        if not (img.ndim == 3 and img.shape[-1] == 3
+                and img.dtype == np.uint8):
+            img = render_pianoroll(img)
+        self._tb.add_image(tag, encode_png(img), img.shape[0], img.shape[1],
+                           step)
+        return True
+
     def close(self) -> None:
         self._file.close()
         if self._tb is not None:

@@ -1,5 +1,5 @@
 """First-party TensorBoard event-file writer and reader — the port's own
-copy of the scalar half of multinn_tpu/utils/tb.py.
+copy of multinn_tpu/utils/tb.py.
 
 An ``events.out.tfevents.*`` file is a sequence of TFRecord frames, each a
 protobuf-encoded ``Event`` message::
@@ -9,11 +9,14 @@ protobuf-encoded ``Event`` message::
     Event:  1: wall_time (double)   2: step (int64)
             3: file_version (string, first record only)
             5: summary -> Summary { 1: value -> Value { 1: tag (string),
-                                                        2: simple_value } }
+                                                        2: simple_value,
+                                                        4: image } }
+    Image:  1: height   2: width   3: colorspace   4: encoded_image_string
 
-Only the protobuf encodings those fields need are written; ``read_events``
-decodes them back, so the format is round-trip tested. Image summaries
-wait for the port's image summaries (ROADMAP queue 1).
+Two summary kinds are written, scalars and images (the trainer's
+pianoroll image summaries, PNG bytes from utils/images.py); only the
+protobuf encodings those fields need are implemented. ``read_events``
+decodes them back, so the format is round-trip tested.
 """
 
 from __future__ import annotations
@@ -85,12 +88,18 @@ def _bytes(field: int, v: bytes) -> bytes:
 
 
 def _event(wall_time: float, step: int = 0, file_version: str = None,
-           scalars: List[Tuple[str, float]] = ()) -> bytes:
+           scalars: List[Tuple[str, float]] = (),
+           images: List[Tuple[str, Tuple[int, int, int, bytes]]] = ()
+           ) -> bytes:
     msg = _f64(1, wall_time) + _i64(2, step)
     if file_version is not None:
         msg += _bytes(3, file_version.encode())
     values = [_bytes(1, _bytes(1, tag.encode()) + _f32(2, float(val)))
               for tag, val in scalars]
+    for tag, (height, width, colorspace, png) in images:
+        img = (_i64(1, height) + _i64(2, width) + _i64(3, colorspace)
+               + _bytes(4, png))
+        values.append(_bytes(1, _bytes(1, tag.encode()) + _bytes(4, img)))
     if values:
         msg += _bytes(5, b"".join(values))
     return msg
@@ -107,7 +116,8 @@ def _frame(record: bytes) -> bytes:
 # ---------------------------------------------------------------------------
 
 class EventWriter:
-    """Scalars-only TensorBoard writer: ``add_scalar(tag, value, step)``.
+    """TensorBoard writer: ``add_scalar(tag, value, step)``,
+    ``add_scalars`` and ``add_image``.
 
     One ``events.out.tfevents.<ts>.<host>`` file per instance, line-buffered
     semantics (each event is flushed framed+checksummed, so a crash never
@@ -134,6 +144,13 @@ class EventWriter:
         unit — the common per-step call from MetricsLogger)."""
         self._write(_event(time.time(), step, scalars=list(scalars)))
 
+    def add_image(self, tag: str, png: bytes, height: int, width: int,
+                  step: int, colorspace: int = 3) -> None:
+        """One encoded image (PNG bytes; colorspace 3 = RGB). Rendering and
+        PNG encoding live in utils/images.py; this layer only frames."""
+        self._write(_event(time.time(), step,
+                           images=[(tag, (height, width, colorspace, png))]))
+
     def close(self) -> None:
         if not self._f.closed:
             self._f.close()
@@ -142,7 +159,8 @@ class EventWriter:
 def read_events(path: str) -> Iterator[dict]:
     """Decode an event file back to dicts (the round-trip half of the
     format contract; also handy for tests/tools). Yields
-    {"wall_time", "step", "file_version"?, "scalars": {tag: value}}."""
+    {"wall_time", "step", "file_version"?, "scalars": {tag: value},
+    "images": {tag: {"height", "width", "colorspace", "png"}}}."""
     with open(path, "rb") as f:
         data = f.read()
     pos = 0
@@ -195,8 +213,22 @@ def _fields(buf: bytes) -> Iterator[Tuple[int, int, object]]:
         yield field, wire, val
 
 
+def _decode_image(buf: bytes) -> dict:
+    img = {"height": 0, "width": 0, "colorspace": 0, "png": b""}
+    for f, _, v in _fields(buf):
+        if f == 1:
+            img["height"] = v
+        elif f == 2:
+            img["width"] = v
+        elif f == 3:
+            img["colorspace"] = v
+        elif f == 4:
+            img["png"] = v
+    return img
+
+
 def _decode_event(rec: bytes) -> dict:
-    out = {"wall_time": 0.0, "step": 0, "scalars": {}}
+    out = {"wall_time": 0.0, "step": 0, "scalars": {}, "images": {}}
     for field, _, val in _fields(rec):
         if field == 1:
             out["wall_time"] = val
@@ -208,12 +240,16 @@ def _decode_event(rec: bytes) -> dict:
             for f2, _, v2 in _fields(val):
                 if f2 != 1:
                     continue
-                tag, sval = None, None
+                tag, sval, ival = None, None, None
                 for f3, _, v3 in _fields(v2):
                     if f3 == 1:
                         tag = v3.decode()
                     elif f3 == 2:
                         sval = v3
+                    elif f3 == 4:
+                        ival = _decode_image(v3)
                 if tag is not None and sval is not None:
                     out["scalars"][tag] = sval
+                if tag is not None and ival is not None:
+                    out["images"][tag] = ival
     return out

@@ -822,3 +822,136 @@ def test_pretraining_chain_matches_plain(dev, n):
     out_k = gibbs.gibbs_chain(key, v0, w, bv, bh, 1)
     out_p = gibbs.gibbs_chain(key, v0, w, bv, bh, 1, impl="plain")
     assert float((out_k != out_p).any(dim=1).float().mean()) <= 0.01
+
+
+SMALL_RUN = ["--config", "configs/synthetic_smoke.json", "--model.n_hidden=16",
+             "--model.n_rnn=12", "--data.window=16",
+             "--data.synthetic_songs=8", "--data.synthetic_steps=48",
+             "--train.epochs=1"]
+
+
+@pytest.mark.parametrize("decoder", ["rnn-rbm", "rnn-nade"])
+def test_entry_points_on_the_card(dev, tmp_path, decoder, capsys):
+    """train, generate, evaluate and serve from the command line on the
+    card (no --device): the generate CLI's rolls equal Generator.generate
+    with its key, the fused kernel launched; evaluate writes its report and
+    launches the family's loss kernel; the HTTP service answers."""
+    import http.client
+    import json
+    import os
+    import threading
+
+    from multinn_torch import evaluate as evaluate_cli
+    from multinn_torch import generate as generate_cli
+    from multinn_torch import serve as serve_cli
+    from multinn_torch import train as train_cli
+    from multinn_torch.training.generator import Generator
+    from multinn_torch.training.trainer import Trainer
+
+    run = str(tmp_path / "run")
+    assert train_cli.main(SMALL_RUN + [f"--model.decoder_type={decoder}",
+                                       f"--train.run_dir={run}"]) == 0
+    fused = "gen_fused_nade" if decoder == "rnn-nade" else "gen_fused_rbm"
+    _build.launches.clear()
+    assert generate_cli.main(["--run", run, "--generate.n_steps=32",
+                              "--generate.n_samples=4"]) == 0
+    torch.cuda.synchronize()
+    assert _build.launches[fused] >= 1
+    with np.load(os.path.join(run, "samples", "pianorolls.npz")) as z:
+        rolls = z["rolls"]
+    cfg = config.load_run_config(run, None, ["generate.n_steps=32",
+                                             "generate.n_samples=4"])
+    t = Trainer(cfg)
+    t.restore(t.ckpt.best_step())
+    gen = Generator(cfg, t.params)
+    seed = t.dataset.seed_windows("valid", n=4)[:, :cfg.generate.seed_steps]
+    want = gen.finalize(gen.generate(
+        sampling.PRNGKey(cfg.train.seed + 7, device=dev), 32, seed=seed))
+    t.close()
+    np.testing.assert_array_equal(rolls, want)
+    _build.launches.clear()
+    assert evaluate_cli.main(["--run", run, "--split", "valid",
+                              "--n-gen", "4"]) == 0
+    torch.cuda.synchronize()
+    kernel = "nade_ll_fwd" if decoder == "rnn-nade" else "gibbs_chain"
+    assert _build.launches[kernel] >= 1 and _build.launches[fused] >= 1
+    with open(os.path.join(run, "eval_valid.json")) as f:
+        assert "musical_generated" in json.load(f)
+    capsys.readouterr()
+    args, overrides = serve_cli.parse_args(["--run", run, "--port", "0",
+                                            "--batch", "8"])
+    ready, box = threading.Event(), []
+    th = threading.Thread(target=serve_cli.serve,
+                          args=(args, overrides, ready, box), daemon=True)
+    th.start()
+    assert ready.wait(timeout=300)
+    httpd, service = box[0]
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_port,
+                                          timeout=120)
+        conn.request("POST", "/generate", json.dumps({"format": "roll",
+                                                      "n": 8}))
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        assert resp.status == 200 and out["shape"][0] == 8
+        conn.close()
+    finally:
+        httpd.shutdown()
+        th.join(timeout=120)
+    assert not th.is_alive() and not service._drainer.is_alive()
+
+
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+def test_sparse_transport_bit_equal_to_packed_on_the_card(dev, model,
+                                                          monkeypatch):
+    """packed="sparse" on device tensors: the records decode to the packed
+    transport's rolls, over several fetch chunks, and through the frame
+    fallback when the records overflow."""
+    from multinn_torch.ops import sparsebytes
+    from multinn_torch.training.generator import Generator
+    cfg = config.ExperimentConfig(
+        model=multinn.MultINNConfig(**dict(model, w_std=0.1)),
+        data=config.DataConfig(dataset="lpd5", pitch_min=24, pitch_max=107,
+                               n_tracks=5))
+    gen = Generator(cfg, _params(cfg.model, dev))
+    key = sampling.PRNGKey(9, device=dev)
+    want = gen.fetch_rolls(gen.generate_async(key, 64, 8))
+    out = gen.generate_async(key, 64, 8, packed="sparse")
+    assert out.sparse.is_cuda and out.count.is_cuda
+    np.testing.assert_array_equal(gen.fetch_rolls(out), want)
+    assert not gen.last_sparse_overflowed
+    monkeypatch.setattr(sparsebytes, "FETCH_CHUNK", 64)
+    monkeypatch.setattr(sparsebytes, "record_cap",
+                        lambda size, chunk=64: 64 * 400)
+    out = gen.generate_async(key, 64, 8, packed="sparse")
+    np.testing.assert_array_equal(gen.fetch_rolls(out, size_hint=100), want)
+    monkeypatch.setattr(sparsebytes, "record_cap", lambda size, chunk=0: 8)
+    out = gen.generate_async(key, 64, 8, packed="sparse")
+    np.testing.assert_array_equal(gen.fetch_rolls(out), want)
+    assert gen.last_sparse_overflowed
+
+
+@pytest.mark.parametrize("decoder,kernel", [("rnn-rbm", "gibbs_chain"),
+                                            ("rnn-nade", "nade_sample")])
+def test_image_summaries_launch_the_scan_kernels(dev, tmp_path, decoder,
+                                                 kernel):
+    """valid/sample on the card: the scan path at B=1 launches the Gibbs
+    chain (RBM) or the NADE sampler at least once a step."""
+    import glob
+
+    from multinn_torch.data.datasets import Dataset
+    from multinn_torch.training.trainer import Trainer
+    from multinn_torch.utils import tb
+    cfg = config.load_run_config(None, "configs/synthetic_smoke.json", [
+        f"model.decoder_type={decoder}", "data.window=16",
+        "data.synthetic_songs=8", "data.synthetic_steps=48",
+        "train.image_summaries=true", f"train.run_dir={tmp_path}"])
+    t = Trainer(cfg, dataset=Dataset(cfg.data))
+    _build.launches.clear()
+    t._log_image_summaries()
+    torch.cuda.synchronize()
+    assert _build.launches[kernel] >= 16
+    t.close()
+    (path,) = glob.glob(f"{tmp_path}/tb/events.out.tfevents.*")
+    tags = {tag for e in tb.read_events(path) for tag in e["images"]}
+    assert tags == {"valid/reference", "valid/sample"}

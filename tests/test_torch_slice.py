@@ -266,9 +266,13 @@ def test_service_refuses_what_is_not_ported():
         assert acc.stats()["accompany_tracks"] == [0]
     finally:
         acc.close()
-    with pytest.raises(ValueError, match="sparse"):
-        service.GenerationService(cfg, tp, service.ServeConfig(
-            batch=2, n_steps=T, transport="sparse"))
+    # the sparse transport is ported: a service takes it
+    sparse = service.GenerationService(cfg, tp, service.ServeConfig(
+        batch=2, n_steps=T, transport="sparse"))
+    try:
+        assert sparse.stats()["transport"] == "sparse"
+    finally:
+        sparse.close()
     svc = service.GenerationService(cfg, tp, service.ServeConfig(
         batch=2, n_steps=T))
     try:

@@ -257,11 +257,11 @@ def test_evaluate_matches_the_jax_eval_math(decoder, interpret_chain):
 
 
 def test_unported_features_raise(tmp_path):
-    """Hessian-free training, meshes and image summaries are refused at
-    construction; DBN encoders, checkpoints, train(), resume and fault
-    injection are ported (a DBN encoder is frozen: its tensors are not the
-    optimizer's), and pre-training is the reference's no-op for a
-    pass-through encoder."""
+    """Hessian-free training is refused at construction; image summaries,
+    DBN encoders, checkpoints, train(), resume and fault injection are
+    ported (a DBN encoder is frozen: its tensors are not the optimizer's),
+    and pre-training is the reference's no-op for a pass-through
+    encoder."""
     ds = types.SimpleNamespace(n_batches=lambda split: 1,
                                batches=lambda *a, **k: iter(()))
     base = config.ExperimentConfig(
@@ -269,11 +269,16 @@ def test_unported_features_raise(tmp_path):
         train=config.TrainConfig(run_dir=str(tmp_path), epochs=1,
                                  fault_inject_step=3,
                                  pretrain_encoder_epochs=1))
-    for train in (dict(optimizer="hf"), dict(image_summaries=True)):
-        cfg = config.ExperimentConfig(model=base.model,
-                                      train=config.TrainConfig(**train))
-        with pytest.raises(NotImplementedError):
-            trainer.Trainer(cfg, ds, device="cpu")
+    cfg = config.ExperimentConfig(model=base.model,
+                                  train=config.TrainConfig(optimizer="hf"))
+    with pytest.raises(NotImplementedError):
+        trainer.Trainer(cfg, ds, device="cpu")
+    images = trainer.Trainer(config.ExperimentConfig(
+        model=base.model, train=config.TrainConfig(
+            run_dir=str(tmp_path / "images"), image_summaries=True)),
+        ds, device="cpu")
+    assert images.cfg.train.image_summaries
+    images.close()
     dbn = trainer.Trainer(config.ExperimentConfig(
         model=multinn.MultINNConfig(**dict(MODEL, encoder_hidden=(8,))),
         train=base.train), ds, device="cpu")
