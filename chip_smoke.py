@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs sixteen
-phases, one line each; any failure exits non-zero before the result line.
-Phases 4-6 drive the RNN-RBM serving path, 7-9 the RNN-NADE serving path,
-10-12 training (the NADE likelihood kernels, then the Trainer on each
-family), 13 the train entry point with its steps captured as CUDA graphs,
-14 the two DBN configs, 15 accompaniment, 16 the generate, evaluate and
-serve entry points, image summaries and the sparse transport.
+Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs
+seventeen phases, one line each or a few; any failure exits non-zero
+before the result line. Phases 4-6 drive the RNN-RBM serving path, 7-9 the
+RNN-NADE serving path, 10-12 training (the NADE likelihood kernels, then
+the Trainer on each family), 13 the train entry point with its steps
+captured as CUDA graphs, 14 the two DBN configs, 15 accompaniment, 16 the
+generate, evaluate and serve entry points, image summaries and the sparse
+transport, 17 joint (composer) mode, Hessian-free training and the bf16
+matmul policy.
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -130,9 +132,36 @@ serve entry points, image summaries and the sparse transport.
      T=1024, on phase 5's params and on those params with the visible
      bias lowered by 4.5 (about 1 % of cells on, the density the sparse
      records are for), bit-equal rolls, and what ``auto`` resolves to.
+ 17. joint mode, HF and bf16, at the flagship widths with seeded random
+     weights, each path in a launch window of its own: the kernels at the
+     joint shapes against their plain versions (the Gibbs chain at N=1024,
+     D=420, H=150 in its device-memory plan, at most 1 % of rows
+     differing; the sampler on 8 rows of D=420, at most 1 differing; the
+     likelihood pair at K=1, N=4096, D=420 to phase 10's tolerances),
+     with times and bounds; for each family the joint flagship (K=5 x
+     D=84 -> one track of 420 pitches, H=150, U=100, gen_k=10): the gate
+     admits B=1 and B=8, the fused kernel against its plain version at
+     T=16 B=8 (at least 7 of 8 samples identical), against the scan path
+     at T=1024 B=8 (per-track density gap at most 0.01), the kernel's B=8
+     time and bound, the B=1 64-bar latency and a service at batch 8;
+     captured groups of 24 joint steps against eager (RBM B=16, NADE
+     B=64, T=64, as phase 13); ``multinn_torch.train`` then ``generate``
+     with ``--model.mode=composer``; Hessian-free training on the NADE
+     flagship (B=64, T=64, cg_iters=25) on one fixed batch: the NLL falls
+     over an eager group of 2 macro-steps with at least one accepted, the
+     same group captured and replayed (params within 1e-6 max|p|), macro-step
+     ms, the CG share (CUDA events around replays of the group with
+     cg_iters=25 and 0), the graph pool's bytes; ``train
+     --train.optimizer=hf`` and ``train --model.matmul_dtype=bf16`` at
+     H=150 U=100, B=64 T=64 on the synthetic source, each in a window of
+     its own; the bf16 policy on both flagships: a captured group against
+     eager that must end away from phase 13's f32 group from the same
+     start, its step and kernel time beside phase 13's f32 ones, and 20
+     steps whose loss differs from the f32 run's but stays within
+     |l16 - l32| < 0.05 (|l32| + 1).
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window plus the windows of phases 14, 15 and 16), error, times
+its path's window plus the windows of phases 14 to 17), error, times
 and bound. ``ms`` is the device time per
 call of the kernel's wrapper (its launches and any small PyTorch kernel it
 runs, such as the key's two words, the backward's second pass included):
@@ -155,6 +184,7 @@ one it exits 1 and prints no result.
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -192,8 +222,8 @@ def fused_work(params, roll, v0, gen_k: int):
     out: a lower bound. A multiply-add counts 2."""
     from multinn_torch.models import multinn
     cfg = params.cfg
-    k, d, h, u, n_layers = (cfg.n_tracks, cfg.feature_dim(), cfg.n_hidden,
-                            cfg.n_rnn, cfg.rnn_layers)
+    k, d, h, u, n_layers = (multinn.n_decoders(cfg), cfg.feature_dim(),
+                            cfg.n_hidden, cfg.n_rnn, cfg.rnn_layers)
     g = 4 * u if cfg.cell == "lstm" else u
     b, t = roll.shape[:2]
     steps = b * t * k
@@ -1028,7 +1058,8 @@ def main() -> None:
         cfg = ExperimentConfig(
             model=multinn.MultINNConfig(**model),
             train=TrainConfig(steps_per_call=spc, log_every_steps=1000,
-                              run_dir=f"{tmp}/group_{seed}"))
+                              run_dir=f"{tmp}/group_{seed}_"
+                                      f"{model.get('matmul_dtype', 'f32')}"))
         src = RollSource(spc, 2, batch, seed)
         xs = np.stack(list(src.batches("train", shuffle=False)))
         if p0 is None:
@@ -1047,6 +1078,7 @@ def main() -> None:
         if not diff <= 1e-6:
             fail(f"phase 13: graph vs eager group, params differ by "
                  f"{diff:.3e} of max|p| (> 1e-6)")
+        leaves = [t.detach().clone() for t in graph._leaves]
         enc0 = multinn.tree_leaves(p0.encoder)
         if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
                 multinn.tree_leaves(graph.params.encoder),
@@ -1070,7 +1102,8 @@ def main() -> None:
         graph_ms = cuda_ms(lambda: graph.run_group(xs, key), 3) / spc
         busy_ms, _ = device_busy_fn(lambda: graph.run_group(xs, key), 1,
                                     spc)
-        return dict(diff=diff, eager_ms=eager_ms, graph_ms=graph_ms,
+        return dict(diff=diff, leaves=leaves, eager_ms=eager_ms,
+                    graph_ms=graph_ms,
                     frames=batch * 64 / graph_ms * 1e3, busy_ms=busy_ms,
                     capture_s=g.capture_s, pool=g.graph.pool_bytes,
                     per_step={k: v / spc for k, v in g.launches.items()})
@@ -1765,6 +1798,383 @@ def main() -> None:
     say(f"phase 16 {time.perf_counter() - t16:.1f} s; CLI seconds "
         f"{ {k: {n: round(x, 2) for n, x in v.items()} for k, v in cli_times.items()} }")
 
+    # 17. joint mode, Hessian-free training and the bf16 matmul policy -----
+    t17 = time.perf_counter()
+    windows17 = []               # each path's launch window
+
+    def window17(fn):
+        """``fn()`` in a launch window of its own: (result, launches)."""
+        torch.cuda.synchronize()
+        _build.launches.clear()              # the window starts here
+        out = fn()
+        torch.cuda.synchronize()
+        w = dict(_build.launches)            # ... and ends here
+        windows17.append(w)
+        return out, w
+
+    JOINT = dict(FLAGSHIP, mode="joint")     # K=5 x D=84 -> one 420 track
+    JOINT_NADE = dict(NADE_FLAGSHIP, mode="joint")
+    jg = torch.Generator().manual_seed(17)   # phase 17's own inputs
+    joint_rows = []
+    # the Gibbs chain of joint training: N = B*T = 1024 rows, D=420, whose
+    # W (252 KB) stays in device memory
+    jargs = gibbs_inputs(1024, 420, 150, gen=jg)
+    jkey = sampling.PRNGKey(170, device=dev)
+    jplan = gibbs_cuda.launch_plan(1024, _build.sm_count(jargs[0]), 420, 150)
+    jk = gibbs_cuda.gibbs_chain(jkey, *jargs, 1)
+    j_differ = rows_differ(jk, gibbs_cuda.gibbs_chain_plain(jkey, *jargs, 1))
+    if j_differ > 0.01:
+        fail(f"phase 17: gibbs at N=1024 D=420: {j_differ:.4f} of rows differ")
+    j_ms = graph_ms(lambda: gibbs_cuda.gibbs_chain(jkey, *jargs, 1), 20)
+    j_plain = cuda_ms(lambda: gibbs_cuda.gibbs_chain_plain(jkey, *jargs, 1),
+                      5)
+    jb = bound(*gibbs_work(1024, 1, jk, 420, 150))
+    joint_rows.append(f"gibbs_chain N=1024 D=420 H=150 k=1 plan {jplan}: "
+                      f"rows differing {j_differ:.4f}, kernel {j_ms:.4f} ms, "
+                      f"plain {j_plain:.3f} ms, bound {jb[0]:.4f} ms "
+                      f"({jb[1]})")
+    # the sampler on the joint scan path's 8 rows of 420 dims
+    sargs = nade_inputs(8, 420, 150, gen=jg)
+    sk = nade_cuda.nade_sample(jkey, *sargs, (8,))
+    s_differ = int((sk != nade_cuda.nade_sample_plain(jkey, *sargs, (8,))
+                    ).any(dim=1).sum())
+    if s_differ > 1:
+        fail(f"phase 17: nade_sample at D=420: {s_differ} of 8 rows differ")
+    s_ms = graph_ms(lambda: nade_cuda.nade_sample(jkey, *sargs, (8,)), 50)
+    s_plain = cuda_ms(lambda: nade_cuda.nade_sample_plain(jkey, *sargs,
+                                                          (8,)), 3)
+    sb = bound(4 * (2 * 420 * 150 + 8 * 420 * 2 + 8 * 150),
+               2 * 8 * 420 * 150 + 150 * float(sk.sum()))
+    joint_rows.append(f"nade_sample 8 rows D=420 H=150 plan "
+                      f"{nade_cuda.sample_plan(420, 150)}: rows differing "
+                      f"{s_differ}, kernel {s_ms:.4f} ms = "
+                      f"{s_ms * 1e3 / 420:.4f} us per dim, plain "
+                      f"{s_plain:.3f} ms, bound {sb[0]:.4f} ms ({sb[1]})")
+    # the likelihood pair at K=1, N=4096, D=420
+    xl, wl, vl, bvl, bhl, cot = ll_inputs(1, 4096, 420, gen=jg)
+    lk, ak = nade_ll.nade_ll_fwd(xl, wl, vl, bvl, bhl)
+    lp, ap = nade_ll.nade_ll_fwd_plain(xl, wl, vl, bvl, bhl)
+    jl_err = float((lk - lp).abs().max())
+    jl_ratio = max(grad_err(a, b) for a, b in zip(
+        nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak, want_dx=True),
+        nade_ll.nade_ll_bwd_plain(xl, wl, vl, cot, ap, want_dx=True)))
+    if not (jl_err <= 1e-4 and jl_ratio <= 1.0):
+        fail(f"phase 17: likelihood at K=1 N=4096 D=420: logits err "
+             f"{jl_err}, gradients at {jl_ratio} of the tolerance")
+    fwd17 = graph_ms(lambda: nade_ll.nade_ll_fwd(xl, wl, vl, bvl, bhl), 20)
+    bwd17 = graph_ms(lambda: nade_ll.nade_ll_bwd(xl, wl, vl, cot, ak,
+                                                 want_dx=False), 20)
+    fwd17_plain = cuda_ms(
+        lambda: nade_ll.nade_ll_fwd_plain(xl, wl, vl, bvl, bhl), 3)
+    bwd17_plain = cuda_ms(lambda: nade_ll.nade_ll_bwd_plain(
+        xl, wl, vl, cot, ap, want_dx=False), 3)
+    nnz_x = float(xl.sum())
+    fb = bound(4 * (3 * 4096 * 420 + 2 * 4096 * 150 + 2 * 420 * 150),
+               2 * 4096 * 420 * 150 + 150 * nnz_x)
+    bb = bound(4 * (2 * 4096 * 420 + 2 * 4096 * 150 + 4 * 420 * 150),
+               4 * 4096 * 420 * 150 + 2 * 150 * nnz_x)
+    sms = _build.sm_count(xl)
+    joint_rows.append(
+        f"nade_ll K=1 N=4096 D=420 H=150 (plans fwd "
+        f"{nade_ll.fwd_plan(1, 4096, 420, 150, sms)}, bwd "
+        f"{nade_ll.bwd_plan(1, 4096, 420, 150, sms)}): logits err "
+        f"{jl_err:.2e}, gradients at {jl_ratio:.4f} of the tolerance; fwd "
+        f"{fwd17:.4f} ms (plain {fwd17_plain:.3f}, bound {fb[0]:.4f} ms "
+        f"{fb[1]}), bwd {bwd17:.4f} ms (plain {bwd17_plain:.3f}, bound "
+        f"{bb[0]:.4f} ms {bb[1]})")
+    del lk, ak, lp, ap
+    say(f"phase 17 joint-shape kernels: {'; '.join(joint_rows)}; {smi}")
+
+    # both whole-generation kernels at Keff=1, D=420: against the plain
+    # version at T=16 B=8, against the scan path at T=1024 B=8, the kernel's
+    # times, B=1 64-bar latency and a service at batch 8
+    for fam, model in (("rbm", JOINT), ("nade", JOINT_NADE)):
+        jcfg = multinn.MultINNConfig(**dict(model, w_std=0.1))
+        if not (gen_fused_rbm.supported(jcfg, 1, 1024)
+                and gen_fused_rbm.supported(jcfg, 8, 1024)
+                if fam == "rbm" else
+                gen_fused_nade.supported_nade(jcfg, 1, 1024)
+                and gen_fused_nade.supported_nade(jcfg, 8, 1024)):
+            fail(f"phase 17 {fam}: the gate refuses the joint flagship")
+        pj = multinn.init(jcfg, jg, device=dev)
+        pj = dataclasses.replace(pj, decoder=dataclasses.replace(
+            pj.decoder, bv=pj.decoder.bv + torch.linspace(
+                -3.0, 1.0, 84, device=dev).repeat(5)))
+        gkey = sampling.PRNGKey(171, device=dev)
+        if fam == "rbm":
+            gen = lambda h0, c0, v0, n, impl: gen_fused_rbm.generate_rbm(
+                gkey, pj.decoder, h0, c0, v0, n, 10, impl=impl)
+        else:
+            gen = lambda h0, c0, v0, n, impl: gen_fused_nade.generate_nade(
+                gkey, pj.decoder, h0, c0, v0, n, impl=impl)
+        rows = primed(pj, 8)
+        (same8, h_err), w_match = window17(
+            lambda: match16(gen, rows, 7, f"phase 17 joint {fam}"))
+        if not w_match.get("gen_fused_" + fam):
+            fail(f"phase 17 {fam}: the fused kernel did not launch "
+                 f"({w_match})")
+        k16_ms = cuda_ms(lambda: gen(*rows, 16, "cuda"), 3)
+        p16_ms = cuda_ms(lambda: gen(*rows, 16, "plain"), 1, warm=False)
+        state8 = multinn.prime(pj, multinn.init_state(pj, 8), (torch.rand(
+            8, 16, 5, 84, generator=jg) < 0.1).float().to(dev))
+        (_, fused_roll), w_fused = window17(lambda: multinn.generate(
+            pj, gkey, state8, 1024))
+        (_, scan_roll), w_scan = window17(lambda: multinn.generate(
+            pj, sampling.PRNGKey(172, device=dev), state8, 1024,
+            fused=False))
+        scan_kernel = "gibbs_chain" if fam == "rbm" else "nade_sample"
+        if (not w_fused.get("gen_fused_" + fam)
+                or not w_scan.get(scan_kernel)):
+            fail(f"phase 17 {fam}: fused window {w_fused}, scan window "
+                 f"{w_scan}")
+        dens = [r.mean(dim=(0, 1, 3)) for r in (fused_roll, scan_roll)]
+        gap = float((dens[0] - dens[1]).abs().max())
+        if not gap <= 0.01:
+            fail(f"phase 17 {fam}: per-track density fused {dens[0]} vs "
+                 f"scan {dens[1]} (gap {gap}, limit 0.01)")
+        st8 = multinn.init_state(pj, 8)
+        run8 = lambda: multinn._generate_fused(pj, gkey, st8, 1024,
+                                               impl="cuda")[1]
+        roll8 = run8()
+        k8_ms = cuda_ms(run8, 3)
+        kb = bound(*fused_work(pj, roll8, st8.decoder.v_prev, 10))
+        st1 = multinn.init_state(pj, 1)
+        b1_ms = cuda_ms(lambda: multinn._generate_fused(
+            pj, gkey, st1, 1024, impl="cuda"), 3)
+        cfg17 = ExperimentConfig(
+            model=jcfg, data=DataConfig(n_tracks=5, pitch_min=24,
+                                        pitch_max=107),
+            generate=GenerateConfig(n_steps=1024, seed_steps=64))
+        seeds17 = (np.random.default_rng(173).random((8, 64, 5, 84)) < 0.1
+                   ).astype(np.uint8)
+
+        def serve17():
+            svc = GenerationService(cfg17, pj, ServeConfig(
+                batch=8, n_steps=1024, seed_steps=64, seed=0))
+            futs = svc.submit_many(16) + [svc.submit(seed=x)
+                                          for x in seeds17]
+            served = [f.result(timeout=600) for f in futs]
+            stats = svc.stats()
+            svc.close()
+            return served, stats
+
+        (served, stats), w_serve = window17(serve17)
+        if (stats["errors"] or stats["batches"] != 3
+                or not w_serve.get("gen_fused_" + fam)
+                or any(r.roll.shape != (1024, 5, 84) for r in served)):
+            fail(f"phase 17 {fam}: service {stats} {w_serve}")
+        lat = stats["latency_ms"]
+        say(f"phase 17 joint {fam} generation (K=5 x D=84 -> one track of "
+            f"420, H=150 U=100): T=16 B=8 {same8}/8 samples equal the plain "
+            f"version (final h err {h_err:.2e}); T=1024 B=8 per-track "
+            f"density fused {[round(float(x), 4) for x in dens[0]]} scan "
+            f"{[round(float(x), 4) for x in dens[1]]} (gap {gap:.4f}); "
+            f"kernel B=8 T=1024 {k8_ms:.3f} ms (bound {kb[0]:.4f} ms, "
+            f"{kb[1]}); at T=16 B=8 kernel {k16_ms:.3f} ms, plain "
+            f"{p16_ms:.1f} ms; B=1 64-bar latency {b1_ms:.3f} ms; service "
+            f"batch 8: "
+            f"{stats.get('songs_per_s', 0):.2f} songs/s, p50 "
+            f"{lat['p50']:.1f} ms p95 {lat['p95']:.1f} ms; launches fused "
+            f"{w_fused}, scan {w_scan}, service {w_serve}; {smi}")
+        del fused_roll, scan_roll, roll8
+
+    # joint training: captured groups of 24 against eager, both families
+    for fam, model, batch, seed in (("rbm", JOINT, 16, 174),
+                                    ("nade", JOINT_NADE, 64, 175)):
+        (r, ), w = window17(lambda: (group_check(model, batch, seed), ))
+        busy = (f"kernel time per step {r['busy_ms']:.3f} ms (device busy "
+                f"{r['busy_ms'] / r['graph_ms']:.1%})" if r["busy_ms"] else
+                "device busy share not measured")
+        say(f"phase 17 joint {fam} group of {spc} (B={batch} T=64): graph vs "
+            f"eager {r['diff']:.3e} of max|p|; graph step "
+            f"{r['graph_ms']:.3f} ms = {r['frames']:.0f} frames/s, eager "
+            f"step {r['eager_ms']:.3f} ms; {busy}; capture "
+            f"{r['capture_s']:.2f} s, pool {r['pool']} bytes; launches per "
+            f"replayed step {r['per_step']}")
+
+    # the joint composer alias through the entry points: train -> generate
+    jrun = f"{tmp}/joint_cli"
+
+    def joint_cli():
+        rc = train_cli.main([
+            "--config", "configs/synthetic_smoke.json", "--device", "cuda",
+            "--model.mode=composer", "--model.n_hidden=150",
+            "--model.n_rnn=100", "--data.synthetic_songs=16",
+            "--train.epochs=1", f"--train.run_dir={jrun}"])
+        if rc != 0:
+            fail(f"phase 17: composer train.main exited {rc}")
+        rc = generate_cli.main(["--run", jrun, "--generate.n_steps=256",
+                                "--generate.n_samples=2"])
+        if rc != 0:
+            fail(f"phase 17: composer generate.main exited {rc}")
+
+    (_, w_cli) = window17(lambda: quiet(joint_cli))
+    with np.load(f"{jrun}/samples/pianorolls.npz") as z:
+        cli_roll = z["rolls"]
+    if (cli_roll.shape != (2, 256, 5, 84) or not w_cli.get("gibbs_chain")
+            or not w_cli.get("gen_fused_rbm")):
+        fail(f"phase 17: composer CLI rolls {cli_roll.shape}, launches "
+             f"{w_cli}")
+    say(f"phase 17 composer CLI: train.main (1 epoch, K=5 x D=84 joint, "
+        f"H=150) then generate.main (2 songs of 256 steps) {cli_roll.shape}"
+        f", launches {w_cli}")
+
+    # Hessian-free training on the NADE flagship, one fixed batch
+    hf_model = multinn.MultINNConfig(**NADE_FLAGSHIP)
+    hsrc = RollSource(4, 2, 64, 176, fixed=True)
+    hx = np.stack([next(hsrc.batches("train", shuffle=False))] * 2)
+    hp0 = multinn.init(hf_model, torch.Generator().manual_seed(176),
+                       device=dev)
+
+    def hf_trainer(name, spc_hf, cg_iters=25):
+        cfg = ExperimentConfig(model=hf_model, train=TrainConfig(
+            optimizer="hf", hf_cg_iters=cg_iters, steps_per_call=spc_hf,
+            log_every_steps=1000, run_dir=f"{tmp}/hf_{name}"))
+        return Trainer(cfg, hsrc, params=hp0)
+
+    eager_hf = hf_trainer("eager", 2)
+    eager_hf.capture_groups = False
+    hkey = sampling.PRNGKey(176, device=dev)
+    x64 = eager_hf._to_device(hx[0])
+    with torch.no_grad():
+        nll0 = float(multinn.loss(eager_hf.params, hkey, x64,
+                                  detailed=False)[0])
+    t_hf = time.perf_counter()
+    _, w_hf = window17(lambda: eager_hf.run_group(hx, hkey))
+    hf_eager_ms = (time.perf_counter() - t_hf) * 1e3 / 2
+    with torch.no_grad():
+        nll2 = float(multinn.loss(eager_hf.params, hkey, x64,
+                                  detailed=False)[0])
+    accepted = int(eager_hf.opt_state.accepted)
+    hf_lam = float(eager_hf.opt_state.lam)
+    if not (nll2 < nll0 and accepted >= 1
+            and w_hf.get("nade_ll_fwd") and w_hf.get("nade_ll_bwd")):
+        fail(f"phase 17 hf: NLL {nll0} -> {nll2}, {accepted} accepted, "
+             f"launches {w_hf}")
+    graph_hf = hf_trainer("graph", 2)
+    graph_hf.run_group(hx, hkey)                # warm-up, capture, replay
+    torch.cuda.synchronize()
+    hf_diff = rel_diff(graph_hf._leaves, eager_hf._leaves)
+    if not (hf_diff <= 1e-6
+            and int(graph_hf.opt_state.accepted) == accepted):
+        fail(f"phase 17 hf: graph vs eager params differ by {hf_diff:.3e} "
+             f"of max|p|, accepts {int(graph_hf.opt_state.accepted)} vs "
+             f"{accepted}")
+    hg = graph_hf.group_graph
+    hf_capture = (hg.capture_s, hg.graph.pool_bytes)
+    # the CG share on one clock: CUDA events around replays of the same
+    # captured group with 25 CG iterations and with none
+    hf_graph_ms = cuda_ms(lambda: graph_hf.run_group(hx, hkey), 2,
+                          warm=False) / 2
+    del eager_hf, graph_hf, hg
+    cg0_hf = hf_trainer("cg0", 2, cg_iters=0)
+    hf_cg0_ms = cuda_ms(lambda: cg0_hf.run_group(hx, hkey), 2) / 2
+    del cg0_hf
+    cg_share = (hf_graph_ms - hf_cg0_ms) / hf_graph_ms
+    say(f"phase 17 hf (NADE flagship K=5 D=84, B=64 T=64, cg_iters=25, "
+        f"one fixed batch): NLL {nll0:.4f} -> {nll2:.4f} after 2 "
+        f"macro-steps, {accepted} accepted, lambda {hf_lam:.4f}; captured "
+        f"group of 2 vs eager {hf_diff:.3e} of max|p| (the HF groups run as "
+        f"CUDA graphs); "
+        f"macro-step graph {hf_graph_ms:.2f} ms, eager {hf_eager_ms:.2f} ms "
+        f"(host clock); the same graph with cg_iters=0 {hf_cg0_ms:.2f} ms, "
+        f"so the 25 CG iterations take {cg_share:.1%} of the macro-step "
+        f"({(hf_graph_ms - hf_cg0_ms) / 25:.2f} ms each, CUDA events); "
+        f"capture {hf_capture[0]:.2f} s, pool {hf_capture[1]} bytes; "
+        f"launches {w_hf}; {smi}")
+
+    # the entry point at the same widths: train.main with the HF optimizer
+    # on 80 synthetic songs (2 windows of 64 each), one group of 2 steps
+    wide = ["--config", "configs/synthetic_smoke.json", "--device", "cuda",
+            "--model.n_hidden=150", "--model.n_rnn=100", "--data.window=64",
+            "--data.batch_size=64", "--data.synthetic_songs=80",
+            "--train.epochs=1", "--train.log_every_steps=1"]
+
+    def cli_rows(run_dir, args):
+        rc = train_cli.main(wide + args + [f"--train.run_dir={run_dir}"])
+        with open(f"{run_dir}/metrics.jsonl") as f:
+            return rc, [json.loads(line) for line in f]
+
+    t_cli = time.perf_counter()
+    ((hrc, hrows), _), w_hcli = window17(lambda: quiet(lambda: cli_rows(
+        f"{tmp}/hf_cli", ["--model.decoder_type=rnn-nade",
+                          "--train.optimizer=hf", "--train.hf_cg_iters=25"])))
+    hf_cli_s = time.perf_counter() - t_cli
+    hsteps = [r for r in hrows if "hf_lambda" in r]
+    if (hrc != 0 or not hsteps or not w_hcli.get("nade_ll_fwd")
+            or not w_hcli.get("nade_ll_bwd")):
+        fail(f"phase 17 hf: train.main --train.optimizer=hf exited {hrc}, "
+             f"rows {hrows[:2]}, launches {w_hcli}")
+    last = {k: hsteps[-1][k] for k in ("loss", "hf_lambda", "hf_accepted")}
+    say(f"phase 17 hf train.main (rnn-nade, H=150 U=100, B=64 T=64, "
+        f"cg_iters=25, 1 epoch): {len(hsteps)} logged rows, last {last}, "
+        f"{hf_cli_s:.1f} s, launches {w_hcli}")
+    # ... and under the bf16 matmul policy, rnn-rbm, the config's optimizer
+    t_cli = time.perf_counter()
+    ((brc, brows), _), w_bcli = window17(lambda: quiet(lambda: cli_rows(
+        f"{tmp}/bf16_cli", ["--model.matmul_dtype=bf16"])))
+    bf16_cli_s = time.perf_counter() - t_cli
+    bsteps = [r for r in brows if r["split"] == "train" and "loss" in r]
+    if (brc != 0 or not bsteps or not w_bcli.get("gibbs_chain")
+            or not all(math.isfinite(r["loss"]) for r in bsteps)):
+        fail(f"phase 17 bf16: train.main --model.matmul_dtype=bf16 exited "
+             f"{brc}, rows {brows[:2]}, launches {w_bcli}")
+    say(f"phase 17 bf16 train.main (rnn-rbm, H=150 U=100, B=64 T=64, 1 "
+        f"epoch): {len(bsteps)} metric rows, last loss "
+        f"{bsteps[-1]['loss']:.4f}, {bf16_cli_s:.1f} s, launches {w_bcli}")
+
+    # the bf16 policy: captured groups from phase 13's params, batches and
+    # key (which must end elsewhere than f32's did, or the policy never
+    # reached the captured step), and 20 steps that track f32
+    for fam, model, batch, seed, seed20 in (
+            ("rbm", FLAGSHIP, 16, 13, 177),
+            ("nade", NADE_FLAGSHIP, 64, 14, 178)):
+        m16 = dict(model, matmul_dtype="bf16")
+        (r, ), w = window17(lambda: (group_check(m16, batch, seed), ))
+        f32 = groups[fam]
+        off_f32 = rel_diff(r["leaves"], f32["leaves"])
+        if not off_f32 > 0.0:
+            fail(f"phase 17 bf16 {fam}: the captured bf16 group ended on "
+                 f"f32's params")
+        src = RollSource(20, 2, batch, seed20)
+        p0 = multinn.init(multinn.MultINNConfig(**model),
+                          torch.Generator().manual_seed(seed20), device=dev)
+        pair = {}
+        for dt in ("bf16", "f32"):
+            cfg = ExperimentConfig(
+                model=multinn.MultINNConfig(**dict(model, matmul_dtype=dt)),
+                train=TrainConfig(log_every_steps=1000,
+                                  run_dir=f"{tmp}/bf16_{fam}_{dt}"))
+            pair[dt] = Trainer(cfg, src, params=p0)
+        worst = 0.0
+        for i, b in enumerate(src.batches("train", shuffle=False)):
+            k = sampling.PRNGKey(1000 + i, device=dev)
+            l16 = float(pair["bf16"].train_step(pair["bf16"]._to_device(b),
+                                                k)["loss"])
+            l32 = float(pair["f32"].train_step(pair["f32"]._to_device(b),
+                                               k)["loss"])
+            worst = max(worst, abs(l16 - l32) / (0.05 * (abs(l32) + 1.0)))
+        if not 0.0 < worst <= 1.0:
+            fail(f"phase 17 bf16 {fam}: the loss left f32's bound or never "
+                 f"differed from it (|l16 - l32| / 0.05 (|l32| + 1) = "
+                 f"{worst:.3f})")
+        kern = (f"kernel time per step {r['busy_ms']:.3f} ms vs f32 "
+                f"{f32['busy_ms']:.3f} ms = "
+                f"{r['busy_ms'] / f32['busy_ms']:.3f}x"
+                if r["busy_ms"] and f32["busy_ms"] else
+                "kernel time not measured")
+        say(f"phase 17 bf16 {fam} group of {spc} (B={batch} T=64): graph vs "
+            f"eager {r['diff']:.3e} of max|p|, vs phase 13's f32 group "
+            f"{off_f32:.3e} of max|p|; graph step "
+            f"{r['graph_ms']:.3f} ms vs f32 {f32['graph_ms']:.3f} ms (phase "
+            f"13) = {r['graph_ms'] / f32['graph_ms']:.3f}x, {kern}; 20 "
+            f"steps' loss vs f32 at "
+            f"{worst:.4f} of the bound; launches per replayed step "
+            f"{r['per_step']}")
+        del pair
+    say(f"phase 17 launches, its windows summed: {windows_sum(*windows17)}; "
+        f"phase {time.perf_counter() - t17:.1f} s")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -1797,9 +2207,9 @@ def main() -> None:
     # each kernel's launches: its path's window above plus the windows of
     # the DBN paths (pre-training, serving) and of accompaniment
     new_windows = windows_sum(*dbn["nade"]["windows"], *dbn["rbm"]["windows"],
-                              *acc_windows, *windows16)
-    say(f"launches in the DBN, accompaniment and entry-point windows: "
-        f"{new_windows}")
+                              *acc_windows, *windows16, *windows17)
+    say(f"launches in the DBN, accompaniment, entry-point, joint, HF and "
+        f"bf16 windows: {new_windows}")
     shutil.rmtree(tmp, ignore_errors=True)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [

@@ -16,6 +16,7 @@ import torch
 
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import sampling
+from multinn_torch.ops.precision import mm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +73,10 @@ def scan_states(params, state, x_tm: torch.Tensor):
 
 
 def conditioned_biases(params, u_prev: torch.Tensor):
-    """bv(t) = bv + u(t-1) @ Wuv;  bh(t) = bh + u(t-1) @ Wuh."""
-    return (params.bv.unsqueeze(-2) + u_prev @ params.wuv,
-            params.bh.unsqueeze(-2) + u_prev @ params.wuh)
+    """bv(t) = bv + u(t-1) @ Wuv;  bh(t) = bh + u(t-1) @ Wuh (products
+    under the matmul policy)."""
+    return (params.bv.unsqueeze(-2) + mm(u_prev, params.wuv),
+            params.bh.unsqueeze(-2) + mm(u_prev, params.wuh))
 
 
 def teacher_forced(params, x: torch.Tensor, ctx: Optional[torch.Tensor]):

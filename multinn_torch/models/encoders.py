@@ -14,6 +14,7 @@ Two encoder types behind one contract (params is a tuple of
 The functions here take ONE encoder. The per-track architecture's
 track-stacked encoders (a leading K axis on every tensor) are applied
 track by track by ``models/multinn.py``, where the JAX package vmaps.
+The layers' products follow the bf16 matmul policy (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from multinn_torch.nn import rbm as rbm_nn
 from multinn_torch.ops import gibbs as gibbs_ops
 from multinn_torch.ops import sampling
+from multinn_torch.ops.precision import mm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +54,7 @@ def out_dim(cfg: EncoderConfig) -> int:
 
 
 def _up(layer, h: torch.Tensor) -> torch.Tensor:
-    return torch.sigmoid(h @ layer.w + layer.bh)
+    return torch.sigmoid(mm(h, layer.w) + layer.bh)
 
 
 def encode(params, x: torch.Tensor, key=None) -> torch.Tensor:
@@ -85,9 +87,9 @@ def decode_logits(params, h: torch.Tensor) -> torch.Tensor:
     scale the sampled conditional's logits."""
     v = h
     for layer in reversed(params[1:]):
-        v = torch.sigmoid(v @ layer.w.transpose(-1, -2) + layer.bv)
+        v = torch.sigmoid(mm(v, layer.w.transpose(-1, -2)) + layer.bv)
     first = params[0]
-    return v @ first.w.transpose(-1, -2) + first.bv
+    return mm(v, first.w.transpose(-1, -2)) + first.bv
 
 
 def decode(params, h: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,26 @@
 """MultINN — the multi-track model — port of multinn_tpu/models/multinn.py.
 
-Inter-track modes ``per-track``, ``feedback`` and ``hybrid``, pass-through
-and DBN encoders (one shared encoder in feedback / hybrid mode, one per
-track in per-track mode), both decoder families, RNN-RBM and RNN-NADE.
-Per-track decoder and encoder params are STACKED along a leading track
-axis K, as in the JAX package; where it vmaps over tracks the port batches
-the same computation over that axis (nn/rnn.py), and loops over tracks
-only where a kernel or a function takes one decoder or encoder (the scan
-path's Gibbs chain or NADE sweep, the CD chain, a per-track encoder).
+Inter-track modes ``per-track``, ``feedback``, ``hybrid`` and ``joint``
+(alias ``composer``), pass-through and DBN encoders (one shared encoder in
+feedback / hybrid mode, one per track in per-track mode, one over the
+concatenated tracks in joint mode), both decoder families, RNN-RBM and
+RNN-NADE. Per-track decoder and encoder params are STACKED along a leading
+track axis K, as in the JAX package; where it vmaps over tracks the port
+batches the same computation over that axis (nn/rnn.py), and loops over
+tracks only where a kernel or a function takes one decoder or encoder (the
+scan path's Gibbs chain or NADE sweep, the CD chain, a per-track encoder).
+
+Joint mode has ONE decoder over the K*D-wide concatenated frame. The JAX
+package keeps it unstacked; the port keeps it as a stack of one track
+(leading axis 1, states (1, B, ...)), the layout the whole-generation
+kernels take it in (gen_common._eff_dims), so every decoder function runs
+unchanged. Its single decoder draws on the step's key itself, not on
+``split(key, K)[0]``, as the JAX package's; ``utils/convert.py`` adds and
+drops the axis. Accompaniment raises in joint mode.
+
 Generation, accompaniment included, runs in the decoders' feature space;
 with a DBN the latent frames are decoded to pianoroll by sampling the
-decode conditional. Pianorolls are (B, T, K, D). ``joint`` mode waits for
-a later slice (ROADMAP queue 1).
+decode conditional. Pianorolls are (B, T, K, D).
 """
 
 from __future__ import annotations
@@ -140,10 +149,16 @@ def index_tree(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
-def _check_mode(cfg: MultINNConfig):
-    if cfg.mode == "joint":
-        raise NotImplementedError("joint mode is not ported yet (ROADMAP "
-                                  "queue 1)")
+def n_decoders(cfg: MultINNConfig) -> int:
+    """Decoders in the stack: one in joint mode, else one per track."""
+    return 1 if cfg.mode == "joint" else cfg.n_tracks
+
+
+def _decoder_keys(cfg: MultINNConfig, key: torch.Tensor) -> torch.Tensor:
+    """One key per decoder: ``split(key, K)``, or in joint mode the key
+    itself (the JAX package's single decoder draws on it)."""
+    return key[None] if cfg.mode == "joint" else sampling.split(key,
+                                                                cfg.n_tracks)
 
 
 def init(cfg: MultINNConfig, generator: Optional[torch.Generator] = None,
@@ -153,14 +168,14 @@ def init(cfg: MultINNConfig, generator: Optional[torch.Generator] = None,
     drawn on the CPU from ``generator`` (the decoders track by track, then
     the encoder or each track's encoder, so a seed gives the same values on
     every device) and placed on ``device``: the CUDA card when None, which
-    raises without one."""
-    _check_mode(cfg)
+    raises without one. Joint mode: one decoder (a stack of one) and one
+    encoder over K*D pitches."""
     device = entry_device(device)
     dec = get_decoder(cfg.decoder_type)
     dcfg, ecfg = cfg.decoder_config(), cfg.encoder_config()
     decoder = stack_trees([dec.init(dcfg, generator=generator, device="cpu")
-                           for _ in range(cfg.n_tracks)])
-    if cfg.shared_encoder:
+                           for _ in range(n_decoders(cfg))])
+    if cfg.mode != "per-track":
         encoder = enc_mod.init(ecfg, generator=generator, device="cpu")
     else:
         encoder = stack_trees([enc_mod.init(ecfg, generator=generator,
@@ -173,14 +188,18 @@ def init(cfg: MultINNConfig, generator: Optional[torch.Generator] = None,
 
 def _per_track_encoder(params: MultINNParams) -> bool:
     """True when each track has a DBN encoder of its own (stacked)."""
-    return bool(params.encoder) and not params.cfg.shared_encoder
+    return bool(params.encoder) and params.cfg.mode == "per-track"
 
 
 def _encode_tracks(params: MultINNParams, x: torch.Tensor) -> torch.Tensor:
     """x: (B, T, K, D) -> decoder-facing features, tracks-first (K, B, T, F):
     the frames for pass-through encoders, binary and detached DBN features
     otherwise (enc_mod.features), one encoder for all tracks or each
-    track's own."""
+    track's own. Joint mode: the concatenated frames (1, B, T, K*D) through
+    its one encoder."""
+    if params.cfg.mode == "joint":
+        b, t, k, d = x.shape
+        return enc_mod.features(params.encoder, x.reshape(b, t, k * d))[None]
     xk = x.movedim(2, 0)
     if not _per_track_encoder(params):
         return enc_mod.features(params.encoder, xk)
@@ -252,13 +271,13 @@ def loss(params: MultINNParams, key: torch.Tensor, x: torch.Tensor,
          impl=None):
     """Teacher-forced loss over all tracks, x (B, T, K, D); frame_mask
     (B, T). Returns (loss, metrics): the metrics averaged over tracks, the
-    per-track losses under ``loss_per_track``. Track i's key is
-    ``split(key, K)[i]``. ``detailed=False`` is the trainer's hot path;
-    ``impl`` forces the decoder's kernels or their plain versions."""
+    per-track losses under ``loss_per_track`` ((1,) in joint mode). Track
+    i's key is ``split(key, K)[i]`` (joint mode: ``key``).
+    ``detailed=False`` is the trainer's hot path; ``impl`` forces the
+    decoder's kernels or their plain versions."""
     cfg = params.cfg
-    _check_mode(cfg)
     feats_k, ctx = _track_inputs(params, x)
-    keys = sampling.split(key, cfg.n_tracks)
+    keys = _decoder_keys(cfg, key)
     losses, metrics = get_decoder(cfg.decoder_type).loss(
         params.decoder, keys, feats_k, ctx=ctx, detailed=detailed,
         frame_mask=frame_mask, impl=impl)
@@ -275,22 +294,22 @@ def log_likelihood(params: MultINNParams, key: torch.Tensor,
     """Per-sequence LL summed over tracks and time, (B,): exact for NADE
     decoders, the pseudo-LL proxy for RBM decoders."""
     cfg = params.cfg
-    _check_mode(cfg)
     feats_k, ctx = _track_inputs(params, x)
     lls = get_decoder(cfg.decoder_type).log_likelihood_proxy(
-        params.decoder, sampling.split(key, cfg.n_tracks), feats_k, ctx=ctx,
+        params.decoder, _decoder_keys(cfg, key), feats_k, ctx=ctx,
         frame_mask=frame_mask)
     return lls.sum(dim=0)
 
 
 def conditional_logits(params: MultINNParams, x: torch.Tensor):
     """Teacher-forced conditional logits and their targets for NADE
-    decoders, both (K, T, B, F)."""
+    decoders, both (K, T, B, F) ((1, T, B, K*D) in joint mode): the
+    Gauss-Newton linearization point of training/hf.py, in the parallel
+    cumsum form."""
     cfg = params.cfg
     if cfg.decoder_type != "rnn-nade":
         raise ValueError("conditional_logits requires an rnn-nade decoder "
                          "(RBM CD training has no GGN linearization)")
-    _check_mode(cfg)
     feats_k, ctx = _track_inputs(params, x)
     logits = get_decoder(cfg.decoder_type).conditional_logits(
         params.decoder, feats_k, ctx=ctx)
@@ -299,9 +318,8 @@ def conditional_logits(params: MultINNParams, x: torch.Tensor):
 
 def init_state(params: MultINNParams, batch: int) -> MultINNState:
     cfg = params.cfg
-    _check_mode(cfg)
     dec = get_decoder(cfg.decoder_type)
-    states = dec.init_state(params.decoder, (cfg.n_tracks, batch))
+    states = dec.init_state(params.decoder, (n_decoders(cfg), batch))
     ctx = (torch.zeros((batch, cfg.ctx_dim()), device=params.decoder.w.device)
            if cfg.mode == "feedback" else None)
     return MultINNState(decoder=states, ctx=ctx)
@@ -311,7 +329,6 @@ def prime(params: MultINNParams, state: MultINNState,
           seed: torch.Tensor) -> MultINNState:
     """Advance RNN states over a seed pianoroll (B, T, K, D)."""
     cfg = params.cfg
-    _check_mode(cfg)
     dec = get_decoder(cfg.decoder_type)
     feats_k = _encode_tracks(params, seed)               # (K, B, T, F)
     if cfg.mode == "feedback":
@@ -356,20 +373,28 @@ def _sample_step(params: MultINNParams, key: torch.Tensor,
                  ) -> Tuple[MultINNState, torch.Tensor]:
     """One generation step over all tracks on already-tempered params ->
     (state, frame (B, K, D)). Keys as the JAX package: ``key, kd =
-    split(key)``, one key per track from ``key``, and ``kd`` for the DBN
-    decode; ``dec_beta`` tempers only that decode."""
+    split(key)``, one key per decoder from ``key`` (_decoder_keys), and
+    ``kd`` for the DBN decode; ``dec_beta`` tempers only that decode."""
     cfg = params.cfg
     dec = get_decoder(cfg.decoder_type)
     key, kd = sampling.split(key)
-    keys = sampling.split(key, cfg.n_tracks)
+    keys = _decoder_keys(cfg, key)
     vs = torch.stack([
         dec.sample_frame(index_tree(params.decoder, i), keys[i],
                          index_tree(state.decoder, i), k=k)
-        for i in range(cfg.n_tracks)])                   # (K, B, F)
+        for i in range(n_decoders(cfg))])                # (K, B, F)
     new_state = _forced_step(params, state, vs)
     if cfg.encoder_hidden:
         vs = _decode_tracks(params, kd, vs, dec_beta)
-    return new_state, vs.movedim(0, 1)                   # (B, K, D)
+    return new_state, _frames(cfg, vs.movedim(0, 1))     # (B, K, D)
+
+
+def _frames(cfg: MultINNConfig, x: torch.Tensor) -> torch.Tensor:
+    """Decoder-major frames (..., K', D') -> pianoroll (..., K, D): joint
+    mode's one K*D-wide row split into the tracks."""
+    if cfg.mode != "joint":
+        return x
+    return x.reshape(*x.shape[:-2], cfg.n_tracks, cfg.n_pitches)
 
 
 def _forced_step(params: MultINNParams, state: MultINNState,
@@ -403,7 +428,7 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
     tensors each kernel runs as its plain version. ``temperature`` tempers
     the decoder params and the DBN decode conditional's logits."""
     cfg = params.cfg
-    batch = state.decoder.v_prev.shape[1]
+    batch = state.decoder.v_prev.shape[1]     # (K', B, F) in every mode
     if fused is None:
         from multinn_torch.ops import gen_fused
         fused = (gen_fused.supported(cfg, batch, n_steps, gen_k=k)
@@ -530,7 +555,9 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
     pianoroll after it, under ``fold_in(key, 0x5eed)`` (per-track encoders:
     ``split`` of that key over the tracks), ``dec_beta`` tempering that
     decode. ``given`` (B, T, K, F) features with ``given_tracks``: those
-    tracks' frames in the kernel (accompaniment)."""
+    tracks' frames in the kernel (accompaniment). Joint mode enters the
+    kernels as one track of the joint width; its roll is split into the K
+    tracks after the decode."""
     from multinn_torch.ops import gen_fused
     cfg = params.cfg
     vanilla = cfg.cell == "vanilla"
@@ -562,7 +589,7 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
         kd = sampling.fold_in(key, 0x5eed)
         roll = _decode_tracks(params, kd, roll.movedim(2, 0),
                               dec_beta).movedim(0, 2)
-    return MultINNState(decoder=new_dec, ctx=ctx), roll
+    return MultINNState(decoder=new_dec, ctx=ctx), _frames(cfg, roll)
 
 
 def _generate_accomp_fused(params: MultINNParams, key: torch.Tensor,

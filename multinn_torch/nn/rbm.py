@@ -7,7 +7,8 @@ Biases broadcast against the leading dims of v/h (per-sample,
 time-conditioned biases). The samplers here draw ``jax.random``'s stream
 (ops/sampling.py), bit-equal to the JAX package's XLA path: this module is
 the math of record. The CD chain of training runs on the kernel stream
-instead (ops/gibbs.py).
+instead (ops/gibbs.py). The free energy and the conditionals' products
+follow the bf16 matmul policy (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from multinn_torch.ops import sampling
+from multinn_torch.ops.precision import mm
 
 
 @dataclasses.dataclass
@@ -39,16 +41,16 @@ def init(n_visible: int, n_hidden: int, w_std: float = 0.01,
 
 def free_energy(v, w, bv, bh) -> torch.Tensor:
     vis_term = torch.sum(v * bv, dim=-1)
-    hid_term = torch.sum(F.softplus(v @ w + bh), dim=-1)
+    hid_term = torch.sum(F.softplus(mm(v, w) + bh), dim=-1)
     return -vis_term - hid_term
 
 
 def prob_h_given_v(v, w, bh) -> torch.Tensor:
-    return torch.sigmoid(v @ w + bh)
+    return torch.sigmoid(mm(v, w) + bh)
 
 
 def prob_v_given_h(h, w, bv) -> torch.Tensor:
-    return torch.sigmoid(h @ w.transpose(-1, -2) + bv)
+    return torch.sigmoid(mm(h, w.transpose(-1, -2)) + bv)
 
 
 def gibbs_step(key, v, w, bv, bh, sample_v: bool = True

@@ -1,14 +1,15 @@
 """Recurrent cells and time-major runners — port of multinn_tpu/nn/rnn.py.
 
 LSTM (gate order i, f, g, o; forget-gate bias 1 at init) and the paper's
-vanilla tanh cell, plus stacked layers. f32 only (the JAX package's bf16
-``precision.mm`` policy is not ported yet).
+vanilla tanh cell, plus stacked layers. The cell and hoisted input
+products go through ``ops.precision.mm``, so they follow the bf16 matmul
+policy where the trainer enters it.
 
 Every function also takes TRACK-STACKED params — a leading K axis on every
 leaf, inputs (K, B, in) — where the JAX package vmaps over tracks: products
-are ``torch.matmul``, which batches over the leading axes, and biases enter
-as ``b.unsqueeze(-2)`` so that (G,) and (K, G) both broadcast. Time-major
-sequences are (T, [K,] B, in).
+batch over the leading axes, and biases enter as ``b.unsqueeze(-2)`` so
+that (G,) and (K, G) both broadcast. Time-major sequences are (T, [K,] B,
+in).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from multinn_torch.ops.precision import mm
 
 
 def _normal(shape, std, generator, device):
@@ -60,17 +63,17 @@ def _lstm_gates(c, z) -> LSTMState:
 
 
 def lstm_step(params: LSTMParams, state: LSTMState, x) -> LSTMState:
-    z = x @ params.wx + state.h @ params.wh + params.b.unsqueeze(-2)
+    z = mm(x, params.wx) + mm(state.h, params.wh) + params.b.unsqueeze(-2)
     return _lstm_gates(state.c, z)
 
 
 def lstm_scan(params: LSTMParams, state: LSTMState, xs):
     """LSTM over time-major xs (T, ..., in) -> (final_state, hs (T, ..., H)),
     with the input projection of all T steps hoisted out of the loop."""
-    xz = xs @ params.wx + params.b.unsqueeze(-2)
+    xz = mm(xs, params.wx) + params.b.unsqueeze(-2)
     hs = []
     for xz_t in xz:
-        state = _lstm_gates(state.c, xz_t + state.h @ params.wh)
+        state = _lstm_gates(state.c, xz_t + mm(state.h, params.wh))
         hs.append(state.h)
     return state, torch.stack(hs)
 
@@ -102,14 +105,14 @@ def vanilla_zero_state(batch_shape, n_hidden: int, device=None):
 
 def vanilla_step(params: VanillaRNNParams, state: VanillaRNNState, x):
     return VanillaRNNState(h=torch.tanh(
-        x @ params.wx + state.h @ params.wh + params.b.unsqueeze(-2)))
+        mm(x, params.wx) + mm(state.h, params.wh) + params.b.unsqueeze(-2)))
 
 
 def vanilla_scan(params: VanillaRNNParams, state: VanillaRNNState, xs):
-    xz = xs @ params.wx + params.b.unsqueeze(-2)
+    xz = mm(xs, params.wx) + params.b.unsqueeze(-2)
     hs = []
     for xz_t in xz:
-        state = VanillaRNNState(h=torch.tanh(xz_t + state.h @ params.wh))
+        state = VanillaRNNState(h=torch.tanh(xz_t + mm(state.h, params.wh)))
         hs.append(state.h)
     return state, torch.stack(hs)
 

@@ -4,6 +4,8 @@ multinn_tpu/ops/gen_common.py.
 The kernels run in the decoder's feature space with per-track layouts:
 the pianoroll pitches for pass-through encoders, the DBN latents
 otherwise (the dispatch decodes the latent roll after the kernel).
+``_eff_dims`` is (K, D) as the kernels see them: joint mode collapses to
+one track of the joint width, whose layouts are plain dense matrices.
 ``_decoder_param_shapes`` builds the track-stacked decoder params on the
 ``meta`` device, so a gate can run the real argument builder and size the
 launch without allocating anything. ``_ctx_rows`` and ``_state_rows`` /
@@ -49,9 +51,9 @@ def sample_bytes(k: int, d: int, u: int, n_layers: int, scratch: int) -> int:
 def _common_gate(cfg, decoder_type: str) -> bool:
     """Configs the port's kernels take: this decoder family, any encoder
     (a DBN's kernels run at D = feature_dim, the feedback context K
-    latents wide), per-track / feedback / hybrid modes (joint mode is not
-    ported yet)."""
-    return cfg.decoder_type == decoder_type and cfg.mode != "joint"
+    latents wide), every inter-track mode (joint mode as one track of the
+    joint width, _eff_dims)."""
+    return cfg.decoder_type == decoder_type
 
 
 def _given_fits(cfg, n_given: int) -> bool:
@@ -62,16 +64,19 @@ def _given_fits(cfg, n_given: int) -> bool:
 
 
 def _eff_dims(cfg):
-    """(K, D) as the kernels see them: D is the decoder's feature width."""
-    return cfg.n_tracks, cfg.feature_dim()
+    """(K, D) as the kernels see them: D is the decoder's feature width.
+    Joint mode is one decoder over the concatenated tracks: ONE track of
+    the joint feature width (K*D for pass-through encoders)."""
+    from multinn_torch.models.multinn import n_decoders
+    return n_decoders(cfg), cfg.feature_dim()
 
 
 def _decoder_param_shapes(cfg, decoder_mod):
-    """Track-stacked decoder Params as meta tensors."""
-    from multinn_torch.models.multinn import stack_trees
-    dcfg = cfg.decoder_config()
-    one = decoder_mod.init(dcfg, device="meta")
-    return stack_trees([one] * cfg.n_tracks)
+    """Track-stacked decoder Params as meta tensors (joint mode: a stack
+    of one)."""
+    from multinn_torch.models.multinn import n_decoders, stack_trees
+    one = decoder_mod.init(cfg.decoder_config(), device="meta")
+    return stack_trees([one] * n_decoders(cfg))
 
 
 def _ctx_rows(wx, d: int):

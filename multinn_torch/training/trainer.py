@@ -2,9 +2,11 @@
 multinn_tpu/training/trainer.py.
 
 An epoch loop over windowed pianoroll batches; Adam, AdamW or SGD with
-momentum behind the global-norm clip, written as optax writes them;
-CD-k updates for RBM decoders and exact-likelihood updates for NADE
-decoders, both through ``multinn.loss``; per-epoch validation, early
+momentum behind the global-norm clip, written as optax writes them, or
+Hessian-free macro-steps (``optimizer="hf"``, RNN-NADE only:
+training/hf.py, its ``HFState`` the optimizer state); CD-k updates for RBM
+decoders and exact-likelihood updates for NADE decoders, both through
+``multinn.loss``; per-epoch validation, early
 stopping, checkpoints (the last ``keep_last`` plus the best) with exact
 mid-epoch resume, and a JSONL + TensorBoard metrics log under ``run_dir``.
 DBN encoders are pre-trained greedily by CD before the first epoch
@@ -32,13 +34,17 @@ image of one free-running sample (``valid/sample``: the scan path, B=1,
 ``data.window`` steps, on the trainer's key stream) and, once, of the first
 validation window (``valid/reference``) to TensorBoard.
 
-Not ported yet (ROADMAP queue 1), each refused with NotImplementedError at
-construction: Hessian-free training, meshes and the bf16 matmul policy.
+Every step body (the eager step, the group a CUDA graph captures,
+evaluation and encoder pre-training) runs under the matmul policy of
+``model.matmul_dtype`` (ops/precision.py); the Hessian-free step pins f32
+inside it. Mesh training is not ported yet (ROADMAP queue 1) and is
+refused with NotImplementedError at construction.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import math
 import os
@@ -49,7 +55,8 @@ import numpy as np
 import torch
 
 from multinn_torch.models import multinn
-from multinn_torch.ops import _build, sampling
+from multinn_torch.ops import _build, precision, sampling
+from multinn_torch.training import hf as hf_mod
 from multinn_torch.training.checkpoint import Checkpointer
 from multinn_torch.utils.device import entry_device
 from multinn_torch.utils.logging import (MetricsLogger, format_metrics,
@@ -176,13 +183,8 @@ def make_optimizer(cfg, steps_per_epoch: int = 0) -> Optimizer:
 
 
 def _refuse_unported(cfg) -> None:
-    train = cfg.train
-    for on, what in ((train.optimizer == "hf", "Hessian-free training"),
-                     (cfg.mesh.use_mesh, "mesh training"),
-                     (cfg.model.matmul_dtype in ("bf16", "bfloat16"),
-                      "the bf16 matmul policy (matmul_dtype)")):
-        if on:
-            raise NotImplementedError(f"{what}: {_LATER}")
+    if cfg.mesh.use_mesh:
+        raise NotImplementedError(f"mesh training: {_LATER}")
 
 
 def _host(v: torch.Tensor):
@@ -312,9 +314,19 @@ class Trainer:
                         for t in multinn.tree_leaves(self.params.decoder)]
         # every parameter tensor, encoder first (checkpoints, graph state)
         self._all_leaves = multinn.tree_leaves(self.params)
-        self.optimizer = make_optimizer(
-            cfg.train, steps_per_epoch=self.dataset.n_batches("train"))
-        self.opt_state = self.optimizer.init(self._leaves)
+        self._hf = cfg.train.optimizer == "hf"
+        if self._hf:
+            if cfg.model.decoder_type != "rnn-nade":
+                raise ValueError("optimizer='hf' requires an rnn-nade "
+                                 "decoder (CD has no objective to "
+                                 "second-order optimize)")
+            self.optimizer = None
+            self.opt_state = hf_mod.init_state(self.params,
+                                               cfg.train.hf_lambda0)
+        else:
+            self.optimizer = make_optimizer(
+                cfg.train, steps_per_epoch=self.dataset.n_batches("train"))
+            self.opt_state = self.optimizer.init(self._leaves)
         self.step = 0
         self.epoch = 0
         # the global step at the start of the current epoch: step -
@@ -337,11 +349,23 @@ class Trainer:
 
     # -- state -------------------------------------------------------------
 
+    def _opt_dict(self) -> Dict[str, Any]:
+        """The optimizer state by name (tensors or lists of tensors): the
+        first-order optimizer's dict, or the HFState's fields."""
+        if self._hf:
+            return {f.name: getattr(self.opt_state, f.name)
+                    for f in dataclasses.fields(self.opt_state)}
+        return self.opt_state
+
+    def _policy(self):
+        """The matmul policy of ``model.matmul_dtype`` (ops/precision.py)."""
+        return precision.matmul_precision(self.cfg.model.matmul_dtype)
+
     def _state_tensors(self) -> List[torch.Tensor]:
         """Every parameter and optimizer tensor, in a fixed order (a step
         updates all but the encoder's in place)."""
         out = list(self._all_leaves)
-        for v in self.opt_state.values():
+        for v in self._opt_dict().values():
             out += v if isinstance(v, list) else [v]
         return out
 
@@ -372,12 +396,33 @@ class Trainer:
         """One optimizer step on the float batch x (B, T, K, D): the loss,
         its gradients, the clipped update. Returns the metrics as detached
         device tensors (the detailed form adds the monitoring metrics), with
-        ``grad_norm``, the gradients' norm before the clip."""
-        loss, metrics = multinn.loss(self.params, key, x, detailed=detailed)
-        grads = torch.autograd.grad(loss, self._leaves)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = self.optimizer.update(self._leaves, grads,
-                                                     self.opt_state)
+        ``grad_norm``, the gradients' norm before the clip. Under
+        ``optimizer="hf"`` one Hessian-free macro-step (``detailed`` does
+        not apply: it reports its own diagnostics, hf.hf_step), its
+        results copied into the parameters and the HFState in place."""
+        with self._policy():
+            if self._hf:
+                return self._hf_step(x, key)
+            loss, metrics = multinn.loss(self.params, key, x,
+                                         detailed=detailed)
+            grads = torch.autograd.grad(loss, self._leaves)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["grad_norm"] = self.optimizer.update(self._leaves, grads,
+                                                         self.opt_state)
+            return metrics
+
+    def _hf_step(self, x: torch.Tensor, key: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        new_params, new_state, metrics = hf_mod.hf_step(
+            self.params, self.opt_state, x, key,
+            cg_iters=self.cfg.train.hf_cg_iters)
+        with torch.no_grad():
+            torch._foreach_copy_(self._leaves,
+                                 multinn.tree_leaves(new_params.decoder))
+            st = self.opt_state
+            st.lam.copy_(new_state.lam)
+            torch._foreach_copy_(st.delta, new_state.delta)
+            st.accepted.copy_(new_state.accepted)
         return metrics
 
     def _group_body(self, xs: torch.Tensor, key: torch.Tensor
@@ -485,8 +530,11 @@ class Trainer:
     def _eval_step(self, x, key, mask) -> Dict[str, torch.Tensor]:
         """Frame-weighted metric sums of one batch, and ``n_frames``."""
         k_loss, k_ll = sampling.split(key)
-        _, metrics = multinn.loss(self.params, k_loss, x, frame_mask=mask)
-        ll = multinn.log_likelihood(self.params, k_ll, x, frame_mask=mask)
+        with self._policy():
+            _, metrics = multinn.loss(self.params, k_loss, x,
+                                      frame_mask=mask)
+            ll = multinn.log_likelihood(self.params, k_ll, x,
+                                        frame_mask=mask)
         n_frames = mask.sum()
         metrics["ll_per_frame"] = ll.sum() / (
             torch.clamp(n_frames, min=1.0) * self.cfg.model.n_tracks)
@@ -551,7 +599,7 @@ class Trainer:
         return {"params": [cpu(p) for p in self._all_leaves],
                 "opt_state": {k: ([cpu(t) for t in v] if isinstance(v, list)
                                   else cpu(v))
-                              for k, v in self.opt_state.items()},
+                              for k, v in self._opt_dict().items()},
                 "rng": cpu(self.rng).view(torch.int32),
                 "step": self.step, "epoch": self.epoch,
                 "epoch_step0": self.epoch_step0,
@@ -568,12 +616,12 @@ class Trainer:
         trainer's existing tensors; returns the step restored."""
         state, at = self.ckpt.restore(step)
         opt = state["opt_state"]
-        if set(opt) != set(self.opt_state):
+        mine = self._opt_dict()
+        if set(opt) != set(mine):
             raise ValueError(f"checkpoint @ step {at} has optimizer state "
-                             f"{sorted(opt)}, the trainer "
-                             f"{sorted(self.opt_state)}")
+                             f"{sorted(opt)}, the trainer {sorted(mine)}")
         values = list(state["params"])
-        for k in self.opt_state:
+        for k in mine:
             values += opt[k] if isinstance(opt[k], list) else [opt[k]]
         self._load_state_tensors(values)
         self.rng = state["rng"].view(torch.uint32).to(self.device)
@@ -603,10 +651,12 @@ class Trainer:
         layer a fresh Adam at ``pretrain_lr`` over
         ``pretrain_encoder_epochs`` epochs of augmented train batches, one
         ``rng, key = split(rng)`` per batch (per-track encoders: track i on
-        ``split(key, K)[i]``, the loss their mean). Logs the decode
-        calibration and warns outside 0.5-2x. The trained values are copied
-        into the encoder's tensors and the optimizer state is zeroed in
-        place (a captured group holds their addresses)."""
+        ``split(key, K)[i]``, the loss their mean; joint mode's one encoder
+        on the concatenated K*D frames). Runs under the matmul policy. Logs
+        the decode calibration and warns outside 0.5-2x. The trained values
+        are copied into the encoder's tensors and the optimizer state is
+        reset in place (a captured group holds their addresses): zeros, or
+        a fresh HFState (``hf_lambda0``, no warm start, no accepts)."""
         cfg = self.cfg
         n_layers = len(cfg.model.encoder_hidden)
         if n_layers == 0:
@@ -620,11 +670,17 @@ class Trainer:
                 "train.pretrain_encoder_epochs>0 unless that is deliberate",
                 cfg.model.encoder_hidden)
             return
+        with self._policy():
+            self._pretrain_encoders(n_layers)
+
+    def _pretrain_encoders(self, n_layers: int) -> None:
         from types import SimpleNamespace
 
         from multinn_torch.models import encoders as enc_mod
+        cfg = self.cfg
         k_tracks = cfg.model.n_tracks
-        shared = cfg.model.shared_encoder
+        joint = cfg.model.mode == "joint"
+        shared = cfg.model.mode != "per-track"
         per_track = lambda fn, enc, *xs: [
             fn(multinn.index_tree(enc, i), *(x[i] for x in xs))
             for i in range(k_tracks)]
@@ -632,11 +688,14 @@ class Trainer:
                                weight_decay=0.0, lr=cfg.train.pretrain_lr,
                                lr_schedule="constant", warmup_steps=0)
 
-        def tracks_first(batch):                 # (B, T, K, D) -> (K, ...)
-            return self._to_device(batch).movedim(2, 0)
+        def enc_input(batch):   # (B, T, K, D) -> (K, ...); joint: (B, T, K*D)
+            x = self._to_device(batch)
+            if joint:
+                return x.reshape(*x.shape[:2], -1)
+            return x.movedim(2, 0)
 
         # start the decode conditional calibrated to the data marginal
-        x_cal = tracks_first(self.dataset.windows["train"][:2048])
+        x_cal = enc_input(self.dataset.windows["train"][:2048])
         enc = multinn.tree_map(lambda t: t.detach().clone(),
                                self.params.encoder)
         if shared:
@@ -654,7 +713,7 @@ class Trainer:
                 for batch in self.dataset.batches("train", epoch=ep,
                                                   augment=True):
                     self.rng, key = sampling.split(self.rng)
-                    x = tracks_first(batch)
+                    x = enc_input(batch)
                     if shared:
                         loss = enc_mod.pretrain_loss(enc, key, x, layer)
                     else:
@@ -699,6 +758,8 @@ class Trainer:
                 dst.copy_(src)
             for t in self._state_tensors()[len(self._all_leaves):]:
                 t.zero_()
+            if self._hf:
+                self.opt_state.lam.fill_(cfg.train.hf_lambda0)
 
     def profile_steps(self, n_steps: int) -> str:
         """A torch.profiler trace of ``n_steps`` warm train steps on the

@@ -6,8 +6,11 @@ this module imports no jax. The layout is kept as is: the track-stacked
 leading axis K; LSTM ``wx`` (in, 4U), ``wh`` (U, 4U), ``b`` (4U) in gate
 order i, f, g, o; RBM ``w`` (F, H) and NADE ``w``, ``v`` (F, H);
 ``wuv`` (U, F); ``wuh`` (U, H); a DBN encoder is a tuple of RBM params
-``w`` (D_in, D_out), ``bv``, ``bh``, shared (feedback and hybrid modes) or
-with a leading K axis (per-track mode).
+``w`` (D_in, D_out), ``bv``, ``bh``, shared (feedback and hybrid modes, and
+joint mode over K*D pitches) or with a leading K axis (per-track mode).
+The one exception: joint mode's single decoder, unstacked in the JAX
+package, is a stack of one track in the port (models/multinn.py), so
+``from_jax`` adds that axis and ``to_numpy`` drops it.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ def from_jax(params, device=None) -> multinn.MultINNParams:
         **{f.name: _tensor(getattr(d, f.name), device)
            for f in dataclasses.fields(mod.Params)
            if f.name not in ("cell", "cfg")})
+    if cfg.mode == "joint":             # one decoder -> a stack of one
+        decoder = multinn.stack_trees([decoder])
     encoder = tuple(rbm_nn.RBMParams(w=_tensor(e.w, device),
                                      bv=_tensor(e.bv, device),
                                      bh=_tensor(e.bh, device))
@@ -62,14 +67,19 @@ def to_numpy(params: multinn.MultINNParams) -> SimpleNamespace:
     namespace tree with the JAX pytree's attributes (``cfg``, ``encoder``,
     ``decoder.cell[l].wx``, ``decoder.w``, ...), so ``from_jax`` reads it
     back and a test compares it leaf by leaf with JAX params."""
+    joint = params.cfg.mode == "joint"
+
     def arr(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy().copy()
 
+    def dec_arr(t: torch.Tensor) -> np.ndarray:     # joint: drop the stack
+        return arr(t[0] if joint else t)
+
     d = params.decoder
-    cell = tuple(SimpleNamespace(wx=arr(c.wx), wh=arr(c.wh), b=arr(c.b))
-                 for c in d.cell)
+    cell = tuple(SimpleNamespace(wx=dec_arr(c.wx), wh=dec_arr(c.wh),
+                                 b=dec_arr(c.b)) for c in d.cell)
     decoder = SimpleNamespace(cell=cell, **{
-        f.name: arr(getattr(d, f.name)) for f in dataclasses.fields(d)
+        f.name: dec_arr(getattr(d, f.name)) for f in dataclasses.fields(d)
         if f.name not in ("cell", "cfg")})
     encoder = tuple(SimpleNamespace(w=arr(e.w), bv=arr(e.bv), bh=arr(e.bh))
                     for e in params.encoder)

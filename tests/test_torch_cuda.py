@@ -955,3 +955,127 @@ def test_image_summaries_launch_the_scan_kernels(dev, tmp_path, decoder,
     (path,) = glob.glob(f"{tmp_path}/tb/events.out.tfevents.*")
     tags = {tag for e in tb.read_events(path) for tag in e["images"]}
     assert tags == {"valid/reference", "valid/sample"}
+
+
+# -- joint mode (one track of K*D = 420 pitches), HF and the bf16 policy ------
+
+JOINT_RBM = dict(FLAGSHIP, mode="joint")
+JOINT_NADE = dict(NADE, mode="joint")
+
+
+@pytest.mark.parametrize("model", [JOINT_RBM, JOINT_NADE])
+def test_joint_fused_kernels_match_plain(dev, model):
+    """Both whole-generation kernels at Keff=1, D=420 (a one-CTA cluster,
+    W read from device memory): the gate admits B=1 and B=8, the kernel
+    launches, and at least 7 of 8 samples equal the plain version's."""
+    cfg = multinn.MultINNConfig(**dict(model, w_std=0.1))
+    gate = (gen_fused_rbm.supported if cfg.decoder_type == "rnn-rbm"
+            else gen_fused_nade.supported_nade)
+    assert gate(cfg, 1, 1024) and gate(cfg, 8, 1024)
+    params = _params(cfg, dev)
+    seed = (torch.rand(8, 16, 5, 84, generator=torch.Generator()
+                       .manual_seed(1)) < 0.1).float().to(dev)
+    state = multinn.prime(params, multinn.init_state(params, 8), seed)
+    key = sampling.PRNGKey(5, device=dev)
+    _build.launches.clear()
+    fk, rk = multinn.generate(params, key, state, 16)
+    name = ("gen_fused_rbm" if cfg.decoder_type == "rnn-rbm"
+            else "gen_fused_nade")
+    assert _build.launches[name] == 1
+    fp, rp = multinn._generate_fused(params, key, state, 16, impl="plain")
+    assert rk.shape == (8, 16, 5, 84)
+    same = (rk == rp).flatten(1).all(dim=1)
+    assert int(same.sum()) >= 7
+    for a, b in zip(fk.decoder.cell, fp.decoder.cell):
+        assert float((a.h - b.h).abs()[:, same].max()) <= 1e-4
+
+
+def test_joint_training_chain_uses_the_device_memory_plan(dev):
+    """The CD-1 chain of joint training: N = B*T = 1024 rows of D=420,
+    H=150, whose W (252 KB) exceeds a CTA's shared memory."""
+    assert gibbs_cuda.launch_plan(1024, 132, 420, 150)[3] == 0
+    args = _gibbs_inputs(dev, 1024, seed=13, d=420, h=150)
+    key = sampling.PRNGKey(8, device=dev)
+    out_k = gibbs.gibbs_chain(key, *args, 1)
+    out_p = gibbs.gibbs_chain(key, *args, 1, impl="plain")
+    assert _rows_differing(out_k, out_p) <= 10
+
+
+def test_joint_nade_sampler_and_likelihood(dev):
+    """The sampler on 8 rows of D=420 (the joint scan path) and the
+    likelihood pair at K=1, N=4096, D=420 (joint training)."""
+    w, v, bv, bh = _sampler_inputs(dev, 8, 420, 150)
+    key = sampling.PRNGKey(2, device=dev)
+    out_k = nade_ops.nade_sample(key, w, v, bv, bh, (8,))
+    out_p = nade_ops.nade_sample(key, w, v, bv, bh, (8,), impl="plain")
+    assert _rows_differing(out_k, out_p) <= 1
+    x, w, v, bv, bh, cot = _ll_inputs(dev, 1, 4096, d=420)
+    lk, ak = nade_ll.nade_ll_fwd(x, w, v, bv, bh)
+    lp, ap = nade_ll.nade_ll_fwd_plain(x, w, v, bv, bh)
+    assert float((lk - lp).abs().max()) <= 1e-4
+    for a, b in zip(nade_ll.nade_ll_bwd(x, w, v, cot, ak, True),
+                    nade_ll.nade_ll_bwd_plain(x, w, v, cot, ap, True)):
+        assert _within(a, b)
+
+
+@pytest.mark.parametrize("model", [JOINT_RBM, JOINT_NADE,
+                                   dict(FLAGSHIP, matmul_dtype="bf16"),
+                                   dict(NADE, matmul_dtype="bf16")])
+def test_joint_and_bf16_graph_groups_equal_eager(dev, model, tmp_path):
+    """Captured groups of 4 steps against eager ones in joint mode and
+    under the bf16 policy."""
+    (graph, eager), groups = _group_trainers(dev, model, tmp_path)
+    for i, xs in enumerate(groups):
+        key = sampling.PRNGKey(50 + i, device=dev)
+        got = graph.run_group(xs, key)
+        want = eager.run_group(xs, key)
+        assert torch.allclose(got["loss_mean"], want["loss_mean"],
+                              rtol=1e-5)
+        _params_close(graph, eager)
+
+
+def test_bf16_mm_on_the_card_equals_the_upcast_product(dev):
+    """torch.mm / bmm with out_dtype=float32 on bf16 feeds against the
+    CPU route (upcast, f32 product): the same sums in another order."""
+    from multinn_torch.ops import precision
+    g = torch.Generator().manual_seed(0)
+    for a_shape, b_shape in (((64, 16, 400), (400, 600)),
+                             ((64, 5, 16, 184), (5, 184, 400))):
+        a, b = torch.randn(a_shape, generator=g), torch.randn(b_shape,
+                                                              generator=g)
+        with precision.matmul_precision("bf16"):
+            got = precision.mm(a.to(dev), b.to(dev))
+            want = precision.mm(a, b)
+        assert got.dtype == torch.float32
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+
+def test_hf_group_on_the_card_equals_eager(dev, tmp_path):
+    """Hessian-free macro-steps (NADE flagship, cg_iters=3) in a captured
+    group of 2 against eager ones: the same accepts and lambda, the
+    params within 1e-6 max|p|."""
+    from multinn_torch.training.trainer import Trainer
+    data = config.DataConfig.from_preset("synthetic", window=16, batch_size=4,
+                                         synthetic_songs=12,
+                                         synthetic_steps=64)
+    params = _params(multinn.MultINNConfig(**NADE), dev)
+    trainers = []
+    for name in ("graph", "eager"):
+        cfg = config.ExperimentConfig(
+            data=data, model=multinn.MultINNConfig(**NADE),
+            train=config.TrainConfig(steps_per_call=2, optimizer="hf",
+                                     hf_cg_iters=3,
+                                     run_dir=str(tmp_path / name)))
+        trainers.append(Trainer(cfg, params=params))
+    graph, eager = trainers
+    eager.capture_groups = False
+    xs = np.stack(list(graph.dataset.batches("train", epoch=0))[:2])
+    key = sampling.PRNGKey(3, device=dev)
+    _build.launches.clear()
+    got = graph.run_group(xs, key)
+    want = eager.run_group(xs, key)
+    assert _build.launches["nade_ll_fwd"] > 0
+    assert torch.equal(got["hf_accepted"], want["hf_accepted"])
+    assert float(graph.opt_state.lam) == float(eager.opt_state.lam)
+    _params_close(graph, eager)

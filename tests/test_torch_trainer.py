@@ -257,11 +257,12 @@ def test_evaluate_matches_the_jax_eval_math(decoder, interpret_chain):
 
 
 def test_unported_features_raise(tmp_path):
-    """Hessian-free training is refused at construction; image summaries,
-    DBN encoders, checkpoints, train(), resume and fault injection are
-    ported (a DBN encoder is frozen: its tensors are not the optimizer's),
-    and pre-training is the reference's no-op for a pass-through
-    encoder."""
+    """Mesh training is refused at construction, and Hessian-free training
+    of an RBM with the reference's ValueError; HF on an RNN-NADE, image
+    summaries, DBN encoders, checkpoints, train(), resume and fault
+    injection are ported (a DBN encoder is frozen: its tensors are not the
+    optimizer's), and pre-training is the reference's no-op for a
+    pass-through encoder."""
     ds = types.SimpleNamespace(n_batches=lambda split: 1,
                                batches=lambda *a, **k: iter(()))
     base = config.ExperimentConfig(
@@ -271,8 +272,16 @@ def test_unported_features_raise(tmp_path):
                                  pretrain_encoder_epochs=1))
     cfg = config.ExperimentConfig(model=base.model,
                                   train=config.TrainConfig(optimizer="hf"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="rnn-nade"):
         trainer.Trainer(cfg, ds, device="cpu")
+    hf_nade = trainer.Trainer(config.ExperimentConfig(
+        model=multinn.MultINNConfig(**dict(MODEL, decoder_type="rnn-nade")),
+        train=config.TrainConfig(optimizer="hf", hf_lambda0=0.5,
+                                 run_dir=str(tmp_path / "hf"))),
+        ds, device="cpu")
+    assert hf_nade.optimizer is None
+    assert float(hf_nade.opt_state.lam) == 0.5
+    hf_nade.close()
     images = trainer.Trainer(config.ExperimentConfig(
         model=base.model, train=config.TrainConfig(
             run_dir=str(tmp_path / "images"), image_summaries=True)),
@@ -306,16 +315,24 @@ def test_unported_features_raise(tmp_path):
 @pytest.mark.parametrize("dtype", ["bf16", "bfloat16"])
 def test_bf16_matmul_policy_is_refused(dtype):
     """The JAX trainer runs its step under matmul_dtype's precision policy;
-    the port has none yet, so it refuses bf16 rather than train in f32."""
+    so does the port now: bf16 is accepted (no longer refused) and the
+    trainer's step context carries it, f32 carries none; an unknown dtype
+    is still refused by the config."""
+    from multinn_torch.ops import precision
     ds = types.SimpleNamespace(n_batches=lambda split: 1)
     cfg = config.ExperimentConfig(model=multinn.MultINNConfig(
         **dict(MODEL, matmul_dtype=dtype)))
-    with pytest.raises(NotImplementedError, match="matmul_dtype"):
-        trainer.Trainer(cfg, ds, device="cpu")
+    tr = trainer.Trainer(cfg, ds, device="cpu")
+    with tr._policy():
+        assert precision.matmul_dtype() == torch.bfloat16
     f32 = config.ExperimentConfig(model=multinn.MultINNConfig(
         **dict(MODEL, matmul_dtype="f32")))
-    assert trainer.Trainer(f32, ds, device="cpu").cfg.model.matmul_dtype \
-        == "f32"
+    tr32 = trainer.Trainer(f32, ds, device="cpu")
+    assert tr32.cfg.model.matmul_dtype == "f32"
+    with tr32._policy():
+        assert precision.matmul_dtype() is None
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        multinn.MultINNConfig(**dict(MODEL, matmul_dtype="fp8"))
 
 
 def test_to_numpy_is_the_inverse_of_from_jax():
