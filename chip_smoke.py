@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs
-seventeen phases, one line each or a few; any failure exits non-zero
+eighteen phases, one line each or a few; any failure exits non-zero
 before the result line. Phases 4-6 drive the RNN-RBM serving path, 7-9 the
 RNN-NADE serving path, 10-12 training (the NADE likelihood kernels, then
 the Trainer on each family), 13 the train entry point with its steps
 captured as CUDA graphs, 14 the two DBN configs, 15 accompaniment, 16 the
 generate, evaluate and serve entry points, image summaries and the sparse
 transport, 17 joint (composer) mode, Hessian-free training and the bf16
-matmul policy.
+matmul policy, 18 process meshes.
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -159,9 +159,29 @@ matmul policy.
      start, its step and kernel time beside phase 13's f32 ones, and 20
      steps whose loss differs from the f32 run's but stays within
      |l16 - l32| < 0.05 (|l32| + 1).
+ 18. process meshes (multinn_torch/parallel) at the flagship widths, a
+     correctness run: the ranks are spawned processes on this one card
+     (gloo, CUDA tensors staged through pinned host memory; NCCL refuses
+     two ranks on one device), its seconds no scaling number. A world of
+     2 ranks: one train step each of gspmd data=2 (both families),
+     shard_map (NADE), TP model=2 (H 150 -> 75, both families), seqpipe
+     seq=2 (T 64 -> 32, NADE) and a Hessian-free shard_map macro-step
+     (NADE, cg_iters=5), each held by rank 0 against the single-device
+     step on the card (loss rtol 1e-5, params rtol 1e-4 / atol 1e-6);
+     batch-sharded generation of both families (B=8, T=1024, the fused
+     kernels' row map) against the single-device roll, at least 7 of 8
+     samples bit-identical; a 2-rank service answering 16 requests. A
+     world of 5 ranks: the feedback track=5 step of both families and
+     track-sharded scan generation (B=8, T=64) against the single-device
+     scan path, 8 of 8 identical. A world of one NCCL rank: an all-reduce
+     and a broadcast through NCCL and a gspmd data=1 step bit-equal to
+     the step without a mesh. Every rank's launch window must show the
+     kernels its path runs; each rank's launches, the backend and the
+     seconds are printed.
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window plus the windows of phases 14 to 17), error, times
+its path's window plus the windows of phases 14 to 18, phase 18's summed
+over its ranks), error, times
 and bound. ``ms`` is the device time per
 call of the kernel's wrapper (its launches and any small PyTorch kernel it
 runs, such as the key's two words, the backward's second pass included):
@@ -305,6 +325,374 @@ def graph_ms(fn, reps: int) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / reps
+
+
+# -- phase 18: process meshes (module level: spawned ranks import these) ----
+
+# the flagship at its full widths; the windows and batches of phases 11-13
+MESH_SIZES = dict(k=5, d=84, h=150, u=100, t=64, b_rbm=16, b_nade=64,
+                  t_gen=1024, b_gen=8, t_scan=64)
+
+
+def _mesh_cfg(sizes, decoder, mesh=None, **train):
+    """An ExperimentConfig of the flagship (feedback) at ``sizes`` on
+    ``mesh`` (MeshConfig keywords; None: one device)."""
+    from multinn_torch.models import multinn
+    from multinn_torch.utils.config import (ExperimentConfig, MeshConfig,
+                                            TrainConfig)
+    model = multinn.MultINNConfig(
+        n_tracks=sizes["k"], n_pitches=sizes["d"], mode="feedback",
+        decoder_type=decoder, n_hidden=sizes["h"], n_rnn=sizes["u"],
+        gen_k=10)
+    return ExperimentConfig(
+        model=model, train=TrainConfig(log_every_steps=1000, **train),
+        mesh=MeshConfig(use_mesh=mesh is not None, **(mesh or {})))
+
+
+class _FixedRolls:
+    """One seeded Bernoulli(0.06) batch (B, T, K, D) behind the Dataset
+    interface, the same on every rank."""
+
+    def __init__(self, sizes, batch, seed):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        self.x = (rng.random((batch, sizes["t"], sizes["k"], sizes["d"]))
+                  < 0.06).astype(np.uint8)
+
+    def n_batches(self, split="train"):
+        return 1
+
+    def batches(self, split="train", epoch=0, shuffle=True,
+                drop_remainder=True, with_masks=False, augment=False):
+        import numpy as np
+        yield ((self.x, np.ones(self.x.shape[:2], np.uint8)) if with_masks
+               else self.x)
+
+
+def _mesh_step(ctx, name, decoder, mesh, **train):
+    """One train step of the flagship on ``mesh`` (this rank's part), with
+    the launches of its window; rank 0 then runs the same step on one
+    device and holds the mesh's loss (rtol 1e-5) and parameters (rtol 1e-4,
+    atol 1e-6) against it."""
+    import torch
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.training.trainer import Trainer
+    sizes, dev = ctx["sizes"], ctx["dev"]
+    batch = sizes["b_nade" if decoder == "rnn-nade" else "b_rbm"]
+    src = _FixedRolls(sizes, batch, 18)
+
+    def step(mesh_kw, run):
+        cfg = _mesh_cfg(sizes, decoder, mesh_kw,
+                        run_dir=os.path.join(ctx["out"], run), **train)
+        params = multinn.init(cfg.model, torch.Generator().manual_seed(18),
+                              device=dev)
+        t = Trainer(cfg, src, params=params)
+        x = t._put_batch(src.x)
+        key = sampling.PRNGKey(123, device=dev)
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        loss = float(t.train_step(x, key)["loss"])
+        sec = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        full = [p.detach().clone() for p in
+                multinn.tree_leaves(t.full_params())]
+        t0 = time.perf_counter()          # a second, warm step
+        float(t.train_step(x, key)["loss"])
+        warm = time.perf_counter() - t0
+        t.close()
+        return loss, full, launches, sec, warm
+
+    loss, got, launches, sec, warm = step(mesh, f"{name}_{ctx['rank']}")
+    out = dict(case=name, loss=loss, launches=launches, seconds=sec,
+               warm_seconds=warm, ok=True)
+    if ctx["rank"] == 0:
+        ref_loss, want, _, _, _ = step(None, f"{name}_one")
+        worst = max(float(((a - b).abs() / (1e-6 + 1e-4 * b.abs())).max())
+                    for a, b in zip(got, want))
+        out.update(ref_loss=ref_loss, worst_over_tol=worst,
+                   ok=abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+                   and worst <= 1.0)
+    return out
+
+
+def _mesh_generation(ctx, name, decoder, mesh):
+    """Batch-sharded generation (the whole-generation kernel, the row map)
+    of B samples over T steps on ``mesh``, against one device on rank 0:
+    the count of bit-identical samples."""
+    import torch
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.generator import Generator
+    sizes, dev = ctx["sizes"], ctx["dev"]
+    cfg = _mesh_cfg(sizes, decoder, mesh)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(19),
+                          device=dev)
+    key = sampling.PRNGKey(5, device=dev)
+    gen = Generator(cfg, params, mesh=mesh_mod.make_mesh(cfg.mesh))
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    roll = gen.generate(key, n_steps=sizes["t_gen"], batch=sizes["b_gen"])
+    sec = time.perf_counter() - t0
+    out = dict(case=name, launches=dict(_build.launches), seconds=sec,
+               density=float(roll.mean()), ok=True)
+    if ctx["rank"] == 0:
+        ref = Generator(cfg, params).generate(key, n_steps=sizes["t_gen"],
+                                              batch=sizes["b_gen"])
+        same = int((roll == ref).reshape(len(ref), -1).all(axis=1).sum())
+        out.update(identical=same, of=len(ref),
+                   ok=same >= len(ref) - 1 and roll.shape == ref.shape)
+    return out
+
+
+def _track_generation(ctx, name, decoder, mesh):
+    """Track-sharded generation (the scan path: each rank samples its
+    tracks, the frames gathered every step) of B samples over the scan
+    length, against one device's scan path on rank 0."""
+    import torch
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.generator import Generator
+    sizes, dev = ctx["sizes"], ctx["dev"]
+    cfg = _mesh_cfg(sizes, decoder, mesh)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(20),
+                          device=dev)
+    key = sampling.PRNGKey(6, device=dev)
+    gen = Generator(cfg, params, mesh=mesh_mod.make_mesh(cfg.mesh))
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    roll = gen.generate(key, n_steps=sizes["t_scan"], batch=sizes["b_gen"])
+    sec = time.perf_counter() - t0
+    out = dict(case=name, launches=dict(_build.launches), seconds=sec,
+               density=float(roll.mean()), ok=True)
+    if ctx["rank"] == 0:
+        with torch.no_grad():
+            _, ref = multinn.generate(
+                params, key, multinn.init_state(params, sizes["b_gen"]),
+                sizes["t_scan"], fused=False)
+        ref = ref.to(torch.uint8).cpu().numpy()
+        same = int((roll == ref).reshape(len(ref), -1).all(axis=1).sum())
+        out.update(identical=same, of=len(ref), ok=same == len(ref))
+    return out
+
+
+def _mesh_service(ctx, name, decoder, mesh, n_requests=16):
+    """A service on ``mesh``: rank 0 takes n requests at batch B, the other
+    ranks follow its broadcast calls."""
+    import torch
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.serving.service import GenerationService, ServeConfig
+    sizes, dev = ctx["sizes"], ctx["dev"]
+    cfg = _mesh_cfg(sizes, decoder, mesh)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(21),
+                          device=dev)
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    svc = GenerationService(cfg, params, ServeConfig(
+        batch=sizes["b_gen"], n_steps=sizes["t_gen"], max_wait_ms=1000.0),
+        mesh=mesh_mod.make_mesh(cfg.mesh))
+    if ctx["rank"] != 0:
+        calls = svc.follow()
+        return dict(case=name, launches=dict(_build.launches), ok=True,
+                    calls=calls, seconds=time.perf_counter() - t0)
+    futs = []
+    for _ in range(n_requests // sizes["b_gen"]):
+        futs += svc.submit_many(sizes["b_gen"])
+    rolls = [f.result(300).roll for f in futs]
+    svc.close()
+    sec = time.perf_counter() - t0
+    return dict(case=name, launches=dict(_build.launches), seconds=sec,
+                answered=len(rolls), ok=len(rolls) == n_requests and all(
+                    r.shape == (sizes["t_gen"], sizes["k"], sizes["d"])
+                    for r in rolls))
+
+
+def _nccl_step(ctx):
+    """On a world of one NCCL rank: an all-reduce and a broadcast through
+    NCCL, and the gspmd data=1 step bit-equal to the step without a
+    mesh."""
+    import torch
+    import torch.distributed as dist
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.training.trainer import Trainer
+    sizes, dev = ctx["sizes"], ctx["dev"]
+    probe = torch.arange(4.0, device=dev)
+    dist.all_reduce(probe)
+    dist.broadcast(probe, 0)
+    src = _FixedRolls(sizes, sizes["b_nade"], 22)
+    res = {}
+    t0 = time.perf_counter()
+    for kind, mesh in (("mesh", dict(data=1)), ("one", None)):
+        cfg = _mesh_cfg(sizes, "rnn-nade", mesh,
+                        run_dir=os.path.join(ctx["out"], f"nccl_{kind}"))
+        params = multinn.init(cfg.model, torch.Generator().manual_seed(22),
+                              device=dev)
+        t = Trainer(cfg, src, params=params)
+        _build.launches.clear()
+        m = t.train_step(t._put_batch(src.x), sampling.PRNGKey(1, device=dev))
+        res[kind] = (float(m["loss"]), [p.detach().clone()
+                                        for p in t._all_leaves],
+                     dict(_build.launches))
+        t.close()
+    equal = res["mesh"][0] == res["one"][0] and all(
+        torch.equal(a, b) for a, b in zip(res["mesh"][1], res["one"][1]))
+    return dict(case="nccl_dp_step", backend=dist.get_backend(),
+                probe=probe.tolist(), loss=res["mesh"][0],
+                launches=res["mesh"][2],
+                seconds=time.perf_counter() - t0,
+                ok=equal and probe.tolist() == [
+                    0.0, 1.0, 2.0, 3.0])
+
+
+def _mesh_job(ctx):
+    """The cases of one world: ``mesh2`` (2 ranks), ``mesh5`` (5 ranks),
+    ``nccl1`` (1 rank under NCCL)."""
+    job = ctx["job"]
+    if job == "nccl1":
+        return [_nccl_step(ctx)]
+    if job == "mesh5":
+        return [_mesh_step(ctx, "track5_nade", "rnn-nade", dict(track=5)),
+                _mesh_step(ctx, "track5_rbm", "rnn-rbm", dict(track=5)),
+                _track_generation(ctx, "track5_scan_gen_rbm", "rnn-rbm",
+                                  dict(track=5)),
+                _track_generation(ctx, "track5_scan_gen_nade", "rnn-nade",
+                                  dict(track=5))]
+    return [_mesh_step(ctx, "dp2_nade", "rnn-nade", {}),
+            _mesh_step(ctx, "dp2_rbm", "rnn-rbm", {}),
+            _mesh_step(ctx, "shard_map_nade", "rnn-nade",
+                       dict(style="shard_map")),
+            _mesh_step(ctx, "tp2_nade", "rnn-nade", dict(model=2)),
+            _mesh_step(ctx, "tp2_rbm", "rnn-rbm", dict(model=2)),
+            _mesh_step(ctx, "seqpipe2_nade", "rnn-nade",
+                       dict(data=1, seq=2, style="seqpipe")),
+            _mesh_step(ctx, "hf_shard_map_nade", "rnn-nade",
+                       dict(style="shard_map"), optimizer="hf",
+                       hf_cg_iters=5),
+            _mesh_generation(ctx, "gen_rbm", "rnn-rbm", {}),
+            _mesh_generation(ctx, "gen_nade", "rnn-nade", {}),
+            _mesh_service(ctx, "service_rbm", "rnn-rbm", {})]
+
+
+def _mesh_rank(rank, world, job, out, device, sizes):
+    """A spawned rank of phase 18: join the world (the backend chosen by
+    the port: gloo for ranks that share the card, NCCL for one rank), run
+    the job's cases and write them to ``<out>/<job>_r<rank>.json``."""
+    import torch
+    from multinn_torch.parallel import mesh as mesh_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if device == "cpu":                     # a rehearsal without the card
+        torch.set_num_threads(1)
+    backend = mesh_mod.init_distributed(
+        f"file://{out}/store_{job}", world, rank,
+        backend="gloo" if device == "cpu" else None)
+    dev = (torch.device("cpu") if device == "cpu"
+           else mesh_mod.rank_device(backend))
+    ctx = dict(rank=rank, world=world, job=job, out=out, dev=dev,
+               sizes=sizes)
+    t0 = time.perf_counter()
+    try:
+        cases = _mesh_job(ctx)
+        import torch.distributed as dist
+        dist.barrier()
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"{job}_r{rank}.json"), "w") as f:
+        json.dump(dict(backend=backend, device=str(dev),
+                       seconds=time.perf_counter() - t0, cases=cases), f)
+
+
+def run_mesh_world(out, job, world, device="cuda", sizes=MESH_SIZES,
+                   timeout=400.0):
+    """Spawn ``world`` ranks of ``job`` and wait at most ``timeout``
+    seconds (every rank is killed at the deadline); returns each rank's
+    result, or raises."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_mesh_rank,
+                             args=(world, job, out, device, sizes),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.time() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
+            if time.time() >= deadline:
+                raise TimeoutError(f"{job} still ran after {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out, f"{job}_r{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+# what each phase 18 case's launch window must show, on every rank
+MESH_KERNELS = {"dp2_nade": ("nade_ll_fwd", "nade_ll_bwd"),
+                "dp2_rbm": ("gibbs_chain",),
+                "shard_map_nade": ("nade_ll_fwd", "nade_ll_bwd"),
+                "tp2_nade": ("nade_ll_fwd", "nade_ll_bwd"),
+                "tp2_rbm": ("gibbs_chain",),
+                "seqpipe2_nade": ("nade_ll_fwd", "nade_ll_bwd"),
+                "hf_shard_map_nade": ("nade_ll_fwd",),
+                "gen_rbm": ("gen_fused_rbm",),
+                "gen_nade": ("gen_fused_nade",),
+                "service_rbm": ("gen_fused_rbm",),
+                "track5_nade": ("nade_ll_fwd", "nade_ll_bwd"),
+                "track5_rbm": ("gibbs_chain",),
+                "track5_scan_gen_rbm": ("gibbs_chain",),
+                "track5_scan_gen_nade": ("nade_sample",),
+                "nccl_dp_step": ("nade_ll_fwd", "nade_ll_bwd")}
+
+
+def phase18(out, say, fail, device="cuda", sizes=MESH_SIZES):
+    """Phase 18: the worlds of 2 and 5 ranks on gloo and of one NCCL rank;
+    ``fail`` on any case that is not ok or whose window on a rank lacks a
+    kernel of its path; prints each case and world; returns every rank's
+    launch windows."""
+    os.makedirs(out, exist_ok=True)
+    windows = []
+    for job, world in (("mesh2", 2), ("mesh5", 5), ("nccl1", 1)):
+        t_job = time.perf_counter()
+        try:
+            ranks = run_mesh_world(out, job, world, device, sizes)
+        except Exception as e:  # noqa: BLE001 - any rank's failure fails
+            fail(f"phase 18 {job}: {type(e).__name__}: {e}")
+            continue
+        job_s = time.perf_counter() - t_job
+        for r, res in enumerate(ranks):
+            for case in res["cases"]:
+                if not case["ok"]:
+                    fail(f"phase 18 {job} rank {r} {case['case']}: {case}")
+                missing = [k for k in MESH_KERNELS[case["case"]]
+                           if not case["launches"].get(k)]
+                if missing:
+                    fail(f"phase 18 {job} rank {r} {case['case']}: its "
+                         f"window launched no {missing}: {case['launches']}")
+                windows.append(case["launches"])
+        for case in ranks[0]["cases"]:
+            extra = {k: case[k] for k in ("ref_loss", "loss",
+                                          "worst_over_tol", "identical",
+                                          "of", "answered", "density",
+                                          "probe") if k in case}
+            per_rank = [c["launches"] for res in ranks
+                        for c in res["cases"] if c["case"] == case["case"]]
+            warm = (f", a second step {case['warm_seconds']:.3f} s"
+                    if "warm_seconds" in case else "")
+            say(f"phase 18 {job} {case['case']}: {extra}; launches per rank "
+                f"{per_rank}; rank 0 {case['seconds']:.3f} s{warm} "
+                f"(correctness run, one shared card)")
+        say(f"phase 18 {job}: {world} ranks on {ranks[0]['backend']} "
+            f"({ranks[0]['device']}), {job_s:.1f} s with start-up "
+            f"(correctness run on one shared card, not a scaling number)")
+    return windows
 
 
 def main() -> None:
@@ -2175,6 +2563,15 @@ def main() -> None:
     say(f"phase 17 launches, its windows summed: {windows_sum(*windows17)}; "
         f"phase {time.perf_counter() - t17:.1f} s")
 
+    # 18. process meshes -----------------------------------------------------
+    # every rank shares this one card (gloo, host staging) except the NCCL
+    # world of one; the kernels were built above, so the ranks only load
+    # them. Its seconds are those of a correctness run, not a speed.
+    t18 = time.perf_counter()
+    windows18 = phase18(os.path.join(tmp, "mesh"), say, fail)
+    say(f"phase 18 launches, its windows summed: {windows_sum(*windows18)}; "
+        f"phase {time.perf_counter() - t18:.1f} s")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -2207,9 +2604,10 @@ def main() -> None:
     # each kernel's launches: its path's window above plus the windows of
     # the DBN paths (pre-training, serving) and of accompaniment
     new_windows = windows_sum(*dbn["nade"]["windows"], *dbn["rbm"]["windows"],
-                              *acc_windows, *windows16, *windows17)
-    say(f"launches in the DBN, accompaniment, entry-point, joint, HF and "
-        f"bf16 windows: {new_windows}")
+                              *acc_windows, *windows16, *windows17,
+                              *windows18)
+    say(f"launches in the DBN, accompaniment, entry-point, joint, HF, bf16 "
+        f"and mesh windows: {new_windows}")
     shutil.rmtree(tmp, ignore_errors=True)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [

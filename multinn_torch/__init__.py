@@ -29,6 +29,11 @@ _EXPORTS = {
     "MultINNParams": ("multinn_torch.models.multinn", "MultINNParams"),
     "multinn": ("multinn_torch.models", "multinn"),
     "Generator": ("multinn_torch.training.generator", "Generator"),
+    "Trainer": ("multinn_torch.training.trainer", "Trainer"),
+    "Dataset": ("multinn_torch.data.datasets", "Dataset"),
+    "DataConfig": ("multinn_torch.data.datasets", "DataConfig"),
+    "TrainConfig": ("multinn_torch.utils.config", "TrainConfig"),
+    "MeshConfig": ("multinn_torch.parallel.mesh", "MeshConfig"),
     "GenerationService": ("multinn_torch.serving.service",
                           "GenerationService"),
     "ServeConfig": ("multinn_torch.serving.service", "ServeConfig"),

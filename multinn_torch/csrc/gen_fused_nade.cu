@@ -45,7 +45,9 @@
 // Random stream: the TPU kernel draws a (D*8, B) uniform matrix per step at
 // salt seed[1] + t, so the draw of (dim i, track k, sample b) has counter
 // (i*8 + k)*B + b. This kernel draws the same counters into shared memory
-// before each step's sweep (K <= 8).
+// before each step's sweep (K <= 8). Under the row map (a.row0,
+// a.rows_total) sample b of the launch is sample a.row0 + b of a batch of
+// B = a.rows_total (one data shard) and draws that sample's counters.
 #include <cuda_runtime.h>
 
 #include "gen_cluster.cuh"
@@ -82,7 +84,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Cta ct = gen_cluster::make_cta(smem, p, a.k, a.d, a.u, a.n_layers,
                                        a.batch);
   const int K = a.k, D = a.d, H = a.hid, U = a.u, L = a.n_layers;
-  const int KD = K * D, T = a.n_steps, B = a.batch;
+  const int KD = K * D, T = a.n_steps;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nchd = chunks_of(D);
   const int NG = ct.n_groups();
@@ -134,7 +136,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t i = e - D;
         sc[e] = random_uniform_at(
             seed0, salt,
-            (i * kStreamRows + k) * static_cast<uint32_t>(B) + ct.b0 + s);
+            (i * kStreamRows + k) * static_cast<uint32_t>(a.rows_total) +
+                a.row0 + ct.b0 + s);
       } else {
         const int jj = e - 2 * D;
         const float* wuh = ct.matrix(kWuh, j, a.wuh, U * H);
@@ -222,6 +225,9 @@ gen_cluster::Plan plan_gen_fused_nade(const NadeArgs& a, int64_t limit) {
 const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
                                   int64_t* shape) {
   if (a.batch <= 0 || a.n_steps <= 0) return nullptr;
+  if (a.row0 < 0 || a.row0 + a.batch > a.rows_total)
+    return "gen_fused_nade: the row map (row0, rows_total) does not fit the "
+           "batch";
   if (a.k > kStreamRows || a.hid > 32 * kMaxLaneRounds || a.d > kMaxDims)
     return "gen_fused_nade: K > 8 (the stream's rows), H > 256 (the "
            "register-held lanes) or D > 1024";

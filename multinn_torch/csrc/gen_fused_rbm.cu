@@ -41,6 +41,9 @@
 // sweep at salts seed[1] + t*2*gen_k + 2s (+1 for v), so the draw of sample
 // b, lane o has counter b*K*H + o (b*K*D + o). This kernel draws the same
 // counters, so it and its plain version agree bit for bit in the stream.
+// Under the row map (a.row0, a.rows_total) sample b of the launch is sample
+// a.row0 + b of a larger batch (one data shard) and draws that sample's
+// counters.
 #include <cuda_runtime.h>
 
 #include "gen_cluster.cuh"
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float pr = sigmoid_nr(acc + sc[D + jj]);
         const float uu = random_uniform_at(
             seed0, salt_h,
-            static_cast<uint32_t>(ct.b0 + s) * KH + k * H + jj);
+            static_cast<uint32_t>(a.row0 + ct.b0 + s) * KH + k * H + jj);
         sc[2 * D + H + jj] = uu < pr ? 1.f : 0.f;
       }
       __syncthreads();
@@ -153,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float pr = sigmoid_nr(acc + sc[i]);
         const float uu = random_uniform_at(
             seed0, salt_h + 1u,
-            static_cast<uint32_t>(ct.b0 + s) * KD + k * D + i);
+            static_cast<uint32_t>(a.row0 + ct.b0 + s) * KD + k * D + i);
         sc[D + H + i] = uu < pr ? 1.f : 0.f;
       }
       __syncthreads();
@@ -192,6 +195,9 @@ gen_cluster::Plan plan_gen_fused_rbm(const RbmArgs& a, int64_t limit) {
 const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
                                  int64_t* shape) {
   if (a.batch <= 0 || a.n_steps <= 0) return nullptr;
+  if (a.row0 < 0 || a.row0 + a.batch > a.rows_total)
+    return "gen_fused_rbm: the row map (row0, rows_total) does not fit the "
+           "batch";
   if (a.k > 31)
     return "gen_fused_rbm: the given-track mask takes at most 31 tracks";
   const Plan p = plan_gen_fused_rbm(a, kSmemLimitBytes);

@@ -9,6 +9,13 @@
 // the same bits as the JAX kernel, but not its thread layout: a CTA's rows
 // may straddle two stream blocks, so every row finds its own block.
 //
+// The row map: a launch may hold rows row0 .. row0 + loc - 1 of every
+// group of glob consecutive rows of a larger launch (one data shard of a
+// time-major (T, B) batch: loc = B_local, glob = B_global, row0 = b0).
+// A row's stream block and counter are those of its row in that larger
+// launch, so a shard draws the bits the whole batch would draw for it; the
+// default (0, n, n) is the launch itself.
+//
 // Bound on the H100: per row and sweep 2*D*H multiply-adds and D + H
 // Threefry draws of about 80 integer operations each. At the flagship
 // widths (D=84, H=150) the draws' integer work is about as large as the
@@ -96,10 +103,19 @@ struct RowStream {
   uint32_t seed, lrow;
 };
 
-__device__ __forceinline__ RowStream row_stream(uint32_t s0, int grow,
-                                                int bb) {
-  const uint32_t g = static_cast<uint32_t>(grow), blk = g / bb;
-  return {s0 ^ (blk * 0x85EBu), g - blk * static_cast<uint32_t>(bb)};
+// Rows per stream block (bb) and the row map (row0, loc, glob).
+struct RowMap {
+  int bb, row0, loc, glob;
+};
+
+__device__ __forceinline__ RowStream row_stream(uint32_t s0, int lrow_in,
+                                                RowMap rm) {
+  const uint32_t r = static_cast<uint32_t>(lrow_in);
+  const uint32_t loc = static_cast<uint32_t>(rm.loc);
+  const uint32_t g = (r / loc) * static_cast<uint32_t>(rm.glob) +
+                     static_cast<uint32_t>(rm.row0) + r % loc;
+  const uint32_t blk = g / rm.bb;
+  return {s0 ^ (blk * 0x85EBu), g - blk * static_cast<uint32_t>(rm.bb)};
 }
 
 __device__ __forceinline__ float component(const float4& x, int q) {
@@ -121,7 +137,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                       const float* __restrict__ bh,  // (n, h)
                       const int32_t* __restrict__ seed,
                       float* __restrict__ out, int n, int d, int h, int k,
-                      int bb) {
+                      RowMap rm) {
   extern __shared__ __align__(16) float smem[];
   const int dq = round4(d), hq = round4(h);
   const int p = kWSmem ? w_pitch(h) : h;
@@ -139,7 +155,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
   for (int r = 0; r < kRpw; ++r) {
     live[r] = row0 + r < n;
-    rs[r] = row_stream(s0, row0 + r, bb);
+    rs[r] = row_stream(s0, row0 + r, rm);
     for (int i = lane; i < dq; i += 32)
       v_s[r * dq + i] =
           (live[r] && i < d) ? v0[static_cast<size_t>(row0 + r) * d + i] : 0.f;
@@ -279,7 +295,7 @@ __global__ void __launch_bounds__(kSplitThreads + 32 * kDrawWarps)
                        const float* __restrict__ bh,
                        const int32_t* __restrict__ seed,
                        float* __restrict__ out, int n, int d, int h, int k,
-                       int bb) {
+                       RowMap rm) {
   constexpr int L = kSplitLanes;
   static_assert(kSlotsH <= L && kSlotsV <= L, "lane s finishes slot s");
   constexpr int kGroups = kSplitThreads / L;
@@ -301,7 +317,7 @@ __global__ void __launch_bounds__(kSplitThreads + 32 * kDrawWarps)
     b_s[c] = c < h ? bh[static_cast<size_t>(row) * h + c]
                    : bv[static_cast<size_t>(row) * d + (c - h)];
   const uint32_t s1 = static_cast<uint32_t>(seed[1]);
-  const RowStream rs = row_stream(static_cast<uint32_t>(seed[0]), row, bb);
+  const RowStream rs = row_stream(static_cast<uint32_t>(seed[0]), row, rm);
   // the drawer warps: sweep it's uniforms for the h columns (v_pass false)
   // or the v dims, at u[c] and u[h + i]
   auto draw = [&](int it, bool v_pass) {
@@ -421,13 +437,20 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
                                const float* bv, const float* bh,
                                const int32_t* seed, float* out, int64_t n,
                                int64_t d, int64_t h, int64_t k, int64_t bb,
-                               int64_t rows_per_cta, int64_t threads,
-                               int64_t lanes, int64_t w_smem, void* stream) {
+                               int64_t row0, int64_t rows_loc,
+                               int64_t rows_glob, int64_t rows_per_cta,
+                               int64_t threads, int64_t lanes, int64_t w_smem,
+                               void* stream) {
   if (n <= 0) return nullptr;
+  if (rows_loc <= 0 || n % rows_loc != 0 || row0 < 0 ||
+      row0 + rows_loc > rows_glob || (n / rows_loc) * rows_glob > INT32_MAX)
+    return "gibbs_chain: the row map (row0, loc, glob) does not fit n rows";
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ni = static_cast<int>(n), di = static_cast<int>(d),
             hi = static_cast<int>(h), ki = static_cast<int>(k),
-            bbi = static_cast<int>(bb), rpc = static_cast<int>(rows_per_cta);
+            rpc = static_cast<int>(rows_per_cta);
+  const RowMap rm{static_cast<int>(bb), static_cast<int>(row0),
+                  static_cast<int>(rows_loc), static_cast<int>(rows_glob)};
   const int blocks = static_cast<int>((n + rows_per_cta - 1) / rows_per_cta);
   const size_t w_floats =
       w_smem ? static_cast<size_t>(round4(di)) * w_pitch(hi) : 0;
@@ -441,7 +464,7 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
     auto go = [&](auto kernel) -> const char* {
       if (const char* e = allow_smem(kernel, smem)) return e;
       kernel<<<blocks, kWarps * 32, smem, s>>>(v0, w, bv, bh, seed, out, ni,
-                                               di, hi, ki, bbi);
+                                               di, hi, ki, rm);
       return last_error();
     };
     const int rpw = rpc / kWarps;
@@ -464,7 +487,7 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
                        3 * static_cast<size_t>(di + hi));
   if (const char* e = allow_smem(gibbs_split_kernel, smem)) return e;
   gibbs_split_kernel<<<blocks, kSplitThreads + 32 * kDrawWarps, smem, s>>>(
-      v0, w, bv, bh, seed, out, ni, di, hi, ki, bbi);
+      v0, w, bv, bh, seed, out, ni, di, hi, ki, rm);
   return last_error();
 }
 

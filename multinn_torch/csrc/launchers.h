@@ -21,13 +21,17 @@ const char* launch_threefry2x32(const int32_t* key, const int32_t* x0,
 
 // k sweeps of block Gibbs over n rows (see gibbs_chain.cu) under the launch
 // plan (rows per CTA, threads, lanes per dot, W in shared memory 1 / in
-// device memory 0) of ops/gibbs_cuda.launch_plan.
+// device memory 0) of ops/gibbs_cuda.launch_plan. The row map: the launch
+// holds rows row0 .. row0 + rows_loc - 1 of each group of rows_glob rows of
+// the launch whose stream it draws ((0, n, n): its own).
 const char* launch_gibbs_chain(const float* v0, const float* w,
                                const float* bv, const float* bh,
                                const int32_t* seed, float* out, int64_t n,
                                int64_t d, int64_t h, int64_t k, int64_t bb,
-                               int64_t rows_per_cta, int64_t threads,
-                               int64_t lanes, int64_t w_smem, void* stream);
+                               int64_t row0, int64_t rows_loc,
+                               int64_t rows_glob, int64_t rows_per_cta,
+                               int64_t threads, int64_t lanes, int64_t w_smem,
+                               void* stream);
 
 // Inputs of the whole-generation RNN-RBM kernel (see gen_fused_rbm.cu and
 // multinn_torch/ops/gen_fused_rbm.py::_rbm_args for the layouts).
@@ -54,6 +58,8 @@ struct RbmArgs {
   int32_t k, d, hid, u, g, n_layers;
   int32_t lstm;         // 1: LSTM cells (g = 4u); 0: vanilla tanh (g = u)
   int32_t given_mask;   // bit k set: track k takes `given`
+  int32_t row0;         // the row map: sample b draws the stream of sample
+  int32_t rows_total;   //   row0 + b of a batch of rows_total (0, batch)
 };
 
 // The whole-generation launchers (RBM and NADE) take `shape`: nullptr
@@ -72,11 +78,13 @@ const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
 // NADE ancestral sampling sweep over n rows with per-row biases (see
 // nade_sample.cu), one CTA a row, under the plan of
 // ops/nade_cuda.sample_plan: W and V staged in shared memory (1; both must
-// be 16-byte aligned) or read from L2 (0).
+// be 16-byte aligned) or read from L2 (0). Row b draws the stream of row
+// row0 + b of rows_total rows ((0, n): its own).
 const char* launch_nade_sample(const float* w, const float* v,
                                const float* bv, const float* bh,
                                const int32_t* seed, float* out, int64_t n,
                                int64_t d, int64_t h, int64_t staged,
+                               int64_t row0, int64_t rows_total,
                                void* stream);
 
 // Inputs of the whole-generation RNN-NADE kernel (see gen_fused_nade.cu and
@@ -108,6 +116,8 @@ struct NadeArgs {
   int32_t k, d, hid, u, g, n_layers;
   int32_t lstm;          // 1: LSTM cells (g = 4u); 0: vanilla tanh (g = u)
   int32_t given_mask;    // bit k set: track k takes `given`
+  int32_t row0;          // the row map: sample b draws the stream of sample
+  int32_t rows_total;    //   row0 + b of a batch of rows_total (0, batch)
 };
 
 const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,

@@ -12,7 +12,10 @@
 // (1,), and under jax.vmap the batching rule prepends the vmapped axis to
 // the grid, so program_id(0) stays 0): the draw of (dim i, row b) has
 // counter i * n + b. This kernel draws the same counters into shared memory
-// before the sweep, keeping Threefry off the serial chain.
+// before the sweep, keeping Threefry off the serial chain. Under the row
+// map a launch of n rows holds rows row0 .. row0 + n - 1 of a batch of
+// rows_total (one data shard), and row b draws counter
+// i * rows_total + row0 + b, the bits the whole batch's launch draws for it.
 //
 // Bound: the serial chain of the sweep, not bytes or operations (a few
 // hundred thousand multiply-adds a row). The design shortens that chain:
@@ -150,7 +153,7 @@ __global__ void __launch_bounds__(kRowThreads)
                        const float* __restrict__ bh,  // (n, h)
                        const int32_t* __restrict__ seed,
                        float* __restrict__ out,       // (n, d)
-                       int n, int d, int h) {
+                       int n, int d, int h, int row0, int rows_total) {
   constexpr int L = kRowThreads / kWin;   // lanes per dim
   constexpr int kDimsPerWarp = 32 / L;
   constexpr int kWarps = kRowThreads / 32;
@@ -186,7 +189,9 @@ __global__ void __launch_bounds__(kRowThreads)
   }
   for (int i = tid; i < d; i += kRowThreads) {
     u_s[i] = random_uniform_at(
-        s0, s1, static_cast<uint32_t>(i) * static_cast<uint32_t>(n) + b);
+        s0, s1,
+        static_cast<uint32_t>(i) * static_cast<uint32_t>(rows_total) +
+            static_cast<uint32_t>(row0 + b));
     bv_s[i] = bv[static_cast<size_t>(b) * d + i];
   }
   __syncthreads();  // the mbarriers are initialised; a, h, u, bv written
@@ -266,8 +271,11 @@ const char* launch_nade_sample(const float* w, const float* v,
                                const float* bv, const float* bh,
                                const int32_t* seed, float* out, int64_t n,
                                int64_t d, int64_t h, int64_t staged,
+                               int64_t row0, int64_t rows_total,
                                void* stream) {
   if (n <= 0 || d <= 0) return nullptr;
+  if (row0 < 0 || row0 + n > rows_total || rows_total > INT32_MAX)
+    return "nade_sample: the row map (row0, rows_total) does not fit n rows";
   // the bulk copies need 16-byte aligned bases of W and V
   if (staged &&
       (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(v)) % 16)
@@ -290,7 +298,8 @@ const char* launch_nade_sample(const float* w, const float* v,
   kernel<<<static_cast<int>(n), kRowThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       w, v, bv, bh, seed, out, static_cast<int>(n), static_cast<int>(d),
-      static_cast<int>(h));
+      static_cast<int>(h), static_cast<int>(row0),
+      static_cast<int>(rows_total));
   const cudaError_t err = cudaGetLastError();
   return err == cudaSuccess ? nullptr : cudaGetErrorString(err);
 }

@@ -60,6 +60,7 @@ void threefry2x32(at::Tensor y0, at::Tensor y1, const at::Tensor& key,
 void gibbs_chain(at::Tensor out, const at::Tensor& v0, const at::Tensor& w,
                  const at::Tensor& bv, const at::Tensor& bh,
                  const at::Tensor& seed, int64_t k, int64_t bb,
+                 int64_t row0, int64_t rows_loc, int64_t rows_glob,
                  int64_t rows_per_cta, int64_t threads, int64_t lanes,
                  int64_t w_smem, int64_t stream) {
   check(out, at::kFloat, "out");
@@ -79,8 +80,9 @@ void gibbs_chain(at::Tensor out, const at::Tensor& v0, const at::Tensor& w,
   raise_on(launch_gibbs_chain(v0.data_ptr<float>(), w.data_ptr<float>(),
                               bv.data_ptr<float>(), bh.data_ptr<float>(),
                               seed.data_ptr<int32_t>(), out.data_ptr<float>(),
-                              n, d, h, k, bb, rows_per_cta, threads, lanes,
-                              w_smem, as_stream(stream)),
+                              n, d, h, k, bb, row0, rows_loc, rows_glob,
+                              rows_per_cta, threads, lanes, w_smem,
+                              as_stream(stream)),
            "gibbs_chain");
 }
 
@@ -94,7 +96,7 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
                    const at::Tensor& c0, const at::Tensor& v0,
                    const at::Tensor& given, const at::Tensor& seed,
                    int64_t gen_k, int64_t lstm, int64_t given_mask,
-                   int64_t stream) {
+                   int64_t row0, int64_t rows_total, int64_t stream) {
   check(roll, at::kFloat, "roll");
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
@@ -120,6 +122,8 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   a.gen_k = static_cast<int32_t>(gen_k);
   a.lstm = static_cast<int32_t>(lstm);
   a.given_mask = static_cast<int32_t>(given_mask);
+  a.row0 = static_cast<int32_t>(row0);
+  a.rows_total = static_cast<int32_t>(rows_total);
   const int64_t kd = int64_t{a.k} * a.d, lku = int64_t{a.n_layers} * a.k * a.u;
   TORCH_CHECK(a.g == (lstm ? 4 * a.u : a.u), "gen_fused_rbm: gate width");
   TORCH_CHECK(roll.size(0) == a.batch && roll.size(2) == kd &&
@@ -156,7 +160,8 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
 
 void nade_sample(at::Tensor out, const at::Tensor& w, const at::Tensor& v,
                  const at::Tensor& bv, const at::Tensor& bh,
-                 const at::Tensor& seed, int64_t staged, int64_t stream) {
+                 const at::Tensor& seed, int64_t staged, int64_t row0,
+                 int64_t rows_total, int64_t stream) {
   check(out, at::kFloat, "out");
   check(w, at::kFloat, "w");
   check(v, at::kFloat, "v");
@@ -172,7 +177,8 @@ void nade_sample(at::Tensor out, const at::Tensor& w, const at::Tensor& v,
   raise_on(launch_nade_sample(w.data_ptr<float>(), v.data_ptr<float>(),
                               bv.data_ptr<float>(), bh.data_ptr<float>(),
                               seed.data_ptr<int32_t>(), out.data_ptr<float>(),
-                              n, d, h, staged, as_stream(stream)),
+                              n, d, h, staged, row0, rows_total,
+                              as_stream(stream)),
            "nade_sample");
 }
 
@@ -191,7 +197,7 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
                     const at::Tensor& h0, const at::Tensor& c0,
                     const at::Tensor& v0, const at::Tensor& given,
                     const at::Tensor& seed, int64_t lstm, int64_t given_mask,
-                    int64_t stream) {
+                    int64_t row0, int64_t rows_total, int64_t stream) {
   check(roll, at::kFloat, "roll");
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
@@ -214,6 +220,8 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   a.n_steps = static_cast<int32_t>(roll.size(1));
   a.lstm = static_cast<int32_t>(lstm);
   a.given_mask = static_cast<int32_t>(given_mask);
+  a.row0 = static_cast<int32_t>(row0);
+  a.rows_total = static_cast<int32_t>(rows_total);
   const int64_t kd = int64_t{a.k} * a.d, lku = int64_t{a.n_layers} * a.k * a.u;
   TORCH_CHECK(a.g == (lstm ? 4 * a.u : a.u), "gen_fused_nade: gate width");
   TORCH_CHECK(v.sizes() == w.sizes() && roll.size(0) == a.batch &&
@@ -269,6 +277,7 @@ std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
     a.n_layers = static_cast<int32_t>(n_layers);
     a.lstm = static_cast<int32_t>(lstm);
     a.batch = static_cast<int32_t>(batch);
+    a.rows_total = static_cast<int32_t>(batch);
     a.n_steps = 1;
   };
   const char* err;
@@ -367,20 +376,24 @@ TORCH_LIBRARY(multinn_torch, m) {
   m.def("threefry2x32(Tensor(a!) y0, Tensor(b!) y1, Tensor key, Tensor x0, "
         "Tensor x1, int stream) -> ()");
   m.def("gibbs_chain(Tensor(a!) out, Tensor v0, Tensor w, Tensor bv, "
-        "Tensor bh, Tensor seed, int k, int bb, int rows_per_cta, "
-        "int threads, int lanes, int w_smem, int stream) -> ()");
+        "Tensor bh, Tensor seed, int k, int bb, int row0, int rows_loc, "
+        "int rows_glob, int rows_per_cta, int threads, int lanes, "
+        "int w_smem, int stream) -> ()");
   m.def("gen_fused_rbm(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
         "Tensor w, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "
         "Tensor h0, Tensor c0, Tensor v0, Tensor given, Tensor seed, "
-        "int gen_k, int lstm, int given_mask, int stream) -> ()");
+        "int gen_k, int lstm, int given_mask, int row0, int rows_total, "
+        "int stream) -> ()");
   m.def("nade_sample(Tensor(a!) out, Tensor w, Tensor v, Tensor bv, "
-        "Tensor bh, Tensor seed, int staged, int stream) -> ()");
+        "Tensor bh, Tensor seed, int staged, int row0, int rows_total, "
+        "int stream) -> ()");
   m.def("gen_fused_nade(Tensor(a!) roll, Tensor(b!) h_out, Tensor(c!) c_out, "
         "Tensor w, Tensor v, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wxg, Tensor wx_r, Tensor wh, Tensor wctx, "
         "Tensor b, Tensor h0, Tensor c0, Tensor v0, Tensor given, "
-        "Tensor seed, int lstm, int given_mask, int stream) -> ()");
+        "Tensor seed, int lstm, int given_mask, int row0, int rows_total, "
+        "int stream) -> ()");
   // no tensor arguments: a kernel for every dispatch key
   m.def("gen_fused_plan(int nade, int k, int d, int hid, int u, "
         "int n_layers, int lstm, int batch) -> int[]",

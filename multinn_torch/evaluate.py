@@ -49,7 +49,8 @@ def main(argv=None) -> int:
     args, overrides = parse_args(argv)
     from multinn_torch.utils import config as cfg_mod
     try:
-        cfg = cfg_mod.load_run_config(args.run, args.config, overrides)
+        cfg = cfg_mod.on_one_device(cfg_mod.load_run_config(
+            args.run, args.config, overrides))
     except FileNotFoundError as e:
         print(e, file=sys.stderr)
         return 2

@@ -5,6 +5,13 @@ Functions take a single decoder's params (leaves (X, Y), states (B, X)) or
 a TRACK-STACKED decoder (a leading K axis on every leaf, states (K, B, X))
 where the JAX package vmaps over tracks; see nn/rnn.py for the broadcasting
 convention. Time-major tensors put T first: (T, [K,] B, X).
+
+Under a mesh the training recurrence takes ``seq`` (parallel/seqpipe.py:
+this rank's time chunk, the carry pipelined over the ``seq`` axis) and
+``model_group`` (the ``model`` axis: bh and wuh hold this rank's H
+columns, so the hidden-bias product is column-local and the RNN state
+enters it through Megatron's copy, whose backward sums the ranks' partial
+cotangents).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import sampling
 from multinn_torch.ops.precision import mm
+from multinn_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,35 +71,53 @@ def init_recurrent_state(state_cls, cfg: DecoderConfig, batch_shape,
         v_prev=torch.zeros((*batch_shape, cfg.n_visible), device=device))
 
 
-def scan_states(params, state, x_tm: torch.Tensor):
+def scan_states(params, state, x_tm: torch.Tensor, seq=None):
     """Run the cell stack over time-major inputs; return (final_cell_state,
-    u_prev) where u_prev[t] is the TOP layer's hidden state before x[t]."""
-    final, us = rnn_nn.stacked_scan(params.cfg.cell, params.cell, state.cell,
-                                    x_tm)
+    u_prev) where u_prev[t] is the TOP layer's hidden state before x[t].
+    ``seq`` (parallel.seqpipe.SeqSpec) switches to the time-sharded
+    pipeline, which always starts from the zero state and returns (None,
+    u_prev); callers with a primed state must not pass it."""
+    cfg = params.cfg
+    if seq is not None:
+        from multinn_torch.parallel import seqpipe
+        return seqpipe.scan_states_pipelined(params, x_tm, seq)
+    final, us = rnn_nn.stacked_scan(cfg.cell, params.cell, state.cell, x_tm,
+                                    remat=cfg.remat)
     u0 = rnn_nn.state_h(state.cell[-1])
     return final, torch.cat([u0[None], us[:-1]], dim=0)
 
 
-def conditioned_biases(params, u_prev: torch.Tensor):
+def conditioned_biases(params, u_prev: torch.Tensor, model_group=None):
     """bv(t) = bv + u(t-1) @ Wuv;  bh(t) = bh + u(t-1) @ Wuh (products
-    under the matmul policy)."""
+    under the matmul policy). Under ``model_group`` bh and Wuh hold this
+    rank's H columns, and u enters their product through Megatron's
+    copy."""
+    u_h = comm.copy_to_model(u_prev, model_group)
     return (params.bv.unsqueeze(-2) + mm(u_prev, params.wuv),
-            params.bh.unsqueeze(-2) + mm(u_prev, params.wuh))
+            params.bh.unsqueeze(-2) + mm(u_h, params.wuh))
 
 
-def teacher_forced(params, x: torch.Tensor, ctx: Optional[torch.Tensor]):
+def teacher_forced(params, x: torch.Tensor, ctx: Optional[torch.Tensor],
+                   seq=None, model_group=None):
     """The training recurrence from a zero state: x ([K,] B, T, F), ctx
     with x's leading dims -> (x_tm, bv_t, bh_t), time-major (T, [K,] B, .),
-    with the biases conditioned on u(t-1)."""
+    with the biases conditioned on u(t-1). ``seq``: x is this rank's time
+    chunk (parallel/seqpipe.py); ``model_group``: bh_t holds this rank's H
+    columns."""
     cfg = params.cfg
     x_tm = x.movedim(-2, 0)
     ctx_tm = None if ctx is None else ctx.movedim(-2, 0)
-    zero = rnn_nn.stacked_zero_state(cfg.cell, x.shape[:-2], cfg.n_rnn,
-                                     cfg.rnn_layers, device=x.device)
-    _, us = rnn_nn.stacked_scan(cfg.cell, params.cell, zero,
-                                rnn_input(x_tm, ctx_tm))
-    u_prev = torch.cat([torch.zeros_like(us[:1]), us[:-1]], dim=0)
-    bv_t, bh_t = conditioned_biases(params, u_prev)
+    x_in = rnn_input(x_tm, ctx_tm)
+    if seq is not None:
+        from multinn_torch.parallel import seqpipe
+        _, u_prev = seqpipe.scan_states_pipelined(params, x_in, seq)
+    else:
+        zero = rnn_nn.stacked_zero_state(cfg.cell, x.shape[:-2], cfg.n_rnn,
+                                         cfg.rnn_layers, device=x.device)
+        _, us = rnn_nn.stacked_scan(cfg.cell, params.cell, zero, x_in,
+                                    remat=cfg.remat)
+        u_prev = torch.cat([torch.zeros_like(us[:1]), us[:-1]], dim=0)
+    bv_t, bh_t = conditioned_biases(params, u_prev, model_group)
     return x_tm, bv_t, bh_t
 
 

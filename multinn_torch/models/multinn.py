@@ -21,6 +21,18 @@ drops the axis. Accompaniment raises in joint mode.
 Generation, accompaniment included, runs in the decoders' feature space;
 with a DBN the latent frames are decoded to pianoroll by sampling the
 decode conditional. Pianorolls are (B, T, K, D).
+
+Under a mesh (``shard``, a parallel.mesh.Shard of a global-view
+computation) x holds this rank's batch rows and tracks, and the decoder
+(and per-track encoders) this rank's tracks: the feedback context gathers
+the per-frame latents of all K tracks over ``track`` once per window (in
+generation once per step), track i draws under ``split(key, K)[i]`` of
+the whole K, the per-track metrics are gathered over ``track`` before
+their mean, and the returned loss is this rank's share of the mean over
+tracks (its tracks' sum / K), whose gradients are its tracks' parameters'.
+The samplers draw each row's stream in the whole batch (the row map); a
+DBN's decode draws over the whole batch, gathered over ``data`` first.
+``seq``: x is this rank's time chunk (parallel/seqpipe.py).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from multinn_torch.models.base import DecoderConfig, get_decoder
 from multinn_torch.models.encoders import EncoderConfig
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import sampling
+from multinn_torch.parallel import comm
 from multinn_torch.utils.device import entry_device
 
 MODES = ("per-track", "feedback", "joint", "hybrid")
@@ -139,6 +152,13 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def with_leaves(tree, leaves):
+    """``tree`` with its tensors replaced, in ``tree_leaves`` order, by
+    ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def stack_trees(trees):
     """Per-track trees -> one tree with a leading track axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
@@ -154,11 +174,25 @@ def n_decoders(cfg: MultINNConfig) -> int:
     return 1 if cfg.mode == "joint" else cfg.n_tracks
 
 
-def _decoder_keys(cfg: MultINNConfig, key: torch.Tensor) -> torch.Tensor:
+def _decoder_keys(cfg: MultINNConfig, key: torch.Tensor,
+                  shard=None) -> torch.Tensor:
     """One key per decoder: ``split(key, K)``, or in joint mode the key
-    itself (the JAX package's single decoder draws on it)."""
-    return key[None] if cfg.mode == "joint" else sampling.split(key,
-                                                                cfg.n_tracks)
+    itself (the JAX package's single decoder draws on it); under a track
+    split this rank's tracks' keys."""
+    if cfg.mode == "joint":
+        return key[None]
+    keys = sampling.split(key, cfg.n_tracks)
+    return keys if _track_group(shard) is None else keys[
+        shard.tracks(cfg.n_tracks)]
+
+
+def _track_group(shard):
+    return None if shard is None else shard.track
+
+
+def _all_tracks(t: torch.Tensor, shard) -> torch.Tensor:
+    """Track-major t (K_local, ...) -> every rank's tracks (K, ...)."""
+    return comm.all_gather(t, 0, _track_group(shard))
 
 
 def init(cfg: MultINNConfig, generator: Optional[torch.Generator] = None,
@@ -205,7 +239,7 @@ def _encode_tracks(params: MultINNParams, x: torch.Tensor) -> torch.Tensor:
         return enc_mod.features(params.encoder, xk)
     return torch.stack([enc_mod.features(index_tree(params.encoder, i),
                                          xk[i])
-                        for i in range(params.cfg.n_tracks)])
+                        for i in range(xk.shape[0])])
 
 
 def _decode_sample(encoder, key: torch.Tensor, lat: torch.Tensor,
@@ -221,16 +255,22 @@ def _decode_sample(encoder, key: torch.Tensor, lat: torch.Tensor,
 
 
 def _decode_tracks(params: MultINNParams, key: torch.Tensor,
-                   lat_k: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
-    """Track-major latents (K, ...) -> pianoroll frames (K, ...): the
-    shared encoder decodes all tracks under ``key``, per-track encoders
-    decode track i under ``split(key, K)[i]``."""
+                   lat_k: torch.Tensor, beta: float = 1.0,
+                   shard=None) -> torch.Tensor:
+    """Track-major latents of all K tracks (K, ...) -> pianoroll frames
+    (K, ...): the shared encoder decodes all tracks under ``key``,
+    per-track encoders decode track i under ``split(key, K)[i]`` (under a
+    track split each rank its tracks, then gathered)."""
     if not _per_track_encoder(params):
         return _decode_sample(params.encoder, key, lat_k, beta)
-    keys = sampling.split(key, params.cfg.n_tracks)
-    return torch.stack([_decode_sample(index_tree(params.encoder, i),
-                                       keys[i], lat_k[i], beta)
-                        for i in range(params.cfg.n_tracks)])
+    k = params.cfg.n_tracks
+    keys = sampling.split(key, k)
+    mine = (range(k) if _track_group(shard) is None
+            else range(k)[shard.tracks(k)])
+    out = torch.stack([_decode_sample(index_tree(params.encoder, j),
+                                      keys[i], lat_k[i], beta)
+                       for j, i in enumerate(mine)])
+    return _all_tracks(out, shard)
 
 
 def _flatten_latents(vs: torch.Tensor) -> torch.Tensor:
@@ -240,11 +280,20 @@ def _flatten_latents(vs: torch.Tensor) -> torch.Tensor:
 
 
 def _feedback_ctx(feats_k: torch.Tensor,
-                  prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  prefix: Optional[torch.Tensor] = None,
+                  seq=None) -> torch.Tensor:
     """Teacher-forced feedback context: latents of all tracks at t-1.
-    feats_k (K, B, T, F) -> (B, T, K*F); row t=0 is ``prefix`` or zeros."""
+    feats_k (K, B, T, F) -> (B, T, K*F); row t=0 is ``prefix`` or zeros.
+    Under time sharding (``seq``) the shift crosses the chunk boundary
+    (seqpipe.shift_right_seq; zeros into the first chunk)."""
     k, b, t, f = feats_k.shape
     lat = feats_k.permute(1, 2, 0, 3).reshape(b, t, k * f)
+    if seq is not None:
+        if prefix is not None:
+            raise ValueError("a prefix context cannot enter a time-sharded "
+                             "window: the seqpipe halo starts from zeros")
+        from multinn_torch.parallel import seqpipe
+        return seqpipe.shift_right_seq(lat, seq)
     first = (torch.zeros_like(lat[:, :1]) if prefix is None
              else prefix[:, None].to(lat.dtype))
     return torch.cat([first, lat[:, :-1]], dim=1)
@@ -255,32 +304,43 @@ def _mean_tree(metrics: dict) -> dict:
     return {k: v.mean(dim=0) for k, v in metrics.items()}
 
 
-def _track_inputs(params: MultINNParams, x: torch.Tensor):
+def _track_inputs(params: MultINNParams, x: torch.Tensor, shard=None,
+                  seq=None):
     """(B, T, K, D) -> the decoders' features (K, B, T, F) and, in feedback
-    mode, each track's teacher-forced context (K, B, T, K*F)."""
+    mode, each track's teacher-forced context (K, B, T, K*F) — under a
+    track split this rank's tracks, their context from every rank's."""
     cfg = params.cfg
     feats_k = _encode_tracks(params, x)
     if cfg.mode != "feedback":
         return feats_k, None
-    ctx = _feedback_ctx(feats_k)
-    return feats_k, ctx.expand(cfg.n_tracks, *ctx.shape)
+    ctx = _feedback_ctx(_all_tracks(feats_k, shard), seq=seq)
+    return feats_k, ctx.expand(feats_k.shape[0], *ctx.shape)
 
 
 def loss(params: MultINNParams, key: torch.Tensor, x: torch.Tensor,
          detailed: bool = True, frame_mask: Optional[torch.Tensor] = None,
-         impl=None):
+         impl=None, shard=None, seq=None):
     """Teacher-forced loss over all tracks, x (B, T, K, D); frame_mask
     (B, T). Returns (loss, metrics): the metrics averaged over tracks, the
     per-track losses under ``loss_per_track`` ((1,) in joint mode). Track
     i's key is ``split(key, K)[i]`` (joint mode: ``key``).
     ``detailed=False`` is the trainer's hot path; ``impl`` forces the
-    decoder's kernels or their plain versions."""
+    decoder's kernels or their plain versions; ``shard`` / ``seq``: a
+    mesh's part (module docstring)."""
     cfg = params.cfg
-    feats_k, ctx = _track_inputs(params, x)
-    keys = _decoder_keys(cfg, key)
+    feats_k, ctx = _track_inputs(params, x, shard, seq)
+    keys = _decoder_keys(cfg, key, shard)
     losses, metrics = get_decoder(cfg.decoder_type).loss(
         params.decoder, keys, feats_k, ctx=ctx, detailed=detailed,
-        frame_mask=frame_mask, impl=impl)
+        frame_mask=frame_mask, impl=impl, shard=shard, seq=seq)
+    if _track_group(shard) is not None:
+        with torch.no_grad():
+            metrics = {k: _all_tracks(v, shard) for k, v in metrics.items()}
+            every = _all_tracks(losses.detach(), shard)
+        metrics = _mean_tree(metrics)
+        metrics["loss_per_track"] = every
+        metrics["loss"] = every.mean()
+        return losses.sum() / cfg.n_tracks, metrics
     metrics = _mean_tree(metrics)
     metrics["loss_per_track"] = losses.detach()
     total = losses.mean()
@@ -290,55 +350,65 @@ def loss(params: MultINNParams, key: torch.Tensor, x: torch.Tensor,
 
 def log_likelihood(params: MultINNParams, key: torch.Tensor,
                    x: torch.Tensor,
-                   frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   frame_mask: Optional[torch.Tensor] = None, shard=None,
+                   seq=None) -> torch.Tensor:
     """Per-sequence LL summed over tracks and time, (B,): exact for NADE
-    decoders, the pseudo-LL proxy for RBM decoders."""
+    decoders, the pseudo-LL proxy for RBM decoders (under ``seq`` this
+    rank's time chunk)."""
     cfg = params.cfg
-    feats_k, ctx = _track_inputs(params, x)
+    feats_k, ctx = _track_inputs(params, x, shard, seq)
     lls = get_decoder(cfg.decoder_type).log_likelihood_proxy(
-        params.decoder, _decoder_keys(cfg, key), feats_k, ctx=ctx,
-        frame_mask=frame_mask)
+        params.decoder, _decoder_keys(cfg, key, shard), feats_k, ctx=ctx,
+        frame_mask=frame_mask, shard=shard, seq=seq)
+    if _track_group(shard) is not None:
+        return comm.all_reduce_sum(lls.detach().sum(dim=0), shard.track)
     return lls.sum(dim=0)
 
 
-def conditional_logits(params: MultINNParams, x: torch.Tensor):
+def conditional_logits(params: MultINNParams, x: torch.Tensor, shard=None,
+                       seq=None):
     """Teacher-forced conditional logits and their targets for NADE
-    decoders, both (K, T, B, F) ((1, T, B, K*D) in joint mode): the
-    Gauss-Newton linearization point of training/hf.py, in the parallel
-    cumsum form."""
+    decoders, both (K, T, B, F) ((1, T, B, K*D) in joint mode; this rank's
+    tracks under a track split): the Gauss-Newton linearization point of
+    training/hf.py, in the parallel cumsum form."""
     cfg = params.cfg
     if cfg.decoder_type != "rnn-nade":
         raise ValueError("conditional_logits requires an rnn-nade decoder "
                          "(RBM CD training has no GGN linearization)")
-    feats_k, ctx = _track_inputs(params, x)
+    feats_k, ctx = _track_inputs(params, x, shard, seq)
     logits = get_decoder(cfg.decoder_type).conditional_logits(
-        params.decoder, feats_k, ctx=ctx)
+        params.decoder, feats_k, ctx=ctx, shard=shard, seq=seq)
     return logits.movedim(1, 0), feats_k.transpose(1, 2)
 
 
 def init_state(params: MultINNParams, batch: int) -> MultINNState:
+    """A fresh state for ``batch`` rows of the params' decoders (under a
+    track split, this rank's)."""
     cfg = params.cfg
     dec = get_decoder(cfg.decoder_type)
-    states = dec.init_state(params.decoder, (n_decoders(cfg), batch))
+    states = dec.init_state(params.decoder,
+                            (params.decoder.w.shape[0], batch))
     ctx = (torch.zeros((batch, cfg.ctx_dim()), device=params.decoder.w.device)
            if cfg.mode == "feedback" else None)
     return MultINNState(decoder=states, ctx=ctx)
 
 
 def prime(params: MultINNParams, state: MultINNState,
-          seed: torch.Tensor) -> MultINNState:
-    """Advance RNN states over a seed pianoroll (B, T, K, D)."""
+          seed: torch.Tensor, shard=None) -> MultINNState:
+    """Advance RNN states over a seed pianoroll (B, T, K, D) (under a
+    track split, this rank's tracks of it)."""
     cfg = params.cfg
     dec = get_decoder(cfg.decoder_type)
     feats_k = _encode_tracks(params, seed)               # (K, B, T, F)
     if cfg.mode == "feedback":
         # ctx(t) = latents(t-1); the incoming carried context conditions the
         # first seed frame (zeros for a fresh state)
-        ctx_seq = _feedback_ctx(feats_k, prefix=state.ctx)
-        ctx_k = ctx_seq.expand(cfg.n_tracks, *ctx_seq.shape)
+        every = _all_tracks(feats_k, shard)
+        ctx_seq = _feedback_ctx(every, prefix=state.ctx)
+        ctx_k = ctx_seq.expand(feats_k.shape[0], *ctx_seq.shape)
         states = dec.prime(params.decoder, state.decoder, feats_k, ctx=ctx_k)
         return MultINNState(decoder=states,
-                            ctx=_flatten_latents(feats_k[:, :, -1]))
+                            ctx=_flatten_latents(every[:, :, -1]))
     return MultINNState(decoder=dec.prime(params.decoder, state.decoder,
                                           feats_k), ctx=None)
 
@@ -369,23 +439,28 @@ def sample_step(params: MultINNParams, key: torch.Tensor,
 
 def _sample_step(params: MultINNParams, key: torch.Tensor,
                  state: MultINNState, k: Optional[int] = None,
-                 dec_beta: float = 1.0
+                 dec_beta: float = 1.0, shard=None, decode: bool = True
                  ) -> Tuple[MultINNState, torch.Tensor]:
     """One generation step over all tracks on already-tempered params ->
     (state, frame (B, K, D)). Keys as the JAX package: ``key, kd =
     split(key)``, one key per decoder from ``key`` (_decoder_keys), and
-    ``kd`` for the DBN decode; ``dec_beta`` tempers only that decode."""
+    ``kd`` for the DBN decode; ``dec_beta`` tempers only that decode.
+    ``shard``: this rank samples its tracks (the frames then gathered over
+    ``track``) on its rows' streams; ``decode=False`` leaves a DBN's frame
+    in latent space."""
     cfg = params.cfg
     dec = get_decoder(cfg.decoder_type)
     key, kd = sampling.split(key)
-    keys = _decoder_keys(cfg, key)
+    keys = _decoder_keys(cfg, key, shard)
+    rows = None if shard is None else shard.rows
     vs = torch.stack([
         dec.sample_frame(index_tree(params.decoder, i), keys[i],
-                         index_tree(state.decoder, i), k=k)
-        for i in range(n_decoders(cfg))])                # (K, B, F)
-    new_state = _forced_step(params, state, vs)
-    if cfg.encoder_hidden:
-        vs = _decode_tracks(params, kd, vs, dec_beta)
+                         index_tree(state.decoder, i), k=k, rows=rows)
+        for i in range(params.decoder.w.shape[0])])      # (K, B, F)
+    vs = _all_tracks(vs, shard)
+    new_state = _forced_step(params, state, vs, shard)
+    if cfg.encoder_hidden and decode:
+        vs = _decode_tracks(params, kd, vs, dec_beta, shard)
     return new_state, _frames(cfg, vs.movedim(0, 1))     # (B, K, D)
 
 
@@ -398,25 +473,28 @@ def _frames(cfg: MultINNConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _forced_step(params: MultINNParams, state: MultINNState,
-                 vs: torch.Tensor) -> MultINNState:
+                 vs: torch.Tensor, shard=None) -> MultINNState:
     """Advance every track's decoder on the frame features vs (K, B, F);
     in feedback mode the carried context conditions the advance and vs
-    becomes the next context."""
+    becomes the next context. Under a track split vs holds every track and
+    this rank advances its own."""
     cfg = params.cfg
     dec = get_decoder(cfg.decoder_type)
+    mine = (vs if _track_group(shard) is None
+            else vs[shard.tracks(cfg.n_tracks)])
     if cfg.mode != "feedback":
         return MultINNState(
-            decoder=dec.forced_step(params.decoder, state.decoder, vs),
+            decoder=dec.forced_step(params.decoder, state.decoder, mine),
             ctx=None)
-    ctx_k = state.ctx.expand(cfg.n_tracks, *state.ctx.shape)
+    ctx_k = state.ctx.expand(mine.shape[0], *state.ctx.shape)
     return MultINNState(
-        decoder=dec.forced_step(params.decoder, state.decoder, vs, ctx_k),
+        decoder=dec.forced_step(params.decoder, state.decoder, mine, ctx_k),
         ctx=_flatten_latents(vs))
 
 
 def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
              n_steps: int, fused: Optional[bool] = None,
-             k: Optional[int] = None, temperature: float = 1.0
+             k: Optional[int] = None, temperature: float = 1.0, shard=None
              ) -> Tuple[MultINNState, torch.Tensor]:
     """Autoregressive multi-track generation. Returns (state, pianoroll
     (B, n_steps, K, D) float32).
@@ -426,9 +504,18 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
     path: a Gibbs-chain or NADE-sweep launch per track and step); None
     picks the kernel whenever its gate admits the config and batch. On CPU
     tensors each kernel runs as its plain version. ``temperature`` tempers
-    the decoder params and the DBN decode conditional's logits."""
+    the decoder params and the DBN decode conditional's logits.
+
+    ``shard`` (a mesh's part): the state holds this rank's rows (the row
+    map) and tracks, and so does the roll, every track gathered; a track
+    split runs the scan path, the frames gathered every step."""
     cfg = params.cfg
     batch = state.decoder.v_prev.shape[1]     # (K', B, F) in every mode
+    if _track_group(shard) is not None:
+        if fused:
+            raise ValueError("the whole-generation kernels hold every "
+                             "track: a track-split mesh runs the scan path")
+        fused = False
     if fused is None:
         from multinn_torch.ops import gen_fused
         fused = (gen_fused.supported(cfg, batch, n_steps, gen_k=k)
@@ -437,14 +524,41 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
     dec_beta = 1.0 / temperature
     if fused:
         return _generate_fused(params, key, state, n_steps, k=k,
-                               dec_beta=dec_beta)
+                               dec_beta=dec_beta, shard=shard)
+    # a DBN decode over a data split waits for the whole batch's latents
+    later = bool(cfg.encoder_hidden) and _data_group(shard) is not None
     keys = sampling.split(key, n_steps)
     frames = []
     for t in range(n_steps):
         state, frame = _sample_step(params, keys[t], state, k=k,
-                                    dec_beta=dec_beta)
+                                    dec_beta=dec_beta, shard=shard,
+                                    decode=not later)
         frames.append(frame)
-    return state, torch.stack(frames, dim=1)
+    roll = torch.stack(frames, dim=1)
+    if later:
+        def decode(lat):                           # (B, T, K, F)
+            kds = [sampling.split(kt)[1] for kt in keys]
+            return torch.stack([_decode_tracks(
+                params, kds[t], lat[:, t].movedim(1, 0), dec_beta,
+                shard).movedim(0, 1) for t in range(n_steps)], dim=1)
+        roll = _decode_whole_batch(decode, roll, shard)
+    return state, roll
+
+
+def _data_group(shard):
+    return None if shard is None else shard.data
+
+
+def _decode_whole_batch(decode, lat: torch.Tensor, shard) -> torch.Tensor:
+    """``decode`` (latent roll (B, T, K, F) -> pianoroll (B, T, K, D)) on
+    the whole batch: this rank's rows gathered over ``data``, decoded
+    (every rank alike), and its rows kept."""
+    group = _data_group(shard)
+    if group is None:
+        return decode(lat)
+    b = lat.shape[0]
+    whole = decode(comm.gather_cat(lat.contiguous(), 0, group))
+    return whole[shard.rows[0]:shard.rows[0] + b]
 
 
 def _check_given(cfg: MultINNConfig, given: torch.Tensor,
@@ -547,7 +661,7 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
                     state: MultINNState, n_steps: int, impl=None,
                     k: Optional[int] = None, dec_beta: float = 1.0,
                     given: Optional[torch.Tensor] = None,
-                    given_tracks: Tuple[int, ...] = ()
+                    given_tracks: Tuple[int, ...] = (), shard=None
                     ) -> Tuple[MultINNState, torch.Tensor]:
     """Dispatch to the whole-generation kernel and rebuild the state
     contract from its outputs (``params`` already tempered). The kernel
@@ -557,7 +671,8 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
     decode. ``given`` (B, T, K, F) features with ``given_tracks``: those
     tracks' frames in the kernel (accompaniment). Joint mode enters the
     kernels as one track of the joint width; its roll is split into the K
-    tracks after the decode."""
+    tracks after the decode. ``shard``: the batch is this rank's rows of a
+    data split (the kernels' row map; the decode over the whole batch)."""
     from multinn_torch.ops import gen_fused
     cfg = params.cfg
     vanilla = cfg.cell == "vanilla"
@@ -565,16 +680,17 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
     h0 = torch.stack([st.h for st in dec_state.cell])
     c0 = (torch.zeros_like(h0) if vanilla
           else torch.stack([st.c for st in dec_state.cell]))
+    rows = None if shard is None else shard.rows
     if cfg.decoder_type == "rnn-nade":
         roll, h_f, c_f = gen_fused.generate_nade(
             key, params.decoder, h0, c0, dec_state.v_prev, n_steps,
-            impl=impl, given=given,
-            given_tracks=given_tracks)                   # (B, T, K, F)
+            impl=impl, given=given, given_tracks=given_tracks,
+            rows=rows)                                   # (B, T, K, F)
     else:
         roll, h_f, c_f = gen_fused.generate_rbm(
             key, params.decoder, h0, c0, dec_state.v_prev, n_steps,
             cfg.gen_k if k is None else k, impl=impl, given=given,
-            given_tracks=given_tracks)
+            given_tracks=given_tracks, rows=rows)
     v_last = roll[:, -1].movedim(0, 1)                   # (K, B, F)
 
     def cell_state(h, c):
@@ -587,8 +703,9 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
     ctx = _flatten_latents(v_last) if cfg.mode == "feedback" else None
     if cfg.encoder_hidden:
         kd = sampling.fold_in(key, 0x5eed)
-        roll = _decode_tracks(params, kd, roll.movedim(2, 0),
-                              dec_beta).movedim(0, 2)
+        roll = _decode_whole_batch(
+            lambda lat: _decode_tracks(params, kd, lat.movedim(2, 0),
+                                       dec_beta).movedim(0, 2), roll, shard)
     return MultINNState(decoder=new_dec, ctx=ctx), _frames(cfg, roll)
 
 

@@ -12,6 +12,12 @@ exact maximum likelihood: ``loss`` and ``log_likelihood`` take one decoder
 with x (B, T, F) or track-stacked params with x (K, B, T, F), and one
 launch of the grid-free likelihood kernels (ops/nade_ll.py) covers every
 track and frame.
+
+Under a mesh's ``model`` axis (``shard.model``) w, v, bh and wuh hold this
+rank's H columns: the kernels run with bv = 0, so their logits are this
+rank's partial sums over its columns; Megatron's all-reduce completes
+them and bv(t) is added after. ``seq``: x is this rank's time chunk
+(parallel/seqpipe.py).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from multinn_torch.models.base import DecoderConfig
 from multinn_torch.nn import nade as nade_nn
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import nade_ops
+from multinn_torch.parallel import comm
 from multinn_torch.training.metrics import frame_metrics
 
 
@@ -76,14 +83,25 @@ def _tracks_first(stacked: bool, *ts):
     return tuple(t.movedim(1, 0) for t in ts) if stacked else ts
 
 
+def _model_logits(logits_fn, bv, model_group):
+    """``logits_fn(bv)`` as one rank of ``model_group`` computes it: the
+    partial logits of its H columns at bv = 0, summed over the ranks, plus
+    bv; without a group ``logits_fn(bv)`` itself."""
+    if model_group is None:
+        return logits_fn(bv)
+    return comm.reduce_from_model(logits_fn(torch.zeros_like(bv)),
+                                  model_group) + bv
+
+
 def _log_probs(params: Params, x_tm, bv_t, bh_t, need_logits: bool,
-               impl=None):
+               impl=None, model_group=None):
     """Exact per-frame log-likelihoods (T, [K,] B) and, when asked, the
     conditional logits (T, [K,] B, F) they come from."""
     stacked = params.w.dim() == 3
     xk, bvk, bhk = _tracks_first(stacked, x_tm, bv_t, bh_t)
-    logits = nade_ops.nade_conditionals_logits(xk, params.w, params.v, bvk,
-                                               bhk, impl=impl)
+    logits = _model_logits(
+        lambda bv: nade_ops.nade_conditionals_logits(
+            xk, params.w, params.v, bv, bhk, impl=impl), bvk, model_group)
     ll = nade_nn.bernoulli_ll(logits, xk).sum(dim=-1)
     ll, logits = _tracks_first(stacked, ll, logits)
     return ll, (logits if need_logits else None)
@@ -91,26 +109,29 @@ def _log_probs(params: Params, x_tm, bv_t, bh_t, need_logits: bool,
 
 def _nll(params: Params, x: torch.Tensor, ctx: Optional[torch.Tensor],
          frame_mask: Optional[torch.Tensor] = None, need_logits=False,
-         impl=None):
+         impl=None, shard=None, seq=None):
     """Mean per-frame negative log-likelihood (per track when stacked),
     with the time-major inputs and, with ``need_logits``, the logits."""
-    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
-    ll, logits = _log_probs(params, x_tm, bv_t, bh_t, need_logits, impl)
+    mg = None if shard is None else shard.model
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx, seq, mg)
+    ll, logits = _log_probs(params, x_tm, bv_t, bh_t, need_logits, impl, mg)
     m_tm = base.time_major_mask(frame_mask, params.w.dim() == 3)
     return -base.frame_mean(ll, m_tm), (x_tm, logits)
 
 
 def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
          ctx: Optional[torch.Tensor] = None, detailed: bool = True,
-         frame_mask: Optional[torch.Tensor] = None, impl=None):
+         frame_mask: Optional[torch.Tensor] = None, impl=None, shard=None,
+         seq=None):
     """Exact NLL loss. ``key`` is unused (kept for the decoder contract).
     Returns (loss, metrics), per track when stacked. ``detailed=False``
     skips the frame metrics (hot path); ``frame_mask`` (B, T) excludes
     padded frames. ``impl`` forces the likelihood kernels or their plain
-    versions."""
+    versions; ``shard`` / ``seq``: a mesh's part (module docstring)."""
     del key
     nll, (x_tm, logits) = _nll(params, x, ctx, frame_mask,
-                               need_logits=detailed, impl=impl)
+                               need_logits=detailed, impl=impl, shard=shard,
+                               seq=seq)
     if not detailed:
         return nll, {"loss": nll.detach()}
     m2 = base.time_major_mask(frame_mask, False)
@@ -128,27 +149,32 @@ def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
 
 
 def conditional_logits(params: Params, x: torch.Tensor,
-                       ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       ctx: Optional[torch.Tensor] = None, shard=None,
+                       seq=None) -> torch.Tensor:
     """Teacher-forced per-dim conditional logits, time-major (T, [K,] B, F),
     in the parallel cumsum form (the linearization point of Hessian-free
     training, which is forward-mode: the kernels' Function has no jvp)."""
     stacked = params.w.dim() == 3
-    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
+    mg = None if shard is None else shard.model
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx, seq, mg)
     xk, bvk, bhk = _tracks_first(stacked, x_tm, bv_t, bh_t)
-    (logits,) = _tracks_first(stacked, nade_nn.conditionals_logits(
-        xk, params.w, params.v, bvk, bhk, form="cumsum"))
+    (logits,) = _tracks_first(stacked, _model_logits(
+        lambda bv: nade_nn.conditionals_logits(xk, params.w, params.v, bv,
+                                               bhk, form="cumsum"),
+        bvk, mg))
     return logits
 
 
 def log_likelihood(params: Params, key: torch.Tensor, x: torch.Tensor,
                    ctx: Optional[torch.Tensor] = None,
-                   frame_mask: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
+                   frame_mask: Optional[torch.Tensor] = None, shard=None,
+                   seq=None) -> torch.Tensor:
     """Exact per-sequence log-likelihood ([K,] B), summed over the real
-    frames."""
+    frames (this rank's under ``seq``)."""
     del key
-    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx)
-    ll, _ = _log_probs(params, x_tm, bv_t, bh_t, False)
+    mg = None if shard is None else shard.model
+    x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx, seq, mg)
+    ll, _ = _log_probs(params, x_tm, bv_t, bh_t, False, model_group=mg)
     m_tm = base.time_major_mask(frame_mask, params.w.dim() == 3)
     if m_tm is not None:
         ll = ll * m_tm
@@ -180,15 +206,16 @@ def tempered_params(params: Params, temperature: float) -> Params:
 
 
 def sample_frame(params: Params, key: torch.Tensor, state: State,
-                 k: Optional[int] = None) -> torch.Tensor:
+                 k: Optional[int] = None, rows=None) -> torch.Tensor:
     """Ancestral NADE sample at biases from u(t-1), without advancing the
     state. One decoder (not track-stacked); ``k`` is ignored (NADE sampling
-    is exact)."""
+    is exact); ``rows``: the row map (b0, B_global) of a data shard."""
     del k
     u_prev = rnn_nn.state_h(state.cell[-1])
     bv_t, bh_t = base.conditioned_biases(params, u_prev)
     return nade_ops.nade_sample(key, params.w, params.v, bv_t, bh_t,
-                                batch_shape=tuple(u_prev.shape[:-1]))
+                                batch_shape=tuple(u_prev.shape[:-1]),
+                                rows=rows)
 
 
 def forced_step(params: Params, state: State, v: torch.Tensor,

@@ -10,15 +10,26 @@ leaf, inputs (K, B, in) — where the JAX package vmaps over tracks: products
 batch over the leading axes, and biases enter as ``b.unsqueeze(-2)`` so
 that (G,) and (K, G) both broadcast. Time-major sequences are (T, [K,] B,
 in).
+
+``remat`` (the model's ``remat`` flag) checkpoints each step of a layer's
+scan (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+a step's gates from its carry and its hoisted input product instead of
+keeping them, as the reference's ``jax.checkpoint`` of the scan body. The
+recurrence draws no random numbers, so no RNG state is stashed (stashing
+the CUDA RNG state is illegal while a graph is captured); the recompute
+runs under the matmul policy of the forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from multinn_torch.ops import precision
 from multinn_torch.ops.precision import mm
 
 
@@ -67,13 +78,31 @@ def lstm_step(params: LSTMParams, state: LSTMState, x) -> LSTMState:
     return _lstm_gates(state.c, z)
 
 
-def lstm_scan(params: LSTMParams, state: LSTMState, xs):
+def _remat(fn, *args):
+    """``fn(*args)`` with its intermediates recomputed in the backward."""
+    name = "f32" if precision.matmul_dtype() is None else "bf16"
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          precision.matmul_precision(name)))
+
+
+def _lstm_step_hc(c, h, xz_t, wh):
+    st = _lstm_gates(c, xz_t + mm(h, wh))
+    return st.h, st.c
+
+
+def lstm_scan(params: LSTMParams, state: LSTMState, xs, remat: bool = False):
     """LSTM over time-major xs (T, ..., in) -> (final_state, hs (T, ..., H)),
     with the input projection of all T steps hoisted out of the loop."""
     xz = mm(xs, params.wx) + params.b.unsqueeze(-2)
     hs = []
     for xz_t in xz:
-        state = _lstm_gates(state.c, xz_t + mm(state.h, params.wh))
+        if remat:
+            h, c = _remat(_lstm_step_hc, state.c, state.h, xz_t, params.wh)
+            state = LSTMState(h=h, c=c)
+        else:
+            state = _lstm_gates(state.c, xz_t + mm(state.h, params.wh))
         hs.append(state.h)
     return state, torch.stack(hs)
 
@@ -108,11 +137,18 @@ def vanilla_step(params: VanillaRNNParams, state: VanillaRNNState, x):
         mm(x, params.wx) + mm(state.h, params.wh) + params.b.unsqueeze(-2)))
 
 
-def vanilla_scan(params: VanillaRNNParams, state: VanillaRNNState, xs):
+def _vanilla_step_h(h, xz_t, wh):
+    return torch.tanh(xz_t + mm(h, wh))
+
+
+def vanilla_scan(params: VanillaRNNParams, state: VanillaRNNState, xs,
+                 remat: bool = False):
     xz = mm(xs, params.wx) + params.b.unsqueeze(-2)
     hs = []
     for xz_t in xz:
-        state = VanillaRNNState(h=torch.tanh(xz_t + mm(state.h, params.wh)))
+        h = (_remat(_vanilla_step_h, state.h, xz_t, params.wh) if remat
+             else _vanilla_step_h(state.h, xz_t, params.wh))
+        state = VanillaRNNState(h=h)
         hs.append(state.h)
     return state, torch.stack(hs)
 
@@ -146,12 +182,15 @@ def stacked_step(cell_type: str, params, states, x):
     return tuple(new_states)
 
 
-def stacked_scan(cell_type: str, params, states, xs) -> Tuple[tuple, object]:
+def stacked_scan(cell_type: str, params, states, xs,
+                 remat: bool = False) -> Tuple[tuple, object]:
+    """All layers over time-major xs; ``remat`` checkpoints each step of
+    every layer's scan (module docstring)."""
     scan = CELLS[cell_type][3]
     finals = []
     inp = xs
     for p, st in zip(params, states):
-        final, inp = scan(p, st, inp)
+        final, inp = scan(p, st, inp, remat=remat)
         finals.append(final)
     return tuple(finals), inp
 

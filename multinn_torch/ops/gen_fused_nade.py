@@ -152,12 +152,14 @@ def supported_nade(cfg, batch: int, n_steps: int = 2048,
 
 def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
                   impl=None, aux_dtype=None, given=None,
-                  given_tracks: Tuple[int, ...] = ()):
+                  given_tracks: Tuple[int, ...] = (), rows=None):
     """Run the whole generation. dec_params: track-STACKED rnn_nade.Params;
     h0/c0: (L, K, B, U) ((K, B, U) for one layer); v0: (K, B, D);
     ``given`` (B, n_steps, K, D) with ``given_tracks``: those tracks' frames
-    replace the sampled ones (accompaniment). Returns (roll (B, n_steps, K,
-    D) float32, h_final (L, K, B, U), c_final (L, K, B, U)).
+    replace the sampled ones (accompaniment); ``rows``: the row map (b0,
+    B_global), under which sample b draws the counters (i*8 + k)*B_global +
+    b0 + b of sample b0 + b (kernel_prng.row_map). Returns (roll (B,
+    n_steps, K, D) float32, h_final (L, K, B, U), c_final (L, K, B, U)).
 
     ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; "cuda" / "plain" force one."""
@@ -179,6 +181,7 @@ def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     u, g = args.wuv.shape[1], args.wx_v.shape[2]
     lstm = g == 4 * u
     b = h0.shape[2]
+    rmap = kernel_prng.row_map(b, rows)
     seeds = key_to_seeds(key).to(args.bv.device)
     wxg = None
     if given is not None:
@@ -186,10 +189,10 @@ def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
         wxg = dec_params.cell[0].wx[:, :d, :].contiguous()
     if _build.impl_for(impl, args.bv) == "cuda":
         roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, lstm, given,
-                                            given_tracks, wxg)
+                                            given_tracks, wxg, rmap)
     else:
         roll, h_out, c_out = _generate_plain(seeds, args, n_steps, lstm,
-                                             given, given_tracks, wxg)
+                                             given, given_tracks, wxg, rmap)
 
     return (roll.reshape(b, n_steps, k, d),
             _from_state_rows(h_out, n_layers, k, u),
@@ -197,7 +200,7 @@ def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
 
 
 def _generate_cuda(seeds, args: NadeArgs, n_steps, lstm, given, given_tracks,
-                   wxg):
+                   wxg, rmap):
     if not _fits(args):
         raise ValueError(
             f"generate_nade: one sample needs {_sample_bytes(args)} "
@@ -218,12 +221,12 @@ def _generate_cuda(seeds, args: NadeArgs, n_steps, lstm, given, given_tracks,
             roll, h_out, c_out, args.w, args.v, args.wuv, args.wuh, args.bv,
             args.bh, args.wx_v, opt(wxg), opt(args.wx_r), args.wh,
             opt(args.wctx), args.b, args.h0, args.c0, args.v0, opt(given),
-            seeds, int(lstm), mask, _build.stream_of(args.bv))
+            seeds, int(lstm), mask, *rmap, _build.stream_of(args.bv))
     return roll, h_out, c_out
 
 
 def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
-                    given_tracks, wxg):
+                    given_tracks, wxg, rmap=None):
     """Plain PyTorch version of the kernel, same signature and stream.
     Track-major (K, B, X) tensors; torch.matmul batches over the tracks.
     z grows one dim at a time, in increasing i, as the kernel's gather
@@ -238,10 +241,12 @@ def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
     w, v, wuv, wx_v = (x.float() for x in (args.w, args.v, args.wuv,
                                             args.wx_v))
     wctx = None if args.wctx is None else args.wctx.float()
-    # counter of (dim i, track k, sample b): (i*8 + k)*B + b, as (K, B, D)
+    # counter of (dim i, track k, sample b): (i*8 + k)*B + b, as (K, B, D),
+    # of sample b0 + b of B_global under the row map
+    b0, total = rmap if rmap is not None else (0, b)
     ctr = ((torch.arange(d, device=dev) * STREAM_ROWS
-            + torch.arange(k, device=dev)[:, None, None]) * b
-           + torch.arange(b, device=dev)[:, None])
+            + torch.arange(k, device=dev)[:, None, None]) * total
+           + b0 + torch.arange(b, device=dev)[:, None])
 
     def track_major(rows, width):          # (B, K*X) -> (K, B, X)
         return rows.reshape(b, k, width).transpose(0, 1)

@@ -10,6 +10,11 @@ counter ``b*K*H + lane`` (``b*K*D + lane``) exactly as the TPU kernel's
 LSTM / vanilla advance, whose layer-0 input is the fresh frame plus the
 PREVIOUS frame of all tracks through ``wctx`` (feedback mode).
 
+Under the row map ``rows=(b0, B_global)`` the batch is samples b0 ..
+b0 + B - 1 of a batch of B_global (one data shard of a mesh) and sample b
+draws the counters of sample b0 + b, so the shards' rolls together are the
+whole batch's roll; None is ``(0, B)``.
+
 The plain version equals the Pallas kernel in interpret mode bit for bit
 in the roll (CPU tests); the CUDA kernel equals the plain version up to the
 rare draw a last-ulp difference in a probability flips, after which that
@@ -128,12 +133,13 @@ def supported(cfg, batch: int, n_steps: int = 2048,
 
 def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
                  gen_k: int, impl=None, wdtype=None, given=None,
-                 given_tracks: Tuple[int, ...] = ()):
+                 given_tracks: Tuple[int, ...] = (), rows=None):
     """Run the whole generation. dec_params: track-STACKED rnn_rbm.Params;
     h0/c0: (L, K, B, U) ((K, B, U) for one layer); v0: (K, B, D);
     ``given`` (B, n_steps, K, D) with ``given_tracks``: those tracks' frames
-    replace the sampled ones (accompaniment). Returns (roll (B, n_steps, K,
-    D) float32, h_final (L, K, B, U), c_final (L, K, B, U)).
+    replace the sampled ones (accompaniment); ``rows``: the row map (b0,
+    B_global). Returns (roll (B, n_steps, K, D) float32, h_final (L, K, B,
+    U), c_final (L, K, B, U)).
 
     ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; "cuda" / "plain" force one."""
@@ -152,15 +158,16 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     u, g = args.wuv.shape[1], args.wx_v.shape[2]
     lstm = g == 4 * u
     b = h0.shape[2]
+    rmap = kernel_prng.row_map(b, rows)
     seeds = key_to_seeds(key).to(args.w.device)
     if given is not None:
         given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
     if _build.impl_for(impl, args.w) == "cuda":
         roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, gen_k,
-                                            lstm, given, given_tracks)
+                                            lstm, given, given_tracks, rmap)
     else:
         roll, h_out, c_out = _generate_plain(seeds, args, n_steps, gen_k,
-                                             lstm, given, given_tracks)
+                                             lstm, given, given_tracks, rmap)
 
     return (roll.reshape(b, n_steps, k, d),
             _from_state_rows(h_out, n_layers, k, u),
@@ -168,7 +175,7 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
 
 
 def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
-                   given_tracks):
+                   given_tracks, rmap):
     if not _fits(args):
         raise ValueError(
             f"generate_rbm: one sample's state needs "
@@ -189,12 +196,12 @@ def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
             args.bh, args.wx_v, none if args.wx_r is None else args.wx_r,
             args.wh, none if args.wctx is None else args.wctx, args.b,
             args.h0, args.c0, args.v0, none if given is None else given,
-            seeds, gen_k, int(lstm), mask, _build.stream_of(args.w))
+            seeds, gen_k, int(lstm), mask, *rmap, _build.stream_of(args.w))
     return roll, h_out, c_out
 
 
 def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
-                    given_tracks):
+                    given_tracks, rmap=(0, None)):
     """Plain PyTorch version of the kernel, same signature and stream.
     Track-major (K, B, X) tensors; torch.matmul batches over the tracks."""
     k, d, hid = args.w.shape
@@ -202,9 +209,11 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
     b = args.h0.shape[0]
     dev = args.w.device
     s0, s1 = (int(s) & kernel_prng.MASK for s in seeds.tolist())
-    # counters b*K*X + lane, as (K, B, X) to line up with the track-major rows
+    # counters (b0 + b)*K*X + lane, as (K, B, X) to line up with the
+    # track-major rows
     def ctr(x):
-        c = torch.arange(b * k * x, dtype=torch.int64, device=dev)
+        c = rmap[0] * k * x + torch.arange(b * k * x, dtype=torch.int64,
+                                           device=dev)
         return c.reshape(b, k, x).transpose(0, 1)
     ctr_h, ctr_v = ctr(hid), ctr(d)
     wt = args.w.transpose(1, 2).contiguous()

@@ -19,12 +19,13 @@ from multinn_torch.ops import _build, gibbs_cuda
 
 
 def gibbs_chain(key: torch.Tensor, v0: torch.Tensor, w, bv, bh, k: int,
-                impl=None) -> torch.Tensor:
+                impl=None, rows=None) -> torch.Tensor:
     """k-sweep block Gibbs from v0 (..., D); biases broadcastable to v0 and
-    to (..., H). ``key``: a Threefry key (ops/sampling.py)."""
+    to (..., H). ``key``: a Threefry key (ops/sampling.py). ``rows``: the
+    row map (b0, B_global) of a data shard (ops/gibbs_cuda.py)."""
     if _build.impl_for(impl, v0) == "cuda":
-        return gibbs_cuda.gibbs_chain(key, v0, w, bv, bh, k)
-    return gibbs_cuda.gibbs_chain_plain(key, v0, w, bv, bh, k)
+        return gibbs_cuda.gibbs_chain(key, v0, w, bv, bh, k, rows)
+    return gibbs_cuda.gibbs_chain_plain(key, v0, w, bv, bh, k, rows)
 
 
 def cd_loss(key: torch.Tensor, v0: torch.Tensor, w, bv, bh,

@@ -11,6 +11,12 @@ equals ``gibbs_pallas.gibbs_chain(..., interpret=True)`` bit for bit, and
 the kernel equals the plain version up to the rare draw a last-ulp
 difference in a probability flips.
 
+The row map ``rows=(b0, B_global)``: v0 (..., B_local, D) holds rows b0 ..
+b0 + B_local - 1 of each (..., B_global, D) group of a larger launch (one
+data shard of a mesh), and each row draws the bits that launch would draw
+for it: its stream block and counter are those of its row there. None is
+``(0, B_local)``, the launch itself.
+
 The Pallas dispatch gate (8 <= B <= 2048) was a TPU performance crossover;
 the kernel here takes any row count and picks one of two launch plans from
 it (``launch_plan``): a latency plan for the scan path's few rows and a
@@ -45,6 +51,15 @@ def _rows(v0, w, bv, bh):
     return (v0.reshape(-1, d).contiguous(),
             bv.expand(shape).reshape(-1, d).contiguous(),
             bh.expand(*shape[:-1], h).reshape(-1, h).contiguous())
+
+
+def row_map(v0, rows):
+    """(b0, B_local, B_global) of the row map ``rows`` for v0 (...,
+    B_local, D): each run of B_local rows is rows b0 .. b0 + B_local - 1 of
+    a run of B_global in the launch whose stream is drawn."""
+    b_loc = v0.shape[-2] if v0.dim() >= 2 else 1
+    b0, b_glob = kernel_prng.row_map(b_loc, rows)
+    return b0, b_loc, b_glob
 
 
 # launch plans of csrc/gibbs_chain.cu: (rows per CTA, threads, lanes per
@@ -98,36 +113,42 @@ def launch_plan(n: int, sm_count: int, d: int,
         f"{CTA_SMEM_LIMIT} (227 KB) limit")
 
 
-def gibbs_chain(key, v0, w, bv, bh, k: int) -> torch.Tensor:
+def gibbs_chain(key, v0, w, bv, bh, k: int, rows=None) -> torch.Tensor:
     """The chain on the card: v0 (..., D) float32 CUDA tensors, biases
-    broadcastable to v0 / (..., H); returns the k-th visible sample."""
+    broadcastable to v0 / (..., H); returns the k-th visible sample.
+    ``rows``: the row map (b0, B_global), None for the launch's own."""
     n = v0.numel() // w.shape[0]
     return _launch(key, v0, w, bv, bh, k,
-                   launch_plan(n, _build.sm_count(v0), *w.shape))
+                   launch_plan(n, _build.sm_count(v0), *w.shape), rows)
 
 
-def _launch(key, v0, w, bv, bh, k: int, plan) -> torch.Tensor:
+def _launch(key, v0, w, bv, bh, k: int, plan, rows=None) -> torch.Tensor:
     """``gibbs_chain`` under a given launch plan."""
+    b0, b_loc, b_glob = row_map(v0, rows)
     v0_2d, bv_2d, bh_2d = _rows(v0, w, bv, bh)
     d, h = w.shape
     out = torch.empty_like(v0_2d)
     seeds = key_to_seeds(key).to(v0.device)
-    bb = block_rows(v0_2d.shape[0], d, h)
+    bb = block_rows(v0_2d.shape[0] // b_loc * b_glob, d, h)
     with torch.cuda.device(v0.device):
         _build.launches["gibbs_chain"] += 1
         _build.ops().gibbs_chain(out, v0_2d, w.contiguous(), bv_2d, bh_2d,
-                                 seeds, k, bb, *plan, _build.stream_of(v0))
+                                 seeds, k, bb, b0, b_loc, b_glob, *plan,
+                                 _build.stream_of(v0))
     return out.reshape(v0.shape)
 
 
-def gibbs_chain_plain(key, v0, w, bv, bh, k: int) -> torch.Tensor:
+def gibbs_chain_plain(key, v0, w, bv, bh, k: int,
+                      rows=None) -> torch.Tensor:
     """Plain PyTorch version of ``gibbs_chain`` on the same stream."""
+    b0, b_loc, b_glob = row_map(v0, rows)
     v0_2d, bv_2d, bh_2d = _rows(v0, w, bv, bh)
     n = v0_2d.shape[0]
     d, h = w.shape
     s0, s1 = (int(s) & kernel_prng.MASK for s in key_to_seeds(key).tolist())
-    rows = torch.arange(n, dtype=torch.int64, device=v0.device)
-    bb = block_rows(n, d, h)
+    local = torch.arange(n, dtype=torch.int64, device=v0.device)
+    rows = (local // b_loc) * b_glob + b0 + local % b_loc
+    bb = block_rows(n // b_loc * b_glob, d, h)
     blk, lrow = rows // bb, rows % bb
     seed = (s0 ^ ((blk * 0x85EB) & kernel_prng.MASK))[:, None]
     ctr_h = lrow[:, None] * h + torch.arange(h, device=v0.device)

@@ -102,6 +102,20 @@ def random_bits_plain(shape, seed, salt, device=None) -> torch.Tensor:
     return bits_at_plain(seed, salt, _counters(tuple(shape), device))
 
 
+def row_map(n: int, rows):
+    """(b0, N_global) of the row map ``rows`` of a sampling kernel's launch
+    of n rows (or samples): they are rows b0 .. b0 + n - 1 of a batch of
+    N_global (one data shard of a mesh), and draw the counters the whole
+    batch's launch draws for them; None is ``(0, n)``, the launch itself."""
+    if rows is None:
+        return 0, n
+    b0, total = (int(r) for r in rows)
+    if b0 < 0 or b0 + n > total:
+        raise ValueError(f"rows {b0}..{b0 + n - 1} do not lie in a batch "
+                         f"of {total}")
+    return b0, total
+
+
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """int64 uint32 bits -> float32 in [0, 1) (mantissa trick)."""
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0

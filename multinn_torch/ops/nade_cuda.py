@@ -12,7 +12,10 @@ plays the same role), so the draw of (dim i, row b) has counter i * N + b.
 The plain version therefore equals ``nade_pallas.sample(...,
 interpret=True)`` bit for bit up to the rare draw that a last-ulp
 difference in a logit flips, and the kernel equals the plain version the
-same way. Weights are float32: the Pallas gate refuses anything else, and
+same way. The row map ``rows=(b0, N_global)``: the N rows are rows b0 ..
+b0 + N - 1 of a batch of N_global (one data shard of a mesh), and row b
+draws counter i * N_global + b0 + b, what the whole batch's launch draws
+for it; None is ``(0, N)``. Weights are float32: the Pallas gate refuses anything else, and
 so does the kernel's binding.
 
 The kernel runs one CTA a row and looks ahead over runs of zeros: the
@@ -69,35 +72,43 @@ def sample_plan(d: int, h: int, aligned: bool = True) -> int:
         f"{CTA_SMEM_LIMIT} (227 KB) limit")
 
 
-def nade_sample(key, w, v, bv, bh, batch_shape=()) -> torch.Tensor:
+def nade_sample(key, w, v, bv, bh, batch_shape=(), rows=None) -> torch.Tensor:
     """The sweep on the card: w, v (D, H) float32 CUDA tensors, bv / bh
     broadcastable to batch_shape + (D,) / (H,). Returns (*batch_shape, D)
-    binary float32."""
+    binary float32. ``rows``: the row map (b0, N_global)."""
     w, v = w.contiguous(), v.contiguous()
     aligned = (w.data_ptr() | v.data_ptr()) % 16 == 0
     return _launch(key, w, v, bv, bh, batch_shape,
-                   sample_plan(*w.shape, aligned))
+                   sample_plan(*w.shape, aligned), rows)
 
 
-def _launch(key, w, v, bv, bh, batch_shape, staged) -> torch.Tensor:
+def _launch(key, w, v, bv, bh, batch_shape, staged,
+            rows=None) -> torch.Tensor:
     """``nade_sample`` under a given plan (staged 1 / 0)."""
     bv_2d, bh_2d = _rows(w, bv, bh, batch_shape)
+    b0, total = kernel_prng.row_map(bv_2d.shape[0], rows)
     out = torch.empty_like(bv_2d)
     seeds = key_to_seeds(key).to(w.device)
     with torch.cuda.device(w.device):
         _build.launches["nade_sample"] += 1
         _build.ops().nade_sample(out, w.contiguous(), v.contiguous(), bv_2d,
-                                 bh_2d, seeds, staged, _build.stream_of(w))
+                                 bh_2d, seeds, staged, b0, total,
+                                 _build.stream_of(w))
     return out.reshape(*batch_shape, w.shape[0])
 
 
-def nade_sample_plain(key, w, v, bv, bh, batch_shape=()) -> torch.Tensor:
+def nade_sample_plain(key, w, v, bv, bh, batch_shape=(),
+                      rows=None) -> torch.Tensor:
     """Plain PyTorch version of ``nade_sample`` on the same stream."""
     bv_2d, bh_2d = _rows(w, bv, bh, batch_shape)
-    d = w.shape[0]
+    d, n = w.shape[0], bv_2d.shape[0]
+    b0, total = kernel_prng.row_map(n, rows)
     s0, s1 = (int(s) & kernel_prng.MASK for s in key_to_seeds(key).tolist())
-    u = kernel_prng.uniform_from_bits(kernel_prng.random_bits_plain(
-        (d, bv_2d.shape[0]), s0, s1, device=w.device))       # (D, N)
+    ctr = (torch.arange(d, dtype=torch.int64, device=w.device)[:, None]
+           * total + b0 + torch.arange(n, dtype=torch.int64,
+                                       device=w.device))     # (D, N)
+    u = kernel_prng.uniform_from_bits(kernel_prng.bits_at_plain(
+        s0, s1, ctr & kernel_prng.MASK))                     # (D, N)
     a = bh_2d
     cols = []
     for i in range(d):

@@ -47,10 +47,12 @@ def nade_log_prob(x: torch.Tensor, w, v, bv, bh,
 
 
 def nade_sample(key: torch.Tensor, w, v, bv, bh,
-                batch_shape: Tuple[int, ...] = (), impl=None) -> torch.Tensor:
+                batch_shape: Tuple[int, ...] = (), impl=None,
+                rows=None) -> torch.Tensor:
     """One ancestral NADE sample per row of ``batch_shape``; bv / bh may
     carry the batch dims (RNN-NADE's time-conditioned biases). ``key``: a
-    Threefry key (ops/sampling.py). Returns (*batch_shape, D)."""
+    Threefry key (ops/sampling.py). ``rows``: the row map (b0, N_global) of
+    a data shard (ops/nade_cuda.py). Returns (*batch_shape, D)."""
     if _build.impl_for(impl, w) == "cuda":
-        return nade_cuda.nade_sample(key, w, v, bv, bh, batch_shape)
-    return nade_cuda.nade_sample_plain(key, w, v, bv, bh, batch_shape)
+        return nade_cuda.nade_sample(key, w, v, bv, bh, batch_shape, rows)
+    return nade_cuda.nade_sample_plain(key, w, v, bv, bh, batch_shape, rows)

@@ -118,7 +118,8 @@ def build_service(args, overrides):
     from multinn_torch.utils import config as cfg_mod
     from multinn_torch.utils.device import entry_device
 
-    cfg = cfg_mod.load_run_config(args.run, args.config, overrides)
+    cfg = cfg_mod.on_one_device(cfg_mod.load_run_config(
+        args.run, args.config, overrides))
     if args.fresh:
         params = multinn.init(
             cfg.model, torch.Generator().manual_seed(cfg.train.seed),

@@ -31,6 +31,12 @@ with the packed roll as the overflow fallback); "auto" picks sparse for
 large packed batches off the card, packed on it (``_resolve_transport``).
 Two consecutive overflows demote a sparse service: the drain reads the
 packed roll from then on.
+
+With a ``mesh`` (parallel/mesh.py) the service's Generator generates on
+it. Rank 0 takes the requests; before each of its device calls (the
+warm-ups included) it broadcasts the call — its kind, key words and seed
+or given roll — to the other ranks, which ``follow()`` it and run the same
+call, until ``close()`` broadcasts the end.
 """
 
 from __future__ import annotations
@@ -47,6 +53,10 @@ import torch
 
 from multinn_torch.data import pianoroll
 from multinn_torch.ops import sampling
+from multinn_torch.parallel import comm
+
+# the calls rank 0 broadcasts to the other ranks of a mesh
+_STOP, _PLAIN, _SEEDED, _ACCOMPANY = 0, 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,16 +146,21 @@ def auto_batch(cfg, n_steps: int) -> int:
 
 
 class GenerationService:
-    """Continuous-batching generation server core (module docstring)."""
+    """Continuous-batching generation server core (module docstring).
+    ``mesh``: generate on a process mesh; on its ranks other than 0 the
+    constructor returns at once and ``follow()`` serves rank 0's calls."""
 
-    def __init__(self, cfg, params, serve_cfg: ServeConfig = None):
+    def __init__(self, cfg, params, serve_cfg: ServeConfig = None,
+                 mesh=None):
         from multinn_torch.training.generator import Generator
 
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
         self.n_steps = self.serve_cfg.n_steps or cfg.generate.n_steps
         self.batch = self.serve_cfg.batch or auto_batch(cfg, self.n_steps)
-        self.generator = Generator(cfg, params)
+        self.generator = Generator(cfg, params, mesh=mesh)
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else torch.distributed.get_rank()
         self.device = self.generator.device
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -188,6 +203,9 @@ class GenerationService:
         self._frame_dim = (cfg.model.n_pitches // 2
                            if cfg.data.encoding == "onset_hold"
                            else cfg.model.n_pitches)
+        if self.rank != 0:                 # follow() serves rank 0's calls
+            self._closed = True
+            return
 
         # warm every program shape before accepting traffic (the first call
         # builds the kernels): one unseeded, plus one seeded iff seed_steps,
@@ -214,6 +232,11 @@ class GenerationService:
         self._drainer.start()
 
     def _dispatch(self, key, seed_arr, given_arr=None):
+        if self.mesh is not None:
+            self._announce(key, seed_arr, given_arr)
+        return self._run(key, seed_arr, given_arr)
+
+    def _run(self, key, seed_arr, given_arr=None):
         with torch.cuda.stream(self._stream):
             if given_arr is not None:
                 return self.generator.accompany_async(
@@ -222,6 +245,47 @@ class GenerationService:
             return self.generator.generate_async(key, self.n_steps,
                                                  self.batch, seed=seed_arr,
                                                  packed=self._packed)
+
+    # -- the other ranks of a mesh ---------------------------------------------
+
+    def _frame_shape(self, steps: int):
+        return (self.batch, steps, self.cfg.model.n_tracks,
+                self.cfg.model.n_pitches)
+
+    def _announce(self, key, seed_arr, given_arr) -> None:
+        """Rank 0: broadcast the call (kind, key words, seed or given
+        roll) to the other ranks."""
+        kind = (_ACCOMPANY if given_arr is not None
+                else _SEEDED if seed_arr is not None else _PLAIN)
+        words = sampling.key_to_seeds(key).to("cpu", torch.int64)
+        comm.broadcast(torch.cat([torch.tensor([kind]), words]))
+        arr = given_arr if given_arr is not None else seed_arr
+        if arr is not None:
+            comm.broadcast(torch.from_numpy(np.ascontiguousarray(
+                arr, np.float32)))
+
+    def follow(self) -> int:
+        """A rank other than 0: run every call rank 0 broadcasts, until
+        it closes; returns the calls run."""
+        if self.rank == 0:
+            raise RuntimeError("rank 0 takes the requests; follow() is for "
+                               "the other ranks of the mesh")
+        n = 0
+        while True:
+            head = comm.broadcast(torch.zeros(3, dtype=torch.int64))
+            kind = int(head[0])
+            if kind == _STOP:
+                return n
+            key = head[1:].to(torch.int32).view(torch.uint32).to(self.device)
+            seed_arr = given_arr = None
+            if kind == _SEEDED:
+                seed_arr = comm.broadcast(torch.zeros(self._frame_shape(
+                    self.serve_cfg.seed_steps))).numpy()
+            elif kind == _ACCOMPANY:
+                given_arr = comm.broadcast(torch.zeros(self._frame_shape(
+                    self._accompany_steps))).numpy()
+            self.generator.fetch_rolls(self._run(key, seed_arr, given_arr))
+            n += 1
 
     # -- front end -----------------------------------------------------------
 
@@ -340,7 +404,10 @@ class GenerationService:
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop accepting requests, drain in-flight work, join threads.
-        Queued-but-undispatched requests are rejected. Idempotent."""
+        Queued-but-undispatched requests are rejected; on a mesh the other
+        ranks' ``follow()`` returns. Idempotent."""
+        if self.rank != 0:
+            return
         with self._lock:
             if self._closed:
                 return
@@ -355,6 +422,8 @@ class GenerationService:
             self._done_cv.notify_all()
         self._dispatcher.join(timeout)
         self._drainer.join(timeout)
+        if self.mesh is not None:
+            comm.broadcast(torch.tensor([_STOP, 0, 0]))
 
     def _note_sparse_overflow(self, overflowed: bool) -> None:
         """Demote a sparse service after two consecutive overflows (each

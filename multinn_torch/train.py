@@ -9,6 +9,12 @@ a dataset preset) and the dot-path overrides, saves ``config.json`` into
 the run dir, resumes from the run dir's latest checkpoint unless
 ``--no-resume``, trains and logs the final validation metrics. Runs on the
 CUDA card unless ``--device`` names another.
+
+With ``--mesh.use_mesh=true`` each rank runs this entry point, as a
+launcher such as ``torchrun --nproc_per_node=N -m multinn_torch.train``
+starts them: a rank that has not joined a world joins it from the env://
+variables the launcher sets (parallel/mesh.init_distributed), and rank 0
+writes the run's files.
 """
 
 from __future__ import annotations
@@ -61,11 +67,18 @@ def main(argv=None) -> int:
     args, overrides = parse_args(argv)
     cfg = build_config(args, overrides)
 
+    import torch.distributed as dist
+
     from multinn_torch.training.trainer import Trainer
     from multinn_torch.utils import config as cfg_mod
 
+    if cfg.mesh.use_mesh and not dist.is_initialized():
+        from multinn_torch.parallel.mesh import init_distributed
+        init_distributed()
     os.makedirs(cfg.train.run_dir, exist_ok=True)
-    cfg_mod.save_json(cfg, os.path.join(cfg.train.run_dir, "config.json"))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        cfg_mod.save_json(cfg, os.path.join(cfg.train.run_dir,
+                                            "config.json"))
     trainer = Trainer(cfg, device=args.device)
     if not args.no_resume:
         trainer.maybe_resume()

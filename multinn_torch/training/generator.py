@@ -11,7 +11,19 @@ device; the host unpacks it. With ``packed="sparse"`` the device also
 compacts the packed roll's nonzero bytes into records (ops/sparsebytes):
 the host then reads the count and as many record chunks as it needs, and
 reads the packed roll instead when the records overflowed their buffer.
-Mesh generation waits for a later slice.
+
+With a ``mesh`` (parallel/mesh.py; every rank of it runs the same calls)
+generation shards its batch over ``data``: each rank generates its rows
+on the whole-generation kernel where the gate admits it, else on the scan
+path, both drawing each row's stream in the whole batch (the kernels' row
+map), and the rolls are gathered, so the result is the single-device
+result on the same path bit for bit, seeded or not; a batch that does not
+divide the data axis runs whole on every rank. With a ``track`` axis the
+decoders are split over it and generation runs the scan path, each rank
+sampling its tracks under ``split(key1, K)[k]`` and the frames gathered
+every step for the feedback context: the single-device scan path bit for
+bit. Params split over ``model`` (a gspmd trainer's) are gathered once,
+at construction. Accompaniment runs the whole batch on every rank.
 
 ``generate_async`` and ``accompany_async`` enqueue everything on the
 caller's current CUDA stream without a host synchronisation (the key is
@@ -32,6 +44,8 @@ import torch
 from multinn_torch.data import pianoroll
 from multinn_torch.models import multinn
 from multinn_torch.ops import bitpack, sparsebytes
+from multinn_torch.parallel import comm
+from multinn_torch.parallel import mesh as mesh_mod
 
 
 class AsyncRolls(NamedTuple):
@@ -48,11 +62,26 @@ class AsyncRolls(NamedTuple):
 class Generator:
     """Public generator API over a model's params (random from
     ``multinn.init`` or converted with ``utils.convert.from_jax``). It runs
-    on the device the params live on."""
+    on the device the params live on. ``mesh``: generate on a process mesh
+    (module docstring); ``params`` are then whole, or a gspmd trainer's
+    parts (``Trainer.params``), gathered here."""
 
-    def __init__(self, cfg, params: multinn.MultINNParams):
+    def __init__(self, cfg, params: multinn.MultINNParams, mesh=None):
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
+        self.track_sharded = (mesh is not None
+                              and mesh.size(mesh_mod.TRACK_AXIS) > 1)
+        if mesh is not None:
+            w = params.decoder.w
+            split_k = w.shape[0] < multinn.n_decoders(cfg.model)
+            split_h = w.shape[-1] < cfg.model.n_hidden
+            if split_k or split_h:
+                params = mesh_mod.gather_params(params, mesh, split_k,
+                                                split_h)
+        # the whole params (accompaniment), and this rank's tracks of them
+        self.full_params = params
+        self.params = mesh_mod.shard_params(params, mesh, self.track_sharded,
+                                            model_sharded=False)
         self.device = params.decoder.w.device
         # generate.gibbs_k overrides the model's gen_k (0 = model default)
         self._gibbs_k = getattr(cfg.generate, "gibbs_k", 0) or None
@@ -82,6 +111,8 @@ class Generator:
         _check_transport(packed)
         if seed is not None and np.shape(seed)[0] != batch:
             raise ValueError(f"seed batch {np.shape(seed)[0]} != {batch}")
+        if self.mesh is not None:
+            return self._generate_mesh(key, n_steps, batch, seed, packed)
         with torch.inference_mode():
             state = multinn.init_state(self.params, batch)
             if seed is not None:
@@ -90,6 +121,32 @@ class Generator:
             _, roll = multinn.generate(self.params, key.to(self.device),
                                        state, n_steps, k=self._gibbs_k,
                                        temperature=self._temperature)
+            return self._transport(roll, packed)
+
+    def _generate_mesh(self, key, n_steps, batch, seed, packed
+                       ) -> AsyncRolls:
+        """generate_async on the mesh: this rank's rows (and tracks), the
+        rolls gathered over ``data`` (every rank holds the whole roll)."""
+        n_data = self.mesh.size(mesh_mod.DATA_AXIS)
+        split = n_data > 1 and batch % n_data == 0
+        shard = mesh_mod.shard_of(self.mesh, batch if split else None,
+                                  self.track_sharded, model_sharded=False)
+        with torch.inference_mode():
+            state = multinn.init_state(self.params,
+                                       batch // n_data if split else batch)
+            if seed is not None:
+                mine = np.asarray(seed)[mesh_mod.batch_slice(batch, self.mesh)
+                                        if split else slice(None)]
+                if self.track_sharded:
+                    mine = mine[:, :, shard.tracks(self.cfg.model.n_tracks)]
+                state = multinn.prime(self.params, state,
+                                      self._to_device(mine), shard)
+            _, roll = multinn.generate(self.params, key.to(self.device),
+                                       state, n_steps, k=self._gibbs_k,
+                                       temperature=self._temperature,
+                                       shard=shard)
+            if split:
+                roll = comm.gather_cat(roll.contiguous(), 0, shard.data)
             return self._transport(roll, packed)
 
     def accompany_async(self, key: torch.Tensor, given: np.ndarray,
@@ -106,12 +163,12 @@ class Generator:
                              f"batch {np.shape(given)[0]}")
         with torch.inference_mode():
             given_dev = self._to_device(given)
-            state = multinn.init_state(self.params, given_dev.shape[0])
+            params = self.full_params          # whole on every mesh rank
+            state = multinn.init_state(params, given_dev.shape[0])
             if seed is not None:
-                state = multinn.prime(self.params, state,
-                                      self._to_device(seed))
+                state = multinn.prime(params, state, self._to_device(seed))
             _, roll = multinn.generate_accompaniment(
-                self.params, key.to(self.device), state, given_dev,
+                params, key.to(self.device), state, given_dev,
                 tuple(int(i) for i in given_tracks), k=self._gibbs_k,
                 temperature=self._temperature)
             return self._transport(roll, packed)

@@ -26,8 +26,15 @@ count, so a macro-step never reads the host and a group of them can be
 captured as one CUDA graph (training/trainer.py). The step works on the
 decoder's tensors: a DBN encoder's features are frozen binary targets
 (encoders.features), so the encoder's parts of g and of every G v are
-zero, as in the JAX package, whose step carries them. The JAX step's
-``axes`` / ``seq`` arguments belong to meshes and are not ported.
+zero, as in the JAX package, whose step carries them.
+
+Under a mesh (``red``, a parallel.mesh.Reduce; ``shard`` / ``seq``, the
+model's part of the batch, multinn.py) the loss, the gradient and every
+Gauss-Newton product are averaged over the mean axes (``data``, and
+``seq`` under seqpipe: the reference's pmean over ``axes``), the loss is
+summed over a track split, and every dot product sums each tensor's part
+over the axes it is split over, so every rank holds the same CG state and
+CG solves one global system.
 
 Scope: rnn-nade decoders, every inter-track mode. A CD-trained RBM has no
 objective to optimize at second order.
@@ -43,6 +50,7 @@ import torch
 from multinn_torch.models import multinn
 from multinn_torch.nn import nade as nade_nn
 from multinn_torch.ops import precision
+from multinn_torch.parallel.mesh import Reduce
 
 
 @dataclasses.dataclass
@@ -109,28 +117,31 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
 def _with_decoder(params: multinn.MultINNParams, leaves):
     """``params`` with the decoder's tensors replaced, in tree_leaves
     order, by ``leaves``."""
-    it = iter(leaves)
     return dataclasses.replace(
-        params, decoder=multinn.tree_map(lambda _: next(it), params.decoder))
+        params, decoder=multinn.with_leaves(params.decoder, leaves))
 
 
-def _ggn_matvec(params, theta, live, x, w_tb, lam):
+def _ggn_matvec(params, theta, live, x, w_tb, lam, red=None, shard=None,
+                seq=None):
     """v -> (G + lam I) v at the decoder tensors ``theta`` (``live``: the
     same values requiring grad). J v is forward-mode through the logits;
-    J^T u runs backward through one logits graph, built here and kept."""
-    logits0 = multinn.conditional_logits(_with_decoder(params, live), x)[0]
+    J^T u runs backward through one logits graph, built here and kept.
+    Under a mesh G v is averaged over ``red``'s mean axes."""
+    red = red or Reduce()
+    logits0 = multinn.conditional_logits(_with_decoder(params, live), x,
+                                         shard, seq)[0]
     p0 = torch.sigmoid(logits0.detach())
     h_diag = p0 * (1.0 - p0) * w_tb[None, :, :, None]   # PSD CE curvature
 
     def logits_fn(*leaves):
         return multinn.conditional_logits(_with_decoder(params, leaves),
-                                          x)[0]
+                                          x, shard, seq)[0]
 
     def gnvp(v):
         _, jv = torch.func.jvp(logits_fn, tuple(theta), tuple(v))
         gv = torch.autograd.grad(logits0, live, grad_outputs=h_diag * jv,
                                  retain_graph=True)
-        return _axpy(lam, v, list(gv))
+        return _axpy(lam, v, red.mean([g.detach() for g in gv]))
 
     return gnvp
 
@@ -138,7 +149,8 @@ def _ggn_matvec(params, theta, live, x, w_tb, lam):
 def hf_step(params: multinn.MultINNParams, state: HFState, x: torch.Tensor,
             key: torch.Tensor, frame_mask: Optional[torch.Tensor] = None, *,
             cg_iters: int = 25, cg_warm: float = 0.95, lam_min: float = 1e-4,
-            lam_max: float = 1e4):
+            lam_max: float = 1e4, red: Optional[Reduce] = None, shard=None,
+            seq=None):
     """One Hessian-free macro-step on the batch x (B, T, K, D); a function
     of (params, state, batch) that changes neither. Returns (new_params,
     new_state, metrics): the metrics ``loss`` (after the step's accept),
@@ -149,28 +161,31 @@ def hf_step(params: multinn.MultINNParams, state: HFState, x: torch.Tensor,
     (multinn.loss); the curvature is the GGN of the logit map. The step
     pins the f32 matmul policy: J v is forward-mode, which the bf16
     policy's autograd Function does not define, and curvature from
-    rounded feeds would be dubious anyway."""
+    rounded feeds would be dubious anyway. ``red`` / ``shard`` / ``seq``:
+    a mesh's reductions and part (module docstring)."""
     w_tb = _ce_weights(params.cfg, x.shape, frame_mask, device=x.device)
     with precision.matmul_precision("f32"):
         return _hf_step_f32(params, state, x, key, w_tb, frame_mask,
-                            cg_iters, cg_warm, lam_min, lam_max)
+                            cg_iters, cg_warm, lam_min, lam_max,
+                            red or Reduce(), shard, seq)
 
 
 def _hf_step_f32(params, state, x, key, w_tb, frame_mask, cg_iters,
-                 cg_warm, lam_min, lam_max):
+                 cg_warm, lam_min, lam_max, red, shard, seq):
     theta = [t.detach() for t in multinn.tree_leaves(params.decoder)]
     live = [t.clone().requires_grad_(True) for t in theta]
     p_live = _with_decoder(params, live)
+    _dot = red.dot
 
     def loss_at(p):
         return multinn.loss(p, key, x, detailed=False,
-                            frame_mask=frame_mask)[0]
+                            frame_mask=frame_mask, shard=shard, seq=seq)[0]
 
-    loss0 = loss_at(p_live)
-    g = list(torch.autograd.grad(loss0, live))
-    loss0 = loss0.detach()
+    share0 = loss_at(p_live)
+    g = red.mean(list(torch.autograd.grad(share0, live)))
+    loss0 = red.loss(share0)
     lam = state.lam
-    gnvp = _ggn_matvec(params, theta, live, x, w_tb, lam)
+    gnvp = _ggn_matvec(params, theta, live, x, w_tb, lam, red, shard, seq)
 
     # CG on (G + lam I) delta = -g, warm-started from the previous delta
     b_rhs = _scale(-1.0, g)
@@ -193,7 +208,7 @@ def _hf_step_f32(params, state, x, key, w_tb, frame_mask, cg_iters,
     del gnvp                          # frees the kept logits graph
     new = torch._foreach_add(theta, delta)
     with torch.no_grad():
-        loss1 = loss_at(_with_decoder(params, new))
+        loss1 = red.loss(loss_at(_with_decoder(params, new)))
     rho = (loss1 - loss0) / torch.clamp(q, max=-1e-30)
     lam_new = torch.clamp(
         torch.where(rho > 0.75, lam * (2.0 / 3.0),

@@ -1,5 +1,4 @@
-"""Training engine — port of the single-device path of
-multinn_tpu/training/trainer.py.
+"""Training engine — port of multinn_tpu/training/trainer.py.
 
 An epoch loop over windowed pianoroll batches; Adam, AdamW or SGD with
 momentum behind the global-norm clip, written as optax writes them, or
@@ -37,8 +36,33 @@ validation window (``valid/reference``) to TensorBoard.
 Every step body (the eager step, the group a CUDA graph captures,
 evaluation and encoder pre-training) runs under the matmul policy of
 ``model.matmul_dtype`` (ops/precision.py); the Hessian-free step pins f32
-inside it. Mesh training is not ported yet (ROADMAP queue 1) and is
-refused with NotImplementedError at construction.
+inside it.
+
+With ``mesh.use_mesh`` each rank of the ``torch.distributed`` world (made
+first: parallel/mesh.init_distributed) runs a Trainer on the mesh of
+``cfg.mesh`` (parallel/mesh.py). Every rank reads the same seeded batches
+and takes its block (``_put_batch``). ``mesh.style``:
+
+  * ``gspmd`` — the global-view step: the params are cut to this rank's
+    part (tracks over ``track``, H over ``model``), the model functions
+    run on its part with the collectives the partitioner would insert
+    (models/multinn.py), the samplers draw each row's stream in the whole
+    batch, and the gradients are averaged over ``data``; the step equals
+    the single-device step;
+  * ``shard_map`` / ``seqpipe`` — per-shard steps with the key folded by
+    the shard's index on each mean axis (``data``, and ``seq`` with the
+    window's time chunks pipelined, parallel/seqpipe.py), the gradients
+    and metrics averaged over them.
+
+The clip's global norm sums every tensor's part over the axes it is split
+over. ``evaluate`` pads a short tail batch with zero-mask windows and sums
+the frame-weighted metric sums over the mean axes, exact for every style.
+Rank 0 alone writes the log, the metrics and the checkpoints; a checkpoint
+holds the full parameters (gathered) in the single-device format and
+restores on any mesh or on one device (sliced). Under a mesh the groups of
+``steps_per_call`` steps run eagerly: gloo's collectives cannot be
+captured in a CUDA graph. ``pretrain_encoders`` runs the global view on
+every rank alike.
 """
 
 from __future__ import annotations
@@ -53,17 +77,17 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multinn_torch.models import multinn
 from multinn_torch.ops import _build, precision, sampling
+from multinn_torch.parallel import comm
+from multinn_torch.parallel import mesh as mesh_mod
 from multinn_torch.training import hf as hf_mod
 from multinn_torch.training.checkpoint import Checkpointer
 from multinn_torch.utils.device import entry_device
 from multinn_torch.utils.logging import (MetricsLogger, format_metrics,
                                          setup_logger)
-
-_LATER = "not ported to multinn_torch yet (ROADMAP queue 1)"
-
 
 class FaultInjected(RuntimeError):
     """Raised by ``train.fault_inject_step`` (the resume path's test)."""
@@ -139,11 +163,18 @@ class Optimizer:
         return {"count": count, "trace": zeros()}
 
     @torch.no_grad()
-    def update(self, params, grads, state) -> torch.Tensor:
+    def update(self, params, grads, state, sq_sum=None) -> torch.Tensor:
         """One step on ``params`` from ``grads``; returns the gradients'
-        global norm before the clip (a device scalar: no host sync)."""
+        global norm before the clip (a device scalar: no host sync).
+        ``sq_sum`` sums the tensors' squared norms where the tensors are
+        parts of a mesh's parameters (parallel.mesh.Reduce.sq_sum)."""
         grads = list(grads)
-        norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+        if sq_sum is None:
+            norm = torch.stack(torch._foreach_norm(grads)).square().sum(
+            ).sqrt()
+        else:
+            norm = sq_sum([n.square() for n in
+                           torch._foreach_norm(grads)]).sqrt()
         if self.clip and self.clip > 0:
             # optax: unchanged below the limit, else scaled to it; no epsilon
             scale = torch.where(norm < self.clip, torch.ones_like(norm),
@@ -182,9 +213,26 @@ def make_optimizer(cfg, steps_per_epoch: int = 0) -> Optimizer:
     return Optimizer(cfg, steps_per_epoch)
 
 
-def _refuse_unported(cfg) -> None:
-    if cfg.mesh.use_mesh:
-        raise NotImplementedError(f"mesh training: {_LATER}")
+class _QuietMetrics:
+    """The metrics sink of a rank other than 0: it writes nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def log_image(self, *args, **kwargs) -> bool:
+        return False
+
+    def close(self) -> None:
+        pass
+
+
+def _quiet_logger(rank: int):
+    import logging
+    log = logging.getLogger(f"multinn_torch.rank{rank}")
+    if not log.handlers:
+        log.addHandler(logging.NullHandler())
+        log.propagate = False
+    return log
 
 
 def _host(v: torch.Tensor):
@@ -292,11 +340,20 @@ class Trainer:
     ``ckpt/``."""
 
     def __init__(self, cfg, dataset=None, params=None, device=None):
-        _refuse_unported(cfg)
         self.cfg = cfg
+        self.mesh = mesh_mod.make_mesh(cfg.mesh)
+        self._gspmd = self.mesh is not None and cfg.mesh.style == "gspmd"
+        self._seqpipe = self.mesh is not None and cfg.mesh.style == "seqpipe"
+        self.track_sharded = self._gspmd and cfg.mesh.track > 1
+        # the axes per-shard gradients and metrics are averaged over
+        self._mean_axes = (() if self.mesh is None else
+                           (mesh_mod.DATA_AXIS,) + ((mesh_mod.SEQ_AXIS,)
+                                                    if self._seqpipe else ()))
+        self.rank = dist.get_rank() if self.mesh is not None else 0
         self.device = (entry_device(device) if params is None
                        else params.decoder.w.device)
-        self.log = setup_logger(run_dir=cfg.train.run_dir)
+        self.log = (setup_logger(run_dir=cfg.train.run_dir)
+                    if self.rank == 0 else _quiet_logger(self.rank))
         if dataset is None:
             from multinn_torch.data.datasets import Dataset
             dataset = Dataset(cfg.data)
@@ -309,6 +366,16 @@ class Trainer:
                 (words[0] & 0xFFFFFFFF) << 32 | words[1] & 0xFFFFFFFF),
                 device=self.device)
         self.params = multinn.tree_map(lambda t: t.detach().clone(), params)
+        # placement: gspmd cuts the params to this rank's part; the
+        # explicit styles replicate them
+        self._enc_specs = self._dec_specs = None
+        if self._gspmd:
+            self._enc_specs, self._dec_specs = mesh_mod.leaf_specs(
+                self.params, self.mesh, self.track_sharded)
+            self.params = mesh_mod.shard_params(self.params, self.mesh,
+                                                self.track_sharded)
+        self._red = mesh_mod.Reduce(self.mesh, self._mean_axes,
+                                    self._dec_specs, self.track_sharded)
         # the optimizer's tensors: the decoder's; a DBN encoder is frozen
         self._leaves = [t.requires_grad_(True)
                         for t in multinn.tree_leaves(self.params.decoder)]
@@ -338,12 +405,19 @@ class Trainer:
         self.history: list = []          # (step, metrics) of logged steps
         # pretrain_encoders' decode calibration (marginals and their ratio)
         self.calibration: Optional[Dict[str, float]] = None
-        self.metrics_log = MetricsLogger(cfg.train.run_dir)
+        self.metrics_log = (MetricsLogger(cfg.train.run_dir)
+                            if self.rank == 0 else _QuietMetrics())
         self.ckpt = Checkpointer(os.path.join(cfg.train.run_dir, "ckpt"),
                                  keep_last=cfg.train.keep_last,
                                  keep_best=cfg.train.keep_best)
-        # groups of steps_per_call steps run as a CUDA graph on the card
-        self.capture_groups = self.device.type == "cuda"
+        # groups of steps_per_call steps run as a CUDA graph on the card;
+        # under a mesh eagerly (gloo's collectives cannot be captured)
+        self.capture_groups = (self.device.type == "cuda"
+                               and self.mesh is None)
+        if (self.mesh is not None and self.device.type == "cuda"
+                and cfg.train.steps_per_call > 1):
+            self.log.info("mesh training: groups of %d steps run eagerly "
+                          "(no CUDA graph)", cfg.train.steps_per_call)
         self.group_graph: Optional[StepGroupGraph] = None
         self._logged_reference = False     # valid/reference is logged once
 
@@ -369,6 +443,35 @@ class Trainer:
             out += v if isinstance(v, list) else [v]
         return out
 
+    def _state_specs(self) -> Optional[List[tuple]]:
+        """The mesh placement of each ``_state_tensors`` entry (the
+        optimizer's lists follow the decoder's tensors); None where the
+        state is whole on every rank."""
+        if self._dec_specs is None:
+            return None
+        out = list(self._enc_specs) + list(self._dec_specs)
+        for v in self._opt_dict().values():
+            out += list(self._dec_specs) if isinstance(v, list) else [()]
+        return out
+
+    def _full_state(self) -> List[torch.Tensor]:
+        """``_state_tensors`` whole: every rank's parts gathered (every
+        rank must call this)."""
+        specs = self._state_specs()
+        tensors = self._state_tensors()
+        if specs is None:
+            return tensors
+        return [mesh_mod.gather_tensor(t, sp, self.mesh)
+                for t, sp in zip(tensors, specs)]
+
+    def full_params(self) -> multinn.MultINNParams:
+        """The whole parameters (a mesh's parts gathered; every rank must
+        call this), e.g. for a Generator."""
+        if not self._gspmd:
+            return self.params
+        return mesh_mod.gather_params(self.params, self.mesh,
+                                      self.track_sharded)
+
     @torch.no_grad()
     def _load_state_tensors(self, values) -> None:
         """Copy ``values`` into the state tensors (never rebinding them: a
@@ -391,6 +494,54 @@ class Trainer:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t.to(torch.float32)
 
+    def _put_batch(self, batch: np.ndarray, lead: int = 0) -> torch.Tensor:
+        """This rank's block of a host batch (B, T, K, D), a (B, T) mask
+        or a group's (N, B, T, K, D) (``lead`` 1), on the device: B over
+        ``data``, K over ``track`` when track-sharded, T over ``seq`` under
+        seqpipe (the whole batch without a mesh)."""
+        return self._to_device(mesh_mod.shard_batch(
+            batch, self.mesh, self.track_sharded, self._seqpipe, lead))
+
+    def _shard(self, x: torch.Tensor):
+        """The model's part of a gspmd step on the local batch x."""
+        if not self._gspmd:
+            return None
+        return mesh_mod.shard_of(self.mesh,
+                                 x.shape[0] * self.mesh.size(
+                                     mesh_mod.DATA_AXIS),
+                                 self.track_sharded)
+
+    def _seq_spec(self, x: torch.Tensor):
+        """The seqpipe context for the local batch x (None otherwise)."""
+        if not self._seqpipe:
+            return None
+        from multinn_torch.parallel import seqpipe
+        n_seq = self.cfg.mesh.seq
+        return seqpipe.SeqSpec(
+            axis=mesh_mod.SEQ_AXIS, n_seq=n_seq,
+            microbatches=seqpipe.auto_microbatches(
+                x.shape[0], n_seq, self.cfg.mesh.seq_microbatches),
+            group=self.mesh.group(mesh_mod.SEQ_AXIS),
+            index=self.mesh.index(mesh_mod.SEQ_AXIS))
+
+    def _fold_shard_key(self, key: torch.Tensor) -> torch.Tensor:
+        """The explicit styles' per-shard key: folded by the shard's index
+        on each mean axis (the reference's _fold_shard_key)."""
+        if self.mesh is None or self._gspmd:
+            return key
+        for axis in self._mean_axes:
+            key = sampling.fold_in(key, self.mesh.index(axis))
+        return key
+
+    def _mean_metrics(self, metrics: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Metrics averaged over the mean axes (the reference's pmean)."""
+        if self.mesh is None:
+            return metrics
+        names = list(metrics)
+        vals = self._red.mean([metrics[n].detach().clone() for n in names])
+        return dict(zip(names, vals))
+
     def train_step(self, x: torch.Tensor, key: torch.Tensor,
                    detailed: bool = False) -> Dict[str, torch.Tensor]:
         """One optimizer step on the float batch x (B, T, K, D): the loss,
@@ -403,19 +554,25 @@ class Trainer:
         with self._policy():
             if self._hf:
                 return self._hf_step(x, key)
-            loss, metrics = multinn.loss(self.params, key, x,
-                                         detailed=detailed)
+            loss, metrics = multinn.loss(
+                self.params, self._fold_shard_key(key), x, detailed=detailed,
+                shard=self._shard(x), seq=self._seq_spec(x))
             grads = torch.autograd.grad(loss, self._leaves)
             metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["grad_norm"] = self.optimizer.update(self._leaves, grads,
-                                                         self.opt_state)
+            if self.mesh is not None:
+                grads = self._red.mean(list(grads))
+                metrics = self._mean_metrics(metrics)
+            metrics["grad_norm"] = self.optimizer.update(
+                self._leaves, grads, self.opt_state,
+                sq_sum=None if self.mesh is None else self._red.sq_sum)
             return metrics
 
     def _hf_step(self, x: torch.Tensor, key: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
         new_params, new_state, metrics = hf_mod.hf_step(
-            self.params, self.opt_state, x, key,
-            cg_iters=self.cfg.train.hf_cg_iters)
+            self.params, self.opt_state, x, self._fold_shard_key(key),
+            cg_iters=self.cfg.train.hf_cg_iters, red=self._red,
+            shard=self._shard(x), seq=self._seq_spec(x))
         with torch.no_grad():
             torch._foreach_copy_(self._leaves,
                                  multinn.tree_leaves(new_params.decoder))
@@ -447,7 +604,7 @@ class Trainer:
         by replay of the captured graph when ``capture_groups`` (the card;
         the first group captures it), else eagerly."""
         if not self.capture_groups:
-            return self._group_body(self._to_device(stacked), key)
+            return self._group_body(self._put_batch(stacked, lead=1), key)
         if self.group_graph is None:
             self.group_graph = StepGroupGraph(self, len(stacked),
                                               stacked.shape[1:],
@@ -505,7 +662,7 @@ class Trainer:
             self.rng, key = sampling.split(self.rng)
             detailed = (self.step + 1) % cfg.log_every_steps == 0
             return self._post_step(
-                self.train_step(self._to_device(batch), key, detailed),
+                self.train_step(self._put_batch(batch), key, detailed),
                 timing, 1)
 
         pending: list = []
@@ -528,34 +685,53 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, x, key, mask) -> Dict[str, torch.Tensor]:
-        """Frame-weighted metric sums of one batch, and ``n_frames``."""
-        k_loss, k_ll = sampling.split(key)
+        """Frame-weighted metric sums of one batch, and ``n_frames`` (on a
+        mesh, this rank's block, the sums then summed over the mean
+        axes)."""
+        k_loss, k_ll = sampling.split(self._fold_shard_key(key))
+        shard, seq = self._shard(x), self._seq_spec(x)
         with self._policy():
             _, metrics = multinn.loss(self.params, k_loss, x,
-                                      frame_mask=mask)
+                                      frame_mask=mask, shard=shard, seq=seq)
             ll = multinn.log_likelihood(self.params, k_ll, x,
-                                        frame_mask=mask)
+                                        frame_mask=mask, shard=shard,
+                                        seq=seq)
         n_frames = mask.sum()
         metrics["ll_per_frame"] = ll.sum() / (
             torch.clamp(n_frames, min=1.0) * self.cfg.model.n_tracks)
         weighted = {name: v * n_frames for name, v in metrics.items()}
         weighted["n_frames"] = n_frames
+        if self.mesh is not None:
+            names = list(weighted)
+            vals = comm.sum_([weighted[n].clone() for n in names],
+                             self._red.mean_groups)
+            weighted = dict(zip(names, vals))
         return weighted
 
     def evaluate(self, split: str = "valid") -> Dict[str, float]:
         """Frame-weighted metrics over the split: per-batch sums divided by
         the total count of real frames, the short tail batch included at
-        its own size. Per-track vectors come out as ``<name>_<k>``."""
+        its own size (on a mesh padded to the data width with zero-mask
+        windows, which add no frame and no sum). Per-track vectors come
+        out as ``<name>_<k>``."""
         sums: Dict[str, np.ndarray] = {}
         n_total = 0.0
         key = sampling.PRNGKey(self.cfg.train.seed + 1000 + self.epoch,
                                device=self.device)
+        n_data = (1 if self.mesh is None
+                  else self.mesh.size(mesh_mod.DATA_AXIS))
         for batch, mask in self.dataset.batches(split, shuffle=False,
                                                 drop_remainder=False,
                                                 with_masks=True):
+            if len(batch) % n_data:
+                pad = n_data - len(batch) % n_data
+                batch = np.concatenate(
+                    [batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)])
+                mask = np.concatenate(
+                    [mask, np.zeros((pad, *mask.shape[1:]), mask.dtype)])
             key, k = sampling.split(key)
-            m = self._eval_step(self._to_device(batch), k,
-                                self._to_device(mask))
+            m = self._eval_step(self._put_batch(batch), k,
+                                self._put_batch(mask))
             m = {name: v.cpu().numpy() for name, v in m.items()}
             n_total += float(m.pop("n_frames"))
             for name, a in m.items():
@@ -583,9 +759,12 @@ class Trainer:
                 self.step)
             self._logged_reference = True
         self.rng, key = sampling.split(self.rng)
+        params = self.full_params()      # on a mesh rank 0 draws alone
+        if self.rank != 0:
+            return
         with torch.no_grad():
-            state = multinn.init_state(self.params, 1)
-            _, roll = multinn.generate(self.params, key, state,
+            state = multinn.init_state(params, 1)
+            _, roll = multinn.generate(params, key, state,
                                        int(self.cfg.data.window),
                                        fused=False)
         roll = roll.to(torch.uint8).cpu().numpy()
@@ -595,21 +774,30 @@ class Trainer:
     # -- checkpoints -------------------------------------------------------
 
     def _state_dict(self) -> Dict[str, Any]:
-        cpu = lambda t: t.detach().cpu()
-        return {"params": [cpu(p) for p in self._all_leaves],
-                "opt_state": {k: ([cpu(t) for t in v] if isinstance(v, list)
-                                  else cpu(v))
-                              for k, v in self._opt_dict().items()},
-                "rng": cpu(self.rng).view(torch.int32),
+        """The single-device state dict (a mesh's parts gathered)."""
+        flat = [t.detach().cpu() for t in self._full_state()]
+        n = len(self._all_leaves)
+        rest = iter(flat[n:])
+        opt = {k: ([next(rest) for _ in v] if isinstance(v, list)
+                   else next(rest))
+               for k, v in self._opt_dict().items()}
+        return {"params": flat[:n], "opt_state": opt,
+                "rng": self.rng.detach().cpu().view(torch.int32),
                 "step": self.step, "epoch": self.epoch,
                 "epoch_step0": self.epoch_step0,
                 "best_valid": self.best_valid}
 
     def save_checkpoint(self, metrics: Optional[Dict[str, float]] = None
                         ) -> None:
-        if not self.ckpt.save(self.step, self._state_dict(), metrics=metrics):
+        """Write the state as this step's checkpoint: on a mesh every rank
+        gathers, rank 0 writes, and the others wait for it."""
+        state = self._state_dict()
+        if self.rank == 0 and not self.ckpt.save(self.step, state,
+                                                  metrics=metrics):
             self.log.warning("checkpoint save at step %d was refused "
                              "(duplicate step?)", self.step)
+        if self.mesh is not None:
+            comm.barrier()
 
     def restore(self, step: Optional[int] = None) -> int:
         """Load checkpoint ``step`` (the latest when None) into the
@@ -623,6 +811,10 @@ class Trainer:
         values = list(state["params"])
         for k in mine:
             values += opt[k] if isinstance(opt[k], list) else [opt[k]]
+        specs = self._state_specs()
+        if specs is not None:             # the whole state, cut to our part
+            values = [mesh_mod.shard_tensor(v, sp, self.mesh)
+                      for v, sp in zip(values, specs)]
         self._load_state_tensors(values)
         self.rng = state["rng"].view(torch.uint32).to(self.device)
         self.step = int(state["step"])
@@ -696,8 +888,12 @@ class Trainer:
 
         # start the decode conditional calibrated to the data marginal
         x_cal = enc_input(self.dataset.windows["train"][:2048])
-        enc = multinn.tree_map(lambda t: t.detach().clone(),
-                               self.params.encoder)
+        enc = self.params.encoder
+        if self._enc_specs is not None:   # the global view: whole encoder
+            enc = multinn.with_leaves(enc, [
+                mesh_mod.gather_tensor(t, sp, self.mesh) for t, sp in
+                zip(multinn.tree_leaves(enc), self._enc_specs)])
+        enc = multinn.tree_map(lambda t: t.detach().clone(), enc)
         if shared:
             enc = enc_mod.init_visible_biases(enc, x_cal)
         else:
@@ -753,9 +949,11 @@ class Trainer:
                 "dense" if ratio > 1 else "sparse")
         self.calibration = dict(cal, ratio=ratio)
         with torch.no_grad():
-            for dst, src in zip(multinn.tree_leaves(self.params.encoder),
-                                multinn.tree_leaves(enc)):
-                dst.copy_(src)
+            specs = self._enc_specs or [()] * len(self._all_leaves)
+            for dst, src, sp in zip(multinn.tree_leaves(self.params.encoder),
+                                    multinn.tree_leaves(enc), specs):
+                dst.copy_(mesh_mod.shard_tensor(src, sp, self.mesh)
+                          if self.mesh is not None else src)
             for t in self._state_tensors()[len(self._all_leaves):]:
                 t.zero_()
             if self._hf:
@@ -768,7 +966,7 @@ class Trainer:
         from torch.profiler import ProfilerActivity, profile
         trace_dir = os.path.join(self.cfg.train.run_dir, "trace")
         os.makedirs(trace_dir, exist_ok=True)
-        x = self._to_device(next(iter(self.dataset.batches("train",
+        x = self._put_batch(next(iter(self.dataset.batches("train",
                                                            epoch=0))))
         saved = [t.detach().clone() for t in self._state_tensors()]
         sync = (torch.cuda.synchronize if self.device.type == "cuda"

@@ -7,9 +7,9 @@ helpers of the reference's CLIs: ``validate``, ``save_json``,
 overrides; an unknown path raises). ``MultINNConfig`` lives in
 models/multinn.py as in the reference. ``DataConfig`` (with its corpus
 ``PRESETS``; multinn_tpu/data/datasets.py) and ``MeshConfig``
-(multinn_tpu/parallel/mesh.py) live here: ``data/datasets.py`` imports
-``DataConfig`` from this module, and the port has no parallel package yet
-(ROADMAP queue 1), so ``MeshConfig`` only parses and validates.
+(multinn_tpu/parallel/mesh.py) live here, and ``data/datasets.py`` and
+``parallel/mesh.py`` re-export them: the models import the parallel
+package's collectives, and the config imports the models.
 """
 
 from __future__ import annotations
@@ -154,8 +154,22 @@ class MeshConfig:
 
     def __post_init__(self):
         if self.style not in ("gspmd", "shard_map", "seqpipe"):
-            raise ValueError(f"mesh.style must be gspmd|shard_map|seqpipe, "
-                             f"got {self.style!r}")
+            raise ValueError(
+                f"unknown mesh.style '{self.style}' "
+                "(expected gspmd | shard_map | seqpipe)")
+
+    def resolved_data(self, n_devices: int) -> int:
+        """The data axis: ``data``, or 0 = every rank the other axes leave
+        (``n_devices`` is the world's rank count)."""
+        if self.data > 0:
+            return self.data
+        other = self.track * self.model * self.seq
+        if n_devices % other:
+            raise ValueError(
+                f"track*model*seq = {other} does not divide the device "
+                f"count {n_devices}; set mesh.data explicitly or adjust "
+                f"the axis sizes")
+        return n_devices // other
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,6 +306,13 @@ def load_run_config(run_dir, config_path, overrides) -> ExperimentConfig:
     if ovs:
         cfg = apply_overrides(cfg, ovs)
     return cfg.validate()
+
+
+def on_one_device(cfg: ExperimentConfig) -> ExperimentConfig:
+    """``cfg`` without its mesh: the single-process entry points (generate,
+    evaluate, serve) restore a run trained on a mesh on one device, as its
+    checkpoints hold the whole parameters."""
+    return dataclasses.replace(cfg, mesh=MeshConfig())
 
 
 def apply_overrides(cfg: ExperimentConfig,

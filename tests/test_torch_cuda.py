@@ -1079,3 +1079,140 @@ def test_hf_group_on_the_card_equals_eager(dev, tmp_path):
     assert torch.equal(got["hf_accepted"], want["hf_accepted"])
     assert float(graph.opt_state.lam) == float(eager.opt_state.lam)
     _params_close(graph, eager)
+
+
+# -- the row map (b0, B_global) of a data shard -------------------------------
+
+def _rows_differ(a, b):
+    return float((a != b).reshape(a.shape[0], -1).any(dim=1).float().mean())
+
+
+@pytest.mark.parametrize("lead,b", [((64,), 16), ((), 8)])
+def test_row_map_gibbs_on_the_card(dev, lead, b):
+    """A shard's rows (b0, B) of the training shape (T=64, B=16) and of the
+    scan path's 8 rows: the kernel on the shard equals its plain version
+    and the whole launch's rows (the rows that may differ: a last-ulp flip,
+    at most 1 % / 1 of 8); the default row map is bit for bit the launch
+    without one."""
+    g = torch.Generator().manual_seed(9)
+    d, h = 84, 150
+    v0 = (torch.rand(*lead, b, d, generator=g) < 0.2).float().to(dev)
+    w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+    bv = (0.5 * torch.randn(*lead, b, d, generator=g)).to(dev)
+    bh = (0.5 * torch.randn(*lead, b, h, generator=g)).to(dev)
+    key = sampling.PRNGKey(3, device=dev)
+    full = gibbs_cuda.gibbs_chain(key, v0, w, bv, bh, 10)
+    assert torch.equal(full, gibbs_cuda.gibbs_chain(key, v0, w, bv, bh, 10,
+                                                    rows=(0, b)))
+    limit = 0.01 if lead else 1 / 8
+    for b0 in (0, b // 2):
+        sl = slice(b0, b0 + b // 2)
+        args = (v0[..., sl, :], w, bv[..., sl, :], bh[..., sl, :], 10)
+        part = gibbs_cuda.gibbs_chain(key, *args, rows=(b0, b))
+        plain = gibbs_cuda.gibbs_chain_plain(key, *args, rows=(b0, b))
+        flat = lambda t: t.reshape(-1, d)
+        assert _rows_differ(flat(part), flat(plain)) <= limit
+        assert _rows_differ(flat(part), flat(full[..., sl, :])) <= limit
+
+
+def test_row_map_nade_sampler_on_the_card(dev):
+    g = torch.Generator().manual_seed(10)
+    d, h, b = 84, 150, 8
+    w = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+    v = (0.1 * torch.randn(d, h, generator=g)).to(dev)
+    bv = (-1.0 + 0.5 * torch.randn(b, d, generator=g)).to(dev)
+    bh = (0.5 * torch.randn(b, h, generator=g)).to(dev)
+    key = sampling.PRNGKey(4, device=dev)
+    full = nade_ops.nade_sample(key, w, v, bv, bh, (b,))
+    assert torch.equal(full, nade_ops.nade_sample(key, w, v, bv, bh, (b,),
+                                                  rows=(0, b)))
+    for b0 in (0, 4):
+        args = (w, v, bv[b0:b0 + 4], bh[b0:b0 + 4], (4,))
+        part = nade_ops.nade_sample(key, *args, rows=(b0, b))
+        plain = nade_ops.nade_sample(key, *args, impl="plain", rows=(b0, b))
+        assert _rows_differ(part, plain) <= 1 / 4
+        assert _rows_differ(part, full[b0:b0 + 4]) <= 1 / 4
+
+
+@pytest.mark.parametrize("family", ["rnn-rbm", "rnn-nade"])
+def test_row_map_fused_kernels_on_the_card(dev, family):
+    """The whole-generation kernels on half the batch with the row map:
+    the samples equal the whole launch's (at least 7 of 8 over both
+    halves) and the plain version's; the default row map is bit for bit
+    the launch without one."""
+    params = _params(multinn.MultINNConfig(**dict(
+        FLAGSHIP, decoder_type=family, w_std=0.1)), dev)
+    state = _primed(params, 8, dev)
+    dstate = state.decoder
+    h0 = torch.stack([s.h for s in dstate.cell])
+    c0 = torch.stack([s.c for s in dstate.cell])
+    key = sampling.PRNGKey(5, device=dev)
+
+    def run(sl, rows, impl="cuda"):
+        args = (key, params.decoder, h0[:, :, sl], c0[:, :, sl],
+                dstate.v_prev[:, sl], 16)
+        if family == "rnn-rbm":
+            return gen_fused_rbm.generate_rbm(*args, 10, impl=impl,
+                                              rows=rows)[0]
+        return gen_fused_nade.generate_nade(*args, impl=impl, rows=rows)[0]
+
+    full = run(slice(None), None)
+    assert torch.equal(full, run(slice(None), (0, 8)))
+    same = 0
+    for b0 in (0, 4):
+        part = run(slice(b0, b0 + 4), (b0, 8))
+        plain = run(slice(b0, b0 + 4), (b0, 8), impl="plain")
+        same += int(_identical_samples(part, full[b0:b0 + 4]).sum())
+        assert int(_identical_samples(part, plain).sum()) >= 3
+    assert same >= 7
+
+
+# -- meshes on the card -------------------------------------------------------
+
+def test_nccl_world_one_dp_step(dev, tmp_path):
+    """A world of one NCCL rank: an all-reduce through NCCL, and a gspmd
+    data=1 step bit-equal to the step without a mesh."""
+    import torch.distributed as dist
+
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.trainer import Trainer
+    backend = mesh_mod.init_distributed(f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert backend == "nccl" and dist.get_backend() == "nccl"
+        probe = torch.arange(3.0, device=dev)
+        dist.all_reduce(probe)
+        assert probe.tolist() == [0.0, 1.0, 2.0]
+        x = (np.random.default_rng(0).random((8, 16, 5, 84)) < 0.06).astype(
+            np.uint8)
+        out = []
+        for name, mesh in (("mesh", config.MeshConfig(use_mesh=True)),
+                           ("one", config.MeshConfig())):
+            cfg = config.ExperimentConfig(
+                model=multinn.MultINNConfig(**NADE), mesh=mesh,
+                train=config.TrainConfig(run_dir=str(tmp_path / name)))
+            t = Trainer(cfg, params=_params(cfg.model, dev))
+            m = t.train_step(t._put_batch(x), sampling.PRNGKey(1, device=dev))
+            out.append((float(m["loss"]), [p.detach().clone()
+                                           for p in t._all_leaves]))
+            t.close()
+        assert out[0][0] == out[1][0]
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+def test_remat_graph_group_equals_eager(dev, model, tmp_path):
+    """model.remat checkpoints each recurrence step without stashing the
+    RNG state, so a group of steps still captures: two groups by replay
+    equal the eager groups."""
+    (graph, eager), groups = _group_trainers(dev, dict(model, remat=True),
+                                             tmp_path)
+    assert graph.cfg.model.remat
+    for i, xs in enumerate(groups):
+        key = sampling.PRNGKey(50 + i, device=dev)
+        got = graph.run_group(xs, key)
+        want = eager.run_group(xs, key)
+        for name in ("loss", "loss_mean", "grad_norm"):
+            assert torch.allclose(got[name], want[name], rtol=1e-5), name
+        _params_close(graph, eager)

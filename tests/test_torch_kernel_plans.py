@@ -174,16 +174,19 @@ def test_nade_ll_bwd_partials_follow_the_plan(recorder):
 @pytest.mark.parametrize("n", [8, 1024, 4096])
 def test_gibbs_op_takes_no_transpose(recorder, n):
     """The op reads W (D, H) as given: no W^T argument and no copy of W;
-    the launch plan follows the arguments."""
+    the launch plan follows the arguments, and the default row map is the
+    launch's own rows (0, n, n)."""
     w = torch.randn(84, 150)
     v0 = torch.zeros(n, 84)
     gibbs_cuda.gibbs_chain(sampling.PRNGKey(0), v0, w, torch.zeros(84),
                            torch.zeros(150), 3)
-    out, v0_2d, w_arg, bv, bh, seeds, k, bb, *plan, stream = (
-        recorder.calls["gibbs_chain"])
+    out, v0_2d, w_arg, bv, bh, seeds, k, bb, *row_map, plan0, plan1, \
+        plan2, plan3, stream = recorder.calls["gibbs_chain"]
+    plan = (plan0, plan1, plan2, plan3)
     assert w_arg.data_ptr() == w.data_ptr() and w_arg.shape == (84, 150)
     assert tuple(plan) == gibbs_cuda.launch_plan(n, H100_SMS, 84, 150)
     assert (k, bb) == (3, gibbs_cuda.block_rows(n, 84, 150))
+    assert tuple(row_map) == (0, n, n)
     assert bv.shape == (n, 84) and bh.shape == (n, 150)
     schema = re.search(r'm\.def\("gibbs_chain\(([^;]*?)\) -> \(\)"\)',
                        (CSRC / "ops.cpp").read_text().replace('"\n        "',
@@ -277,15 +280,17 @@ def test_nade_sample_plan(d, h, plan):
 
 
 def test_nade_sample_args_follow_the_plan(recorder):
-    """The op gets the rows, the plan and the stream's key words; a shape
-    whose one row does not fit raises before any launch."""
+    """The op gets the rows, the plan, the stream's key words and the
+    default row map (0, rows); a shape whose one row does not fit raises
+    before any launch."""
     w = torch.randn(84, 150)
     nade_cuda.nade_sample(sampling.PRNGKey(0), w, w, torch.zeros(84),
                           torch.zeros(150), (16, 5))
-    out, w_arg, v_arg, bv, bh, seeds, staged, stream = (
+    out, w_arg, v_arg, bv, bh, seeds, staged, row0, total, stream = (
         recorder.calls["nade_sample"])
     assert out.shape == bv.shape == (80, 84) and bh.shape == (80, 150)
     assert staged == nade_cuda.sample_plan(84, 150) == 1
+    assert (row0, total) == (0, 80)
     recorder.calls.clear()
     with pytest.raises(ValueError, match="227 KB"):
         nade_cuda.nade_sample(sampling.PRNGKey(0), torch.zeros(30000, 2),

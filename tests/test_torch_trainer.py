@@ -257,8 +257,9 @@ def test_evaluate_matches_the_jax_eval_math(decoder, interpret_chain):
 
 
 def test_unported_features_raise(tmp_path):
-    """Mesh training is refused at construction, and Hessian-free training
-    of an RBM with the reference's ValueError; HF on an RNN-NADE, image
+    """A mesh without a torch.distributed world is refused at construction
+    (the ranks join one first: parallel.mesh.init_distributed), and
+    Hessian-free training of an RBM with the reference's ValueError; HF on an RNN-NADE, image
     summaries, DBN encoders, checkpoints, train(), resume and fault
     injection are ported (a DBN encoder is frozen: its tensors are not the
     optimizer's), and pre-training is the reference's no-op for a
@@ -296,7 +297,7 @@ def test_unported_features_raise(tmp_path):
     assert not {id(t) for t in enc} & {id(t) for t in dbn._leaves}
     assert len(dbn._all_leaves) == len(enc) + len(dbn._leaves)
     dbn.close()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         trainer.Trainer(config.ExperimentConfig(
             model=base.model, mesh=config.MeshConfig(use_mesh=True)), ds,
             device="cpu")

@@ -1,0 +1,589 @@
+"""The rank side of the mesh tests (tests/test_torch_parallel.py,
+tests/test_torch_seqpipe.py): jobs that each rank of a gloo world on the
+CPU runs, spawned by ``run_world``. This module imports only torch, numpy
+and multinn_torch, so a spawned rank never loads JAX.
+
+A job is a function ``job(rank, world, out)`` that runs its cases and
+writes their results as ``<out>/<case>.npz`` (rank 0's) and, where every
+rank's copy is checked, ``<out>/<case>_r<rank>.npz``; the test process
+compares them. The single-device references run in rank 0 of the same
+job, on the same seeded data and parameters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+TINY = dict(n_tracks=2, n_pitches=24, n_hidden=12, n_rnn=8, gen_k=2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:                 # a spawned rank finds the package
+    sys.path.insert(0, ROOT)
+
+
+# -- the harness --------------------------------------------------------------
+
+def _entry(rank: int, world: int, out: str, job: str) -> None:
+    torch.set_num_threads(1)
+    from multinn_torch.parallel import mesh as mesh_mod
+    mesh_mod.init_distributed(f"file://{out}/store_{job}", world, rank,
+                              backend="gloo")
+    try:
+        JOBS[job](rank, world, out)
+        dist.barrier()
+    except Exception:
+        with open(os.path.join(out, f"{job}_error_r{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(out, world: int, job: str, timeout: float = 240.0) -> None:
+    """Spawn ``world`` ranks running ``job`` and wait at most ``timeout``
+    seconds; a rank that raises, or a world still running at the deadline
+    (every rank is then killed), fails with the ranks' tracebacks."""
+    import torch.multiprocessing as mp
+    out = str(out)
+    ctx = mp.start_processes(_entry, args=(world, out, job), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.time() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
+            if time.time() >= deadline:
+                raise TimeoutError(f"{job}: the world of {world} ranks "
+                                   f"still ran after {timeout} s")
+    except Exception as e:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        errs = [open(os.path.join(out, n)).read() for n in
+                sorted(os.listdir(out)) if n.startswith(f"{job}_error")]
+        raise AssertionError(f"{job} failed: {e}\n" + "\n".join(errs))
+
+
+def load(out, case: str, rank=None) -> dict:
+    name = case if rank is None else f"{case}_r{rank}"
+    with np.load(os.path.join(str(out), f"{name}.npz")) as f:
+        return dict(f)
+
+
+def _save(out, case: str, rank: int, every_rank: bool = False, **arrays):
+    if every_rank:
+        np.savez(os.path.join(out, f"{case}_r{rank}.npz"), **arrays)
+    if rank == 0:
+        np.savez(os.path.join(out, f"{case}.npz"), **arrays)
+
+
+# -- configs and steps --------------------------------------------------------
+
+def exp_cfg(run_dir, mesh=None, mode="per-track", dec="rnn-nade",
+            window=8, songs=8, steps=32, model_kw=None, **train_kw):
+    """The reference's small config (tests/test_parallel.py): K=2, 24
+    pitches, H=12, U=8, window 8, B=8."""
+    from multinn_torch.models.multinn import MultINNConfig
+    from multinn_torch.utils import config as cfg_mod
+    data = cfg_mod.DataConfig.from_preset(
+        "synthetic", n_tracks=2, pitch_min=40, pitch_max=63, window=window,
+        batch_size=8, synthetic_songs=songs, synthetic_steps=steps)
+    model = MultINNConfig(**dict(TINY, mode=mode, decoder_type=dec,
+                                 **(model_kw or {})))
+    train = cfg_mod.TrainConfig(**dict(dict(
+        epochs=1, lr=1e-3, log_every_steps=100, ckpt_every_steps=0,
+        run_dir=str(run_dir)), **train_kw))
+    return cfg_mod.ExperimentConfig(
+        name="par", data=data, model=model, train=train,
+        mesh=mesh or cfg_mod.MeshConfig()).validate()
+
+
+def mesh_cfg(**kw):
+    from multinn_torch.utils.config import MeshConfig
+    return MeshConfig(use_mesh=True, **kw)
+
+
+def trainer(out, name, mesh=None, **kw):
+    from multinn_torch.training.trainer import Trainer
+    return Trainer(exp_cfg(os.path.join(out, name), mesh, **kw),
+                   device="cpu")
+
+
+def leaves(params):
+    from multinn_torch.models import multinn
+    return [t.detach().numpy().copy() for t in multinn.tree_leaves(params)]
+
+
+def first_batch(t):
+    return next(iter(t.dataset.batches("train", epoch=0)))
+
+
+def one_step(t, seed: int = 123):
+    """One hot-path step on the first train batch under PRNGKey(seed) (the
+    reference's ``_one_step``): the whole params after it and the loss."""
+    from multinn_torch.ops import sampling
+    m = t.train_step(t._put_batch(first_batch(t)),
+                     sampling.PRNGKey(seed, device="cpu"))
+    return leaves(t.full_params()), float(m["loss"])
+
+
+def step_case(out, rank, case, mesh, **kw):
+    """One step on ``mesh`` and, in rank 0, on one device: saved as
+    ``case`` with arrays p<i> / ref_p<i> and the losses."""
+    t = trainer(out, case, mesh, **kw)
+    got, loss = one_step(t)
+    t.close()
+    arrays = {f"p{i}": a for i, a in enumerate(got)}
+    arrays["loss"] = np.float64(loss)
+    if rank == 0:
+        ref = trainer(out, case + "_ref", **kw)
+        want, ref_loss = one_step(ref)
+        ref.close()
+        arrays.update({f"ref_p{i}": a for i, a in enumerate(want)})
+        arrays["ref_loss"] = np.float64(ref_loss)
+    _save(out, case, rank, every_rank=True, **arrays)
+
+
+def rbm_shard_map_case(out, rank, case, n_data):
+    """shard_map RBM: the mesh step against one optimizer step on the mean
+    of the single-device gradients of each shard's rows under
+    ``fold_in(key, shard)``, computed in rank 0."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import sampling
+    t = trainer(out, case, mesh_cfg(style="shard_map"), dec="rnn-rbm")
+    got, loss = one_step(t)
+    t.close()
+    arrays = {f"p{i}": a for i, a in enumerate(got)}
+    arrays["loss"] = np.float64(loss)
+    if rank == 0:
+        ref = trainer(out, case + "_ref", dec="rnn-rbm")
+        batch = first_batch(ref)
+        key = sampling.PRNGKey(123, device="cpu")
+        per = len(batch) // n_data
+        grads, losses = None, []
+        for s in range(n_data):
+            x = ref._to_device(batch[s * per:(s + 1) * per])
+            loss_s, _ = multinn.loss(ref.params, sampling.fold_in(key, s), x,
+                                     detailed=False)
+            g = torch.autograd.grad(loss_s, ref._leaves)
+            grads = list(g) if grads is None else [a + b for a, b in
+                                                   zip(grads, g)]
+            losses.append(float(loss_s.detach()))
+        grads = [g / n_data for g in grads]
+        ref.optimizer.update(ref._leaves, grads, ref.opt_state)
+        arrays.update({f"ref_p{i}": a for i, a in
+                       enumerate(leaves(ref.params))})
+        arrays["ref_loss"] = np.float64(np.mean(losses))
+        ref.close()
+    _save(out, case, rank, **arrays)
+
+
+def eval_case(out, rank, case, mesh):
+    """``evaluate('valid')`` with a short tail batch (synthetic_steps=36,
+    window 8: 4 full and 1 masked tail window per song; 9 valid windows
+    at batch 8 leave a tail of 1) on ``mesh`` and, in rank 0, on one
+    device."""
+    t = trainer(out, case, mesh, songs=10, steps=36)
+    got = t.evaluate("valid")
+    t.close()
+    arrays = {k: np.float64(v) for k, v in got.items()}
+    if rank == 0:
+        ref = trainer(out, case + "_ref", songs=10, steps=36)
+        arrays.update({f"ref_{k}": np.float64(v)
+                       for k, v in ref.evaluate("valid").items()})
+        ref.close()
+    _save(out, case, rank, **arrays)
+
+
+def hf_case(out, rank, case, mesh, **kw):
+    """One Hessian-free macro-step (cg_iters=8) on ``mesh`` and, in rank 0,
+    on one device: params, loss and the accept flag."""
+    def step(t):
+        from multinn_torch.ops import sampling
+        m = t.train_step(t._put_batch(first_batch(t)),
+                         sampling.PRNGKey(123, device="cpu"))
+        return (leaves(t.full_params()), float(m["loss"]),
+                float(m["hf_accepted"]))
+    t = trainer(out, case, mesh, optimizer="hf", hf_cg_iters=8, **kw)
+    got, loss, acc = step(t)
+    t.close()
+    arrays = {f"p{i}": a for i, a in enumerate(got)}
+    arrays.update(loss=np.float64(loss), accepted=np.float64(acc))
+    if rank == 0:
+        ref = trainer(out, case + "_ref", optimizer="hf", hf_cg_iters=8,
+                      **kw)
+        want, ref_loss, ref_acc = step(ref)
+        ref.close()
+        arrays.update({f"ref_p{i}": a for i, a in enumerate(want)})
+        arrays.update(ref_loss=np.float64(ref_loss),
+                      ref_accepted=np.float64(ref_acc))
+    _save(out, case, rank, **arrays)
+
+
+def _params_and_seed(out, name, **kw):
+    t = trainer(out, name, **kw)
+    params, cfg = t.params, t.cfg
+    seed = t.dataset.seed_windows("valid", n=8)
+    t.close()
+    return params, cfg, seed
+
+
+def gen_case(out, rank, mesh, dec, case=None, **kw):
+    """Batch-sharded generation on ``mesh`` (its data axis): seeded (B=8)
+    and unseeded (B=16, and B=3, which the data axis does not divide)
+    through the Generator — the whole-generation kernel's plain version —
+    and the scan path of multinn.generate (B=8), each against one device
+    on the same path."""
+    case = case or f"gen_{dec}"
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import sampling
+    from multinn_torch.parallel import comm, mesh as mesh_mod
+    from multinn_torch.training.generator import Generator
+    params, cfg, seed = _params_and_seed(out, case, dec=dec, **kw)
+    m = mesh_mod.make_mesh(mesh)
+    key = lambda s: sampling.PRNGKey(s, device="cpu")
+    gen = Generator(cfg, params, mesh=m)
+    arrays = dict(seeded=gen.generate(key(5), n_steps=6, seed=seed),
+                  unseeded=gen.generate(key(7), n_steps=6, batch=16),
+                  odd=gen.generate(key(7), n_steps=6, batch=3))
+    shard = mesh_mod.shard_of(m, 8, False)
+    with torch.no_grad():
+        state = multinn.init_state(params, 8 // m.size("data"))
+        _, roll = multinn.generate(params, key(9), state, 6, fused=False,
+                                   shard=shard)
+    arrays["scan"] = comm.gather_cat(roll, 0, shard.data).numpy()
+    if rank == 0:
+        one = Generator(cfg, params)
+        arrays.update(
+            ref_seeded=one.generate(key(5), n_steps=6, seed=seed),
+            ref_unseeded=one.generate(key(7), n_steps=6, batch=16),
+            ref_odd=one.generate(key(7), n_steps=6, batch=3))
+        with torch.no_grad():
+            _, roll = multinn.generate(params, key(9),
+                                       multinn.init_state(params, 8), 6,
+                                       fused=False)
+        arrays["ref_scan"] = roll.numpy()
+    _save(out, case, rank, every_rank=True, **arrays)
+
+
+def service_case(out, rank, mesh):
+    """A service on ``mesh`` (batch 4, 6 steps, seeded requests enabled)
+    answers two seeded and two plain batches; rank 0 runs the same
+    requests through a single-device service."""
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.serving.service import GenerationService, ServeConfig
+    params, cfg, seed = _params_and_seed(out, "serve")
+    scfg = ServeConfig(batch=4, n_steps=6, seed=3, seed_steps=4,
+                       max_wait_ms=1000.0)
+    m = mesh_mod.make_mesh(mesh)
+    svc = GenerationService(cfg, params, scfg, mesh=m)
+    if rank != 0:
+        svc.follow()
+        return
+
+    def drive(service):
+        rolls = []
+        for i in range(4):
+            futs = service.submit_many(4, seed=(seed[i] if i % 2 else None))
+            rolls += [(f.result(60).batch_index, f.result(60).row,
+                       f.result(60).roll) for f in futs]
+        service.close()
+        return rolls
+
+    got = drive(svc)
+    want = drive(GenerationService(cfg, params, scfg))
+    _save(out, "serve", rank,
+          meta=np.array([(b, r) for b, r, _ in got]),
+          ref_meta=np.array([(b, r) for b, r, _ in want]),
+          rolls=np.stack([x for _, _, x in got]),
+          ref_rolls=np.stack([x for _, _, x in want]))
+
+
+def track_gen_case(out, rank, mesh, mode, case=None):
+    """Track-sharded generation (seeded, B=8, 6 steps) through the
+    Generator on ``mesh`` against the single-device scan path."""
+    case = case or f"tgen_{mode}"
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.generator import Generator
+    params, cfg, seed = _params_and_seed(out, case, mode=mode)
+    cfg = dataclasses.replace(cfg, mesh=mesh).validate()
+    gen = Generator(cfg, params, mesh=mesh_mod.make_mesh(mesh))
+    key = sampling.PRNGKey(5, device="cpu")
+    arrays = dict(roll=gen.generate(key, n_steps=6, seed=seed),
+                  dec_w_shape=np.array(gen.params.decoder.w.shape))
+    if rank == 0:
+        with torch.no_grad():
+            state = multinn.prime(params, multinn.init_state(params, 8),
+                                  torch.from_numpy(seed).float())
+            _, roll = multinn.generate(params, key, state, 6, fused=False)
+        arrays["ref_roll"] = roll.to(torch.uint8).numpy()
+    _save(out, case, rank, every_rank=True, **arrays)
+
+
+def ckpt_case(out, rank, mesh_a, mesh_b, mode="feedback"):
+    """A run trained on ``mesh_a`` (one epoch) restores bit for bit on
+    ``mesh_b`` and, in rank 0, on one device (then evaluates)."""
+    from multinn_torch.training.trainer import Trainer
+    run = os.path.join(out, "ckpt_run")
+    t = Trainer(exp_cfg(run, mesh_a, mode=mode), device="cpu")
+    t.train()
+    trained = leaves(t.full_params())
+    t.close()
+    t2 = Trainer(exp_cfg(run, mesh_b, mode=mode), device="cpu")
+    resumed_b = t2.maybe_resume()
+    on_b = leaves(t2.full_params())
+    t2.close()
+    arrays = dict(resumed_b=np.float64(resumed_b))
+    arrays.update({f"p{i}": a for i, a in enumerate(trained)})
+    arrays.update({f"b_p{i}": a for i, a in enumerate(on_b)})
+    if rank == 0:
+        t3 = Trainer(exp_cfg(run, None, mode=mode), device="cpu")
+        arrays["resumed_one"] = np.float64(t3.maybe_resume())
+        arrays.update({f"one_p{i}": a for i, a in
+                       enumerate(leaves(t3.params))})
+        arrays["one_loss"] = np.float64(t3.evaluate("valid")["loss"])
+        t3.close()
+    _save(out, "ckpt", rank, every_rank=True, **arrays)
+
+
+def dbn_case(out, rank, mesh):
+    """A DBN config (frozen encoder, adamw) on a dp x track mesh in
+    feedback mode: the step against one device, the encoder unchanged."""
+    kw = dict(mode="feedback", model_kw=dict(encoder_hidden=(6,)),
+              weight_decay=0.01)
+    step_case(out, rank, "dbn_dp_track", mesh, **kw)
+
+
+def pretrain_case(out, rank, mesh):
+    """pretrain_encoders on a dp x track mesh in per-track mode (each
+    track's encoder on its track's ranks): the global view on every rank,
+    so the whole encoder equals one device's pre-trained encoder."""
+    kw = dict(mode="per-track", model_kw=dict(encoder_hidden=(6,)),
+              pretrain_encoder_epochs=1)
+    t = trainer(out, "pretrain", mesh, **kw)
+    t.pretrain_encoders()
+    got = leaves(t.full_params().encoder)
+    local_k = multinn_tree_first(t.params.encoder).shape[0]
+    t.close()
+    arrays = {f"p{i}": a for i, a in enumerate(got)}
+    arrays["local_k"] = np.float64(local_k)
+    if rank == 0:
+        ref = trainer(out, "pretrain_ref", **kw)
+        ref.pretrain_encoders()
+        arrays.update({f"ref_p{i}": a for i, a in
+                       enumerate(leaves(ref.params.encoder))})
+        ref.close()
+    _save(out, "pretrain", rank, **arrays)
+
+
+def multinn_tree_first(tree):
+    from multinn_torch.models import multinn
+    return multinn.tree_leaves(tree)[0]
+
+
+def jax_case(out, rank):
+    """The NADE per-track loss and gradients on data=2 and on model=2 from
+    the parameters the test process converted from the JAX Trainer's
+    (``jax_params.pt``), on its batch (``jax_batch.npy``)."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    base = trainer(out, "jax_base")
+    with torch.no_grad():
+        for t, v in zip(multinn.tree_leaves(base.params),
+                        torch.load(os.path.join(out, "jax_params.pt"))):
+            t.copy_(v)
+    batch = np.load(os.path.join(out, "jax_batch.npy"))
+    for name, mesh in (("data2", mesh_cfg()), ("model2", mesh_cfg(model=2))):
+        t = Trainer_on(out, f"jax_{name}", mesh, base.params)
+        x = t._put_batch(batch)
+        loss, _ = multinn.loss(t.params, sampling.PRNGKey(0, device="cpu"),
+                               x, detailed=False, shard=t._shard(x))
+        grads = t._red.mean(list(torch.autograd.grad(loss, t._leaves)))
+        full = [mesh_mod.gather_tensor(g, sp, t.mesh).numpy()
+                for g, sp in zip(grads, t._dec_specs)]
+        arrays = {f"g{i}": a for i, a in enumerate(full)}
+        arrays["loss"] = np.float64(float(t._red.loss(loss)))
+        _save(out, f"jax_{name}", rank, **arrays)
+        t.close()
+    base.close()
+
+
+def Trainer_on(out, name, mesh, params):
+    from multinn_torch.training.trainer import Trainer
+    return Trainer(exp_cfg(os.path.join(out, name), mesh), params=params)
+
+
+def mesh_shapes_case(out, rank):
+    """make_mesh on a world of 8: each config's axis sizes, this rank's
+    coordinates, and per axis the sum of the ranks of its group."""
+    from multinn_torch.parallel import comm, mesh as mesh_mod
+    from multinn_torch.utils.config import MeshConfig
+    arrays = {}
+    for name, kw in (("track2", dict(track=2)), ("all", {}),
+                     ("3d", dict(track=2, model=2)), ("seq4", dict(seq=4))):
+        m = mesh_mod.make_mesh(MeshConfig(use_mesh=True, **kw))
+        arrays[f"{name}_names"] = np.array(m.axis_names)
+        arrays[f"{name}_sizes"] = np.array([m.shape[a]
+                                            for a in m.axis_names])
+        arrays[f"{name}_coords"] = np.array([m.index(a)
+                                             for a in m.axis_names])
+        arrays[f"{name}_sums"] = np.array([float(comm.all_reduce_sum(
+            torch.tensor(float(rank)), m.group(a))) for a in m.axis_names])
+    arrays["off"] = np.float64(mesh_mod.make_mesh(MeshConfig()) is None)
+    try:
+        mesh_mod.make_mesh(MeshConfig(use_mesh=True, data=3, track=2))
+        arrays["refused"] = np.float64(0)
+    except ValueError:
+        arrays["refused"] = np.float64(1)
+    _save(out, "mesh_shapes", rank, every_rank=True, **arrays)
+
+
+def cli_case(out, rank):
+    """``multinn_torch.train.main`` with ``--mesh.use_mesh=true`` on every
+    rank of the world: one epoch; rank 0 alone writes the run's files."""
+    from multinn_torch import train as train_cli
+    run = os.path.join(out, "cli_run")
+    rc = train_cli.main([
+        "--preset", "synthetic", "--device", "cpu", "--mesh.use_mesh=true",
+        "--data.n_tracks=2", "--data.pitch_min=40", "--data.pitch_max=63",
+        "--data.window=8", "--data.batch_size=8", "--data.synthetic_songs=8",
+        "--data.synthetic_steps=32", "--model.n_tracks=2",
+        "--model.n_hidden=12", "--model.n_rnn=8",
+        "--model.decoder_type=rnn-nade", "--train.epochs=1",
+        f"--train.run_dir={run}"])
+    dist.barrier()
+    _save(out, "cli", rank, every_rank=True, rc=np.float64(rc),
+          files=np.array(sorted(os.listdir(run))))
+
+
+def comm_case(out, rank):
+    """The collectives' values and derivatives on a world of 2: rank r
+    sends (r + 1) * ones(3) and weighs what it receives by r + 1."""
+    from multinn_torch.parallel import comm
+    group, w = dist.group.WORLD, float(rank + 1)
+    arrays = {}
+    for name, fn in (("all_reduce", lambda x: comm.all_reduce(x, group)),
+                     ("all_gather", lambda x: comm.all_gather(x, 0, group)),
+                     ("ppermute", lambda x: comm.ppermute(x, group)),
+                     ("reduce_from_model",
+                      lambda x: comm.reduce_from_model(x, group)),
+                     ("copy_to_model",
+                      lambda x: comm.copy_to_model(x, group)),
+                     ("gather_from_model",
+                      lambda x: comm.gather_from_model(x, 0, group))):
+        x = torch.full((3,), w, requires_grad=True)
+        y = fn(x)
+        (g,) = torch.autograd.grad((y * w).sum(), x)
+        _, jv = torch.func.jvp(fn, (x.detach(),), (torch.ones(3) * w,))
+        arrays[f"{name}_y"] = y.detach().numpy()
+        arrays[f"{name}_grad"] = g.numpy()
+        arrays[f"{name}_jvp"] = jv.numpy()
+    _save(out, "comm", rank, every_rank=True, **arrays)
+
+
+# -- jobs ---------------------------------------------------------------------
+
+def job_w2(rank, world, out):
+    """A world of 2: the collectives; DP (gspmd both families, shard_map)
+    and TP model=2 steps; evaluation, HF, generation, a service and the
+    steps from the JAX Trainer's params."""
+    comm_case(out, rank)
+    cli_case(out, rank)
+    step_case(out, rank, "dp2_gspmd_nade", mesh_cfg())
+    step_case(out, rank, "dp2_gspmd_rbm", mesh_cfg(), dec="rnn-rbm")
+    step_case(out, rank, "dp2_shard_map_nade", mesh_cfg(style="shard_map"))
+    rbm_shard_map_case(out, rank, "dp2_shard_map_rbm", 2)
+    step_case(out, rank, "tp2_nade", mesh_cfg(model=2))
+    step_case(out, rank, "tp2_rbm", mesh_cfg(model=2), dec="rnn-rbm")
+    eval_case(out, rank, "eval_gspmd", mesh_cfg())
+    eval_case(out, rank, "eval_shard_map", mesh_cfg(style="shard_map"))
+    hf_case(out, rank, "hf_gspmd", mesh_cfg())
+    hf_case(out, rank, "hf_shard_map", mesh_cfg(style="shard_map"))
+    gen_case(out, rank, mesh_cfg(), "rnn-nade")
+    gen_case(out, rank, mesh_cfg(), "rnn-rbm")
+    gen_case(out, rank, mesh_cfg(), "rnn-nade", "gen_dbn", mode="per-track",
+             model_kw=dict(encoder_hidden=(6,)))
+    service_case(out, rank, mesh_cfg())
+    if os.path.exists(os.path.join(out, "jax_params.pt")):
+        jax_case(out, rank)
+
+
+def job_w4(rank, world, out):
+    """A world of 4: DP data=4, dp x track, TP model=4, track-sharded
+    generation, a DBN config on dp x track."""
+    step_case(out, rank, "dp4_gspmd_nade", mesh_cfg())
+    step_case(out, rank, "dp4_gspmd_rbm", mesh_cfg(), dec="rnn-rbm")
+    step_case(out, rank, "dp4_shard_map_nade", mesh_cfg(style="shard_map"))
+    rbm_shard_map_case(out, rank, "dp4_shard_map_rbm", 4)
+    for mode in ("per-track", "feedback"):
+        step_case(out, rank, f"dp_track_{mode}", mesh_cfg(track=2),
+                  mode=mode)
+        track_gen_case(out, rank, mesh_cfg(track=2), mode)
+    step_case(out, rank, "tp4_nade", mesh_cfg(model=4))
+    step_case(out, rank, "tp4_rbm", mesh_cfg(model=4), dec="rnn-rbm")
+    dbn_case(out, rank, mesh_cfg(track=2))
+    pretrain_case(out, rank, mesh_cfg(track=2))
+
+
+def job_w8(rank, world, out):
+    """A world of 8: mesh construction, the full 2x2x2 mesh (feedback):
+    the step, generation, and checkpoints across topologies."""
+    mesh_shapes_case(out, rank)
+    m3 = mesh_cfg(data=2, track=2, model=2)
+    step_case(out, rank, "mesh3d", m3, mode="feedback")
+    track_gen_case(out, rank, m3, "feedback", "tgen_3d")
+    ckpt_case(out, rank, m3, mesh_cfg(data=4, track=2))
+
+
+def rbm_seqpipe_case(out, rank, mesh):
+    """The RBM (feedback) under seqpipe: the pseudo-likelihood per frame of
+    the validation split before and after two epochs of training in
+    groups of 2 steps, and every logged loss."""
+    from multinn_torch.training.trainer import Trainer
+    cfg = exp_cfg(os.path.join(out, "sp_rbm"), mesh, mode="feedback",
+                  dec="rnn-rbm", epochs=2, lr=1e-2, steps_per_call=2,
+                  log_every_steps=1)
+    t = Trainer(cfg, device="cpu")
+    before = t.evaluate("valid")
+    after = t.train()
+    losses = [m["loss"] for _, m in t.history]
+    t.close()
+    _save(out, "seqpipe_rbm", rank, every_rank=True,
+          ll_before=np.float64(before["ll_per_frame"]),
+          ll_after=np.float64(after["ll_per_frame"]),
+          loss_after=np.float64(after["loss"]), losses=np.array(losses))
+
+
+def job_w4s(rank, world, out):
+    """A world of 4 as data=2 x seq=2 (seqpipe): NADE steps in both
+    modes, the two-layer remat case, the RBM's training, evaluation with a
+    short tail and a Hessian-free step."""
+    sp = mesh_cfg(data=2, seq=2, style="seqpipe")
+    for mode in ("per-track", "feedback"):
+        step_case(out, rank, f"seqpipe_{mode}", sp, mode=mode)
+    step_case(out, rank, "seqpipe_remat", sp, mode="feedback",
+              model_kw=dict(rnn_layers=2, remat=True))
+    rbm_seqpipe_case(out, rank, sp)
+    eval_case(out, rank, "eval_seqpipe", sp)
+    hf_case(out, rank, "hf_seqpipe", sp)
+
+
+def job_w1(rank, world, out):
+    """A world of 1: init_distributed and a mesh of one rank."""
+    from multinn_torch.parallel import mesh as mesh_mod
+    m = mesh_mod.make_mesh(mesh_cfg())
+    _save(out, "w1", rank, world=np.float64(dist.get_world_size()),
+          backend=np.array(dist.get_backend()),
+          sizes=np.array([m.shape[a] for a in m.axis_names]))
+
+
+JOBS = {"w1": job_w1, "w2": job_w2, "w4": job_w4, "w8": job_w8,
+        "w4s": job_w4s}
