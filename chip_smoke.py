@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs
-eighteen phases, one line each or a few; any failure exits non-zero
+nineteen phases, one line each or a few; any failure exits non-zero
 before the result line. Phases 4-6 drive the RNN-RBM serving path, 7-9 the
 RNN-NADE serving path, 10-12 training (the NADE likelihood kernels, then
 the Trainer on each family), 13 the train entry point with its steps
 captured as CUDA graphs, 14 the two DBN configs, 15 accompaniment, 16 the
 generate, evaluate and serve entry points, image summaries and the sparse
 transport, 17 joint (composer) mode, Hessian-free training and the bf16
-matmul policy, 18 process meshes.
+matmul policy, 18 process meshes, 19 the port's scripts
+(``multinn_torch/scripts``). The roofline (``bound`` and each kernel's
+``*_work``), the FLOP counts and the CUDA-event timers are
+``multinn_torch.utils.flops`` and ``multinn_torch.utils.profiling``.
 
   1. environment: card, power limit, torch / CUDA versions, nvcc, ninja;
   2. build: seconds to build and load the kernels;
@@ -178,11 +181,31 @@ matmul policy, 18 process meshes.
      the step without a mesh. Every rank's launch window must show the
      kernels its path runs; each rank's launches, the backend and the
      seconds are printed.
+ 19. the port's scripts at the flagship widths, each in a launch window of
+     its own, each run's JSON on a line of its own: ``prepare_dataset
+     synth`` (8 songs) -> ``cachedir`` -> ``multinn_torch.train
+     --data.source=cache_dir`` (one replayed group over the cache's
+     batches of 8; the chain at least once a step per track, finite
+     losses) -> ``stats``; ``serve_loadtest`` at batch 8, 1024 steps a
+     song, on the RBM flagship direct (256 requests, 32 clients),
+     ``--open-loop`` (512) and ``--http`` (64, 8 clients), and on the NADE
+     flagship direct (256, 32): every request answered, no service error,
+     the family's fused kernel launched; ``scale_stress`` at H=1024,
+     U=512, B=256, T=64, 10 steps a replayed group, in f32 and in bf16
+     (step ms, frames/s, model GFLOP a step, MFU against the H100 peak of
+     the precision that ran, the Gibbs plan, capture seconds; a finite
+     loss), then the Gibbs chain at its N = B*T = 16384 rows, D=84,
+     H=1024, k=1 (W in device memory) against its plain version, at most
+     1 % of rows differing, with the kernel and plain ms and the bound;
+     ``ingest_bench --files 1000 --python-files 50``;
+     ``real_corpus_drill --synthetic-standin`` for jsb (RNN-RBM) and
+     nottingham (RNN-NADE) at their shipped configs, cut to one epoch of
+     the stand-in in batches of 8 with no periodic checkpoints: a finite
+     ll/frame, evaluated after at least one step.
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window plus the windows of phases 14 to 18, phase 18's summed
-over its ranks), error, times
-and bound. ``ms`` is the device time per
+its path's window plus the windows of phases 14 to 19, phase 18's summed
+over its ranks), error, times and bound. ``ms`` is the device time per
 call of the kernel's wrapper (its launches and any small PyTorch kernel it
 runs, such as the key's two words, the backward's second pass included):
 calls captured in one CUDA graph and its replay timed by CUDA events, since
@@ -211,73 +234,17 @@ import subprocess
 import sys
 import time
 
+from multinn_torch.utils.flops import (bound, fused_work, gibbs_work, mfu,
+                                       nade_ll_bwd_work, nade_ll_fwd_work,
+                                       nade_sample_work, peak_for,
+                                       threefry_work, train_step_flops)
+from multinn_torch.utils.profiling import cuda_ms, graph_ms
+
 FLAGSHIP = dict(n_tracks=5, n_pitches=84, mode="feedback",
                 decoder_type="rnn-rbm", n_hidden=150, n_rnn=100, cd_k=1,
                 gen_k=10)
 NADE_FLAGSHIP = dict(FLAGSHIP, decoder_type="rnn-nade")
 SWEEP_BATCHES = (1, 8, 64, 256)
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-PEAK_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-
-
-def bound(nbytes: float, ops: float):
-    """The least time the card could take for this work (ms), and what
-    bounds it: the bytes at the memory rate or the operations at the f32
-    rate (the integer work of Threefry is counted at the same rate)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def fused_work(params, roll, v0, gen_k: int):
-    """(bytes, operations) of one whole generation: every decoder weight
-    read once (bf16 where the NADE kernel keeps it), the state in and out,
-    the roll written once; the dense products (biases, recurrence, the
-    NADE's per-dim sums) plus the products over the frames' nonzero
-    entries that this run's roll holds (the RBM's hidden pass, with each
-    sweep's chain taken at the frame's density; the own-frame projection;
-    the feedback context over the previous frame; the NADE's W updates).
-    The RBM's visible pass needs products only over the chain's nonzero
-    hidden samples, which the kernel's run does not show, so it is left
-    out: a lower bound. A multiply-add counts 2."""
-    from multinn_torch.models import multinn
-    cfg = params.cfg
-    k, d, h, u, n_layers = (multinn.n_decoders(cfg), cfg.feature_dim(),
-                            cfg.n_hidden, cfg.n_rnn, cfg.rnn_layers)
-    g = 4 * u if cfg.cell == "lstm" else u
-    b, t = roll.shape[:2]
-    steps = b * t * k
-    nnz = float(roll.sum())
-    nnz_prev = float(v0.sum() + roll[:, :-1].sum())
-    ctx = k * g * nnz_prev if cfg.ctx_dim() else 0.0
-    dense = steps * ((d + h) * u + g * u * (2 * n_layers - 1))
-    dec = params.decoder
-    numel = sum(x.numel() for x in multinn.tree_leaves(dec))
-    if cfg.decoder_type == "rnn-rbm":
-        ops = 2 * (dense + gen_k * h * nnz + g * nnz + ctx)
-        wbytes = 4 * numel
-    else:
-        ops = 2 * (dense + steps * d * h + ctx) + h * nnz + g * nnz
-        half = (dec.w.numel() + dec.v.numel() + dec.wuv.numel()
-                + dec.cell[0].wx.numel())
-        wbytes = 2 * half + 4 * (numel - half)
-    nbytes = wbytes + 4 * (roll.numel() + 4 * b * n_layers * k * u
-                           + b * k * d)
-    return nbytes, ops
-
-
-def gibbs_work(n: int, k: int, out, d: int = 84, h: int = 150):
-    """(bytes, operations) of a k-sweep Gibbs chain over n rows: v0, bv and
-    the output (n, d), bh (n, h) and W once each; per sweep the hidden
-    pass's products over the nonzero visible entries (each sweep's chain
-    taken at the output's density) and d + h Threefry draws per row of
-    about 80 integer operations each. The visible pass, whose products run
-    over hidden samples the kernel does not show, is left out: a lower
-    bound. A multiply-add counts 2."""
-    return (4 * (3 * n * d + d * h + n * h),
-            2 * k * h * float(out.sum()) + 80 * n * k * (d + h))
-
-
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -285,46 +252,6 @@ def fail(msg: str) -> None:
 
 def say(line: str) -> None:
     print(line, flush=True)
-
-
-def cuda_ms(fn, reps: int, warm: bool = True) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` runs (after one warm
-    run unless ``warm`` is False), by CUDA events on the current stream."""
-    import torch
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
-    one CUDA graph after a warm call, its replay timed by CUDA events, so
-    no host time between launches enters."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps
 
 
 # -- phase 18: process meshes (module level: spawned ranks import these) ----
@@ -796,13 +723,11 @@ def main() -> None:
     big_ms = cuda_ms(lambda: kernel_prng.threefry2x32(key, big, big), 50)
     big_plain_ms = cuda_ms(
         lambda: kernel_prng.threefry2x32(key, big, big, impl="plain"), 5)
-    # one counter: key, two counter words and two output words; about 80
-    # 32-bit integer operations (20 rounds of add/rotate/xor, 5 key
-    # injections)
+    # one counter (the fold_in shape)
     results["threefry2x32"] = dict(max_abs_err=tf_err, ms=ms,
                                    plain_ms=plain_ms, **dict(zip(
                                        ("bound_ms", "bound_by"),
-                                       bound(24, 80))))
+                                       bound(*threefry_work(1)))))
     say(f"phase 3 threefry: bit-equal on (4096, 750) x 3 keys and at the "
         f"fold_in shape; fold_in-shaped call {call_ms:.4f} ms (kernel "
         f"{ms:.4f} ms; plain "
@@ -1038,14 +963,11 @@ def main() -> None:
     ms = graph_ms(lambda: nade_cuda.nade_sample(key, *nargs, (8,)), 50)
     plain_ms = cuda_ms(lambda: nade_cuda.nade_sample_plain(key, *nargs, (8,)),
                        10)
-    # dense V . sigmoid(a) per dim, W updates for the sampled ones
     results["nade_sample"] = dict(max_abs_err=nade_err, ms=ms,
                                   plain_ms=plain_ms, **dict(zip(
                                       ("bound_ms", "bound_by"), bound(
-                                          4 * (2 * 84 * 150 + 8 * 84 * 2
-                                               + 8 * 150),
-                                          2 * 8 * 84 * 150
-                                          + 150 * float(nk.sum())))))
+                                          *nade_sample_work(8, 84, 150,
+                                                            nk)))))
     # the same at music's density: bv about -3 draws about 0.06 of the dims
     # (its own generator, as phase 4's wide chains)
     sparse = nade_inputs(8, bias=-3.0, gen=torch.Generator().manual_seed(7))
@@ -1215,21 +1137,14 @@ def main() -> None:
 
     step_kernel = cuda_ms(lambda: ll_step(nade_ll.nade_logits), 10)
     step_cumsum = cuda_ms(lambda: ll_step(nade_nn.conditionals_logits), 3)
-    # forward: dense V . sigmoid(a) per row and dim, W updates where
-    # x = 1; backward (no dx): dense dV and the logit gradient's V
-    # products, the a downdate and dW where x = 1
-    kk, nn, dd, hh = 5, 4096, 84, 150
-    nnz_x = float(xl.sum())
     results["nade_ll_fwd"] = dict(
         max_abs_err=fwd_err, ms=fwd_dev, plain_ms=fwd_plain, **dict(zip(
-            ("bound_ms", "bound_by"), bound(
-                4 * (3 * kk * nn * dd + 2 * kk * nn * hh + 2 * kk * dd * hh),
-                2 * kk * nn * dd * hh + hh * nnz_x))))
+            ("bound_ms", "bound_by"),
+            bound(*nade_ll_fwd_work(5, 4096, 84, 150, xl)))))
     results["nade_ll_bwd"] = dict(
         max_abs_err=bwd_err, ms=bwd_dev, plain_ms=bwd_plain, **dict(zip(
-            ("bound_ms", "bound_by"), bound(
-                4 * (2 * kk * nn * dd + 2 * kk * nn * hh + 4 * kk * dd * hh),
-                4 * kk * nn * dd * hh + 2 * hh * nnz_x))))
+            ("bound_ms", "bound_by"),
+            bound(*nade_ll_bwd_work(5, 4096, 84, 150, xl)))))
     say(f"phase 10 nade likelihood: K=5 N=4096 D=84 H=150; logits max err "
         f"{fwd_err:.2e} (limit 1e-4); backward error / tolerance "
         f"{ {n: round(r, 4) for n, r in ratios.items()} }; forward kernel "
@@ -1490,9 +1405,13 @@ def main() -> None:
         graph_ms = cuda_ms(lambda: graph.run_group(xs, key), 3) / spc
         busy_ms, _ = device_busy_fn(lambda: graph.run_group(xs, key), 1,
                                     spc)
+        peak = peak_for(cfg.model.matmul_dtype,
+                        torch.backends.cuda.matmul.allow_tf32)
         return dict(diff=diff, leaves=leaves, eager_ms=eager_ms,
                     graph_ms=graph_ms,
                     frames=batch * 64 / graph_ms * 1e3, busy_ms=busy_ms,
+                    mfu=mfu(train_step_flops(cfg.model, batch, 64),
+                            graph_ms / 1e3, peak), peak=peak.name,
                     capture_s=g.capture_s, pool=g.graph.pool_bytes,
                     per_step={k: v / spc for k, v in g.launches.items()})
 
@@ -1575,7 +1494,8 @@ def main() -> None:
         say(f"phase 13 {fam} group of {spc} (B={16 if fam == 'rbm' else 64}"
             f" T=64): graph vs eager params max diff {r['diff']:.3e} of "
             f"max|p|; graph step {r['graph_ms']:.3f} ms = "
-            f"{r['frames']:.0f} frames/s, eager step {r['eager_ms']:.3f} "
+            f"{r['frames']:.0f} frames/s, MFU {r['mfu']:.4%} of the "
+            f"{r['peak']}, eager step {r['eager_ms']:.3f} "
             f"ms in the same call; {busy}; capture {r['capture_s']:.2f} s, "
             f"graph pool {r['pool']} bytes; launches per replayed step "
             f"{r['per_step']}")
@@ -2231,8 +2151,7 @@ def main() -> None:
     s_ms = graph_ms(lambda: nade_cuda.nade_sample(jkey, *sargs, (8,)), 50)
     s_plain = cuda_ms(lambda: nade_cuda.nade_sample_plain(jkey, *sargs,
                                                           (8,)), 3)
-    sb = bound(4 * (2 * 420 * 150 + 8 * 420 * 2 + 8 * 150),
-               2 * 8 * 420 * 150 + 150 * float(sk.sum()))
+    sb = bound(*nade_sample_work(8, 420, 150, sk))
     joint_rows.append(f"nade_sample 8 rows D=420 H=150 plan "
                       f"{nade_cuda.sample_plan(420, 150)}: rows differing "
                       f"{s_differ}, kernel {s_ms:.4f} ms = "
@@ -2256,11 +2175,8 @@ def main() -> None:
         lambda: nade_ll.nade_ll_fwd_plain(xl, wl, vl, bvl, bhl), 3)
     bwd17_plain = cuda_ms(lambda: nade_ll.nade_ll_bwd_plain(
         xl, wl, vl, cot, ap, want_dx=False), 3)
-    nnz_x = float(xl.sum())
-    fb = bound(4 * (3 * 4096 * 420 + 2 * 4096 * 150 + 2 * 420 * 150),
-               2 * 4096 * 420 * 150 + 150 * nnz_x)
-    bb = bound(4 * (2 * 4096 * 420 + 2 * 4096 * 150 + 4 * 420 * 150),
-               4 * 4096 * 420 * 150 + 2 * 150 * nnz_x)
+    fb = bound(*nade_ll_fwd_work(1, 4096, 420, 150, xl))
+    bb = bound(*nade_ll_bwd_work(1, 4096, 420, 150, xl))
     sms = _build.sm_count(xl)
     joint_rows.append(
         f"nade_ll K=1 N=4096 D=420 H=150 (plans fwd "
@@ -2572,6 +2488,165 @@ def main() -> None:
     say(f"phase 18 launches, its windows summed: {windows_sum(*windows18)}; "
         f"phase {time.perf_counter() - t18:.1f} s")
 
+    # 19. the port's scripts ------------------------------------------------
+    # each run's JSON on a line of its own; a script that exits non-zero, a
+    # request unanswered, a loss not finite or the chain out of its gate
+    # fails the phase
+    t19 = time.perf_counter()
+    import contextlib
+    import io
+
+    from multinn_torch.scripts import (ingest_bench, prepare_dataset,
+                                       real_corpus_drill, scale_stress,
+                                       serve_loadtest)
+    windows19 = []
+
+    def window19(fn):
+        """``fn()`` in a launch window of its own: (result, launches)."""
+        torch.cuda.synchronize()
+        _build.launches.clear()              # the window starts here
+        out = fn()
+        torch.cuda.synchronize()
+        w = dict(_build.launches)            # ... and ends here
+        windows19.append(w)
+        return out, w
+
+    def script(name, main_fn, argv):
+        """``main_fn(argv)`` with its standard output captured: (the JSON
+        of its last line or None, seconds); a non-zero exit fails."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn(argv)
+        secs = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        if rc != 0:
+            fail(f"phase 19: {name} exited {rc}: {lines[-3:]}")
+        try:
+            return json.loads(lines[-1]), secs
+        except (IndexError, json.JSONDecodeError):
+            return None, secs
+
+    # prepare -> cache directory -> one replayed group -> stats
+    p19 = os.path.join(tmp, "p19")
+    script("prepare_dataset synth", prepare_dataset.main,
+           ["synth", "--out", f"{p19}/midi", "--songs", "8"])
+    script("prepare_dataset cachedir", prepare_dataset.main,
+           ["cachedir", "--source", "midi_dir", "--path", f"{p19}/midi",
+            "--window", "64", "--out", f"{p19}/cache"])
+    n_cache = Dataset(DataConfig.from_preset(
+        "synthetic", source="cache_dir", path=f"{p19}/cache", window=64,
+        batch_size=8)).n_batches()
+    if n_cache < 2:
+        fail(f"phase 19: the cache holds {n_cache} batches of 8 (< 2)")
+    t0 = time.perf_counter()
+    rc, w = window19(lambda: train_cli.main([
+        "--config", "configs/synthetic_smoke.json", "--device", "cuda",
+        "--data.source=cache_dir", f"--data.path={p19}/cache",
+        "--data.window=64", "--data.batch_size=8", "--model.n_hidden=150",
+        "--model.n_rnn=100", f"--train.steps_per_call={n_cache}",
+        "--train.epochs=1", f"--train.run_dir={p19}/run"]))
+    cache_train_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 19: train on the cache directory exited {rc}")
+    with open(f"{p19}/run/metrics.jsonl") as f:
+        cache_rows = [json.loads(line) for line in f]
+    if not (w.get("gibbs_chain", 0) >= 5 * n_cache and cache_rows
+            and all(np.isfinite(r["loss"]) for r in cache_rows)):
+        fail(f"phase 19: the cache run's launches {w}, metrics {cache_rows}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = prepare_dataset.main(["stats", "--source", "cache_dir",
+                                   "--path", f"{p19}/cache", "--window",
+                                   "64"])
+    if rc != 0:
+        fail(f"phase 19: prepare_dataset stats exited {rc}")
+    say("phase 19 prepare_dataset: synth 8 songs -> cachedir -> "
+        f"multinn_torch.train --data.source=cache_dir (one replayed group "
+        f"of {n_cache} steps, {cache_train_s:.1f} s, launches {w}, valid "
+        f"loss {cache_rows[-1]['loss']:.4f}) -> stats:")
+    say(json.dumps(json.loads(buf.getvalue())))
+
+    # the serving load test on both flagships at batch 8, 64 bars a song
+    lt_base = ["--config", "configs/synthetic_smoke.json", "--batch", "8",
+               "--n-steps", "1024", "--model.n_hidden=150",
+               "--model.n_rnn=100", "--model.gen_k=10"]
+    lt_runs = (("rbm direct", ["--requests", "256", "--clients", "32"]),
+               ("rbm open-loop", ["--open-loop", "--requests", "512"]),
+               ("rbm http", ["--http", "--requests", "64", "--clients",
+                             "8"]),
+               ("nade direct", ["--requests", "256", "--clients", "32",
+                                "--model.decoder_type=rnn-nade"]))
+    for name, extra in lt_runs:
+        (rep, secs), w = window19(lambda: script(
+            f"serve_loadtest {name}", serve_loadtest.main, lt_base + extra))
+        kernel = "gen_fused_nade" if "nade" in name else "gen_fused_rbm"
+        if (rep is None or rep["failed"] or rep["errors"]
+                or rep["completed"] != rep["requests"] or not w.get(kernel)):
+            fail(f"phase 19: serve_loadtest {name}: {rep}, launches {w}")
+        say(f"phase 19 serve_loadtest {name} ({secs:.1f} s, launches {w}):")
+        say(json.dumps(rep))
+
+    # scale stress: the flagship far past its widths, f32 and bf16
+    stress = {}
+    for dtype in ("f32", "bf16"):
+        (rep, w) = window19(lambda: scale_stress.measure(
+            1024, 512, 256, 64, n_iter=10, dtype=dtype, device="cuda"))
+        if not rep["loss_finite"]:
+            fail(f"phase 19: scale_stress {dtype}: the loss is not finite")
+        stress[dtype] = rep
+        say(f"phase 19 scale_stress {dtype} (launches {w}):")
+        say(json.dumps(rep))
+    # #1 at the scale-stress shape: the CD chain's N = B*T rows per track
+    sg = torch.Generator().manual_seed(19)
+    sa = gibbs_inputs(16384, 84, 1024, gen=sg)
+    skey = sampling.PRNGKey(190, device=dev)
+    splan = gibbs_cuda.launch_plan(16384, _build.sm_count(sa[0]), 84, 1024)
+    s_out = gibbs_cuda.gibbs_chain(skey, *sa, 1)
+    s_differ = rows_differ(s_out, gibbs_cuda.gibbs_chain_plain(skey, *sa, 1))
+    if s_differ > 0.01:
+        fail(f"phase 19: gibbs at N=16384 D=84 H=1024: {s_differ:.4f} of "
+             f"rows differ (limit 0.01)")
+    s_ms = graph_ms(lambda: gibbs_cuda.gibbs_chain(skey, *sa, 1), 20)
+    s_plain = cuda_ms(lambda: gibbs_cuda.gibbs_chain_plain(skey, *sa, 1), 3)
+    s_bound = bound(*gibbs_work(16384, 1, s_out, 84, 1024))
+    say(f"phase 19 gibbs_chain N=16384 D=84 H=1024 k=1 plan {splan}: rows "
+        f"differing {s_differ:.4f}, kernel {s_ms:.4f} ms, plain "
+        f"{s_plain:.3f} ms, bound {s_bound[0]:.4f} ms ({s_bound[1]}), "
+        f"launches per replayed step "
+        f"{stress['f32']['launches_per_step'].get('gibbs_chain')}; {smi}")
+
+    # ingest and the real-corpus drill's stand-in path
+    rep, secs = script("ingest_bench", ingest_bench.main,
+                       ["--files", "1000", "--python-files", "50"])
+    say(f"phase 19 ingest_bench ({secs:.1f} s):")
+    say(json.dumps(rep))
+    # cut: one epoch of each stand-in (the shipped configs' widths) in
+    # batches of 8: at the configs' 32 the stand-in's 30 training windows
+    # make no full batch, and the epoch would take no step
+    drill_cut = ["--train.epochs=1", "--train.ckpt_every_steps=0",
+                 "--data.batch_size=8"]
+    for corpus, run_name in (("jsb", "jsb_rnnrbm_standin"),
+                             ("nottingham", "nottingham_rnnnade_standin")):
+        (rep, secs), w = window19(lambda: script(
+            f"real_corpus_drill {corpus}", real_corpus_drill.main,
+            ["--corpus", corpus, "--data-root", f"{p19}/drill_data",
+             "--run-root", f"{p19}/drill_runs", "--synthetic-standin",
+             "--device", "cuda"] + drill_cut))
+        row = (rep or {}).get(run_name)
+        with open(f"{p19}/drill_runs/drill_{run_name}/eval_test.json") as f:
+            drill_step = json.load(f)["step"]
+        if (row is None or not np.isfinite(row["ll_per_frame"])
+                or not drill_step > 0):
+            fail(f"phase 19: real_corpus_drill {corpus}: {rep}, evaluated "
+                 f"at step {drill_step}")
+        say(f"phase 19 real_corpus_drill --synthetic-standin {corpus} "
+            f"({' '.join(drill_cut)}; {drill_step} steps, {secs:.1f} s, "
+            f"launches {w}):")
+        say(json.dumps(row))
+    say(f"phase 19 launches, its windows summed: {windows_sum(*windows19)}; "
+        f"phase {time.perf_counter() - t19:.1f} s")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -2605,9 +2680,9 @@ def main() -> None:
     # the DBN paths (pre-training, serving) and of accompaniment
     new_windows = windows_sum(*dbn["nade"]["windows"], *dbn["rbm"]["windows"],
                               *acc_windows, *windows16, *windows17,
-                              *windows18)
-    say(f"launches in the DBN, accompaniment, entry-point, joint, HF, bf16 "
-        f"and mesh windows: {new_windows}")
+                              *windows18, *windows19)
+    say(f"launches in the DBN, accompaniment, entry-point, joint, HF, bf16, "
+        f"mesh and script windows: {new_windows}")
     shutil.rmtree(tmp, ignore_errors=True)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [

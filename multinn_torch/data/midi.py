@@ -56,6 +56,26 @@ class MidiFile:
         return max((n.end for ins in self.instruments for n in ins.notes),
                    default=0)
 
+    def tick_to_seconds(self, tick: int) -> float:
+        """Seconds-domain position of an absolute tick, walking the tempo
+        map (piecewise-constant tempo between events; events after ``tick``
+        are ignored). Grid quantization never calls this — it exists for
+        seconds-domain consumers (audio alignment, playback duration)."""
+        seconds = 0.0
+        cur_tick, cur_uspq = 0, 500000
+        for t, uspq in self.tempo_map:
+            if t >= tick:
+                break
+            seconds += (t - cur_tick) * cur_uspq / (
+                1e6 * self.ticks_per_quarter)
+            cur_tick, cur_uspq = t, uspq
+        seconds += (tick - cur_tick) * cur_uspq / (
+            1e6 * self.ticks_per_quarter)
+        return seconds
+
+    def duration_seconds(self) -> float:
+        return self.tick_to_seconds(self.end_tick())
+
 
 # ---------------------------------------------------------------------------
 # reading

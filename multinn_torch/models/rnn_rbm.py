@@ -222,3 +222,13 @@ def sample_step(params: Params, key: torch.Tensor, state: State,
     """One generation step: sample_frame, then forced_step."""
     v = sample_frame(params, key, state, k=k)
     return forced_step(params, state, v, ctx), v
+
+
+def generate(params: Params, key: torch.Tensor, state: State, n_steps: int,
+             ctx: Optional[torch.Tensor] = None,
+             k: Optional[int] = None) -> Tuple[State, torch.Tensor]:
+    """Autoregressive generation of one decoder: a loop of sample_step on
+    key t of ``split(key, n_steps)``. ctx: optional (B, n_steps, C).
+    Returns (state, v (B, n_steps, F))."""
+    return base.generate_scan(sample_step, params, key, state, n_steps,
+                              ctx, k)

@@ -1216,3 +1216,23 @@ def test_remat_graph_group_equals_eager(dev, model, tmp_path):
         for name in ("loss", "loss_mean", "grad_norm"):
             assert torch.allclose(got[name], want[name], rtol=1e-5), name
         _params_close(graph, eager)
+
+
+def test_timers_wait_for_the_card(dev):
+    """utils/profiling on the card: ``force`` waits for a tree's CUDA
+    tensors, ``timeit`` times by CUDA events, ``cuda_ms`` / ``graph_ms``
+    read positive device times of a matmul."""
+    from multinn_torch.utils import profiling
+    a = torch.randn(2048, 2048, device=dev)
+    out = {"p": [a @ a], "q": (a.sum(), None)}
+    profiling.force(out)
+    assert torch.cuda.current_stream(dev).query()
+    r = profiling.timeit(lambda x: x @ x, a, iters=3, warmup=1)
+    assert r["iters"] == 3 and 0 < r["min_s"] <= r["mean_s"]
+    assert profiling.cuda_ms(lambda: a @ a, 3) > 0
+    assert profiling.graph_ms(lambda: a @ a, 3) > 0
+    timer = profiling.StepTimer()
+    timer.start()
+    timer.lap(a @ a)
+    timer.lap(a @ a)
+    assert timer.mean > 0 and timer.rate(1.0) > 0

@@ -224,3 +224,36 @@ def test_sources_refuse_what_the_reference_refuses(tmp_path):
             datasets.Dataset(config.DataConfig(**dict(SMALL, **kw)))
     assert config.DataConfig.from_preset("lpd5") == config.DataConfig(
         **dataclasses.asdict(jax_datasets.DataConfig.from_preset("lpd5")))
+
+
+def _smf(ntrks, division, *track_bodies):
+    chunks = b"".join(
+        b"MTrk" + len(body + b"\x00\xff\x2f\x00").to_bytes(4, "big")
+        + body + b"\x00\xff\x2f\x00" for body in track_bodies)
+    return (b"MThd" + (6).to_bytes(4, "big") + (1).to_bytes(2, "big")
+            + ntrks.to_bytes(2, "big") + division.to_bytes(2, "big")
+            + chunks)
+
+
+def test_tick_to_seconds_walks_the_tempo_map_as_the_jax_package():
+    # 96 tpqn; 120 bpm at tick 0, 60 bpm (1e6 us/q) at tick 96; a note
+    # from tick 192 to 288
+    body = (b"\x00\xff\x51\x03" + (500000).to_bytes(3, "big")
+            + b"\x60\xff\x51\x03" + (1000000).to_bytes(3, "big")
+            + b"\x60\x90\x3c\x40" + b"\x60\x80\x3c\x00")
+    m = midi.loads(_smf(1, 96, body))
+    assert m.tempo_map == [(0, 500000), (96, 1000000)]
+    # 96 ticks at 120 bpm = 0.5 s; the next 96 at 60 bpm = 1.0 s
+    assert abs(m.tick_to_seconds(96) - 0.5) < 1e-9
+    assert abs(m.tick_to_seconds(192) - 1.5) < 1e-9
+    assert abs(m.duration_seconds() - 2.5) < 1e-9
+    # no tempo meta: 120 bpm throughout
+    m2 = midi.loads(_smf(1, 96, b"\x00\x90\x3c\x40\x60\x80\x3c\x00"))
+    assert m2.tempo_map == []
+    assert abs(m2.duration_seconds() - 0.5) < 1e-9
+    for data in (_smf(1, 96, body),
+                 _smf(1, 96, b"\x00\x90\x3c\x40\x60\x80\x3c\x00")):
+        got, want = midi.loads(data), jax_midi.loads(data)
+        for tick in (0, 50, 96, 150, 192, 288, 1000):
+            assert got.tick_to_seconds(tick) == want.tick_to_seconds(tick)
+        assert got.duration_seconds() == want.duration_seconds()

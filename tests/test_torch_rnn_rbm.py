@@ -210,3 +210,34 @@ def test_generate_scan_loops_sample_step_on_split_keys():
     assert torch.equal(vs, torch.stack(frames, dim=1))
     assert torch.equal(final.cell[0].h, st.cell[0].h)
     assert set(torch.unique(vs).tolist()) <= {0.0, 1.0}
+
+
+def test_generate_state_replays_and_densities_match_jax():
+    """rnn_rbm.generate on one decoder: the returned state is a forced_step
+    replay of the returned frames (bit for bit), and per-pitch densities
+    agree with the JAX rnn_rbm.generate on jax.random — the scan path's
+    distribution tolerance, 0.05 (B*T = 2048 frames per pitch)."""
+    jp, _ = _model("per-track")
+    dec = jp.decoder
+    jp = jp.replace(decoder=dec.replace(
+        bv=dec.bv + jnp.linspace(-2.0, 2.0, D)[None, :]))
+    tp = from_jax(jp, device="cpu")
+    jdec = jax.tree.map(lambda a: a[0], jp.decoder)
+    tdec = multinn.index_tree(tp.decoder, 0)
+    batch, steps = 32, 64
+    state = rnn_rbm.init_state(tdec, (batch,))
+    final, vs = rnn_rbm.generate(tdec, sampling.PRNGKey(2), state, steps)
+    assert vs.shape == (batch, steps, D)
+    assert set(torch.unique(vs).tolist()) <= {0.0, 1.0}
+    st = state
+    for i in range(steps):
+        st = rnn_rbm.forced_step(tdec, st, vs[:, i])
+    assert torch.equal(final.cell[0].h, st.cell[0].h)
+    assert torch.equal(final.cell[0].c, st.cell[0].c)
+    assert torch.equal(final.v_prev, vs[:, -1])
+    _, jvs = jax_rnn_rbm.generate(jdec, jax.random.PRNGKey(2),
+                                  jax_rnn_rbm.init_state(jdec, (batch,)),
+                                  steps)
+    assert np.asarray(jvs).shape == (batch, steps, D)
+    np.testing.assert_allclose(vs.mean(dim=(0, 1)).numpy(),
+                               np.asarray(jvs).mean(axis=(0, 1)), atol=0.05)
