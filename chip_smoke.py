@@ -44,11 +44,16 @@ matmul policy, 18 process meshes, 19 the port's scripts
   7. NADE sampler: kernel vs plain version at D=84, H=150 for one track's
      8 rows (the scan branch's shape) — at most 1 of 8 rows may differ;
   8. fused NADE generation as phase 5 (B=8 and B=256 at T=16, density at
-     T=1024) and the batch sweep, on the NADE flagship;
+     T=1024, at the kernel's auto speculative depth) and the batch sweep,
+     on the NADE flagship; then the kernel at the speculative depths 1, 2
+     and 4 and the auto depth at B=1, 8, 32 and 256, T=1024: roll, h and
+     c bit-identical to depth 1's at every depth, the ms per song of each
+     depth (CUDA events) and the depth the auto rule picks; the same at
+     B=1 and 8 with the visible bias lowered by 3 (music's density);
   9. the NADE slice: as phase 6 on the NADE flagship config (the fused
-     NADE kernel serves, a 16-step ``fused=False`` generation runs the
-     sampler kernel), with its own launch counts, reset right before and
-     read right after;
+     NADE kernel serves at its auto depth, printed; a 16-step
+     ``fused=False`` generation runs the sampler kernel), with its own
+     launch counts, reset right before and read right after;
  10. NADE likelihood kernels at the training shape (K=5 tracks x N=4096
      rows, D=84, H=150, per-row biases): forward logits within 1e-4 of the
      plain version, every backward output (dW, dV, dx, dbh; dbv through the
@@ -146,7 +151,8 @@ matmul policy, 18 process meshes, 19 the port's scripts
      admits B=1 and B=8, the fused kernel against its plain version at
      T=16 B=8 (at least 7 of 8 samples identical), against the scan path
      at T=1024 B=8 (per-track density gap at most 0.01), the kernel's B=8
-     time and bound, the B=1 64-bar latency and a service at batch 8;
+     time and bound, the B=1 64-bar latency and a service at batch 8; the
+     joint NADE kernel at depths 1, 2 and 4 at B=1 and 8, as phase 8;
      captured groups of 24 joint steps against eager (RBM B=16, NADE
      B=64, T=64, as phase 13); ``multinn_torch.train`` then ``generate``
      with ``--model.mode=composer``; Hessian-free training on the NADE
@@ -673,6 +679,34 @@ def main() -> None:
             f"share {r['share']:.4%}, density {r['density']:.4f}"
             for r in rows)
 
+    def nade_depths(params, batches, name):
+        """The NADE kernel at the speculative depths 1, 2 and 4 and the auto
+        depth, T=1024 from a fresh state of ``params``: roll, h and c
+        bit-identical to depth 1's at every depth, or fail; ms per song at
+        each depth (CUDA events). Returns one line."""
+        key = sampling.PRNGKey(13, device=dev)
+        parts = []
+        for b in batches:
+            st = multinn.init_state(params, b)
+            rows = (torch.stack([c.h for c in st.decoder.cell]),
+                    torch.stack([c.c for c in st.decoder.cell]),
+                    st.decoder.v_prev)
+            run = lambda s: gen_fused_nade.generate_nade(  # noqa: E731
+                key, params.decoder, *rows, 1024, spec=s)
+            ref = run(1)
+            for spec in (2, 4, None):
+                if not all(torch.equal(x, y) for x, y in zip(run(spec), ref)):
+                    fail(f"{name} B={b}: depth {spec} differs from depth 1 "
+                         f"in the roll, h or c")
+            ms = {spec: cuda_ms(lambda: run(spec), 2) for spec in (1, 2, 4)}
+            auto = gen_fused_nade.auto_depth(params.decoder, b)
+            parts.append(f"B={b} " + " ".join(
+                f"depth {spec} {ms[spec]:.3f}" for spec in ms)
+                + f" ms/song, auto depth {auto}, density "
+                f"{float(ref[0].mean()):.4f}")
+            del ref
+        return "; ".join(parts)
+
     # 1. environment ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -1011,6 +1045,15 @@ def main() -> None:
     nade_sweep = sweep(nparams, 0)
     say(f"phase 8 sweep, T=1024, NADE flagship with seeded random params, "
         f"{smi}: {sweep_line(nade_sweep)}")
+    say(f"phase 8 speculative depths, T=1024, NADE flagship with seeded "
+        f"random params, rolls, h and c bit-identical across depths: "
+        f"{nade_depths(nparams, (1, 8, 32, 256), 'phase 8')}; {smi}")
+    # at music's density (bv lowered by 3: about 0.06 of the dims drawn)
+    quiet = dataclasses.replace(nparams, decoder=dataclasses.replace(
+        nparams.decoder, bv=nparams.decoder.bv - 3.0))
+    say(f"phase 8 speculative depths, bv - 3: "
+        f"{nade_depths(quiet, (1, 8), 'phase 8 bv - 3')}; {smi}")
+    del quiet
 
     # 9. the NADE slice -------------------------------------------------------------
     ncfg9 = ExperimentConfig(
@@ -1036,6 +1079,7 @@ def main() -> None:
             multinn.init_state(nparams, 8), 16, fused=False)
         torch.cuda.synchronize()
     nade_launches = dict(_build.launches)    # ... and ends here
+    depth9 = gen_fused_nade.auto_depth(nparams.decoder, 8)
     missing = [n for n in ("gen_fused_nade", "nade_sample", "threefry2x32")
                if not nade_launches.get(n)]
     if missing:
@@ -1075,7 +1119,8 @@ def main() -> None:
         f"of 8 in {serve_s:.2f} s incl. warm-up; latency p50 "
         f"{lat['p50']:.1f} ms p95 {lat['p95']:.1f} ms; "
         f"{stats.get('songs_per_s', 0.0):.2f} songs/s; note density "
-        f"{ndensity:.4f}; scan branch 16 steps ok; 64-bar B=8 kernel "
+        f"{ndensity:.4f}; scan branch 16 steps ok; the service's batch "
+        f"runs the auto depth {depth9}; 64-bar B=8 kernel "
         f"{nb8['ms']:.3f} ms, plain {nb8_plain_ms:.1f} ms; launches "
         f"{nade_launches}")
 
@@ -2280,6 +2325,10 @@ def main() -> None:
             f"{stats.get('songs_per_s', 0):.2f} songs/s, p50 "
             f"{lat['p50']:.1f} ms p95 {lat['p95']:.1f} ms; launches fused "
             f"{w_fused}, scan {w_scan}, service {w_serve}; {smi}")
+        if fam == "nade":
+            say(f"phase 17 joint nade speculative depths, T=1024, rolls, h "
+                f"and c bit-identical across depths: "
+                f"{nade_depths(pj, (1, 8), 'phase 17 joint nade')}; {smi}")
         del fused_roll, scan_roll, roll8
 
     # joint training: captured groups of 24 against eager, both families

@@ -116,12 +116,19 @@ struct NadeArgs {
   int32_t k, d, hid, u, g, n_layers;
   int32_t lstm;          // 1: LSTM cells (g = 4u); 0: vanilla tanh (g = u)
   int32_t given_mask;    // bit k set: track k takes `given`
+  int32_t spec;          // the sweep's speculative depth: 1, 2 or 4
+                         //   dividing D; 0: auto (4 if 4 divides D)
   int32_t row0;          // the row map: sample b draws the stream of sample
   int32_t rows_total;    //   row0 + b of a batch of rows_total (0, batch)
 };
 
 const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
                                   int64_t* shape = nullptr);
+
+// The NADE sweep's auto depth for a launch of `groups` (sample, track
+// slot) groups per CTA: 4 where 4 divides D and one group's team of 8
+// warps has the CTA to itself, else 1.
+int nade_auto_depth(int d, int groups);
 
 // Rows per tile of the NADE likelihood kernels, which walk the tiles with
 // persistent grids (ops/nade_ll.fwd_plan, bwd_plan).

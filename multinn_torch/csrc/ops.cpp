@@ -196,8 +196,9 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
                     const at::Tensor& wctx, const at::Tensor& b,
                     const at::Tensor& h0, const at::Tensor& c0,
                     const at::Tensor& v0, const at::Tensor& given,
-                    const at::Tensor& seed, int64_t lstm, int64_t given_mask,
-                    int64_t row0, int64_t rows_total, int64_t stream) {
+                    const at::Tensor& seed, int64_t lstm, int64_t spec,
+                    int64_t given_mask, int64_t row0, int64_t rows_total,
+                    int64_t stream) {
   check(roll, at::kFloat, "roll");
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
@@ -219,6 +220,7 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   a.batch = static_cast<int32_t>(h0.size(0));
   a.n_steps = static_cast<int32_t>(roll.size(1));
   a.lstm = static_cast<int32_t>(lstm);
+  a.spec = static_cast<int32_t>(spec);
   a.given_mask = static_cast<int32_t>(given_mask);
   a.row0 = static_cast<int32_t>(row0);
   a.rows_total = static_cast<int32_t>(rows_total);
@@ -262,7 +264,8 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
 
 // The launch plan a whole-generation kernel (nade: 0 the RBM, 1 the NADE)
 // makes for these sizes, without launching it: the kLaunchShapeFields
-// values of launchers.h.
+// values of launchers.h, and for the NADE the depth its sweep runs at the
+// auto depth (nade_auto_depth of the plan's groups per CTA).
 std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
                                     int64_t hid, int64_t u, int64_t n_layers,
                                     int64_t lstm, int64_t batch) {
@@ -285,6 +288,9 @@ std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
     NadeArgs a{};
     sizes(a);
     err = launch_gen_fused_nade(a, nullptr, shape.data());
+    if (err == nullptr)                  // track slots x samples per cluster
+      shape.push_back(
+          nade_auto_depth(a.d, static_cast<int>(shape[1] * shape[6])));
   } else {
     RbmArgs a{};
     sizes(a);
@@ -392,8 +398,8 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor w, Tensor v, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wxg, Tensor wx_r, Tensor wh, Tensor wctx, "
         "Tensor b, Tensor h0, Tensor c0, Tensor v0, Tensor given, "
-        "Tensor seed, int lstm, int given_mask, int row0, int rows_total, "
-        "int stream) -> ()");
+        "Tensor seed, int lstm, int spec, int given_mask, int row0, "
+        "int rows_total, int stream) -> ()");
   // no tensor arguments: a kernel for every dispatch key
   m.def("gen_fused_plan(int nade, int k, int d, int hid, int u, "
         "int n_layers, int lstm, int batch) -> int[]",

@@ -4,7 +4,8 @@ multinn_tpu/ops/gen_fused.py (RNN-RBM and RNN-NADE families).
 
 from __future__ import annotations
 
-from multinn_torch.ops.gen_fused_nade import generate_nade, supported_nade
+from multinn_torch.ops.gen_fused_nade import (_resolve_spec, generate_nade,
+                                              supported_nade)
 from multinn_torch.ops.gen_fused_rbm import generate_rbm, supported
 
 __all__ = ["supported", "generate_rbm", "supported_nade", "generate_nade"]

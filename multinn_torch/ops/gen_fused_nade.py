@@ -12,15 +12,29 @@ recomputed from the given frame with f32 rows); the stacked LSTM / vanilla
 advance, whose layer-0 input adds the PREVIOUS frame of all tracks through
 ``wctx`` (feedback mode).
 
+The kernel's sweep runs SPECULATIVELY, as the TPU kernel's does, at the
+depth ``spec`` (1, 2 or 4, dividing D): a dim's update is binary, so the
+logits of dims i .. i+spec-1 are computed under every branch of the
+draws before them, and the draws then only select; a team of 2^(spec-1)
+warps runs each (sample, track) group where the CTA holds them, else one
+warp carries every branch. The branch activations add one W row at a
+time in dim order, so the realized branch is the sequential sweep's
+sequence of adds and every depth returns the sequential sweep's roll, h
+and c bit for bit (the TPU kernel's quads may move a last ulp). None
+asks for the auto depth, which the kernel's launcher resolves from its
+launch plan: 4 where 4 divides D and a CTA holds one group, whose team
+of 8 warps then has it to itself (the H100 measurements in
+csrc/gen_fused_nade.cu), else 1. The plain version computes the one
+function, the sequential sweep, at every depth.
+
 As in the TPU kernel, the NADE weights w and v, the visible-bias
 conditioning wuv, the layer-0 own-frame input projection and wctx are
 stored in bf16 and upcast exactly at use; every other matrix stays f32.
 The plain version equals the Pallas kernel in interpret mode bit for bit
-in the roll at the test sizes, against both its sequential sweep and its
-default speculative one (CPU tests); the CUDA kernel equals the plain
-version up to the rare draw a last-ulp difference in a logit flips, after
-which that sample's trajectory diverges (chip_smoke compares by matching
-samples).
+in the roll at the test sizes, at each depth (CPU tests); the CUDA
+kernel equals the plain version up to the rare draw a last-ulp difference
+in a logit flips, after which that sample's trajectory diverges
+(chip_smoke compares by matching samples).
 
 The gate is a Hopper resource check of the kernel's design — a cluster of
 K CTAs per group of samples, each CTA with its track's V, W, Wuh and Wuv
@@ -52,6 +66,7 @@ STREAM_ROWS = 8             # tracks per dim in the random stream: K <= 8
 # lanes (H <= 256) and one bit per 32 dims (D <= 1024)
 MAX_HIDDEN = 32 * 8
 MAX_DIMS = 1024
+SPECS = (1, 2, 4)           # the kernel's speculative depths
 
 
 class NadeArgs(NamedTuple):
@@ -150,9 +165,29 @@ def supported_nade(cfg, batch: int, n_steps: int = 2048,
     return _fits(_nade_args(params, st, st, v0))
 
 
+def _resolve_spec(d: int) -> int:
+    """The speculative depth of a D-dim sweep, as the JAX package resolves
+    it: the deepest of 4, 2 and 1 that divides D."""
+    return 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+
+
+def auto_depth(dec_params, batch: int) -> int:
+    """The depth the kernel's sweep runs at B=``batch`` when generate_nade
+    is given no ``spec``, from its launcher's plan (the gen_fused_plan op,
+    which launches nothing; needs the card): 4 where 4 divides D and a CTA
+    holds one (sample, track) group, else 1."""
+    k, d, hid = dec_params.w.shape
+    u, g = dec_params.wuh.shape[1], dec_params.cell[0].wh.shape[-1]
+    with torch.cuda.device(dec_params.w.device):
+        return _build.ops().gen_fused_plan(1, k, d, hid, u,
+                                           len(dec_params.cell),
+                                           int(g == 4 * u), batch)[-1]
+
+
 def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
                   impl=None, aux_dtype=None, given=None,
-                  given_tracks: Tuple[int, ...] = (), rows=None):
+                  given_tracks: Tuple[int, ...] = (), rows=None,
+                  spec: Optional[int] = None):
     """Run the whole generation. dec_params: track-STACKED rnn_nade.Params;
     h0/c0: (L, K, B, U) ((K, B, U) for one layer); v0: (K, B, D);
     ``given`` (B, n_steps, K, D) with ``given_tracks``: those tracks' frames
@@ -161,6 +196,11 @@ def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     b0 + b of sample b0 + b (kernel_prng.row_map). Returns (roll (B,
     n_steps, K, D) float32, h_final (L, K, B, U), c_final (L, K, B, U)).
 
+    ``spec``: the sweep's speculative depth, 1, 2 or 4 dividing D; every
+    depth returns the same roll, h and c. None: the kernel's auto depth,
+    which its launcher resolves (gen_fused_plan reports it); the plain
+    version resolves it through ``_resolve_spec(D)``, the JAX package's
+    rule.
     ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; "cuda" / "plain" force one."""
     if aux_dtype is not None and aux_dtype != torch.float32:
@@ -187,12 +227,16 @@ def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     if given is not None:
         given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
         wxg = dec_params.cell[0].wx[:, :d, :].contiguous()
+    if spec is not None and (spec not in SPECS or d % spec):
+        raise ValueError(f"spec={spec} must be one of {SPECS} and divide "
+                         f"D={d}")
     if _build.impl_for(impl, args.bv) == "cuda":
         roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, lstm, given,
-                                            given_tracks, wxg, rmap)
+                                            given_tracks, wxg, rmap, spec)
     else:
-        roll, h_out, c_out = _generate_plain(seeds, args, n_steps, lstm,
-                                             given, given_tracks, wxg, rmap)
+        roll, h_out, c_out = _generate_plain(
+            seeds, args, n_steps, lstm, given, given_tracks, wxg, rmap,
+            _resolve_spec(d) if spec is None else spec)
 
     return (roll.reshape(b, n_steps, k, d),
             _from_state_rows(h_out, n_layers, k, u),
@@ -200,7 +244,7 @@ def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
 
 
 def _generate_cuda(seeds, args: NadeArgs, n_steps, lstm, given, given_tracks,
-                   wxg, rmap):
+                   wxg, rmap, spec):
     if not _fits(args):
         raise ValueError(
             f"generate_nade: one sample needs {_sample_bytes(args)} "
@@ -221,18 +265,22 @@ def _generate_cuda(seeds, args: NadeArgs, n_steps, lstm, given, given_tracks,
             roll, h_out, c_out, args.w, args.v, args.wuv, args.wuh, args.bv,
             args.bh, args.wx_v, opt(wxg), opt(args.wx_r), args.wh,
             opt(args.wctx), args.b, args.h0, args.c0, args.v0, opt(given),
-            seeds, int(lstm), mask, *rmap, _build.stream_of(args.bv))
+            seeds, int(lstm), spec or 0, mask, *rmap,
+            _build.stream_of(args.bv))
     return roll, h_out, c_out
 
 
 def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
-                    given_tracks, wxg, rmap=None):
+                    given_tracks, wxg, rmap=None, spec=1):
     """Plain PyTorch version of the kernel, same signature and stream.
     Track-major (K, B, X) tensors; torch.matmul batches over the tracks.
     z grows one dim at a time, in increasing i, as the kernel's gather
     over the sampled frame's active dims adds it: z is not v @ Wx
     afterwards, whose reordered sum would change h and c in the last bits
-    and later flip a draw."""
+    and later flip a draw. ``spec``, the depth asked for, does not change
+    the function: every depth is the sequential sweep's, which this runs."""
+    if spec not in SPECS or args.w.shape[1] % spec:
+        raise ValueError(f"spec={spec} must be one of {SPECS} and divide D")
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
     b = args.h0.shape[0]

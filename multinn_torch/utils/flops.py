@@ -21,7 +21,9 @@ Two FLOP notions:
     listed nonzero entries of the frames, so they scale with the frame
     density; ``density=1.0`` gives the most the kernel can multiply. The
     NADE sweep holds a track's hidden lanes in 8 register rounds of 32
-    lanes, so every dim's logit dot runs over 256 lanes whatever H is.
+    lanes: the sequential sweep's logit dots run over all 256 whatever H
+    is, the speculative sweep's over the rounds that hold live lanes, in
+    each of a group's 2^(s-1) warps.
 
 Roofline (``bound`` and the ``*_work`` functions): the least time the card
 could take for a kernel's call — the bytes it must move (each input read
@@ -138,29 +140,58 @@ def gen_step_flops_rbm(cfg, batch: int, gen_k: int = None,
     return {"model": model, "executed": executed}
 
 
-def gen_step_flops_nade(cfg, batch: int, density: float = 1.0) -> dict:
+def _sweep_group_executed(spec: int, h: int, density: float) -> float:
+    """The work on a group of ``spec`` dims of the NADE sweep
+    (csrc/gen_fused_nade.cu). Depth 1, one warp: the logit dot, an fmaf
+    per lane of each of the 256 register lanes; in each of the 32 lanes
+    warp_allsum's 5 adds, the bias add and the sigmoid; on a sampled dim
+    (``density`` of them) the W row add and the H sigmoids it refreshes.
+    Depth s > 1, a team of 2^(s-1) warps, each running the same code over
+    the register rounds that hold a live lane: its branch's activation (s
+    - 1 adds), sigmoid and s logit fmafs per lane; in each of the 32 lanes
+    the transposed butterfly's adds and selects over s partials, the
+    slot's bias add and sigmoid and the chain's s - 1 selects; and each
+    warp's own realized update, a W row add per sampled dim on H lanes."""
+    if spec == 1:
+        return 2 * NADE_SWEEP_LANES + NADE_SWEEP_LANE_OPS + density * 2 * h
+    lanes = 32 * -(-h // 32)
+    log_s = spec.bit_length() - 1
+    rounds = lanes * (2 * spec + spec)
+    lane_ops = 32 * ((spec - 1) + (5 - log_s) + 2 * (spec - 1) + 2
+                     + spec - 1)
+    realized = h * density * spec
+    return (1 << (spec - 1)) * (rounds + lane_ops + realized)
+
+
+def gen_step_flops_nade(cfg, batch: int, density: float = 1.0,
+                        spec: int = None) -> dict:
     """One generated frame through the fused NADE kernel. Returns
     {"model": ..., "executed": ...}; the model count is the JAX package's,
     whose per-dim accumulation bills the own-frame Wx product once more on
-    top of the cell's.
+    top of the cell's, at every depth.
 
-    Executed, per track and sample: the conditioned biases; per dim the
-    logit dot over the warp's 256 register lanes (H of them live), its
-    butterfly sum, bias add and sigmoid in every lane; on each sampled dim
-    (``density`` of them) the W_i row add and the H sigmoids it refreshes;
-    then the cell stack, which gathers the own-frame projection over the
-    sampled dims. The sweep is sequential: a dim's draw decides the next
-    dim's activations, and the kernel runs no speculative branches, so
-    there is no branch factor (the JAX count's ``spec``) to take. Where H
-    is far below 256 the padded lanes make the executed count exceed the
-    model's; at the flagship (H=150) the model's dense 6DH grid and its
-    second Wx product make it the larger."""
+    Executed, per track and sample: the conditioned biases; the sweep at
+    the depth ``spec`` it runs, D / spec groups of
+    ``_sweep_group_executed``; then the cell stack, which gathers the
+    own-frame projection over the sampled dims. ``spec`` None: the
+    kernel's auto depth at a batch whose CTAs hold one (sample, track)
+    group each, 4 where 4 divides D, else 1; where they hold more the
+    auto depth is 1 (``ops.gen_fused_nade.auto_depth`` reads it): pass
+    ``spec=1`` for such a batch. Depths 2 and 4 are billed as the teams
+    of warps run them; an explicit depth on a launch that leaves no team
+    per group runs every branch on one warp, which is not billed here.
+    Where H is far below 256 the padded
+    lanes make the executed count exceed the model's; at the flagship
+    (H=150) the model's dense 6DH grid and its second Wx product make it
+    the larger at depth 1, while depth 4's eight warps a quad make the
+    executed count the larger."""
     k, d, h, u, ctx = _dims(cfg)
     gm = _gate_mult(cfg)
+    if spec is None:
+        spec = 4 if d % 4 == 0 else 1
     lstm = lstm_frame_flops(d + ctx, u, cfg.rnn_layers, gm)
     model = batch * k * (6 * d * h + 2 * d * gm * u + lstm)
-    sweep = d * (2 * NADE_SWEEP_LANES + NADE_SWEEP_LANE_OPS
-                 + density * 2 * h)
+    sweep = d // spec * _sweep_group_executed(spec, h, density)
     executed = batch * k * (2 * u * (d + h) + sweep
                             + _cell_executed(cfg, density))
     return {"model": model, "executed": executed}

@@ -231,6 +231,40 @@ def test_fused_nade_given_merge_on_the_card(dev):
     assert float((hk - hp).abs()[:, [1, 3]].max()) <= 1e-4
 
 
+@pytest.mark.parametrize("mode,batch,n_steps", [
+    ("feedback", 1, 64), ("feedback", 8, 32), ("feedback", 32, 16),
+    ("feedback", 64, 16), ("feedback", 256, 4), ("per-track", 8, 32),
+    ("joint", 1, 16)])
+def test_fused_nade_depths_are_bit_identical(dev, mode, batch, n_steps):
+    """The speculative sweep at depths 2 and 4 returns depth 1's roll, h
+    and c bit for bit: through teams of warps where the launch's groups
+    per CTA leave them (B=1 and 8: quads and pairs; B=32: two quad teams a
+    CTA; B=64: pairs) and on one warp per group where they do not (B=64
+    quads, B=256); the transposed butterfly's sums are warp_allsum's. The
+    auto depth the launcher's plan reports: 4 where a CTA holds one
+    group."""
+    params = _params(multinn.MultINNConfig(**dict(NADE, mode=mode,
+                                                  w_std=0.1)), dev)
+    seed = (torch.rand(batch, 16, 5, 84, generator=torch.Generator()
+                       .manual_seed(3)) < 0.2).float().to(dev)
+    state = multinn.prime(params, multinn.init_state(params, batch), seed)
+    h0 = torch.stack([c.h for c in state.decoder.cell])
+    c0 = torch.stack([c.c for c in state.decoder.cell])
+    key = sampling.PRNGKey(7, device=dev)
+    _build.launches.clear()
+    outs = [gen_fused_nade.generate_nade(key, params.decoder, h0, c0,
+                                         state.decoder.v_prev, n_steps,
+                                         spec=s) for s in (1, 2, 4, None)]
+    assert _build.launches["gen_fused_nade"] == 4
+    for out in outs[1:]:
+        for a, b in zip(out, outs[0]):
+            assert torch.equal(a, b)
+    assert 0.01 < float(outs[0][0].mean()) < 0.99
+    # 22 clusters of 5 CTAs (132 of 1, joint) hold 1, 2, 3 and 12 samples
+    assert gen_fused_nade.auto_depth(params.decoder, batch) == (
+        4 if batch <= 8 else 1)
+
+
 def test_nade_service_and_scan_branch_run_on_the_kernels(dev):
     cfg = config.ExperimentConfig(
         model=multinn.MultINNConfig(**NADE),

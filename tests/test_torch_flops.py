@@ -5,7 +5,8 @@
   encoder and two RNN layers, for both decoder families;
 * EXECUTED counts describe the CUDA kernels: the RBM's equal the model's
   at a dense frame and fall with the density, the NADE's count the
-  sweep's 256 register lanes; hand-worked values at one small shape;
+  sweep's register lanes and, at depths 2 and 4, its branch work;
+  hand-worked values at one small shape;
 * every ``*_work`` function returns a hand-worked (bytes, operations) at
   one small shape; ``bound`` names what bounds it; the H100 peaks and
   ``mfu``; no TPU constant is left.
@@ -98,23 +99,44 @@ def test_executed_counts_hand_worked():
     assert flops.gen_step_flops_rbm(cfg, 1, density=0.5) == {
         "model": 2 * (240 + 28 + 2 * (4 + 8 + 2) * 8 + 24),
         "executed": 2 * (240 + 28 + cell)}
-    # NADE: per dim 256 lanes x 2, 7 x 32 lane ops, 0.5 x (3 adds + 3
-    # sigmoids)
-    nade = flops.gen_step_flops_nade(cfg, 1, density=0.5)
+    # NADE at depth 1: per dim 256 lanes x 2, 7 x 32 lane ops, 0.5 x (3
+    # adds + 3 sigmoids)
+    nade = flops.gen_step_flops_nade(cfg, 1, density=0.5, spec=1)
     assert nade["executed"] == 2 * (28 + 4 * (512 + 224 + 3) + cell)
     assert nade["model"] == 2 * (6 * 4 * 3 + 2 * 4 * 4 * 2 + 248)
+    # at depth 2, pairs in teams of 2 warps: per warp and pair, over the
+    # one live round of 32 lanes, 2 x 2 fmafs, 1 branch add and 1 sigmoid
+    # (32 x 6), 32 x (1 + 4 butterfly adds, 2 selects, 2, 1 chain select)
+    # lane ops and the realized update 3 x 0.5 x 2 adds; two pairs
+    pair = flops.gen_step_flops_nade(cfg, 1, density=0.5, spec=2)
+    assert pair["executed"] == 2 * (28 + 2 * 2 * (192 + 320 + 3) + cell)
+    assert pair["model"] == nade["model"]
+    # D=4: the auto depth is 4
+    assert (flops.gen_step_flops_nade(cfg, 1, density=0.5)
+            == flops.gen_step_flops_nade(cfg, 1, density=0.5, spec=4))
     # at H = 3 the padded lanes exceed the model's work; at the flagship
-    # the model's dense grid and its second Wx product exceed the kernel's
+    # the model's dense grid and its second Wx product exceed the
+    # sequential sweep's, and depth 4's eight warps a quad exceed them
     assert nade["executed"] > nade["model"]
     big, _ = _cfgs(dict(FLAGSHIP, decoder_type="rnn-nade"))
-    flag = flops.gen_step_flops_nade(big, 1)
+    flag = flops.gen_step_flops_nade(big, 1, spec=1)
     assert flag["executed"] < flag["model"]
+    assert flops.gen_step_flops_nade(big, 1)["executed"] > flag["model"]
 
 
-def test_gen_step_flops_nade_takes_no_speculation_depth():
-    cfg, _ = _cfgs(dict(FLAGSHIP, decoder_type="rnn-nade"))
-    with pytest.raises(TypeError):
-        flops.gen_step_flops_nade(cfg, 1, spec=2)
+@pytest.mark.parametrize("spec", [1, 2, 4])
+def test_gen_step_flops_nade_takes_the_speculation_depth(spec):
+    """The model count is the JAX package's at every depth; the executed
+    count bills the branch work, so it grows with the depth."""
+    cfg, jcfg = _cfgs(dict(FLAGSHIP, decoder_type="rnn-nade"))
+    got = flops.gen_step_flops_nade(cfg, 3, spec=spec)
+    assert got["model"] == jax_flops.gen_step_flops_nade(jcfg, 3,
+                                                         spec)["model"]
+    if spec > 1:
+        shallower = flops.gen_step_flops_nade(cfg, 3, spec=spec // 2)
+        assert got["executed"] > shallower["executed"]
+    else:
+        assert got["executed"] < got["model"]
 
 
 def test_work_functions_hand_worked():

@@ -18,6 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from multinn_tpu.models import multinn as jax_multinn  # noqa: E402
+from multinn_tpu.ops.gen_common import _stack_joint  # noqa: E402
 from multinn_tpu.ops import gen_fused as jax_gen_fused  # noqa: E402
 from multinn_torch.models import multinn, rnn_nade  # noqa: E402
 from multinn_torch.ops import (gen_common, gen_fused,  # noqa: E402
@@ -260,3 +261,120 @@ def test_configs_admitted_before_are_still_admitted(name):
     for batch in (1, 8, 256, 4096):
         assert (gen_fused.supported_nade(cfg.model, batch, 1024)
                 == ADMITTED[name])
+
+
+SPEC_CASES = [("feedback", "lstm", 1, 1), ("per-track", "lstm", 2, 8),
+              ("feedback", "vanilla", 1, 8)]
+
+
+@pytest.mark.parametrize("spec", [1, 2, 4])
+@pytest.mark.parametrize("mode,cell,layers,batch", SPEC_CASES)
+def test_plain_fused_bit_equal_at_each_speculative_depth(mode, cell, layers,
+                                                         batch, spec):
+    """generate_nade(spec=s) against the Pallas kernel's generate_nade(
+    spec=s) in interpret mode (D=8: every depth divides it): the roll bit
+    for bit, h and c within TOL; and the same bits at every depth."""
+    jp, tp, js, ts = _primed(mode, cell, layers, batch, seed=9)
+    h0, c0 = _h0c0(js)
+    jroll, jh, jc = jax_gen_fused.generate_nade(
+        jax.random.PRNGKey(11), jp.decoder, jnp.asarray(h0), jnp.asarray(c0),
+        js.decoder.v_prev, T, interpret=True, spec=spec)
+
+    def run(s):
+        return gen_fused.generate_nade(
+            sampling.PRNGKey(11), tp.decoder, torch.from_numpy(h0),
+            torch.from_numpy(c0), ts.decoder.v_prev, T, spec=s)
+
+    troll, th, tc = run(spec)
+    np.testing.assert_array_equal(troll.numpy(), np.asarray(jroll))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    if cell == "lstm":
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+    assert 0.05 < float(troll.mean()) < 0.95
+    for a, b in zip(run(1), (troll, th, tc)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("spec", [1, 2, 4])
+def test_given_merge_at_each_speculative_depth(spec):
+    jp, tp, js, ts = _primed("feedback", "lstm", 1, 3, seed=3)
+    given = (np.random.default_rng(4).random((3, T, K, D)) < 0.5
+             ).astype(np.float32)
+    h0, c0 = _h0c0(js)
+    jroll, jh, jc = jax_gen_fused.generate_nade(
+        jax.random.PRNGKey(8), jp.decoder, jnp.asarray(h0), jnp.asarray(c0),
+        js.decoder.v_prev, T, interpret=True, spec=spec,
+        given=jnp.asarray(given), given_tracks=(1,))
+    troll, th, tc = gen_fused.generate_nade(
+        sampling.PRNGKey(8), tp.decoder, torch.from_numpy(h0),
+        torch.from_numpy(c0), ts.decoder.v_prev, T, spec=spec,
+        given=torch.from_numpy(given), given_tracks=[1])
+    np.testing.assert_array_equal(troll.numpy(), np.asarray(jroll))
+    np.testing.assert_array_equal(troll[:, :, 1].numpy(), given[:, :, 1])
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+
+
+@pytest.mark.parametrize("spec", [1, 2, 4])
+def test_joint_one_track_at_each_speculative_depth(spec):
+    """Joint mode: one decoder over the K*D = 24-wide frame, as one track
+    (Keff=1), against the Pallas kernel at the same depth."""
+    cfg = jax_multinn.MultINNConfig(
+        n_tracks=K, n_pitches=D, mode="joint", decoder_type="rnn-nade",
+        n_hidden=H, n_rnn=U, w_std=0.7)
+    jp = jax_multinn.init(jax.random.PRNGKey(12), cfg)
+    tp = from_jax(jp, device="cpu")
+    roll = (np.random.default_rng(13).random((8, 4, K, D)) < 0.3
+            ).astype(np.float32)
+    js = jax_multinn.prime(jp, jax_multinn.init_state(jp, 8),
+                           jnp.asarray(roll))
+    dec = tp.decoder
+    assert dec.w.shape[:2] == (1, K * D)
+    # the JAX state holds the one decoder unstacked: add the track axis
+    h0 = np.asarray(js.decoder.cell[0].h)[None, None]        # (1, 1, B, U)
+    c0 = np.asarray(js.decoder.cell[0].c)[None, None]
+    v0 = np.asarray(js.decoder.v_prev)[None]                 # (1, B, K*D)
+    jroll, jh, jc = jax_gen_fused.generate_nade(
+        jax.random.PRNGKey(14), _stack_joint(jp.decoder), jnp.asarray(h0),
+        jnp.asarray(c0), jnp.asarray(v0), T, interpret=True, spec=spec)
+    troll, th, tc = gen_fused.generate_nade(
+        sampling.PRNGKey(14), dec, torch.from_numpy(h0), torch.from_numpy(c0),
+        torch.from_numpy(v0), T, spec=spec)
+    np.testing.assert_array_equal(troll.numpy(), np.asarray(jroll))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+    assert 0.02 < float(troll.mean()) < 0.98
+
+
+def test_resolve_spec_equals_the_jax_package(monkeypatch):
+    from multinn_tpu.ops import gen_fused_nade as jax_nade
+    monkeypatch.delenv("MULTINN_NADE_SPEC", raising=False)
+    for d in range(1, 65):
+        assert gen_fused._resolve_spec(d) == jax_nade._resolve_spec(d)
+    assert gen_fused._resolve_spec is gen_fused_nade._resolve_spec
+    assert [gen_fused._resolve_spec(d) for d in (84, 64, 420, 6, 7)] == [
+        4, 4, 4, 2, 1]
+
+
+def test_speculative_depth_checks():
+    _, tp, _, ts = _primed("feedback", "lstm", 1, 2)
+    h0 = torch.stack([c.h for c in ts.decoder.cell])
+    c0 = torch.stack([c.c for c in ts.decoder.cell])
+    args = (sampling.PRNGKey(0), tp.decoder, h0, c0, ts.decoder.v_prev, 2)
+    for bad in (3, 8, 0):
+        with pytest.raises(ValueError, match="must be one of"):
+            gen_fused.generate_nade(*args, spec=bad)
+    # D=6: depth 4 does not divide it; 2 does, and None resolves to it
+    cfg = multinn.MultINNConfig(n_tracks=2, n_pitches=6, mode="feedback",
+                                decoder_type="rnn-nade", n_hidden=H,
+                                n_rnn=U)
+    p6 = multinn.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    st = multinn.init_state(p6, 2)
+    args6 = (sampling.PRNGKey(0), p6.decoder,
+             torch.stack([c.h for c in st.decoder.cell]),
+             torch.stack([c.c for c in st.decoder.cell]), st.decoder.v_prev, 2)
+    with pytest.raises(ValueError, match="divide D=6"):
+        gen_fused.generate_nade(*args6, spec=4)
+    auto = gen_fused.generate_nade(*args6)
+    for a, b in zip(auto, gen_fused.generate_nade(*args6, spec=2)):
+        assert torch.equal(a, b)

@@ -310,3 +310,33 @@ def test_nade_sample_misaligned_weights_read_from_l2(recorder):
     assert recorder.calls["nade_sample"][6] == 0
     src = (CSRC / "nade_sample.cu").read_text()
     assert "a staged plan needs W and V 16-byte aligned" in src
+
+
+@pytest.mark.parametrize("d,spec,want", [
+    (84, None, 0),          # auto: the launcher resolves it
+    (84, 4, 4), (84, 2, 2), (84, 1, 1),
+    (42, None, 0), (42, 2, 2),
+    (21, None, 0), (21, 1, 1)])
+def test_nade_wrapper_hands_the_op_the_resolved_depth(recorder, monkeypatch,
+                                                      d, spec, want):
+    """generate_nade on the CPU through the CUDA path, with the op replaced
+    by the recorder: an explicit depth is handed on as asked, None as 0,
+    the launcher's auto depth, and no launch plan is queried."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import gen_fused_nade
+    monkeypatch.setattr(_build, "impl_for", lambda impl, x: "cuda")
+    cfg = multinn.MultINNConfig(n_tracks=5, n_pitches=d, mode="feedback",
+                                decoder_type="rnn-nade", n_hidden=150,
+                                n_rnn=100)
+    params = multinn.init(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    st = multinn.init_state(params, 2)
+    gen_fused_nade.generate_nade(
+        sampling.PRNGKey(0), params.decoder,
+        torch.stack([c.h for c in st.decoder.cell]),
+        torch.stack([c.c for c in st.decoder.cell]), st.decoder.v_prev, 2,
+        spec=spec)
+    *_, lstm, got, mask, row0, total, stream = recorder.calls[
+        "gen_fused_nade"]
+    assert (got, lstm, mask, row0, total) == (want, 1, 0, 0, 2)
+    assert set(recorder.calls) == {"gen_fused_nade"}
