@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs
-nineteen phases, one line each or a few; any failure exits non-zero
+twenty phases, one line each or a few; any failure exits non-zero
 before the result line. Phases 4-6 drive the RNN-RBM serving path, 7-9 the
 RNN-NADE serving path, 10-12 training (the NADE likelihood kernels, then
 the Trainer on each family), 13 the train entry point with its steps
@@ -12,7 +12,7 @@ captured as CUDA graphs, 14 the two DBN configs, 15 accompaniment, 16 the
 generate, evaluate and serve entry points, image summaries and the sparse
 transport, 17 joint (composer) mode, Hessian-free training and the bf16
 matmul policy, 18 process meshes, 19 the port's scripts
-(``multinn_torch/scripts``). The roofline (``bound`` and each kernel's
+(``multinn_torch/scripts``), 20 the fused kernels' bf16 capacity modes. The roofline (``bound`` and each kernel's
 ``*_work``), the FLOP counts and the CUDA-event timers are
 ``multinn_torch.utils.flops`` and ``multinn_torch.utils.profiling``.
 
@@ -33,7 +33,8 @@ matmul policy, 18 process meshes, 19 the port's scripts
      samples identical (final h within 1e-4); then the batch sweep B in
      {1, 8, 64, 256} at T=1024 on the flagship with seeded random params:
      ms per song, us per step, the bound (the work this run's rolls need,
-     at the card's peak rates) and the roofline share;
+     at the card's peak rates), the roofline share and the weights'
+     storage, which the reference's rule sets per batch (bf16 at B=64);
   6. the slice: GenerationService(batch=8, n_steps=1024, seed_steps=64) on
      the flagship config with seeded random params serves 16 plain and 8
      seeded requests, then the scan branch of ``multinn.generate`` runs 16
@@ -208,9 +209,22 @@ matmul policy, 18 process meshes, 19 the port's scripts
      nottingham (RNN-NADE) at their shipped configs, cut to one epoch of
      the stand-in in batches of 8 with no periodic checkpoints: a finite
      ll/frame, evaluated after at least one step.
+ 20. the fused kernels' bf16 capacity modes (``generate_rbm(wdtype=)``,
+     ``generate_nade(aux_dtype=)``), with seeded weights at phase 5's
+     w_std and bias ramp: the Lakh config (``configs/lakh_16th_128bar.json``:
+     H=200, U=150, gen_k=25), whose storage rule must pick bf16 at its 4
+     samples and whose ``wdtype=None`` launch must equal the bf16 one; its
+     kernel against the plain version in bf16 at T=16, B=8 (at least 7 of
+     8 samples identical, h within 1e-4 on those, both timed); its
+     per-track density in bf16 and f32 at T=1024, B=8 (gap at most 0.13,
+     the reference's bound for the modes); its kernel in both modes at
+     B=4, T=2048. The flagship RBM checked so at B=32 and timed in both
+     modes at B=32 and 128, T=1024; the NADE flagship checked at B=64 and
+     timed in both modes there at the auto depth. Each timing prints the
+     bound and the plan's shared-memory matrices and most samples a CTA.
 
 Then the total wall time, one JSON line with each kernel's launches (from
-its path's window plus the windows of phases 14 to 19, phase 18's summed
+its path's window plus the windows of phases 14 to 20, phase 18's summed
 over its ranks), error, times and bound. ``ms`` is the device time per
 call of the kernel's wrapper (its launches and any small PyTorch kernel it
 runs, such as the key's two words, the backward's second pass included):
@@ -655,8 +669,12 @@ def main() -> None:
     def sweep(params, gen_k):
         """The family's fused kernel over SWEEP_BATCHES at T=1024 from a
         fresh state: one row per batch with ms per song (CUDA events), us
-        per step, the bound and the roofline share."""
+        per step, the bound (at the storage the rule gives the batch) and
+        the roofline share."""
         key = sampling.PRNGKey(5, device=dev)
+        rule = (gen_fused_rbm.rbm_weight_dtype
+                if params.cfg.decoder_type == "rnn-rbm"
+                else gen_fused_nade.nade_aux_dtype)
         rows = []
         for b in SWEEP_BATCHES:
             state = multinn.init_state(params, b)
@@ -665,10 +683,11 @@ def main() -> None:
             roll = run()
             ms = cuda_ms(run, 3, warm=False)
             bms, by = bound(*fused_work(params, roll, state.decoder.v_prev,
-                                        gen_k))
+                                        gen_k, rule(params.cfg, b)))
             rows.append(dict(batch=b, ms=ms, us_per_step=ms * 1e3 / 1024,
                              bound_ms=bms, bound_by=by, share=bms / ms,
-                             density=float(roll.mean())))
+                             density=float(roll.mean()),
+                             storage=str(rule(params.cfg, b))[6:]))
             del roll
         return rows
 
@@ -676,8 +695,8 @@ def main() -> None:
         return "; ".join(
             f"B={r['batch']} {r['ms']:.3f} ms/song {r['us_per_step']:.2f} "
             f"us/step, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"share {r['share']:.4%}, density {r['density']:.4f}"
-            for r in rows)
+            f"share {r['share']:.4%}, density {r['density']:.4f}, "
+            f"{r['storage']}" for r in rows)
 
     def nade_depths(params, batches, name):
         """The NADE kernel at the speculative depths 1, 2 and 4 and the auto
@@ -2696,6 +2715,156 @@ def main() -> None:
     say(f"phase 19 launches, its windows summed: {windows_sum(*windows19)}; "
         f"phase {time.perf_counter() - t19:.1f} s")
 
+    # 20. the capacity modes -------------------------------------------------
+    # the whole-generation kernels in bf16 storage (the RBM's wdtype, the
+    # NADE's aux_dtype) beside f32, where the reference's rule picks bf16:
+    # the Lakh config, the flagship RBM at B=32 and 128, the NADE flagship
+    # at B=64. Each comparison with a plain version at T=16 in the same
+    # mode, at least 7 of 8 samples identical; the launch windows hold the
+    # runs of the modes, not the comparisons.
+    t20 = time.perf_counter()
+    from multinn_torch.utils.config import load_json
+    bf16, f32 = torch.bfloat16, torch.float32
+    windows20 = []
+
+    def window20(fn):
+        """``fn()`` in a launch window of its own."""
+        torch.cuda.synchronize()
+        _build.launches.clear()              # the window starts here
+        out = fn()
+        torch.cuda.synchronize()
+        windows20.append(dict(_build.launches))   # ... and ends here
+        return out
+
+    def plan20(dec, batch, dtype):
+        """w_smem bits and s_max of the launch's plan in a storage mode."""
+        k, d, hid = dec.w.shape
+        u, gw = dec.wuh.shape[1], dec.cell[0].wh.shape[-1]
+        pl = _build.ops().gen_fused_plan(
+            int(hasattr(dec, "v")), k, d, hid, u,
+            len(dec.cell), int(gw == 4 * u), batch, int(dtype == bf16))
+        return f"w_smem {pl[2]:#b} s_max {pl[5]}"
+
+    def modes20(name, params, batch, n_steps, gen, gen_k):
+        """``gen(rows, n_steps, dtype)`` at T=``n_steps`` from a fresh
+        state in both modes: ms per call (CUDA events), the bound, the
+        plan. Returns one line."""
+        st = multinn.init_state(params, batch)
+        rows = (torch.stack([c.h for c in st.decoder.cell]),
+                torch.stack([c.c for c in st.decoder.cell]),
+                st.decoder.v_prev)
+        parts = []
+        for dtype in (f32, bf16):
+            roll = gen(rows, n_steps, dtype)[0]
+            ms = cuda_ms(lambda: gen(rows, n_steps, dtype), 2)
+            bms, by = bound(*fused_work(params, roll, rows[2], gen_k, dtype))
+            parts.append(f"{'bf16' if dtype == bf16 else 'f32'} {ms:.3f} ms "
+                         f"(bound {bms:.4f} ms, {by}; "
+                         f"{plan20(params.decoder, batch, dtype)}; density "
+                         f"{float(roll.mean()):.4f})")
+            del roll
+        return f"{name} B={batch} T={n_steps}: " + ", ".join(parts)
+
+    def seeded20(model, seed):
+        """Seeded params at phase 5's w_std and visible-bias ramp."""
+        pr = multinn.init(dataclasses.replace(model, w_std=0.1),
+                          torch.Generator().manual_seed(seed), device=dev)
+        return dataclasses.replace(pr, decoder=dataclasses.replace(
+            pr.decoder, bv=pr.decoder.bv + torch.linspace(
+                -3.0, 1.0, 84, device=dev)))
+
+    def check20(gen, rows, name):
+        """The bf16 mode's kernel against its plain version at T=16 from
+        ``rows`` (match16: at least 7 of 8 samples identical, outside the
+        launch windows), and both timed there (CUDA events). Returns
+        (samples identical, final h max err, kernel ms, plain ms)."""
+        b = rows[2].shape[1]
+        n_same, err = match16(lambda *a: gen(a[:3], a[3], bf16, a[4]), rows,
+                              -(-7 * b // 8), name)
+        k_ms = cuda_ms(lambda: gen(rows, 16, bf16, "cuda"), 2)
+        p_ms = cuda_ms(lambda: gen(rows, 16, bf16, "plain"), 1, warm=False)
+        return n_same, err, k_ms, p_ms
+
+    def check_line(b, c):
+        return (f"kernel vs plain in bf16 T=16 B={b} {c[0]}/{b} identical "
+                f"(need {-(-7 * b // 8)}), final h max err {c[1]:.2e}, "
+                f"kernel {c[2]:.3f} ms, plain {c[3]:.1f} ms")
+
+    # (i) the Lakh config (README's example): K=5, D=84, H=200, U=150,
+    # gen_k=25, 4 samples of 2048 steps
+    lakh = load_json("configs/lakh_16th_128bar.json")
+    lk = lakh.model.gen_k
+    if gen_fused_rbm.rbm_weight_dtype(lakh.model,
+                                      lakh.generate.n_samples) != bf16:
+        fail("phase 20: the rule does not pick bf16 for the Lakh config at "
+             f"B={lakh.generate.n_samples}")
+    plk = seeded20(lakh.model, 20)
+    key20 = sampling.PRNGKey(20, device=dev)
+
+    def lgen(rows, n_steps, dtype, impl=None):
+        return gen_fused_rbm.generate_rbm(key20, plk.decoder, *rows, n_steps,
+                                          lk, impl=impl, wdtype=dtype)
+
+    rows20 = primed(plk, 8)
+    lcheck = check20(lgen, rows20, "phase 20 lakh bf16")
+    # the auto rule at the config's batch runs the bf16 kernel
+    rows4 = tuple(x[..., :4, :] for x in rows20)
+    auto = window20(lambda: lgen(rows4, 16, None))
+    if not all(torch.equal(x, y) for x, y in zip(auto, lgen(rows4, 16, bf16))):
+        fail("phase 20 lakh: wdtype=None at B=4 is not the bf16 launch")
+    if torch.equal(auto[1], lgen(rows4, 16, f32)[1]):
+        fail("phase 20 lakh: the bf16 and f32 launches end in the same h")
+    ldens = {dt: lgen(rows20, 1024, dt)[0].mean(dim=(0, 1, 3))
+             for dt in (f32, bf16)}
+    lgap = float((ldens[f32] - ldens[bf16]).abs().max())
+    if not lgap <= 0.13:
+        fail(f"phase 20 lakh: per-track density bf16 vs f32 gap {lgap} "
+             f"(the reference's bound of the modes, 0.13)")
+    say(f"phase 20 lakh (w_std 0.1, bv ramp): rule at B=4 bf16; "
+        f"{check_line(8, lcheck)}; wdtype=None at B=4 equals the bf16 "
+        f"launch; T=1024 B=8 per-track density f32 "
+        f"{[round(float(x), 4) for x in ldens[f32]]} bf16 "
+        f"{[round(float(x), 4) for x in ldens[bf16]]} (max gap {lgap:.4f})")
+    say("phase 20 " + window20(lambda: modes20(
+        "lakh", plk, lakh.generate.n_samples, lakh.generate.n_steps, lgen,
+        lk)) + f"; {smi}")
+    del rows20, rows4, auto, ldens
+
+    # (ii) the flagship RBM at serving batches 32 and 128 (the rule: bf16)
+    pf = seeded20(multinn.MultINNConfig(**FLAGSHIP), 21)
+
+    def fgen(rows, n_steps, dtype, impl=None):
+        return gen_fused_rbm.generate_rbm(key20, pf.decoder, *rows, n_steps,
+                                          10, impl=impl, wdtype=dtype)
+
+    fcheck = check20(fgen, primed(pf, 32), "phase 20 flagship rbm bf16")
+    flines = [window20(lambda: modes20("flagship rbm", pf, b, 1024, fgen, 10))
+              for b in (32, 128)]
+    say(f"phase 20 flagship rbm: rule at B=32 / 128 "
+        f"{gen_fused_rbm.rbm_weight_dtype(pf.cfg, 32)} / "
+        f"{gen_fused_rbm.rbm_weight_dtype(pf.cfg, 128)}; "
+        f"{check_line(32, fcheck)}; {'; '.join(flines)}; {smi}")
+
+    # (iii) the NADE flagship at B=64, at the auto depth
+    pn = seeded20(multinn.MultINNConfig(**NADE_FLAGSHIP), 22)
+
+    def ngen(rows, n_steps, dtype, impl=None):
+        return gen_fused_nade.generate_nade(key20, pn.decoder, *rows, n_steps,
+                                            impl=impl, aux_dtype=dtype)
+
+    ncheck = check20(ngen, primed(pn, 64), "phase 20 nade flagship bf16")
+    nline = window20(lambda: modes20("nade flagship", pn, 64, 1024, ngen, 0))
+    say(f"phase 20 nade flagship: rule at B=64 "
+        f"{gen_fused_nade.nade_aux_dtype(pn.cfg, 64)}, auto depth f32 "
+        f"{gen_fused_nade.auto_depth(pn.decoder, 64, f32)} bf16 "
+        f"{gen_fused_nade.auto_depth(pn.decoder, 64, bf16)}; "
+        f"{check_line(64, ncheck)}; {nline}; {smi}")
+    w20 = windows_sum(*windows20)
+    if not (w20.get("gen_fused_rbm") and w20.get("gen_fused_nade")):
+        fail(f"phase 20: its windows launched {w20}")
+    say(f"phase 20 launches, its windows summed: {w20}; phase "
+        f"{time.perf_counter() - t20:.1f} s")
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -2729,9 +2898,9 @@ def main() -> None:
     # the DBN paths (pre-training, serving) and of accompaniment
     new_windows = windows_sum(*dbn["nade"]["windows"], *dbn["rbm"]["windows"],
                               *acc_windows, *windows16, *windows17,
-                              *windows18, *windows19)
+                              *windows18, *windows19, *windows20)
     say(f"launches in the DBN, accompaniment, entry-point, joint, HF, bf16, "
-        f"mesh and script windows: {new_windows}")
+        f"mesh, script and capacity-mode windows: {new_windows}")
     shutil.rmtree(tmp, ignore_errors=True)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [

@@ -10,7 +10,8 @@
 // Wuv) in shared memory when they fit, else the same code reads them from
 // global memory through a pointer chosen at launch. The weights of the cell
 // stack (Wx, Wh, Wctx: about 1 MB per track) stay in global memory and
-// L2. Per sample the CTA holds its tracks' h and c rows, a scratch row
+// L2. A matrix stored in bf16 (the capacity modes) takes half the bytes in
+// either place and is widened to f32 exactly where it is read. Per sample the CTA holds its tracks' h and c rows, a scratch row
 // (biases and chain state, then the gates), the frames of ALL tracks at
 // t - 1, its own tracks' frames at t (two buffers, by step parity), and
 // the rows' lists of nonzero entries.
@@ -192,21 +193,23 @@ __device__ __forceinline__ float gather_row(const uint16_t* idx, int n,
 // sum_{i < n} x[i] * w[i * ld] (x dense in shared memory) in four
 // accumulators by i mod 4, added as (a0 + a1) + (a2 + a3) and then the
 // tail: 16 independent loads in flight per round and a dependent chain of
-// n / 4 multiply-adds.
-template <typename T>
+// n / 4 multiply-adds. kRoundX: each x[i] rounded to bf16 first (the RBM
+// kernel's conditioning products in its bf16 capacity mode).
+template <bool kRoundX = false, typename T>
 __device__ __forceinline__ float dot(const float* x, const T* w, int64_t ld,
                                      int n) {
+  auto xv = [&](int i) { return kRoundX ? round_bf16(x[i]) : x[i]; };
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
   int i = 0;
 #pragma unroll 4
   for (; i + 4 <= n; i += 4) {
-    a0 = fmaf(x[i], wload(w + i * ld), a0);
-    a1 = fmaf(x[i + 1], wload(w + (i + 1) * ld), a1);
-    a2 = fmaf(x[i + 2], wload(w + (i + 2) * ld), a2);
-    a3 = fmaf(x[i + 3], wload(w + (i + 3) * ld), a3);
+    a0 = fmaf(xv(i), wload(w + i * ld), a0);
+    a1 = fmaf(xv(i + 1), wload(w + (i + 1) * ld), a1);
+    a2 = fmaf(xv(i + 2), wload(w + (i + 2) * ld), a2);
+    a3 = fmaf(xv(i + 3), wload(w + (i + 3) * ld), a3);
   }
   float acc = (a0 + a1) + (a2 + a3);
-  for (; i < n; ++i) acc = fmaf(x[i], wload(w + i * ld), acc);
+  for (; i < n; ++i) acc = fmaf(xv(i), wload(w + i * ld), acc);
   return acc;
 }
 
@@ -376,14 +379,15 @@ __device__ inline void gather_frames(const Cta& ct, int buf) {
 // The cell stack's weights, compact per track (ops/gen_fused_*.py):
 // wx_v (K, D, G) the layer-0 projection of the track's own frame, of type
 // WxT; wxg the same rows in f32 for given tracks (nullptr: wx_v serves
-// them); wx_r (L-1, K, U, G); wh (L, K, U, G); wctx (K*D, K*G) of type
-// WctxT, or nullptr without feedback context; b (L, K*G).
-template <typename WxT, typename WctxT>
+// them); wx_r (L-1, K, U, G) and wh (L, K, U, G) of type WrT; wctx
+// (K*D, K*G) of type WctxT, or nullptr without feedback context; b
+// (L, K*G). Each type is float, or uint16_t for bf16 words widened at use.
+template <typename WxT, typename WctxT, typename WrT = float>
 struct CellWeights {
   const WxT* wx_v;
   const float* wxg;
-  const float* wx_r;
-  const float* wh;
+  const WrT* wx_r;
+  const WrT* wh;
   const WctxT* wctx;
   const float* b;
   int g;
@@ -397,9 +401,10 @@ struct CellWeights {
 // source track (kNadeOrder, the NADE kernel's order), else
 // ((x Wx + h Wh) + b) + ctx with ctx summed over all source rows. Uses
 // each group's scratch row for the gates; ends with a CTA barrier.
-template <bool kLstm, bool kNadeOrder, typename WxT, typename WctxT>
-__device__ void cell_stack(const Cta& ct, const CellWeights<WxT, WctxT>& cw,
-                           int buf) {
+template <bool kLstm, bool kNadeOrder, typename WxT, typename WctxT,
+          typename WrT>
+__device__ void cell_stack(const Cta& ct,
+                           const CellWeights<WxT, WctxT, WrT>& cw, int buf) {
   const int tid = threadIdx.x;
   const int K = ct.k, D = ct.d, U = ct.u, G = cw.g, L = ct.n_layers;
   const int KG = K * G;

@@ -23,11 +23,11 @@
 // per dim and 0.46 ms per step.
 //
 // Design (gen_cluster.cuh): a cluster of K CTAs (K <= 8) per group of S
-// samples, one track per CTA, its V, W (bf16), Wuh (f32) and Wuv (bf16)
-// in shared memory. The own-frame projection z = sum_i x_i Wx_i leaves the
-// serial loop: the cell stack gathers it over the sampled frame's active
-// dims, in increasing i, which is the same sequence of exact f32 adds from
-// 0 as the per-dim update. The cell stack and the frame exchange are the
+// samples, one track per CTA, its V, W (bf16), Wuh (f32, bf16 in the aux
+// capacity mode) and Wuv (bf16) in shared memory. The own-frame
+// projection z = sum_i x_i Wx_i leaves the serial loop: the cell stack
+// gathers it over the sampled frame's active dims, in increasing i, which
+// is the same sequence of exact f32 adds from 0 as the per-dim update. The cell stack and the frame exchange are the
 // RBM kernel's. No block barrier inside the sweep.
 //
 // The sweep, at the depth a.spec (1, 2 or 4 dividing D; 0: auto, which
@@ -71,7 +71,10 @@
 // B=1, a code-generation effect not read yet (PERF.md).
 //
 // Numerics kept from the TPU kernel: w, v, wuv, the layer-0 own-frame Wx
-// and wctx are bf16 (widened exactly at use); the gate sum is
+// and wctx are bf16 (widened exactly at use); Wuh, Wh and the layer >= 1
+// Wx are f32, or bf16 words in the aux capacity mode (a.aux_bf16,
+// template type AuxT = uint16_t; Wuh then takes half its shared memory),
+// widened at use with no rounding of activations; the gate sum is
 // ((z + ctx) + h Wh) + b with ctx summed over source tracks in order; a
 // given track's z is recomputed from the given frame with f32 rows.
 //
@@ -341,7 +344,7 @@ __device__ __forceinline__ uint32_t sweep_team(const float* sc,
   return bits;
 }
 
-template <bool kLstm, int kSpec>
+template <bool kLstm, int kSpec, typename AuxT>
 __global__ void __launch_bounds__(kThreads, 1)
     gen_fused_nade_kernel(NadeArgs a, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -352,6 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nchd = chunks_of(D);
   const int NG = ct.n_groups();
+  const AuxT* gwuh = static_cast<const AuxT*>(a.wuh);
 
   // this CTA's tracks' per-step weights into shared memory
   for (int j = 0; j < ct.ntr; ++j) {
@@ -365,9 +369,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int o = tid; o < D * H; o += kThreads) dst[o] = a.w[k * D * H + o];
     }
     if ((p.w_smem >> kWuh) & 1) {
-      auto* dst = const_cast<float*>(ct.matrix<float>(kWuh, j, a.wuh, 0));
+      auto* dst = const_cast<AuxT*>(ct.matrix<AuxT>(kWuh, j, gwuh, 0));
       for (int o = tid; o < U * H; o += kThreads)
-        dst[o] = a.wuh[k * U * H + o];
+        dst[o] = gwuh[k * U * H + o];
     }
     if ((p.w_smem >> kWuv) & 1) {
       auto* dst =
@@ -378,8 +382,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   gen_cluster::load_state(ct, a.h0, a.c0, a.v0);   // ends with a barrier
 
-  const gen_cluster::CellWeights<uint16_t, uint16_t> cw{
-      a.wx_v, a.wxg, a.wx_r, a.wh, a.wctx, a.b, a.g, a.given_mask};
+  const gen_cluster::CellWeights<uint16_t, uint16_t, AuxT> cw{
+      a.wx_v, a.wxg, static_cast<const AuxT*>(a.wx_r),
+      static_cast<const AuxT*>(a.wh), a.wctx, a.b, a.g, a.given_mask};
   const uint32_t seed0 = static_cast<uint32_t>(a.seed[0]);
   const uint32_t seed1 = static_cast<uint32_t>(a.seed[1]);
 
@@ -404,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 a.row0 + ct.b0 + s);
       } else {
         const int jj = e - 2 * D;
-        const float* wuh = ct.matrix(kWuh, j, a.wuh, U * H);
+        const AuxT* wuh = ct.matrix(kWuh, j, gwuh, U * H);
         sc[e] = a.bh[k * H + jj] + gen_cluster::dot(ht, wuh + jj, H, U);
       }
     }
@@ -465,13 +470,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   gen_cluster::store_state(ct, a.h_out, a.c_out);
 }
 
+// The kernel of a launch: cells, sweep depth and aux storage type.
+template <typename AuxT>
+void (*nade_kernel(bool lstm, int depth))(NadeArgs, Plan) {
+  if (depth == 4)
+    return lstm ? gen_fused_nade_kernel<true, 4, AuxT>
+                : gen_fused_nade_kernel<false, 4, AuxT>;
+  if (depth == 2)
+    return lstm ? gen_fused_nade_kernel<true, 2, AuxT>
+                : gen_fused_nade_kernel<false, 2, AuxT>;
+  return lstm ? gen_fused_nade_kernel<true, 1, AuxT>
+              : gen_fused_nade_kernel<false, 1, AuxT>;
+}
+
 }  // namespace
 
-// The shared-memory plan; ops/gen_fused_nade.py::_sample_bytes makes the
-// same per-sample count.
+// The shared-memory plan, Wuh at its stored bytes;
+// ops/gen_fused_nade.py::_sample_bytes makes the same per-sample count.
 gen_cluster::Plan plan_gen_fused_nade(const NadeArgs& a, int64_t limit) {
   const int64_t dh = 2 * int64_t{a.d} * a.hid;
-  const int64_t mats[kMatrices] = {dh, dh, 4 * int64_t{a.u} * a.hid,
+  const int64_t mats[kMatrices] = {dh, dh,
+                                   (a.aux_bf16 ? 2 : 4) * int64_t{a.u} * a.hid,
                                    2 * int64_t{a.u} * a.d};
   return gen_cluster::make_plan(a.k, a.d, a.u, a.n_layers, nade_scratch(a),
                                 mats, kMatrices, limit);
@@ -495,15 +514,9 @@ const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
     return "gen_fused_nade: the speculative depth must be 1, 2 or 4 and "
            "divide D (0: auto)";
   const Plan p = plan_gen_fused_nade(a, kSmemLimitBytes);
-  auto kernel = [&](int depth) -> void (*)(NadeArgs, Plan) {
-    if (depth == 4)
-      return a.lstm ? gen_fused_nade_kernel<true, 4>
-                    : gen_fused_nade_kernel<false, 4>;
-    if (depth == 2)
-      return a.lstm ? gen_fused_nade_kernel<true, 2>
-                    : gen_fused_nade_kernel<false, 2>;
-    return a.lstm ? gen_fused_nade_kernel<true, 1>
-                  : gen_fused_nade_kernel<false, 1>;
+  auto kernel = [&](int depth) {
+    return a.aux_bf16 ? nade_kernel<uint16_t>(a.lstm, depth)
+                      : nade_kernel<float>(a.lstm, depth);
   };
   int spec = a.spec;
   if (!asked) {

@@ -44,6 +44,16 @@
 // Under the row map (a.row0, a.rows_total) sample b of the launch is sample
 // a.row0 + b of a larger batch (one data shard) and draws that sample's
 // counters.
+//
+// Weight storage (the TPU kernel's wdtype): f32, or with a.w_bf16 the
+// capacity mode, W, Wuv, Wuh and Wctx as bf16 words (template type WT =
+// uint16_t) in shared and global memory, each widened to f32 exactly where
+// it is read. In that mode h_top is rounded to bf16 before the two
+// conditioning products, as the TPU kernel feeds its matrix unit bf16 on
+// both sides; the Gibbs and context products read binary operands, exact
+// in bf16. Accumulation stays f32 and in the same order. Half the bytes
+// let more of the matrices live in shared memory (the Lakh config's three
+// fit only in bf16) and more samples share a cluster.
 #include <cuda_runtime.h>
 
 #include "gen_cluster.cuh"
@@ -67,7 +77,15 @@ inline int rbm_scratch(const RbmArgs& a) {
   return a.g > 2 * (a.d + a.hid) ? a.g : 2 * (a.d + a.hid);
 }
 
-template <bool kLstm>
+// Row pitch (elements) of W in shared memory, so that the visible pass's
+// column reads (thread i at row i) hit distinct banks: odd for f32 words;
+// for bf16, 2 mod 4, an odd count of 4-byte words.
+template <typename WT>
+__host__ __device__ constexpr int w_pitch(int h) {
+  return sizeof(WT) == 4 ? (h | 1) : h + ((2 - h) & 3);
+}
+
+template <bool kLstm, typename WT>
 __global__ void __launch_bounds__(kThreads, 1)
     gen_fused_rbm_kernel(RbmArgs a, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -78,33 +96,38 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int NG = ct.n_groups();
   const bool w_in_smem = (p.w_smem >> kW) & 1;
-  const int ldw = w_in_smem ? (H | 1) : H;
+  const int ldw = w_in_smem ? w_pitch<WT>(H) : H;
+  constexpr bool kRound = sizeof(WT) == 2;   // the bf16 capacity mode
+  const WT* gw = static_cast<const WT*>(a.w);
+  const WT* gwuh = static_cast<const WT*>(a.wuh);
+  const WT* gwuv = static_cast<const WT*>(a.wuv);
 
   // this CTA's tracks' per-step weights into shared memory
   for (int j = 0; j < ct.ntr; ++j) {
     const int k = ct.track(j);
     if (w_in_smem) {
-      float* dst = const_cast<float*>(ct.matrix<float>(kW, j, a.w, 0));
+      WT* dst = const_cast<WT*>(ct.matrix<WT>(kW, j, gw, 0));
       for (int o = tid; o < D * H; o += kThreads) {
         const int i = o / H, jj = o - i * H;
-        dst[i * ldw + jj] = a.w[static_cast<size_t>(k) * D * H + o];
+        dst[i * ldw + jj] = gw[static_cast<size_t>(k) * D * H + o];
       }
     }
     if ((p.w_smem >> kWuh) & 1) {
-      float* dst = const_cast<float*>(ct.matrix<float>(kWuh, j, a.wuh, 0));
+      WT* dst = const_cast<WT*>(ct.matrix<WT>(kWuh, j, gwuh, 0));
       for (int o = tid; o < U * H; o += kThreads)
-        dst[o] = a.wuh[static_cast<size_t>(k) * U * H + o];
+        dst[o] = gwuh[static_cast<size_t>(k) * U * H + o];
     }
     if ((p.w_smem >> kWuv) & 1) {
-      float* dst = const_cast<float*>(ct.matrix<float>(kWuv, j, a.wuv, 0));
+      WT* dst = const_cast<WT*>(ct.matrix<WT>(kWuv, j, gwuv, 0));
       for (int o = tid; o < U * D; o += kThreads)
-        dst[o] = a.wuv[static_cast<size_t>(k) * U * D + o];
+        dst[o] = gwuv[static_cast<size_t>(k) * U * D + o];
     }
   }
   gen_cluster::load_state(ct, a.h0, a.c0, a.v0);   // ends with a barrier
 
-  const gen_cluster::CellWeights<float, float> cw{
-      a.wx_v, nullptr, a.wx_r, a.wh, a.wctx, a.b, a.g, a.given_mask};
+  const gen_cluster::CellWeights<float, WT> cw{
+      a.wx_v, nullptr, a.wx_r, a.wh, static_cast<const WT*>(a.wctx), a.b,
+      a.g, a.given_mask};
   const uint32_t seed0 = static_cast<uint32_t>(a.seed[0]);
   const uint32_t seed1 = static_cast<uint32_t>(a.seed[1]);
 
@@ -117,12 +140,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* ht = ct.h(s, j) + (L - 1) * U;
       float* sc = ct.scratch(s, j);
       if (e < D) {
-        const float* wuv = ct.matrix(kWuv, j, a.wuv, U * D);
-        sc[e] = a.bv[k * D + e] + gen_cluster::dot(ht, wuv + e, D, U);
+        const WT* wuv = ct.matrix(kWuv, j, gwuv, U * D);
+        sc[e] = a.bv[k * D + e] + gen_cluster::dot<kRound>(ht, wuv + e, D, U);
       } else {
         const int jj = e - D;
-        const float* wuh = ct.matrix(kWuh, j, a.wuh, U * H);
-        sc[D + jj] = a.bh[k * H + jj] + gen_cluster::dot(ht, wuh + jj, H, U);
+        const WT* wuh = ct.matrix(kWuh, j, gwuh, U * H);
+        sc[D + jj] =
+            a.bh[k * H + jj] + gen_cluster::dot<kRound>(ht, wuh + jj, H, U);
       }
     }
     __syncthreads();
@@ -139,7 +163,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         float* sc = ct.scratch(s, j);
         const float* v = sw == 0 ? ct.prev(s) + k * D : sc + D + H;
         const float acc =
-            gen_cluster::dot(v, ct.matrix(kW, j, a.w, D * H) + jj, ldw, D);
+            gen_cluster::dot(v, ct.matrix(kW, j, gw, D * H) + jj, ldw, D);
         const float pr = sigmoid_nr(acc + sc[D + jj]);
         const float uu = random_uniform_at(
             seed0, salt_h,
@@ -152,7 +176,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
         float* sc = ct.scratch(s, j);
         const float acc = gen_cluster::dot(
-            sc + 2 * D + H, ct.matrix(kW, j, a.w, D * H) + i * ldw, 1, H);
+            sc + 2 * D + H, ct.matrix(kW, j, gw, D * H) + i * ldw, 1, H);
         const float pr = sigmoid_nr(acc + sc[i]);
         const float uu = random_uniform_at(
             seed0, salt_h + 1u,
@@ -182,12 +206,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-// The shared-memory plan; ops/gen_fused_rbm.py::_sample_bytes makes the
-// same per-sample count.
+// The shared-memory plan, at the stored bytes of W (at its pitch), Wuh and
+// Wuv; ops/gen_fused_rbm.py::_sample_bytes makes the same per-sample
+// count.
 gen_cluster::Plan plan_gen_fused_rbm(const RbmArgs& a, int64_t limit) {
-  const int64_t mats[kMatrices] = {
-      4 * int64_t{a.d} * (a.hid | 1), 4 * int64_t{a.u} * a.hid,
-      4 * int64_t{a.u} * a.d};
+  const int64_t e = a.w_bf16 ? 2 : 4;
+  const int64_t pitch =
+      a.w_bf16 ? w_pitch<uint16_t>(a.hid) : w_pitch<float>(a.hid);
+  const int64_t mats[kMatrices] = {e * a.d * pitch, e * a.u * a.hid,
+                                   e * a.u * a.d};
   return gen_cluster::make_plan(a.k, a.d, a.u, a.n_layers, rbm_scratch(a),
                                 mats, kMatrices, limit);
 }
@@ -201,9 +228,14 @@ const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
   if (a.k > 31)
     return "gen_fused_rbm: the given-track mask takes at most 31 tracks";
   const Plan p = plan_gen_fused_rbm(a, kSmemLimitBytes);
-  return gen_cluster::launch(a.lstm ? gen_fused_rbm_kernel<true>
-                                    : gen_fused_rbm_kernel<false>,
-                             a, p, a.batch, stream, shape);
+  void (*kernel)(RbmArgs, Plan);
+  if (a.w_bf16)
+    kernel = a.lstm ? gen_fused_rbm_kernel<true, uint16_t>
+                    : gen_fused_rbm_kernel<false, uint16_t>;
+  else
+    kernel = a.lstm ? gen_fused_rbm_kernel<true, float>
+                    : gen_fused_rbm_kernel<false, float>;
+  return gen_cluster::launch(kernel, a, p, a.batch, stream, shape);
 }
 
 }  // namespace multinn_torch

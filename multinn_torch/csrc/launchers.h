@@ -34,17 +34,18 @@ const char* launch_gibbs_chain(const float* v0, const float* w,
                                void* stream);
 
 // Inputs of the whole-generation RNN-RBM kernel (see gen_fused_rbm.cu and
-// multinn_torch/ops/gen_fused_rbm.py::_rbm_args for the layouts).
+// multinn_torch/ops/gen_fused_rbm.py::_rbm_args for the layouts). w, wuv,
+// wuh and wctx are f32, or with w_bf16 all four bf16 words.
 struct RbmArgs {
-  const float* w;       // (K, D, H)
-  const float* wuv;     // (K, U, D)
-  const float* wuh;     // (K, U, H)
+  const void* w;        // (K, D, H)
+  const void* wuv;      // (K, U, D)
+  const void* wuh;      // (K, U, H)
   const float* bv;      // (K*D)
   const float* bh;      // (K*H)
   const float* wx_v;    // (K, D, G)
   const float* wx_r;    // (L-1, K, U, G), or nullptr when L == 1
   const float* wh;      // (L, K, U, G)
-  const float* wctx;    // (K*D, K*G), or nullptr without feedback context
+  const void* wctx;     // (K*D, K*G), or nullptr without feedback context
   const float* b;       // (L, K*G)
   const float* h0;      // (B, L*K*U)
   const float* c0;      // (B, L*K*U)
@@ -57,6 +58,7 @@ struct RbmArgs {
   int32_t batch, n_steps, gen_k;
   int32_t k, d, hid, u, g, n_layers;
   int32_t lstm;         // 1: LSTM cells (g = 4u); 0: vanilla tanh (g = u)
+  int32_t w_bf16;       // 1: the bf16 capacity mode (w, wuv, wuh, wctx)
   int32_t given_mask;   // bit k set: track k takes `given`
   int32_t row0;         // the row map: sample b draws the stream of sample
   int32_t rows_total;   //   row0 + b of a batch of rows_total (0, batch)
@@ -64,7 +66,8 @@ struct RbmArgs {
 
 // The whole-generation launchers (RBM and NADE) take `shape`: nullptr
 // launches the kernel; otherwise nothing is launched and shape receives
-// the launch's plan for a.batch (only the sizes of `a` are read): CTAs
+// the launch's plan for a.batch (only the sizes of `a` and its storage
+// flag, w_bf16 / aux_bf16, are read): CTAs
 // per cluster, track slots per CTA, the bit set of per-step weight
 // matrices held in shared memory, the bytes of that weight region and of
 // one sample's state, the most samples the shared memory holds, the
@@ -89,19 +92,20 @@ const char* launch_nade_sample(const float* w, const float* v,
 
 // Inputs of the whole-generation RNN-NADE kernel (see gen_fused_nade.cu and
 // multinn_torch/ops/gen_fused_nade.py::_nade_args for the layouts). bf16
-// matrices are passed as their 16-bit words.
+// matrices are passed as their 16-bit words; wuh, wx_r and wh are f32, or
+// with aux_bf16 all three bf16 (the aux capacity mode).
 struct NadeArgs {
   const uint16_t* w;     // (K, D, H) bf16 NADE encode weights
   const uint16_t* v;     // (K, D, H) bf16 NADE decode weights
   const uint16_t* wuv;   // (K, U, D) bf16 visible-bias conditioning
-  const float* wuh;      // (K, U, H)
+  const void* wuh;       // (K, U, H)
   const float* bv;       // (K*D)
   const float* bh;       // (K*H)
   const uint16_t* wx_v;  // (K, D, G) bf16 layer-0 own-frame input projection
   const float* wxg;      // (K, D, G) the same rows in f32 (given merge), or
                          //   nullptr without given tracks
-  const float* wx_r;     // (L-1, K, U, G), or nullptr when L == 1
-  const float* wh;       // (L, K, U, G)
+  const void* wx_r;      // (L-1, K, U, G), or nullptr when L == 1
+  const void* wh;        // (L, K, U, G)
   const uint16_t* wctx;  // (K*D, K*G) bf16, or nullptr without feedback
   const float* b;        // (L, K*G)
   const float* h0;       // (B, L*K*U)
@@ -115,6 +119,7 @@ struct NadeArgs {
   int32_t batch, n_steps;
   int32_t k, d, hid, u, g, n_layers;
   int32_t lstm;          // 1: LSTM cells (g = 4u); 0: vanilla tanh (g = u)
+  int32_t aux_bf16;      // 1: the bf16 aux capacity mode (wuh, wx_r, wh)
   int32_t given_mask;    // bit k set: track k takes `given`
   int32_t spec;          // the sweep's speculative depth: 1, 2 or 4
                          //   dividing D; 0: auto (4 if 4 divides D)

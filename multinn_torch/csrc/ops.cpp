@@ -6,6 +6,8 @@
 #include <ATen/core/Tensor.h>
 #include <torch/library.h>
 
+#include <initializer_list>
+#include <utility>
 #include <vector>
 
 #include "launchers.h"
@@ -32,6 +34,21 @@ float* optional_out(at::Tensor& t, const char* name) {
   if (t.numel() == 0) return nullptr;
   check(t, at::kFloat, name);
   return t.data_ptr<float>();
+}
+
+// The storage of a capacity-mode weight group: every tensor of `group`
+// (empty ones skipped: absent optional inputs) is a contiguous CUDA tensor
+// of the first one's dtype, float32 or bfloat16. Returns 1 for bfloat16.
+int32_t storage_bf16(std::initializer_list<std::pair<const at::Tensor*,
+                                                     const char*>> group,
+                     const char* op) {
+  const at::ScalarType dtype = group.begin()->first->scalar_type();
+  TORCH_CHECK(dtype == at::kFloat || dtype == at::kBFloat16, op, ": ",
+              group.begin()->second, " must be float32 or bfloat16, got ",
+              dtype);
+  for (auto [t, name] : group)
+    if (t->numel() != 0) check(*t, dtype, name);
+  return dtype == at::kBFloat16;
 }
 
 void raise_on(const char* err, const char* op) {
@@ -100,17 +117,19 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   check(roll, at::kFloat, "roll");
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
-  for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&w, "w"},
-                         {&wuv, "wuv"}, {&wuh, "wuh"},
-                         {&bv, "bv"}, {&bh, "bh"}, {&wx_v, "wx_v"},
-                         {&wh, "wh"}, {&b, "b"}, {&h0, "h0"}, {&c0, "c0"},
-                         {&v0, "v0"}})
+  for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&bv, "bv"},
+                         {&bh, "bh"}, {&wx_v, "wx_v"}, {&wh, "wh"}, {&b, "b"},
+                         {&h0, "h0"}, {&c0, "c0"}, {&v0, "v0"}})
     check(*t, at::kFloat, name);
   check(seed, at::kInt, "seed");
   TORCH_CHECK(w.dim() == 3 && wuv.dim() == 3 && wx_v.dim() == 3 &&
                   wh.dim() == 4 && roll.dim() == 3,
               "gen_fused_rbm: unexpected ranks");
   RbmArgs a{};
+  // the storage mode: W, Wuv, Wuh and Wctx all f32 or all bf16
+  a.w_bf16 = storage_bf16(
+      {{&w, "w"}, {&wuv, "wuv"}, {&wuh, "wuh"}, {&wctx, "wctx"}},
+      "gen_fused_rbm");
   a.k = static_cast<int32_t>(w.size(0));
   a.d = static_cast<int32_t>(w.size(1));
   a.hid = static_cast<int32_t>(w.size(2));
@@ -137,15 +156,15 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
               "gen_fused_rbm: wx_r shape");
   TORCH_CHECK(given.numel() == 0 || given.numel() == roll.numel(),
               "gen_fused_rbm: given shape");
-  a.w = w.data_ptr<float>();
-  a.wuv = wuv.data_ptr<float>();
-  a.wuh = wuh.data_ptr<float>();
+  a.w = w.data_ptr();
+  a.wuv = wuv.data_ptr();
+  a.wuh = wuh.data_ptr();
   a.bv = bv.data_ptr<float>();
   a.bh = bh.data_ptr<float>();
   a.wx_v = wx_v.data_ptr<float>();
   a.wx_r = optional_f32(wx_r, "wx_r");
   a.wh = wh.data_ptr<float>();
-  a.wctx = optional_f32(wctx, "wctx");
+  a.wctx = wctx.numel() == 0 ? nullptr : wctx.data_ptr();
   a.b = b.data_ptr<float>();
   a.h0 = h0.data_ptr<float>();
   a.c0 = c0.data_ptr<float>();
@@ -202,15 +221,18 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   check(roll, at::kFloat, "roll");
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
-  for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&wuh, "wuh"},
-                         {&bv, "bv"}, {&bh, "bh"}, {&wh, "wh"}, {&b, "b"},
-                         {&h0, "h0"}, {&c0, "c0"}, {&v0, "v0"}})
+  for (auto [t, name] : {std::pair<const at::Tensor*, const char*>{&bv, "bv"},
+                         {&bh, "bh"}, {&b, "b"}, {&h0, "h0"}, {&c0, "c0"},
+                         {&v0, "v0"}})
     check(*t, at::kFloat, name);
   check(seed, at::kInt, "seed");
   TORCH_CHECK(w.dim() == 3 && wuv.dim() == 3 && wx_v.dim() == 3 &&
                   wh.dim() == 4 && roll.dim() == 3,
               "gen_fused_nade: unexpected ranks");
   NadeArgs a{};
+  // the aux storage mode: Wuh, Wh and Wx_r all f32 or all bf16
+  a.aux_bf16 = storage_bf16({{&wuh, "wuh"}, {&wh, "wh"}, {&wx_r, "wx_r"}},
+                            "gen_fused_nade");
   a.k = static_cast<int32_t>(w.size(0));
   a.d = static_cast<int32_t>(w.size(1));
   a.hid = static_cast<int32_t>(w.size(2));
@@ -242,13 +264,13 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
   a.w = bf16_words(w, "w");
   a.v = bf16_words(v, "v");
   a.wuv = bf16_words(wuv, "wuv");
-  a.wuh = wuh.data_ptr<float>();
+  a.wuh = wuh.data_ptr();
   a.bv = bv.data_ptr<float>();
   a.bh = bh.data_ptr<float>();
   a.wx_v = bf16_words(wx_v, "wx_v");
   a.wxg = optional_f32(wxg, "wxg");
-  a.wx_r = optional_f32(wx_r, "wx_r");
-  a.wh = wh.data_ptr<float>();
+  a.wx_r = wx_r.numel() == 0 ? nullptr : wx_r.data_ptr();
+  a.wh = wh.data_ptr();
   a.wctx = wctx.numel() == 0 ? nullptr : bf16_words(wctx, "wctx");
   a.b = b.data_ptr<float>();
   a.h0 = h0.data_ptr<float>();
@@ -263,12 +285,14 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
 }
 
 // The launch plan a whole-generation kernel (nade: 0 the RBM, 1 the NADE)
-// makes for these sizes, without launching it: the kLaunchShapeFields
+// makes for these sizes and storage (bf16: the RBM's wdtype or the NADE's
+// aux dtype is bfloat16), without launching it: the kLaunchShapeFields
 // values of launchers.h, and for the NADE the depth its sweep runs at the
 // auto depth (nade_auto_depth of the plan's groups per CTA).
 std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
                                     int64_t hid, int64_t u, int64_t n_layers,
-                                    int64_t lstm, int64_t batch) {
+                                    int64_t lstm, int64_t batch,
+                                    int64_t bf16) {
   std::vector<int64_t> shape(kLaunchShapeFields, 0);
   TORCH_CHECK(batch > 0, "gen_fused_plan: batch must be positive");
   auto sizes = [&](auto& a) {
@@ -287,6 +311,7 @@ std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
   if (nade) {
     NadeArgs a{};
     sizes(a);
+    a.aux_bf16 = static_cast<int32_t>(bf16 != 0);
     err = launch_gen_fused_nade(a, nullptr, shape.data());
     if (err == nullptr)                  // track slots x samples per cluster
       shape.push_back(
@@ -294,6 +319,7 @@ std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
   } else {
     RbmArgs a{};
     sizes(a);
+    a.w_bf16 = static_cast<int32_t>(bf16 != 0);
     err = launch_gen_fused_rbm(a, nullptr, shape.data());
   }
   raise_on(err, "gen_fused_plan");
@@ -402,7 +428,7 @@ TORCH_LIBRARY(multinn_torch, m) {
         "int rows_total, int stream) -> ()");
   // no tensor arguments: a kernel for every dispatch key
   m.def("gen_fused_plan(int nade, int k, int d, int hid, int u, "
-        "int n_layers, int lstm, int batch) -> int[]",
+        "int n_layers, int lstm, int batch, int bf16=0) -> int[]",
         &multinn_torch::gen_fused_plan);
   m.def("nade_ll_fwd(Tensor(a!) logits, Tensor(b!) a_end, Tensor(c!) part, "
         "Tensor x, Tensor w, Tensor v, Tensor bv, Tensor bh, int n_ctas, "

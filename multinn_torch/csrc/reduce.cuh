@@ -1,6 +1,9 @@
 // Helpers of the NADE kernels: a warp sum in a fixed order and the bf16
-// weight words they read.
+// weight words they read (also the whole-generation kernels' bf16
+// rounding).
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -59,6 +62,13 @@ __device__ __forceinline__ float warp_allsum_slots(float (&p)[kN]) {
 // the bf16 value is the float32 with its low 16 mantissa bits cleared.
 __device__ __forceinline__ float bf16_to_f32(uint16_t bits) {
   return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+}
+
+// x rounded to the nearest bfloat16 (ties to even), as float32: the
+// operand of a product with bf16 weights, as the reference's capacity
+// mode feeds it.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 }  // namespace multinn_torch

@@ -16,11 +16,18 @@ of min(K, 8) CTAs, CTA r owning tracks r, r + C, ..., and one sample's
 state, which must fit a CTA's shared memory. Where the per-step weights
 go and how many samples a cluster runs is decided at launch (the
 card-only tests read that plan through the gen_fused_plan op).
+
+``LayoutDims``, ``rbm_layout_bytes``, ``nade_layout_bytes`` and
+``storage_dtype`` are the JAX package's storage-dtype contract: which
+weights its fused kernels keep in bf16 for a given config and batch.
+That is a rule about numerics, not a resource gate of this card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
+
+import torch
 
 # dynamic shared memory one CTA may use on Hopper (232,448 bytes)
 SMEM_LIMIT_BYTES = 227 * 1024
@@ -99,3 +106,116 @@ def _state_rows(x):
 def _from_state_rows(r, n_layers: int, k: int, u: int):
     """(B, L*K*U) rows -> (L, K, B, U)."""
     return r.reshape(r.shape[0], n_layers, k, u).permute(1, 2, 0, 3)
+
+
+# ---------------------------------------------------------------------------
+# The reference's storage-dtype contract
+# ---------------------------------------------------------------------------
+#
+# The JAX package's fused kernels store some weights in bf16 (the RBM's
+# block matrices, the NADE's wuh / wh / layer >= 1 wx) whenever the f32
+# layout passes the 10 MiB VMEM budget, which its default dispatch checks
+# on every call; past the bf16 budget too, it falls back to its scan
+# path, whose weights are f32. So that the port samples what the
+# reference samples, its kernels take the same storage dtype. The byte
+# counts below are the reference's TPU layouts (multinn_tpu/ops/vmem.py,
+# gen_fused_rbm._rbm_args / _rbm_scratch / _rbm_fixed_bytes,
+# gen_fused_nade._nade_args / _nade_scratch / _nade_fixed_bytes) in
+# closed form: block-diagonal K*X x K*Y matrices, dim blocks padded to 8
+# track rows and the activation width to 128 lanes. They describe no
+# buffer of this port and bound nothing on the H100: the port's own
+# gates are supported / supported_nade.
+
+VMEM_BUDGET_BYTES = 10 * 1024 * 1024   # the reference's vmem.VMEM_BUDGET_BYTES
+_KP = 8                                # its dim-block row stride
+
+
+class LayoutDims(NamedTuple):
+    """Sizes of a track-stacked decoder as the kernels see them: K tracks
+    (one in joint mode), D features, H hidden, U cell width, G gate width
+    (4U | U), L cell layers."""
+    k: int
+    d: int
+    hid: int
+    u: int
+    g: int
+    n_layers: int
+
+
+def dims_of_cfg(cfg) -> LayoutDims:
+    k, d = _eff_dims(cfg)
+    u = cfg.n_rnn
+    return LayoutDims(k, d, cfg.n_hidden, u,
+                      4 * u if cfg.cell == "lstm" else u, cfg.rnn_layers)
+
+
+def dims_of_params(dec_params) -> LayoutDims:
+    """From track-stacked decoder params (real or meta tensors)."""
+    k, d, hid = dec_params.w.shape
+    wh = dec_params.cell[0].wh
+    return LayoutDims(k, d, hid, wh.shape[1], wh.shape[2],
+                      len(dec_params.cell))
+
+
+def _khp(k: int, hid: int) -> int:
+    """The reference's lane-padded activation width (128-aligned)."""
+    return -(-k * hid // 128) * 128
+
+
+def rbm_layout_bytes(n: LayoutDims, batch: int, wbytes: int,
+                     conditioned: bool = False) -> int:
+    """VMEM bytes of the reference's RBM kernel with its five block
+    matrices (W, W^T, Wuv, Wuh, Wctx) at ``wbytes`` an element."""
+    k, d, hid, u, g, nl = n
+    blocks = (2 * (k * d) * (k * hid) + (k * u) * (k * d)
+              + (k * u) * (k * hid) + (k * d) * (k * g))
+    f32 = (k * d + k * hid + k * d * g + nl * k * u * g + nl * k * g
+           + (nl - 1) * k * u * g
+           + batch * (2 * nl * k * u + k * d))          # args
+    f32 += batch * (2 * nl * k * u + k * d + k * g)     # scratch
+    f32 += batch * (2 * k * d + 2 * nl * k * u + 2 * k * (hid + d)
+                    + (2 * k * d if conditioned else 0))
+    return wbytes * blocks + 4 * f32
+
+
+def nade_layout_bytes(n: LayoutDims, batch: int, aux_bytes: int,
+                      n_given: int = 0, spec: int = 1) -> int:
+    """VMEM bytes of the reference's NADE kernel with wuh, wh and the
+    layer >= 1 wx at ``aux_bytes`` an element; ``spec`` the speculative
+    depth whose bf16 side table it charges."""
+    k, d, hid, u, g, nl = n
+    khp = _khp(k, hid)
+    bf16 = (d * _KP * (khp + k * g) + d * _KP * khp + d * _KP * k * u
+            + (k * d) * (k * g))
+    aux = k * u * hid + nl * k * u * g + (nl - 1) * k * u * g
+    f32 = (d * _KP + k * hid + nl * k * g
+           + batch * (2 * nl * k * u) + _KP * batch * d)  # args
+    f32 += (batch * 2 * nl * k * u + _KP * batch * d + batch * k * hid
+            + 2 * d * _KP * batch + batch * k * g)       # scratch
+    f32 += 2 * _KP * batch * d + 2 * batch * nl * k * u
+    if n_given:
+        f32 += 2 * _KP * batch * d + n_given * d * g
+    if spec > 1:
+        bf16 += (d // spec) * _KP * khp
+    return 2 * bf16 + aux_bytes * aux + 4 * f32
+
+
+def storage_dtype(need) -> Optional[torch.dtype]:
+    """The reference's ladder: ``need(itemsize)`` bytes within the budget
+    at 4 (f32), else at 2 (bf16), else None (its scan path)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        if need(dtype.itemsize) <= VMEM_BUDGET_BYTES:
+            return dtype
+    return None
+
+
+def resolve_storage(dtype, rule, what: str) -> torch.dtype:
+    """An explicit storage dtype (f32 or bf16) as given; None: ``rule()``,
+    the reference's choice, f32 where it falls back to its scan path."""
+    if dtype is None:
+        dtype = rule()
+        return torch.float32 if dtype is None else dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} must be torch.float32 or torch.bfloat16 "
+                         f"(None: the reference's rule), got {dtype}")
+    return dtype

@@ -5,7 +5,9 @@ multinn_tpu/ops/gen_fused.py (RNN-RBM and RNN-NADE families).
 from __future__ import annotations
 
 from multinn_torch.ops.gen_fused_nade import (_resolve_spec, generate_nade,
-                                              supported_nade)
-from multinn_torch.ops.gen_fused_rbm import generate_rbm, supported
+                                              nade_aux_dtype, supported_nade)
+from multinn_torch.ops.gen_fused_rbm import (generate_rbm, rbm_weight_dtype,
+                                             supported)
 
-__all__ = ["supported", "generate_rbm", "supported_nade", "generate_nade"]
+__all__ = ["supported", "rbm_weight_dtype", "generate_rbm", "supported_nade",
+           "nade_aux_dtype", "generate_nade"]

@@ -29,7 +29,13 @@ function, the sequential sweep, at every depth.
 
 As in the TPU kernel, the NADE weights w and v, the visible-bias
 conditioning wuv, the layer-0 own-frame input projection and wctx are
-stored in bf16 and upcast exactly at use; every other matrix stays f32.
+stored in bf16 and upcast exactly at use. ``aux_dtype`` is the storage
+of the rest, wuh, wh and the layer >= 1 input projections: float32, or
+bfloat16, the JAX package's capacity mode, upcast at use with no rounding
+of activations. None resolves through ``nade_aux_dtype``'s rule, the
+reference's choice for this config and batch (ops/gen_common.py: its
+VMEM budget, applied for its numerics only), f32 where it falls back to
+its scan path.
 The plain version equals the Pallas kernel in interpret mode bit for bit
 in the roll at the test sizes, at each depth (CPU tests); the CUDA
 kernel equals the plain version up to the rare draw a last-ulp difference
@@ -42,9 +48,9 @@ in shared memory where they fit (else read from global memory) and each
 sample's state rows beside them; one warp per sample and track runs the
 sweep with the track's hidden lanes in registers — computed from the same
 arguments the dispatch builds. The TPU kernel's "B = 1 or a multiple of 8"
-rule (Mosaic tiling) is gone; K <= 8 stays, because the random stream has
-8 rows per dim. The bf16 aux-matrix capacity mode exists for VMEM and is
-not ported (ROADMAP queue 2).
+rule (Mosaic tiling) is gone from the gate (the storage rule keeps it, as
+the reference's dispatch does); K <= 8 stays, because the random stream
+has 8 rows per dim.
 """
 
 from __future__ import annotations
@@ -76,17 +82,19 @@ class NadeArgs(NamedTuple):
 
         w, v  (K, D, H)   NADE weights, bf16
         wuv   (K, U, D)   visible-bias conditioning, bf16
-        wuh   (K, U, H)   hidden-bias conditioning
+        wuh   (K, U, H)   hidden-bias conditioning, the aux dtype
         bv    (K*D,)      bh   (K*H,)
         wx_v  (K, D, G)   layer-0 input projection of the track's frame, bf16
-        wh    (L, K, U, G) recurrent weights, G = 4U (LSTM) | U (vanilla)
+        wh    (L, K, U, G) recurrent weights, G = 4U (LSTM) | U (vanilla),
+                          the aux dtype
         wctx  (K*D, K*G)  feedback projection, rows [source track j][pitch i],
                           columns [target track k][gate], bf16; None without
                           ctx
         b     (L, K*G)    gate biases
         h0/c0 (B, L*K*U)  state rows, layer-major then per-track
         v0    (B, K*D)    previous frame rows
-        wx_r  (L-1, K, U, G) input projections of layers >= 1; None if L = 1
+        wx_r  (L-1, K, U, G) input projections of layers >= 1, the aux
+                          dtype; None if L = 1
     """
     w: torch.Tensor
     v: torch.Tensor
@@ -108,27 +116,55 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).contiguous()
 
 
-def _nade_args(dec_params, h0, c0, v0) -> NadeArgs:
-    """h0/c0: (L, K, B, U); v0: (K, B, D)."""
+def _nade_args(dec_params, h0, c0, v0, aux_dtype=torch.float32) -> NadeArgs:
+    """h0/c0: (L, K, B, U); v0: (K, B, D); ``aux_dtype`` the storage dtype
+    of wuh, wh and wx_r."""
     cells = dec_params.cell
     n_layers = len(cells)
     d = dec_params.w.shape[1]
     b = h0.shape[2]
     wctx = _ctx_rows(cells[0].wx, d)
+    aux = lambda x: x.to(aux_dtype).contiguous()
     return NadeArgs(
         w=_bf16(dec_params.w), v=_bf16(dec_params.v),
         wuv=_bf16(dec_params.wuv),
-        wuh=dec_params.wuh.contiguous(),
+        wuh=aux(dec_params.wuh),
         bv=dec_params.bv.reshape(-1).contiguous(),
         bh=dec_params.bh.reshape(-1).contiguous(),
         wx_v=_bf16(cells[0].wx[:, :d, :]),
-        wh=torch.stack([c.wh for c in cells]).contiguous(),
+        wh=aux(torch.stack([c.wh for c in cells])),
         wctx=None if wctx is None else _bf16(wctx),
         b=torch.stack([c.b.reshape(-1) for c in cells]).contiguous(),
         h0=_state_rows(h0), c0=_state_rows(c0),
         v0=v0.movedim(1, 0).reshape(b, -1).contiguous(),
-        wx_r=(torch.stack([c.wx for c in cells[1:]]).contiguous()
+        wx_r=(aux(torch.stack([c.wx for c in cells[1:]]))
               if n_layers > 1 else None))
+
+
+def _reference_dtype(dims: gen_common.LayoutDims, batch: int, n_given: int,
+                     spec: int):
+    """The JAX package's aux storage for these sizes: float32, bfloat16, or
+    None where it runs its scan path (gen_common's contract, and its
+    dispatch's K <= 8 and "batch 1 or a multiple of 8" rules)."""
+    if dims.k > STREAM_ROWS or batch < 1 or (batch != 1 and batch % 8):
+        return None
+    return gen_common.storage_dtype(
+        lambda nbytes: gen_common.nade_layout_bytes(dims, batch, nbytes,
+                                                    n_given, spec))
+
+
+def nade_aux_dtype(cfg, batch: int, n_given: int = 0) -> torch.dtype:
+    """The aux storage dtype the JAX package's fused NADE kernel uses for
+    this config and batch (its ``nade_aux_dtype``, at its default
+    speculative depth): float32 while its f32 layout fits its VMEM
+    budget, else bfloat16 while the bf16 one does; float32 where it runs
+    its scan path (no fit, K > 8, a batch neither 1 nor a multiple of 8,
+    another decoder). ``n_given``: an accompaniment's given tracks."""
+    if not _common_gate(cfg, "rnn-nade"):
+        return torch.float32
+    dims = gen_common.dims_of_cfg(cfg)
+    dtype = _reference_dtype(dims, batch, n_given, _resolve_spec(dims.d))
+    return torch.float32 if dtype is None else dtype
 
 
 def _sample_bytes(args: NadeArgs) -> int:
@@ -171,17 +207,34 @@ def _resolve_spec(d: int) -> int:
     return 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
 
 
-def auto_depth(dec_params, batch: int) -> int:
+def auto_depth(dec_params, batch: int, aux_dtype=None) -> int:
     """The depth the kernel's sweep runs at B=``batch`` when generate_nade
     is given no ``spec``, from its launcher's plan (the gen_fused_plan op,
     which launches nothing; needs the card): 4 where 4 divides D and a CTA
-    holds one (sample, track) group, else 1."""
+    holds one (sample, track) group, else 1. ``aux_dtype`` as
+    generate_nade takes it (None: the rule's at ``batch``)."""
     k, d, hid = dec_params.w.shape
     u, g = dec_params.wuh.shape[1], dec_params.cell[0].wh.shape[-1]
+    aux_dtype = _resolve_aux(aux_dtype, dec_params, batch, 0)
     with torch.cuda.device(dec_params.w.device):
-        return _build.ops().gen_fused_plan(1, k, d, hid, u,
-                                           len(dec_params.cell),
-                                           int(g == 4 * u), batch)[-1]
+        return _build.ops().gen_fused_plan(
+            1, k, d, hid, u, len(dec_params.cell), int(g == 4 * u), batch,
+            int(aux_dtype == torch.bfloat16))[-1]
+
+
+def _resolve_aux(aux_dtype, dec_params, batch: int,
+                 n_given: int) -> torch.dtype:
+    """generate_nade's aux storage: as given, or None: the reference's rule
+    (``nade_aux_dtype``) at the whole batch and the given tracks, f32 where
+    it runs its scan path. The rule charges the side table of the depth
+    the reference's dispatch runs, ``_resolve_spec(D)``, whatever depth is
+    asked for, so that every depth stores the same and returns the same
+    roll."""
+    dims = gen_common.dims_of_params(dec_params)
+    return gen_common.resolve_storage(
+        aux_dtype, lambda: _reference_dtype(dims, batch, n_given,
+                                            _resolve_spec(dims.d)),
+        "aux_dtype")
 
 
 def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
@@ -201,35 +254,37 @@ def generate_nade(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     which its launcher resolves (gen_fused_plan reports it); the plain
     version resolves it through ``_resolve_spec(D)``, the JAX package's
     rule.
+    ``aux_dtype``: the storage dtype of wuh, wh and wx_r, float32 or
+    bfloat16; None: ``nade_aux_dtype``'s rule at the whole batch
+    (B_global under a row map) and the given tracks, the same at every
+    depth.
     ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; "cuda" / "plain" force one."""
-    if aux_dtype is not None and aux_dtype != torch.float32:
-        raise NotImplementedError(
-            "the bf16 aux-matrix capacity mode is not ported (ROADMAP queue "
-            "2); wuh, wh and the layer >= 1 input projections are float32")
     n_layers = len(dec_params.cell)
     if h0.dim() == 3 and n_layers == 1:
         h0, c0 = h0[None], c0[None]
     given_tracks = tuple(sorted(set(int(t) for t in given_tracks)))
     if (given is None) != (not given_tracks):
         raise ValueError("given and given_tracks must be passed together")
-    args = _nade_args(dec_params, h0, c0, v0)
-    k, d, _ = args.w.shape
+    k, d, _ = dec_params.w.shape
     if k > STREAM_ROWS:
         raise ValueError(f"generate_nade: K={k} tracks; the random stream "
                          f"holds {STREAM_ROWS} per dim")
-    u, g = args.wuv.shape[1], args.wx_v.shape[2]
-    lstm = g == 4 * u
+    if spec is not None and (spec not in SPECS or d % spec):
+        raise ValueError(f"spec={spec} must be one of {SPECS} and divide "
+                         f"D={d}")
     b = h0.shape[2]
     rmap = kernel_prng.row_map(b, rows)
+    aux_dtype = _resolve_aux(aux_dtype, dec_params, rmap[1],
+                             len(given_tracks))
+    args = _nade_args(dec_params, h0, c0, v0, aux_dtype)
+    u, g = args.wuv.shape[1], args.wx_v.shape[2]
+    lstm = g == 4 * u
     seeds = key_to_seeds(key).to(args.bv.device)
     wxg = None
     if given is not None:
         given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
         wxg = dec_params.cell[0].wx[:, :d, :].contiguous()
-    if spec is not None and (spec not in SPECS or d % spec):
-        raise ValueError(f"spec={spec} must be one of {SPECS} and divide "
-                         f"D={d}")
     if _build.impl_for(impl, args.bv) == "cuda":
         roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, lstm, given,
                                             given_tracks, wxg, rmap, spec)
@@ -286,8 +341,10 @@ def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
     b = args.h0.shape[0]
     dev = args.bv.device
     s0, s1 = (int(s) & kernel_prng.MASK for s in seeds.tolist())
-    w, v, wuv, wx_v = (x.float() for x in (args.w, args.v, args.wuv,
-                                            args.wx_v))
+    w, v, wuv, wx_v, wuh = (x.float() for x in (args.w, args.v, args.wuv,
+                                                 args.wx_v, args.wuh))
+    wh = args.wh.float()
+    wx_r = None if args.wx_r is None else args.wx_r.float()
     wctx = None if args.wctx is None else args.wctx.float()
     # counter of (dim i, track k, sample b): (i*8 + k)*B + b, as (K, B, D),
     # of sample b0 + b of B_global under the row map
@@ -310,7 +367,7 @@ def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
     frames = []
     for t in range(n_steps):
         bv_row = bv + h[-1] @ wuv                          # (K, B, D)
-        act = bh + h[-1] @ args.wuh                        # (K, B, H)
+        act = bh + h[-1] @ wuh                             # (K, B, H)
         unif = kernel_prng.uniform_from_bits(kernel_prng.bits_at_plain(
             s0, (s1 + t) & kernel_prng.MASK, ctr))
         z = torch.zeros(k, b, g, device=dev)
@@ -338,8 +395,8 @@ def _generate_plain(seeds, args: NadeArgs, n_steps, lstm, given,
                             j * d:(j + 1) * d]
                     zin = zin + track_major(ctx, g)
             else:
-                zin = h[l - 1] @ args.wx_r[l - 1]
-            zz = (zin + h[l] @ args.wh[l]) + args.b[l].reshape(k, 1, g)
+                zin = h[l - 1] @ wx_r[l - 1]
+            zz = (zin + h[l] @ wh[l]) + args.b[l].reshape(k, 1, g)
             if lstm:
                 st = rnn_nn._lstm_gates(c[l], zz)
                 h[l], c[l] = st.h, st.c

@@ -20,13 +20,23 @@ in the roll (CPU tests); the CUDA kernel equals the plain version up to the
 rare draw a last-ulp difference in a probability flips, after which that
 sample's trajectory diverges (chip_smoke compares by matching samples).
 
+Weight storage follows the JAX package's capacity mode: with ``wdtype``
+bfloat16, W, Wuv, Wuh and Wctx are stored in bf16 and the conditioning
+products take h_top rounded to bf16 against them; the Gibbs and context
+products take binary operands, exact in bf16; accumulation stays f32 and
+every other matrix f32. ``wdtype=None`` resolves through
+``rbm_weight_dtype``'s rule, the reference's choice for this config and
+batch (ops/gen_common.py: its VMEM budget, applied for its numerics
+only): bf16 where its f32 layout exceeds the budget and its bf16 one
+fits, else f32 (also where it falls back to its scan path).
+
 The gate is a Hopper resource check of the kernel's design — a cluster of
 min(K, 8) CTAs per group of samples, each CTA with its tracks' W, Wuh and
 Wuv in shared memory where they fit (else read from global memory) and
 each sample's state rows beside them — computed from the same arguments
 the dispatch builds (not the TPU kernel's VMEM rule): one sample's state
-must fit. Weights are f32 only: the bf16 weight-storage capacity mode
-exists for VMEM and is not ported (ROADMAP queue 2).
+must fit. The storage dtype changes which matrices fit beside it (the
+launch's plan), not what the gate admits.
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ MAX_TRACKS = 31             # the given-track merge is a 32-bit lane mask
 class RbmArgs(NamedTuple):
     """Kernel inputs from track-STACKED rnn_rbm.Params + state, in compact
     per-track layouts (the TPU kernel's block-diagonal matrices only served
-    its matrix unit):
+    its matrix unit); w, wuv, wuh and wctx in the storage dtype, the rest
+    f32:
 
         w     (K, D, H)   RBM weights
         wuv   (K, U, D)   bias conditioning wuh  (K, U, H)
@@ -77,26 +88,48 @@ class RbmArgs(NamedTuple):
     wx_r: Optional[torch.Tensor]
 
 
-def _rbm_args(dec_params, h0, c0, v0) -> RbmArgs:
-    """h0/c0: (L, K, B, U); v0: (K, B, D)."""
+def _rbm_args(dec_params, h0, c0, v0, wdtype=torch.float32) -> RbmArgs:
+    """h0/c0: (L, K, B, U); v0: (K, B, D); ``wdtype`` the storage dtype of
+    w, wuv, wuh and wctx."""
     cells = dec_params.cell
     n_layers = len(cells)
     d = dec_params.w.shape[1]
     b = h0.shape[2]
+    wctx = _ctx_rows(cells[0].wx, d)
+    store = lambda x: x.to(wdtype).contiguous()
     return RbmArgs(
-        w=dec_params.w.contiguous(),
-        wuv=dec_params.wuv.contiguous(),
-        wuh=dec_params.wuh.contiguous(),
+        w=store(dec_params.w),
+        wuv=store(dec_params.wuv),
+        wuh=store(dec_params.wuh),
         bv=dec_params.bv.reshape(-1).contiguous(),
         bh=dec_params.bh.reshape(-1).contiguous(),
         wx_v=cells[0].wx[:, :d, :].contiguous(),
         wh=torch.stack([c.wh for c in cells]).contiguous(),
-        wctx=_ctx_rows(cells[0].wx, d),
+        wctx=None if wctx is None else store(wctx),
         b=torch.stack([c.b.reshape(-1) for c in cells]).contiguous(),
         h0=_state_rows(h0), c0=_state_rows(c0),
         v0=v0.movedim(1, 0).reshape(b, -1).contiguous(),
         wx_r=(torch.stack([c.wx for c in cells[1:]]).contiguous()
               if n_layers > 1 else None))
+
+
+def _reference_dtype(dims: gen_common.LayoutDims, batch: int,
+                     conditioned: bool):
+    """The JAX package's weight storage for these sizes: float32, bfloat16,
+    or None where it runs its scan path (gen_common's contract)."""
+    return gen_common.storage_dtype(lambda nbytes: gen_common.rbm_layout_bytes(
+        dims, batch, nbytes, conditioned))
+
+
+def rbm_weight_dtype(cfg, batch: int, conditioned: bool = False
+                     ) -> torch.dtype:
+    """The weight storage dtype the JAX package's fused RBM kernel uses for
+    this config and batch (its ``rbm_weight_dtype``): float32 while its
+    f32 layout fits its VMEM budget, else bfloat16 while the bf16 one does;
+    float32 past both, where the reference runs its scan path with f32
+    weights. ``conditioned``: an accompaniment's given stream."""
+    dtype = _reference_dtype(gen_common.dims_of_cfg(cfg), batch, conditioned)
+    return torch.float32 if dtype is None else dtype
 
 
 def _sample_bytes(args: RbmArgs) -> int:
@@ -141,24 +174,28 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     B_global). Returns (roll (B, n_steps, K, D) float32, h_final (L, K, B,
     U), c_final (L, K, B, U)).
 
+    ``wdtype``: the storage dtype of W, Wuv, Wuh and Wctx, float32 or
+    bfloat16; None: ``rbm_weight_dtype``'s rule at the whole batch
+    (B_global under a row map, so every shard stores what one device
+    would) and ``given``.
     ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; "cuda" / "plain" force one."""
-    if wdtype is not None and wdtype != torch.float32:
-        raise NotImplementedError(
-            "the bf16 weight-storage capacity mode is not ported "
-            "(ROADMAP queue 2); weights are float32")
     n_layers = len(dec_params.cell)
     if h0.dim() == 3 and n_layers == 1:
         h0, c0 = h0[None], c0[None]
     given_tracks = tuple(sorted(set(int(t) for t in given_tracks)))
     if (given is None) != (not given_tracks):
         raise ValueError("given and given_tracks must be passed together")
-    args = _rbm_args(dec_params, h0, c0, v0)
+    b = h0.shape[2]
+    rmap = kernel_prng.row_map(b, rows)
+    wdtype = gen_common.resolve_storage(
+        wdtype, lambda: _reference_dtype(gen_common.dims_of_params(dec_params),
+                                         rmap[1], given is not None),
+        "wdtype")
+    args = _rbm_args(dec_params, h0, c0, v0, wdtype)
     k, d, hid = args.w.shape
     u, g = args.wuv.shape[1], args.wx_v.shape[2]
     lstm = g == 4 * u
-    b = h0.shape[2]
-    rmap = kernel_prng.row_map(b, rows)
     seeds = key_to_seeds(key).to(args.w.device)
     if given is not None:
         given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
@@ -203,7 +240,10 @@ def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
 def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
                     given_tracks, rmap=(0, None)):
     """Plain PyTorch version of the kernel, same signature and stream.
-    Track-major (K, B, X) tensors; torch.matmul batches over the tracks."""
+    Track-major (K, B, X) tensors; torch.matmul batches over the tracks.
+    bf16 weights are widened exactly and h_top rounded to bf16 for the
+    conditioning, as the reference's products of bf16 operands with f32
+    accumulation."""
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
     b = args.h0.shape[0]
@@ -216,7 +256,10 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
                                            device=dev)
         return c.reshape(b, k, x).transpose(0, 1)
     ctr_h, ctr_v = ctr(hid), ctr(d)
-    wt = args.w.transpose(1, 2).contiguous()
+    rounded = args.w.dtype == torch.bfloat16
+    w, wuv, wuh = args.w.float(), args.wuv.float(), args.wuh.float()
+    wctx = None if args.wctx is None else args.wctx.float()
+    wt = w.transpose(1, 2).contiguous()
 
     def uniform(salt, counter):
         return kernel_prng.uniform_from_bits(
@@ -235,12 +278,13 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
     gmask[list(given_tracks)] = True
     frames = []
     for t in range(n_steps):
-        bv_row = bv + h[-1] @ args.wuv
-        bh_row = bh + h[-1] @ args.wuh
+        h_top = h[-1].to(torch.bfloat16).float() if rounded else h[-1]
+        bv_row = bv + h_top @ wuv
+        bh_row = bh + h_top @ wuh
         salt0 = s1 + t * 2 * gen_k
         v = v_prev
         for s in range(gen_k):
-            ph = torch.sigmoid(v @ args.w + bh_row)
+            ph = torch.sigmoid(v @ w + bh_row)
             hs = (uniform(salt0 + 2 * s, ctr_h) < ph).to(torch.float32)
             pv = torch.sigmoid(hs @ wt + bv_row)
             v = (uniform(salt0 + 2 * s + 1, ctr_v) < pv).to(torch.float32)
@@ -252,8 +296,8 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
             w_in = args.wx_v if l == 0 else args.wx_r[l - 1]
             z = inp @ w_in + h[l] @ args.wh[l]
             z = z + args.b[l].reshape(k, 1, g)
-            if l == 0 and args.wctx is not None:
-                ctx = v_prev.transpose(0, 1).reshape(b, k * d) @ args.wctx
+            if l == 0 and wctx is not None:
+                ctx = v_prev.transpose(0, 1).reshape(b, k * d) @ wctx
                 z = z + track_major(ctx, g)
             if lstm:
                 c[l] = (torch.sigmoid(z[..., u:2 * u]) * c[l]

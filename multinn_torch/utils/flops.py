@@ -273,9 +273,12 @@ def nade_ll_bwd_work(k: int, n: int, d: int, h: int, x):
             4 * k * n * d * h + 2 * h * float(x.sum()))
 
 
-def fused_work(params, roll, v0, gen_k: int):
+def fused_work(params, roll, v0, gen_k: int, storage=None):
     """(bytes, operations) of one whole generation: every decoder weight
-    read once (bf16 where the NADE kernel keeps it), the state in and out,
+    read once at the bytes it is stored in (bf16 where the NADE kernel
+    always keeps it; ``storage`` bfloat16: the capacity mode of the run,
+    the RBM's W, Wuv, Wuh and Wctx or the NADE's Wuh, Wh and layer >= 1 Wx
+    in bf16 too; None or float32: f32), the state in and out,
     the roll written once; the dense products (biases, recurrence, the
     NADE's per-dim sums) plus the products over the frames' nonzero
     entries that this run's roll holds (the RBM's hidden pass, with each
@@ -284,6 +287,8 @@ def fused_work(params, roll, v0, gen_k: int):
     The RBM's visible pass needs products only over the chain's nonzero
     hidden samples, which the kernel's run does not show, so it is left
     out: a lower bound."""
+    import torch
+
     from multinn_torch.models import multinn
     cfg = params.cfg
     k, d, h, u, n_layers = (multinn.n_decoders(cfg), cfg.feature_dim(),
@@ -297,14 +302,19 @@ def fused_work(params, roll, v0, gen_k: int):
     dense = steps * ((d + h) * u + g * u * (2 * n_layers - 1))
     dec = params.decoder
     numel = sum(x.numel() for x in multinn.tree_leaves(dec))
+    capacity = storage == torch.bfloat16
     if cfg.decoder_type == "rnn-rbm":
         ops = 2 * (dense + gen_k * h * nnz + g * nnz + ctx)
-        wbytes = 4 * numel
+        half = (dec.w.numel() + dec.wuv.numel() + dec.wuh.numel()
+                + dec.cell[0].wx[:, d:].numel()) if capacity else 0
     else:
         ops = 2 * (dense + steps * d * h + ctx) + h * nnz + g * nnz
         half = (dec.w.numel() + dec.v.numel() + dec.wuv.numel()
                 + dec.cell[0].wx.numel())
-        wbytes = 2 * half + 4 * (numel - half)
+        if capacity:
+            half += (dec.wuh.numel() + sum(c.wh.numel() for c in dec.cell)
+                     + sum(c.wx.numel() for c in dec.cell[1:]))
+    wbytes = 2 * half + 4 * (numel - half)
     nbytes = wbytes + 4 * (roll.numel() + 4 * b * n_layers * k * u
                            + b * k * d)
     return nbytes, ops

@@ -471,6 +471,93 @@ def test_launch_plan(dev, family, n_tracks, n_hidden, n_rnn, cluster, tpc,
         assert p["grid"] <= p["clusters"]
 
 
+# the bf16 capacity modes' plans: (family, K, H, U; the matrices in shared
+# memory, their bytes, the most samples a CTA holds). RBM: W at a pitch of
+# 2 mod 4 elements (150 -> 150, 200 -> 202), Wuh, Wuv in bf16; NADE: Wuh
+# in bf16 beside the always-bf16 V, W and Wuv.
+CAPACITY_PLAN_CASES = [
+    ("rnn-rbm", 5, 150, 100, 0b111, 25200 + 30000 + 16800, 26),
+    ("rnn-rbm", 5, 200, 150, 0b111, 33936 + 60000 + 25200, 16),
+    ("rnn-nade", 5, 150, 100, 0b1111, 25200 + 25200 + 30000 + 16800, 23)]
+
+
+@pytest.mark.parametrize(
+    "family,n_tracks,n_hidden,n_rnn,w_smem,weight_bytes,s_max",
+    CAPACITY_PLAN_CASES)
+def test_launch_plan_capacity_modes(dev, family, n_tracks, n_hidden, n_rnn,
+                                    w_smem, weight_bytes, s_max):
+    """In bf16 the per-step matrices take half their bytes: the Lakh
+    config's three fit a CTA (only W and Wuh in f32), and every CTA holds
+    more samples; one sample's state is the same count as in f32."""
+    cfg = multinn.MultINNConfig(
+        n_tracks=n_tracks, n_pitches=84, mode="feedback",
+        decoder_type=family, n_hidden=n_hidden, n_rnn=n_rnn, gen_k=10)
+    k, d = gen_common._eff_dims(cfg)
+    for batch in (1, 64, 256):
+        p = dict(zip(PLAN_FIELDS, _build.ops().gen_fused_plan(
+            int(family == "rnn-nade"), k, d, n_hidden, n_rnn, 1, 1, batch,
+            1)))
+        assert (p["w_smem"], p["weight_bytes"], p["max_samples"]) == (
+            w_smem, weight_bytes, s_max)
+        assert p["sample_bytes"] == _gate_sample_bytes(cfg)
+        assert p["max_samples"] > _launch_plan(cfg, batch)["max_samples"]
+
+
+# (family, model, batch): the flagship RBM at a serving batch where the
+# reference stores bf16, the Lakh config, two layers (wx_r in the NADE's
+# aux mode), the NADE flagship
+CAPACITY_CASES = [("rnn-rbm", FLAGSHIP, 8), ("rnn-rbm", dict(
+    FLAGSHIP, n_hidden=200, n_rnn=150, gen_k=25), 8),
+    ("rnn-rbm", dict(FLAGSHIP, rnn_layers=2), 8), ("rnn-nade", NADE, 8),
+    ("rnn-nade", dict(NADE, rnn_layers=2), 8)]
+
+
+@pytest.mark.parametrize("family,model,batch", CAPACITY_CASES)
+def test_capacity_modes_match_plain(dev, family, model, batch):
+    """The bf16 mode's kernel against its plain version: at least 7 of 8
+    samples identical at T=16, the final h within 1e-4 on those; and the
+    mode's roll is not the f32 mode's (the storage reaches the kernel)."""
+    params = _params(multinn.MultINNConfig(**model), dev)
+    state = _primed(params, batch, dev)
+    h0 = torch.stack([c.h for c in state.decoder.cell])
+    c0 = torch.stack([c.c for c in state.decoder.cell])
+    key = sampling.PRNGKey(9, device=dev)
+    if family == "rnn-rbm":
+        def run(impl, dtype):
+            return gen_fused_rbm.generate_rbm(
+                key, params.decoder, h0, c0, state.decoder.v_prev, 16,
+                params.cfg.gen_k, impl=impl, wdtype=dtype)
+    else:
+        def run(impl, dtype):
+            return gen_fused_nade.generate_nade(
+                key, params.decoder, h0, c0, state.decoder.v_prev, 16,
+                impl=impl, aux_dtype=dtype)
+    _build.launches.clear()
+    rk, hk, _ = run("cuda", torch.bfloat16)
+    assert sum(_build.launches.values()) == 1
+    rp, hp, _ = run("plain", torch.bfloat16)
+    same = _identical_samples(rk, rp)
+    assert int(same.sum()) >= 7
+    assert float((hk - hp).abs()[:, :, same].max()) <= 1e-4
+    _, h32, _ = run("cuda", torch.float32)
+    assert not torch.equal(h32, hk)
+
+
+def test_capacity_mode_refuses_mixed_storage(dev):
+    """A launch takes one storage per weight group: a bf16 W beside f32
+    Wuv, Wuh and Wctx raises; it is never converted in silence."""
+    params = _params(multinn.MultINNConfig(**FLAGSHIP), dev)
+    state = _primed(params, 2, dev)
+    h0 = torch.stack([c.h for c in state.decoder.cell])
+    args = gen_fused_rbm._rbm_args(params.decoder, h0, h0.clone(),
+                                   state.decoder.v_prev)
+    args = args._replace(w=args.w.to(torch.bfloat16))
+    seeds = sampling.key_to_seeds(sampling.PRNGKey(0, device=dev))
+    with pytest.raises(RuntimeError, match="wuv"):
+        gen_fused_rbm._generate_cuda(seeds.to(dev), args, 2, 2, True, None,
+                                     (), (0, 2))
+
+
 def _ll_inputs(dev, k, n, d=84, h=150, seed=4):
     g = torch.Generator().manual_seed(seed)
     x = (torch.rand(k, n, d, generator=g) < 0.1).float()

@@ -183,6 +183,13 @@ def test_fused_work_hand_worked(family):
         want = (2 * half + 4 * (numel - half) + 160,
                 2 * (120 + 4 * 12 + 48) + 3 * 3 + 8 * 3)
     assert flops.fused_work(params, roll, v0, 5) == want
+    assert flops.fused_work(params, roll, v0, 5, torch.float32) == want
+    # the bf16 capacity modes: the RBM's W, Wuv, Wuh and the context rows
+    # of Wx (2*8*8); the NADE's Wuh and Wh beside its five
+    half = (24 + 16 + 12 + 128 if family == "rnn-rbm"
+            else 24 + 24 + 16 + 192 + 12 + 32)
+    assert flops.fused_work(params, roll, v0, 5, torch.bfloat16) == (
+        2 * half + 4 * (numel - half) + 160, want[1])
 
 
 def test_bound_names_what_bounds_it():

@@ -90,8 +90,11 @@ def test_generate_rbm_argument_checks():
     h0 = torch.stack([c.h for c in ts.decoder.cell])
     c0 = torch.stack([c.c for c in ts.decoder.cell])
     args = (sampling.PRNGKey(0), tp.decoder, h0, c0, ts.decoder.v_prev, 2, 2)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        gen_fused.generate_rbm(*args, wdtype=torch.bfloat16)
+    # the bf16 capacity mode runs; a third storage dtype is refused
+    r16, _, _ = gen_fused.generate_rbm(*args, wdtype=torch.bfloat16)
+    assert r16.shape == (B, 2, K, D) and r16.dtype == torch.float32
+    with pytest.raises(ValueError, match="wdtype"):
+        gen_fused.generate_rbm(*args, wdtype=torch.float16)
     with pytest.raises(ValueError, match="together"):
         gen_fused.generate_rbm(*args, given_tracks=(0,))
     with pytest.raises(ValueError, match="CUDA"):
