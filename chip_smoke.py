@@ -185,7 +185,13 @@ matmul policy, 18 process meshes, 19 the port's scripts
      track-sharded scan generation (B=8, T=64) against the single-device
      scan path, 8 of 8 identical. A world of one NCCL rank: an all-reduce
      and a broadcast through NCCL and a gspmd data=1 step bit-equal to
-     the step without a mesh. Every rank's launch window must show the
+     the step without a mesh; a gspmd data=1 Trainer on NCCL captures its
+     group of 24 NADE steps (B=64, T=64): the replayed group against the
+     eager one, params within 1e-6 max|p|, each replay's launches 24
+     times one eager step's (the capture path of a mesh; every group of
+     one rank is the identity, so no NCCL collective runs inside the
+     graph: ``multinn_torch.scripts.mesh_cards`` runs those on one card a
+     rank). Every rank's launch window must show the
      kernels its path runs; each rank's launches, the backend and the
      seconds are printed.
  19. the port's scripts at the flagship widths, each in a launch window of
@@ -496,12 +502,71 @@ def _nccl_step(ctx):
                     0.0, 1.0, 2.0, 3.0])
 
 
+def _nccl_group(ctx, spc=24):
+    """On a world of one NCCL rank: a gspmd data=1 Trainer captures its
+    group of ``spc`` NADE steps (the capture rule of an NCCL mesh); the
+    replayed group against the eager group from the same params, state
+    and key (params within 1e-6 max|p|), each replay's launches ``spc``
+    times one eager step's. Every axis group of a world of one is the
+    identity, so this checks the capture path under a mesh, not an NCCL
+    collective inside a graph (``multinn_torch.scripts.mesh_cards``)."""
+    import numpy as np
+    import torch
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.training.trainer import Trainer
+    sizes, dev = ctx["sizes"], ctx["dev"]
+    src = _FixedRolls(sizes, sizes["b_nade"], 23)
+    xs = np.stack([src.x] * spc)
+    cfg = _mesh_cfg(sizes, "rnn-nade", dict(data=1),
+                    run_dir=os.path.join(ctx["out"], "nccl_group"),
+                    steps_per_call=spc)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(23),
+                          device=dev)
+    graph, eager = Trainer(cfg, src, params=params), Trainer(cfg, src,
+                                                             params=params)
+    captures = graph.capture_groups and graph.mesh.backend == "nccl"
+    eager.capture_groups = False
+    key = sampling.PRNGKey(24, device=dev)
+    t0 = time.perf_counter()
+    eager.run_group(xs, key)
+    graph.run_group(xs, key)                 # warm-up, capture, replay
+    torch.cuda.synchronize()
+    diff = max(float((a - b).detach().abs().max()
+                     / b.detach().abs().max().clamp(min=1e-30))
+               for a, b in zip(graph._leaves, eager._leaves))
+    _build.launches.clear()
+    eager.train_step(eager._put_batch(src.x), key)
+    torch.cuda.synchronize()
+    per_step = dict(_build.launches)
+    _build.launches.clear()
+    graph.run_group(xs, key)
+    torch.cuda.synchronize()
+    replayed = dict(_build.launches)
+    g = graph.group_graph
+    fam = ("nade_ll_fwd", "nade_ll_bwd")
+    out = dict(case="nccl_mesh_group", backend=graph.mesh.backend,
+               captured=bool(captures), params_diff=diff,
+               launches=replayed,
+               replay_per_eager_step={k: replayed.get(k, 0) / per_step[k]
+                                      for k in fam if per_step.get(k)},
+               capture_s=g.capture_s, pool_bytes=g.graph.pool_bytes,
+               seconds=time.perf_counter() - t0,
+               ok=bool(captures and diff <= 1e-6
+                       and replayed == dict(g.launches)
+                       and all(per_step.get(k) and replayed.get(k)
+                               == spc * per_step[k] for k in fam)))
+    graph.close()
+    eager.close()
+    return out
+
+
 def _mesh_job(ctx):
     """The cases of one world: ``mesh2`` (2 ranks), ``mesh5`` (5 ranks),
     ``nccl1`` (1 rank under NCCL)."""
     job = ctx["job"]
     if job == "nccl1":
-        return [_nccl_step(ctx)]
+        return [_nccl_step(ctx), _nccl_group(ctx)]
     if job == "mesh5":
         return [_mesh_step(ctx, "track5_nade", "rnn-nade", dict(track=5)),
                 _mesh_step(ctx, "track5_rbm", "rnn-rbm", dict(track=5)),
@@ -596,7 +661,8 @@ MESH_KERNELS = {"dp2_nade": ("nade_ll_fwd", "nade_ll_bwd"),
                 "track5_rbm": ("gibbs_chain",),
                 "track5_scan_gen_rbm": ("gibbs_chain",),
                 "track5_scan_gen_nade": ("nade_sample",),
-                "nccl_dp_step": ("nade_ll_fwd", "nade_ll_bwd")}
+                "nccl_dp_step": ("nade_ll_fwd", "nade_ll_bwd"),
+                "nccl_mesh_group": ("nade_ll_fwd", "nade_ll_bwd")}
 
 
 def phase18(out, say, fail, device="cuda", sizes=MESH_SIZES):
@@ -628,14 +694,21 @@ def phase18(out, say, fail, device="cuda", sizes=MESH_SIZES):
             extra = {k: case[k] for k in ("ref_loss", "loss",
                                           "worst_over_tol", "identical",
                                           "of", "answered", "density",
-                                          "probe") if k in case}
+                                          "probe", "captured", "params_diff",
+                                          "replay_per_eager_step",
+                                          "capture_s", "pool_bytes")
+                     if k in case}
             per_rank = [c["launches"] for res in ranks
                         for c in res["cases"] if c["case"] == case["case"]]
             warm = (f", a second step {case['warm_seconds']:.3f} s"
                     if "warm_seconds" in case else "")
+            note = ("; a world of one: the capture path of an NCCL mesh, "
+                    "not an NCCL collective inside a graph (every axis "
+                    "group of one rank is the identity)"
+                    if case["case"] == "nccl_mesh_group" else "")
             say(f"phase 18 {job} {case['case']}: {extra}; launches per rank "
                 f"{per_rank}; rank 0 {case['seconds']:.3f} s{warm} "
-                f"(correctness run, one shared card)")
+                f"(correctness run, one shared card){note}")
         say(f"phase 18 {job}: {world} ranks on {ranks[0]['backend']} "
             f"({ranks[0]['device']}), {job_s:.1f} s with start-up "
             f"(correctness run on one shared card, not a scaling number)")

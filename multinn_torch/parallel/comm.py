@@ -13,6 +13,11 @@ Under a gloo group a CUDA tensor goes through a pinned host buffer: the
 path of ranks that share one card, chosen when the world is made
 (``mesh.init_distributed``); under an NCCL group a CPU tensor goes through
 the rank's card. Either way the caller's tensor never leaves its device.
+Under NCCL a CUDA tensor's collectives run on the current stream's card
+with no host synchronisation and no host buffer, and allocate only
+through the caching allocator, so a CUDA graph captures them (inside a
+capture their buffers come from the graph's pool): the Trainer captures a
+mesh's step groups so (training/trainer.py).
 
 The autograd Functions give each collective the derivative the mesh's
 semantics need, and a forward-mode rule (``jvp``), so ``torch.func.jvp``
@@ -76,11 +81,18 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def gather_list(t: torch.Tensor, group) -> List[torch.Tensor]:
-    """Every rank's ``t``, in rank order (no autograd; equal shapes)."""
+    """Every rank's ``t``, in rank order (no autograd; equal shapes).
+    Under NCCL one ``all_gather_into_tensor`` into a flat buffer, whose
+    rows are the parts (capturable: no host staging, one allocation);
+    under gloo the list form."""
     n = size(group)
     if n == 1:
         return [t]
     buf = _home(group, t.detach())
+    if dist.get_backend(group) == "nccl":
+        flat = buf.new_empty((n, *buf.shape))
+        dist.all_gather_into_tensor(flat, buf, group=group)
+        return [p.to(t.device) for p in flat.unbind(0)]
     parts = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
     return [p.to(t.device) for p in parts]

@@ -96,14 +96,17 @@ def init_distributed(coordinator: Optional[str] = None,
 
 
 def rank_device(backend: Optional[str] = None) -> torch.device:
-    """The device this rank computes on: its own card under NCCL, the one
-    card under gloo when there is one (shared by the ranks), else the CPU."""
+    """The device this rank computes on: its own card under NCCL; under
+    gloo card r % count for rank r when there are cards (ranks beyond the
+    count share them; on one card every rank shares it), else the CPU."""
     backend = backend or (dist.get_backend() if dist.is_initialized()
                           else None)
     if backend == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cuda", 0) if torch.cuda.is_available() \
-        else torch.device("cpu")
+    if not torch.cuda.is_available():
+        return torch.device("cpu")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return torch.device("cuda", rank % torch.cuda.device_count())
 
 
 @dataclasses.dataclass

@@ -59,10 +59,14 @@ over. ``evaluate`` pads a short tail batch with zero-mask windows and sums
 the frame-weighted metric sums over the mean axes, exact for every style.
 Rank 0 alone writes the log, the metrics and the checkpoints; a checkpoint
 holds the full parameters (gathered) in the single-device format and
-restores on any mesh or on one device (sliced). Under a mesh the groups of
-``steps_per_call`` steps run eagerly: gloo's collectives cannot be
-captured in a CUDA graph. ``pretrain_encoders`` runs the global view on
-every rank alike.
+restores on any mesh or on one device (sliced). On a mesh whose backend
+is NCCL (every rank with a card of its own) each rank captures its groups
+of ``steps_per_call`` steps as one CUDA graph, its collectives inside, as
+without a mesh: every rank warms up and captures at the same group with
+the same collectives, and the graph takes this rank's block of the
+stacked batch. Under gloo (the CPU, or ranks that share a card) the groups
+run eagerly: gloo's collectives cannot be captured. ``pretrain_encoders``
+runs the global view on every rank alike.
 """
 
 from __future__ import annotations
@@ -244,12 +248,16 @@ class CudaGraph:
     """Capture and replay of one CUDA graph, PyTorch's whole-network recipe:
     warm-up on a side stream, then capture on the same stream into the
     graph's private memory pool. ``pool_bytes`` is the device memory the
-    capture reserved."""
+    capture reserved. ``capture_error_mode`` is ``torch.cuda.graph``'s:
+    ``thread_local`` on a mesh, where NCCL's watchdog thread queries
+    events while this thread captures (``global`` forbids that)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 capture_error_mode: str = "global"):
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
         self.stream = torch.cuda.Stream(device)
+        self.capture_error_mode = capture_error_mode
         self.pool_bytes = 0
 
     def warmup(self, fn) -> None:
@@ -265,7 +273,8 @@ class CudaGraph:
         gc.collect()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(self.device)
-        with torch.cuda.graph(self.graph, stream=self.stream):
+        with torch.cuda.graph(self.graph, stream=self.stream,
+                              capture_error_mode=self.capture_error_mode):
             out = fn()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
         return out
@@ -279,13 +288,15 @@ class StepGroupGraph:
     ``Trainer._build_multi_step``: ``split(key, N)`` on the device, steps
     1 to N-1 on the hot loss, the last one detailed with ``loss_mean``.
 
-    The stacked uint8 batch (N, B, T, K, D) and the key enter through
+    The stacked uint8 batch (N, B, T, K, D) — on a mesh this rank's block
+    of it (``Trainer._block``) — and the key enter through
     static buffers filled by ``copy_`` before each replay; the metrics come
     out in the graph's own tensors, overwritten by the next replay. The
     graph holds the addresses of the trainer's parameters and optimizer
     state, so they must be updated in place, never rebound (``restore``
     copies into them). Neither the warm-up (two steps) nor the capture
-    advances the trainer: its state is copied back after both.
+    advances the trainer: its state is copied back after both, and after
+    a capture that fails, which raises (there is no eager fallback).
 
     Launch counts: a replay runs the captured kernels without running their
     wrappers' Python, so the counts the wrappers add during the capture
@@ -299,17 +310,20 @@ class StepGroupGraph:
                              device=dev)
         self.key = torch.zeros(2, dtype=torch.uint32, device=dev)
         saved = [t.detach().clone() for t in trainer._state_tensors()]
-        graph.warmup(lambda: trainer._group_body(
-            self.x[:min(n, 2)].to(torch.float32), self.key))
         counts = collections.Counter(_build.launches)
-        t0 = time.perf_counter()
-        self.out = graph.capture(lambda: trainer._group_body(
-            self.x.to(torch.float32), self.key))
-        self.capture_s = time.perf_counter() - t0
-        self.launches = collections.Counter(_build.launches) - counts
-        _build.launches.clear()
-        _build.launches.update(counts)
-        trainer._load_state_tensors(saved)
+        try:
+            graph.warmup(lambda: trainer._group_body(
+                self.x[:min(n, 2)].to(torch.float32), self.key))
+            counts = collections.Counter(_build.launches)
+            t0 = time.perf_counter()
+            self.out = graph.capture(lambda: trainer._group_body(
+                self.x.to(torch.float32), self.key))
+            self.capture_s = time.perf_counter() - t0
+            self.launches = collections.Counter(_build.launches) - counts
+        finally:                  # a failed capture raises, state restored
+            _build.launches.clear()
+            _build.launches.update(counts)
+            trainer._load_state_tensors(saved)
 
     def __call__(self, stacked: np.ndarray, key: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
@@ -410,16 +424,24 @@ class Trainer:
         self.ckpt = Checkpointer(os.path.join(cfg.train.run_dir, "ckpt"),
                                  keep_last=cfg.train.keep_last,
                                  keep_best=cfg.train.keep_best)
-        # groups of steps_per_call steps run as a CUDA graph on the card;
-        # under a mesh eagerly (gloo's collectives cannot be captured)
-        self.capture_groups = (self.device.type == "cuda"
-                               and self.mesh is None)
-        if (self.mesh is not None and self.device.type == "cuda"
-                and cfg.train.steps_per_call > 1):
-            self.log.info("mesh training: groups of %d steps run eagerly "
-                          "(no CUDA graph)", cfg.train.steps_per_call)
+        self.capture_groups = self._choose_capture()
         self.group_graph: Optional[StepGroupGraph] = None
         self._logged_reference = False     # valid/reference is logged once
+
+    def _choose_capture(self) -> bool:
+        """Whether groups of ``steps_per_call`` steps run as a CUDA graph:
+        on the card, without a mesh or on an NCCL mesh; a gloo mesh on
+        the card runs them eagerly (gloo's collectives cannot be
+        captured) and says so in the log."""
+        if self.device.type != "cuda":
+            return False
+        if self.mesh is None or self.mesh.backend == "nccl":
+            return True
+        if self.cfg.train.steps_per_call > 1:
+            self.log.info("mesh training on %s: groups of %d steps run "
+                          "eagerly (no CUDA graph)", self.mesh.backend,
+                          self.cfg.train.steps_per_call)
+        return False
 
     # -- state -------------------------------------------------------------
 
@@ -494,13 +516,17 @@ class Trainer:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t.to(torch.float32)
 
-    def _put_batch(self, batch: np.ndarray, lead: int = 0) -> torch.Tensor:
+    def _block(self, batch: np.ndarray, lead: int = 0) -> np.ndarray:
         """This rank's block of a host batch (B, T, K, D), a (B, T) mask
-        or a group's (N, B, T, K, D) (``lead`` 1), on the device: B over
-        ``data``, K over ``track`` when track-sharded, T over ``seq`` under
-        seqpipe (the whole batch without a mesh)."""
-        return self._to_device(mesh_mod.shard_batch(
-            batch, self.mesh, self.track_sharded, self._seqpipe, lead))
+        or a group's (N, B, T, K, D) (``lead`` 1): B over ``data``, K over
+        ``track`` when track-sharded, T over ``seq`` under seqpipe (the
+        whole batch without a mesh)."""
+        return mesh_mod.shard_batch(batch, self.mesh, self.track_sharded,
+                                    self._seqpipe, lead)
+
+    def _put_batch(self, batch: np.ndarray, lead: int = 0) -> torch.Tensor:
+        """``_block`` of a host batch, on the device."""
+        return self._to_device(self._block(batch, lead))
 
     def _shard(self, x: torch.Tensor):
         """The model's part of a gspmd step on the local batch x."""
@@ -596,20 +622,23 @@ class Trainer:
         return metrics
 
     def _new_graph(self):
-        return CudaGraph(self.device)
+        return CudaGraph(self.device, "global" if self.mesh is None
+                         else "thread_local")
 
     def run_group(self, stacked: np.ndarray, key: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:
         """One group of steps on the stacked uint8 batches (N, B, T, K, D):
-        by replay of the captured graph when ``capture_groups`` (the card;
-        the first group captures it), else eagerly."""
+        by replay of the captured graph when ``capture_groups`` (the card,
+        without a mesh or on NCCL; the first group captures it, every rank
+        at the same group), else eagerly. A capture that fails raises."""
         if not self.capture_groups:
             return self._group_body(self._put_batch(stacked, lead=1), key)
+        block = self._block(stacked, lead=1)
         if self.group_graph is None:
-            self.group_graph = StepGroupGraph(self, len(stacked),
-                                              stacked.shape[1:],
+            self.group_graph = StepGroupGraph(self, len(block),
+                                              block.shape[1:],
                                               self._new_graph())
-        return self.group_graph(stacked, key)
+        return self.group_graph(block, key)
 
     def _post_step(self, metrics, timing, n_steps: int) -> Dict[str, Any]:
         """Advance the step count; raise an injected fault; on log

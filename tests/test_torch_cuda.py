@@ -810,9 +810,10 @@ def test_nade_ll_bwd_takes_x_that_is_not_binary(dev):
         assert _within(a, b)
 
 
-def _group_trainers(dev, model, tmp_path, n=4):
+def _group_trainers(dev, model, tmp_path, n=4, mesh=None):
     """Two trainers from the same params on the card, one replaying its
-    groups of n steps from a CUDA graph and one running them eagerly."""
+    groups of n steps from a CUDA graph and one running them eagerly
+    (on ``mesh``, a MeshConfig, when given)."""
     from multinn_torch.training.trainer import Trainer
     data = config.DataConfig.from_preset("synthetic", window=16, batch_size=4,
                                          synthetic_songs=12,
@@ -822,6 +823,7 @@ def _group_trainers(dev, model, tmp_path, n=4):
     for name in ("graph", "eager"):
         cfg = config.ExperimentConfig(
             data=data, model=multinn.MultINNConfig(**model),
+            mesh=mesh or config.MeshConfig(),
             train=config.TrainConfig(steps_per_call=n,
                                      run_dir=str(tmp_path / name)))
         out.append(Trainer(cfg, params=params))
@@ -1320,6 +1322,65 @@ def test_nccl_world_one_dp_step(dev, tmp_path):
         assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
     finally:
         dist.destroy_process_group()
+
+
+def test_nccl_world_one_captured_mesh_group(dev, tmp_path):
+    """A world of one NCCL rank: a gspmd data=1 Trainer captures its groups
+    (the capture rule of an NCCL mesh, in ``thread_local`` mode); two
+    replayed groups of 4 steps equal the eager groups, each replay adding
+    4 eager steps' launches. Every group of one rank is the identity: the
+    capture path under a mesh, not an NCCL collective inside a graph."""
+    import torch.distributed as dist
+
+    from multinn_torch.parallel import mesh as mesh_mod
+    backend = mesh_mod.init_distributed(f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert backend == "nccl"
+        (graph, eager), groups = _group_trainers(
+            dev, NADE, tmp_path, mesh=config.MeshConfig(use_mesh=True))
+        assert graph.mesh.backend == "nccl"
+        assert graph._new_graph().capture_error_mode == "thread_local"
+        for i, xs in enumerate(groups):
+            key = sampling.PRNGKey(40 + i, device=dev)
+            _build.launches.clear()
+            graph.run_group(xs, key)
+            torch.cuda.synchronize()
+            replayed = dict(_build.launches)
+            eager.run_group(xs, key)
+            if i:                        # the first call also warmed up
+                assert replayed == dict(graph.group_graph.launches)
+            _params_close(graph, eager)
+        _build.launches.clear()
+        eager.train_step(eager._put_batch(groups[0][0]), key)
+        torch.cuda.synchronize()
+        for k in ("nade_ll_fwd", "nade_ll_bwd"):
+            assert graph.group_graph.launches[k] == 4 * _build.launches[k]
+        graph.close()
+        eager.close()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_two_cards_captured_group_equals_eager(tmp_path):
+    """Two ranks, a card each, on NCCL: each gspmd data=2 Trainer captures
+    its groups with their NCCL collectives inside; two replayed groups of 4
+    steps per family equal the eager mesh groups (params within 1e-6
+    max|p|) on both ranks, each replay adding 4 eager steps' launches."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL runs one rank a card")
+    import torch_mesh_ranks as ranks
+    ranks.run_world(tmp_path, 2, "cards2", timeout=300, backend="nccl")
+    for dec in ("rnn-nade", "rnn-rbm"):
+        for r in range(2):
+            a = ranks.load(tmp_path, f"cards2_{dec}", r)
+            assert str(a["backend"]) == "nccl"
+            assert str(a["device"]) == f"cuda:{r}"
+            assert a["captures"] == 1.0
+            assert (a["diffs"] <= 1e-6).all(), a["diffs"]
+            assert a["one_step"] >= 1
+            assert a["recorded"] == 4 * a["one_step"]
+            # the first call also ran the warm-up's two eager steps
+            assert a["replays"][1] == a["recorded"]
 
 
 @pytest.mark.parametrize("model", [FLAGSHIP, NADE])

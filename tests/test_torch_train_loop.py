@@ -21,7 +21,6 @@ on the CPU, and the parts of the loop that a CUDA graph changes.
   exactly.
 """
 
-import collections
 import json
 
 import numpy as np
@@ -40,6 +39,7 @@ from multinn_torch.ops import _build, sampling  # noqa: E402
 from multinn_torch.training import trainer  # noqa: E402
 from multinn_torch.utils import config  # noqa: E402
 from multinn_torch.utils.convert import from_jax  # noqa: E402
+from torch_mesh_ranks import RecorderGraph  # noqa: E402
 
 torch.set_num_threads(1)
 K, D = 2, 24
@@ -187,29 +187,6 @@ def test_device_schedule_matches_optax(kw, steps_per_epoch):
         assert lr.dtype == torch.float32 and lr.dim() == 0
         w = want if isinstance(want, float) else float(want(step))
         np.testing.assert_allclose(float(lr), w, rtol=1e-6, atol=1e-12)
-
-
-class RecorderGraph:
-    """The CudaGraph interface without a card: capture runs the group once
-    (as capture records it), replay runs it again with the launch counts
-    held (a replay runs no wrapper's Python) and refreshes the outputs."""
-
-    def warmup(self, fn):
-        fn()
-
-    def capture(self, fn):
-        self.fn = fn
-        self.out = fn()
-        return self.out
-
-    def replay(self):
-        held = collections.Counter(_build.launches)
-        new = self.fn()
-        _build.launches.clear()
-        _build.launches.update(held)
-        with torch.no_grad():
-            for k, v in new.items():
-                self.out[k].copy_(v)
 
 
 @pytest.fixture

@@ -1,7 +1,9 @@
 """The rank side of the mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_seqpipe.py): jobs that each rank of a gloo world on the
-CPU runs, spawned by ``run_world``. This module imports only torch, numpy
-and multinn_torch, so a spawned rank never loads JAX.
+tests/test_torch_seqpipe.py, tests/test_torch_mesh_graphs.py): jobs that
+each rank of a gloo world on the CPU runs, spawned by ``run_world`` (and
+``cards2``, an NCCL world of one card a rank, for
+tests/test_torch_cuda.py). This module imports only torch, numpy and
+multinn_torch, so a spawned rank never loads JAX.
 
 A job is a function ``job(rank, world, out)`` that runs its cases and
 writes their results as ``<out>/<case>.npz`` (rank 0's) and, where every
@@ -30,11 +32,12 @@ if ROOT not in sys.path:                 # a spawned rank finds the package
 
 # -- the harness --------------------------------------------------------------
 
-def _entry(rank: int, world: int, out: str, job: str) -> None:
+def _entry(rank: int, world: int, out: str, job: str,
+           backend: str = "gloo") -> None:
     torch.set_num_threads(1)
     from multinn_torch.parallel import mesh as mesh_mod
     mesh_mod.init_distributed(f"file://{out}/store_{job}", world, rank,
-                              backend="gloo")
+                              backend=backend)
     try:
         JOBS[job](rank, world, out)
         dist.barrier()
@@ -46,14 +49,16 @@ def _entry(rank: int, world: int, out: str, job: str) -> None:
         dist.destroy_process_group()
 
 
-def run_world(out, world: int, job: str, timeout: float = 240.0) -> None:
-    """Spawn ``world`` ranks running ``job`` and wait at most ``timeout``
-    seconds; a rank that raises, or a world still running at the deadline
-    (every rank is then killed), fails with the ranks' tracebacks."""
+def run_world(out, world: int, job: str, timeout: float = 240.0,
+              backend: str = "gloo") -> None:
+    """Spawn ``world`` ranks running ``job`` on ``backend`` (gloo on the
+    CPU; ``nccl``: one card a rank) and wait at most ``timeout`` seconds;
+    a rank that raises, or a world still running at the deadline (every
+    rank is then killed), fails with the ranks' tracebacks."""
     import torch.multiprocessing as mp
     out = str(out)
-    ctx = mp.start_processes(_entry, args=(world, out, job), nprocs=world,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(_entry, args=(world, out, job, backend),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.time() + timeout
     try:
         while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
@@ -585,5 +590,213 @@ def job_w1(rank, world, out):
           sizes=np.array([m.shape[a] for a in m.axis_names]))
 
 
+# -- captured mesh groups (tests/test_torch_mesh_graphs.py) -------------------
+
+class RecorderGraph:
+    """The CudaGraph interface without a card (as in
+    tests/test_torch_train_loop.py): capture runs the group once, as
+    capture records it; replay runs it again with the launch counts held
+    (a replay runs no wrapper's Python) and refreshes the outputs."""
+
+    def warmup(self, fn):
+        fn()
+
+    def capture(self, fn):
+        self.fn = fn
+        self.out = fn()
+        return self.out
+
+    def replay(self):
+        import collections
+        from multinn_torch.ops import _build
+        held = collections.Counter(_build.launches)
+        new = self.fn()
+        _build.launches.clear()
+        _build.launches.update(held)
+        with torch.no_grad():
+            for k, v in new.items():
+                self.out[k].copy_(v)
+
+
+def _probe_loss():
+    """A stand-in kernel launch in every loss call (the plain versions
+    count nothing on the CPU)."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build
+    real = getattr(multinn.loss, "real", multinn.loss)
+
+    def counted(*a, **kw):
+        _build.launches["probe"] += 1
+        return real(*a, **kw)
+    counted.real = real
+    multinn.loss = counted
+
+
+def _state(t):
+    return [v.detach().numpy().copy() for v in t._state_tensors()]
+
+
+def graph_case(out, rank, case, mesh, n=4, params=None, stacked=None,
+               key_seed=9, **kw):
+    """A group of ``n`` steps on ``mesh`` captured (a RecorderGraph in
+    place of the CUDA graph) against the same group run eagerly from the
+    same params, optimizer state and key, twice in a row; this rank's
+    block shape, its state around warm-up and capture, and the launches
+    of one eager step and of each replay. ``params`` (full) and
+    ``stacked`` replace the seeded ones."""
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.training.trainer import StepGroupGraph, Trainer
+    _probe_loss()
+
+    def make(name):
+        cfg = exp_cfg(os.path.join(out, f"{case}_{name}"), mesh,
+                      steps_per_call=n, **kw)
+        return Trainer(cfg, params=params, device="cpu")
+    eager, graph = make("eager"), make("graph")
+    if stacked is None:
+        batches = list(eager.dataset.batches("train", epoch=0))
+        stacked = np.stack([batches[i % len(batches)]
+                            for i in range(n + 1)])
+    groups = [stacked[:n], stacked[1:n + 1]]
+    key = sampling.PRNGKey(key_seed, device="cpu")
+    state0 = [v.detach().clone() for v in eager._state_tensors()]
+    _build.launches.clear()
+    eager.train_step(eager._put_batch(groups[0][0]), key)
+    one_step = _build.launches["probe"]
+    eager._load_state_tensors(state0)
+    before = _state(graph)
+    block = graph._block(groups[0], lead=1)
+    graph.capture_groups = True
+    graph.group_graph = StepGroupGraph(graph, n, block.shape[1:],
+                                       RecorderGraph())
+    unchanged = all(np.array_equal(a, b) for a, b in
+                    zip(before, _state(graph)))
+    arrays = dict(one_step=np.float64(one_step),
+                  unchanged=np.float64(unchanged),
+                  block=np.array(graph.group_graph.x.shape),
+                  backend=np.array(graph.mesh.backend))
+    for g, (xs, k) in enumerate(zip(groups, (key, sampling.fold_in(key,
+                                                                  1)))):
+        _build.launches.clear()
+        got = graph.run_group(xs, k)
+        arrays[f"replay{g}"] = np.float64(_build.launches["probe"])
+        want = eager.run_group(xs, k)
+        for name in want:
+            arrays[f"g{g}_got_{name}"] = got[name].numpy().copy()
+            arrays[f"g{g}_want_{name}"] = want[name].numpy().copy()
+        if g == 0:                 # the whole params after the first group
+            arrays.update({f"first{i}": a for i, a in
+                           enumerate(leaves(graph.full_params()))})
+    arrays.update({f"got{i}": a for i, a in enumerate(_state(graph))})
+    arrays.update({f"want{i}": a for i, a in enumerate(_state(eager))})
+    eager.close()
+    graph.close()
+    _save(out, case, rank, every_rank=True, **arrays)
+
+
+def jax_graph_case(out, rank):
+    """The NADE captured group on data=2 from the JAX Trainer's params
+    (``jaxg_params.pt``) on its stacked batches (``jaxg_stack.npy``); the
+    first group's key is the one the test process gave the JAX Trainer's
+    multi-step."""
+    from multinn_torch.models import multinn
+    base = trainer(out, "jaxg_base", steps_per_call=4)
+    with torch.no_grad():
+        for t, v in zip(multinn.tree_leaves(base.params),
+                        torch.load(os.path.join(out, "jaxg_params.pt"))):
+            t.copy_(v)
+    graph_case(out, rank, "g_jax_nade", mesh_cfg(), params=base.params,
+               stacked=np.load(os.path.join(out, "jaxg_stack.npy")),
+               key_seed=JAX_GROUP_KEY)
+    base.close()
+
+
+JAX_GROUP_KEY = 11
+
+
+def job_g2(rank, world, out):
+    """A world of 2: captured groups against eager under gspmd data=2
+    (both families), shard_map data=2, seqpipe seq=2, a Hessian-free
+    gspmd data=2 group, and the NADE group from the JAX Trainer's
+    params."""
+    graph_case(out, rank, "g_gspmd_nade", mesh_cfg())
+    graph_case(out, rank, "g_gspmd_rbm", mesh_cfg(), dec="rnn-rbm")
+    graph_case(out, rank, "g_shard_map_nade", mesh_cfg(style="shard_map"))
+    graph_case(out, rank, "g_shard_map_rbm", mesh_cfg(style="shard_map"),
+               dec="rnn-rbm")
+    graph_case(out, rank, "g_seqpipe_nade",
+               mesh_cfg(data=1, seq=2, style="seqpipe"), mode="feedback")
+    graph_case(out, rank, "g_hf_gspmd_nade", mesh_cfg(), optimizer="hf",
+               hf_cg_iters=4)
+    if os.path.exists(os.path.join(out, "jaxg_params.pt")):
+        jax_graph_case(out, rank)
+
+
+def job_g4(rank, world, out):
+    """A world of 4: captured groups against eager under gspmd data=2 x
+    model=2 (both families)."""
+    graph_case(out, rank, "g_dp_tp_nade", mesh_cfg(data=2, model=2))
+    graph_case(out, rank, "g_dp_tp_rbm", mesh_cfg(data=2, model=2),
+               dec="rnn-rbm")
+
+
+def job_cards2(rank, world, out):
+    """Two cards on NCCL (tests/test_torch_cuda.py): a gspmd data=2
+    Trainer of each family at the flagship widths captures its group of
+    4 steps, its NCCL collectives inside; the replayed group against the
+    eager one from the same params, state and key, twice in a row."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.trainer import Trainer
+    from multinn_torch.utils import config as cfg_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = mesh_mod.rank_device()
+    data = cfg_mod.DataConfig.from_preset(
+        "synthetic", window=16, batch_size=8, synthetic_songs=24,
+        synthetic_steps=64)                  # 9 train batches of 8
+    for dec, kernel in (("rnn-nade", "nade_ll_bwd"),
+                        ("rnn-rbm", "gibbs_chain")):
+        model = multinn.MultINNConfig(
+            n_tracks=5, n_pitches=84, mode="feedback", decoder_type=dec,
+            n_hidden=150, n_rnn=100, gen_k=10)
+        params = multinn.init(model, torch.Generator().manual_seed(0),
+                              device=dev)
+        pair = [Trainer(cfg_mod.ExperimentConfig(
+            data=data, model=model, mesh=mesh_cfg(),
+            train=cfg_mod.TrainConfig(steps_per_call=4, run_dir=os.path.join(
+                out, f"cards2_{dec}_{name}_{rank}"))), params=params)
+            for name in ("graph", "eager")]
+        graph, eager = pair
+        captures = graph.capture_groups
+        eager.capture_groups = False
+        batches = np.stack(list(graph.dataset.batches("train", epoch=0)))
+        diffs, replays = [], []
+        for i in range(2):
+            xs, key = batches[i * 4:(i + 1) * 4], sampling.PRNGKey(
+                30 + i, device=dev)
+            _build.launches.clear()
+            graph.run_group(xs, key)
+            torch.cuda.synchronize()
+            replays.append(_build.launches[kernel])
+            eager.run_group(xs, key)
+            diffs.append(max(
+                float((a - b).detach().abs().max()
+                      / b.detach().abs().max().clamp(min=1e-30))
+                for a, b in zip(graph._leaves, eager._leaves)))
+        _build.launches.clear()
+        eager.train_step(eager._put_batch(batches[0]), key)
+        torch.cuda.synchronize()
+        _save(out, f"cards2_{dec}", rank, every_rank=True,
+              backend=np.array(graph.mesh.backend),
+              device=np.array(str(dev)), captures=np.float64(captures),
+              diffs=np.array(diffs), replays=np.array(replays),
+              one_step=np.float64(_build.launches[kernel]),
+              recorded=np.float64(graph.group_graph.launches[kernel]))
+        graph.close()
+        eager.close()
+
+
 JOBS = {"w1": job_w1, "w2": job_w2, "w4": job_w4, "w8": job_w8,
-        "w4s": job_w4s}
+        "w4s": job_w4s, "g2": job_g2, "g4": job_g4, "cards2": job_cards2}
