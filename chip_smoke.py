@@ -30,7 +30,10 @@ matmul policy, 18 process meshes, 19 the port's scripts
      B=8, T=16 with at least 7 of 8 samples identical (final h within
      1e-4 on those), then T=1024 with per-track note density within 0.01;
      B=256 (several samples per cluster), T=16 with at least 254 of 256
-     samples identical (final h within 1e-4); then the batch sweep B in
+     samples identical (final h within 1e-4); K=4 (a cluster of four
+     CTAs, one track slot each: the four-track flagship of
+     ``multinn_torch.scripts.mesh_cards --k 4``), B=8, T=16 with at least
+     7 of 8 identical; then the batch sweep B in
      {1, 8, 64, 256} at T=1024 on the flagship with seeded random params:
      ms per song, us per step, the bound (the work this run's rolls need,
      at the card's peak rates), the roofline share and the weights'
@@ -45,7 +48,8 @@ matmul policy, 18 process meshes, 19 the port's scripts
   7. NADE sampler: kernel vs plain version at D=84, H=150 for one track's
      8 rows (the scan branch's shape) — at most 1 of 8 rows may differ;
   8. fused NADE generation as phase 5 (B=8 and B=256 at T=16, density at
-     T=1024, at the kernel's auto speculative depth) and the batch sweep,
+     T=1024, at the kernel's auto speculative depth; K=4 at B=8, T=16)
+     and the batch sweep,
      on the NADE flagship; then the kernel at the speculative depths 1, 2
      and 4 and the auto depth at B=1, 8, 32 and 256, T=1024: roll, h and
      c bit-identical to depth 1's at every depth, the ms per song of each
@@ -933,9 +937,10 @@ def main() -> None:
     del bench, bk, bp
 
     # 5. fused RBM generation at flagship widths ---------------------------------
-    def primed(params, batch):
+    def primed(params, batch, gen=g):
         """h0, c0 and v_prev of a state primed on a seeded random roll."""
-        seed = (torch.rand(batch, 16, 5, 84, generator=g) < 0.1).float()
+        seed = (torch.rand(batch, 16, params.cfg.n_tracks,
+                           params.cfg.n_pitches, generator=gen) < 0.1).float()
         st = multinn.prime(params, multinn.init_state(params, batch),
                            seed.to(dev))
         return (torch.stack([c.h for c in st.decoder.cell]),
@@ -989,6 +994,27 @@ def main() -> None:
         f"err {h_err:.2e}; T=16 B=256 {same256}/256 identical (need 254), "
         f"final h max err {h_err256:.2e}; T=1024 per-track density kernel "
         f"{dens_k} plain {dens_p} (max gap {dens_gap:.4f})")
+    # K=4 (the track set of multinn_torch.scripts.mesh_cards): a cluster
+    # of four CTAs, one track slot each; its own generator, so the draws
+    # of the phases after it stay as they were
+    def ramped(model, gen):
+        """Seeded params of ``model`` at w_std 0.1 with the visible-bias
+        ramp of phases 5 and 8."""
+        p = multinn.init(multinn.MultINNConfig(**dict(model, w_std=0.1)),
+                         gen, device=dev)
+        return dataclasses.replace(p, decoder=dataclasses.replace(
+            p.decoder, bv=p.decoder.bv + torch.linspace(-3.0, 1.0, 84,
+                                                        device=dev)))
+
+    g4 = torch.Generator().manual_seed(54)
+    p5k4 = ramped(dict(FLAGSHIP, n_tracks=4), g4)
+    same_k4, h_err_k4 = match16(
+        lambda h0, c0, v0, n_steps, impl: gen_fused_rbm.generate_rbm(
+            key, p5k4.decoder, h0, c0, v0, n_steps, 10, impl=impl),
+        primed(p5k4, 8, g4), 7, "fused K=4")
+    say(f"phase 5 fused K=4 (a cluster of 4 CTAs, one track each): T=16 "
+        f"B=8 {same_k4}/8 samples identical (need 7), final h max err "
+        f"{h_err_k4:.2e}")
     params = multinn.init(multinn.MultINNConfig(**FLAGSHIP),
                           torch.Generator().manual_seed(0), device=dev)
     rbm_sweep = sweep(params, FLAGSHIP["gen_k"])
@@ -1132,6 +1158,15 @@ def main() -> None:
         f"h max err {nh_err:.2e}; T=16 B=256 {nsame256}/256 identical (need "
         f"254), final h max err {nh_err256:.2e}; T=1024 per-track density "
         f"kernel {dens_k} plain {dens_p} (max gap {dens_gap:.4f})")
+    g4 = torch.Generator().manual_seed(58)
+    p8k4 = ramped(dict(NADE_FLAGSHIP, n_tracks=4), g4)
+    nsame_k4, nh_err_k4 = match16(
+        lambda h0, c0, v0, n_steps, impl: gen_fused_nade.generate_nade(
+            key, p8k4.decoder, h0, c0, v0, n_steps, impl=impl),
+        primed(p8k4, 8, g4), 7, "fused nade K=4")
+    say(f"phase 8 fused nade K=4 (a cluster of 4 CTAs, one track each): "
+        f"T=16 B=8 {nsame_k4}/8 samples identical (need 7), final h max "
+        f"err {nh_err_k4:.2e}")
     nparams = multinn.init(multinn.MultINNConfig(**NADE_FLAGSHIP),
                            torch.Generator().manual_seed(0), device=dev)
     nade_sweep = sweep(nparams, 0)

@@ -48,6 +48,7 @@ from multinn_torch.models.encoders import EncoderConfig
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import sampling
 from multinn_torch.parallel import comm
+from multinn_torch.training.metrics import FRAME_COUNTS
 from multinn_torch.utils.device import entry_device
 
 MODES = ("per-track", "feedback", "joint", "hybrid")
@@ -326,7 +327,8 @@ def loss(params: MultINNParams, key: torch.Tensor, x: torch.Tensor,
     i's key is ``split(key, K)[i]`` (joint mode: ``key``).
     ``detailed=False`` is the trainer's hot path; ``impl`` forces the
     decoder's kernels or their plain versions; ``shard`` / ``seq``: a
-    mesh's part (module docstring)."""
+    mesh's part (module docstring); rows split over ``data`` add every
+    track's frame counts, (K, 5) under ``metrics.FRAME_COUNTS``."""
     cfg = params.cfg
     feats_k, ctx = _track_inputs(params, x, shard, seq)
     keys = _decoder_keys(cfg, key, shard)
@@ -337,14 +339,16 @@ def loss(params: MultINNParams, key: torch.Tensor, x: torch.Tensor,
         with torch.no_grad():
             metrics = {k: _all_tracks(v, shard) for k, v in metrics.items()}
             every = _all_tracks(losses.detach(), shard)
-        metrics = _mean_tree(metrics)
-        metrics["loss_per_track"] = every
-        metrics["loss"] = every.mean()
-        return losses.sum() / cfg.n_tracks, metrics
+        total, value = losses.sum() / cfg.n_tracks, every.mean()
+    else:
+        every, total = losses.detach(), losses.mean()
+        value = total.detach()
+    counts = metrics.pop(FRAME_COUNTS, None)        # (K, 5): kept per track
     metrics = _mean_tree(metrics)
-    metrics["loss_per_track"] = losses.detach()
-    total = losses.mean()
-    metrics["loss"] = total.detach()
+    if counts is not None:
+        metrics[FRAME_COUNTS] = counts
+    metrics["loss_per_track"] = every
+    metrics["loss"] = value
     return total, metrics
 
 

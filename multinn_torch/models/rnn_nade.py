@@ -33,7 +33,8 @@ from multinn_torch.nn import nade as nade_nn
 from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import nade_ops
 from multinn_torch.parallel import comm
-from multinn_torch.training.metrics import frame_metrics
+from multinn_torch.training.metrics import (FRAME_COUNTS, frame_counts,
+                                            frame_ratios)
 
 
 @dataclasses.dataclass
@@ -127,7 +128,9 @@ def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
     Returns (loss, metrics), per track when stacked. ``detailed=False``
     skips the frame metrics (hot path); ``frame_mask`` (B, T) excludes
     padded frames. ``impl`` forces the likelihood kernels or their plain
-    versions; ``shard`` / ``seq``: a mesh's part (module docstring)."""
+    versions; ``shard`` / ``seq``: a mesh's part (module docstring); rows
+    split over ``data`` add their frame counts (``metrics.FRAME_COUNTS``).
+    """
     del key
     nll, (x_tm, logits) = _nll(params, x, ctx, frame_mask,
                                need_logits=detailed, impl=impl, shard=shard,
@@ -138,11 +141,14 @@ def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
     with torch.no_grad():
         probs = torch.sigmoid(logits)
         if params.w.dim() == 3:
-            per = [frame_metrics(probs[:, i], x_tm[:, i], mask=m2)
-                   for i in range(probs.shape[1])]
-            metrics = {k: torch.stack([m[k] for m in per]) for k in per[0]}
+            counts = torch.stack([frame_counts(probs[:, i], x_tm[:, i],
+                                               mask=m2)
+                                  for i in range(probs.shape[1])])
         else:
-            metrics = frame_metrics(probs, x_tm, mask=m2)
+            counts = frame_counts(probs, x_tm, mask=m2)
+        metrics = frame_ratios(counts)
+    if shard is not None and shard.rows is not None:
+        metrics[FRAME_COUNTS] = counts
     metrics["nll"] = nll.detach()
     metrics["loss"] = nll.detach()
     return nll, metrics

@@ -15,7 +15,9 @@ monitoring draws) per track, each on its own key, where the JAX package
 vmaps over tracks.
 
 Under a mesh (``shard``: parallel.mesh.Shard of a global-view step) the
-chain draws the stream of its rows in the whole batch (the row map), and
+chain and the monitoring draws take the stream of their rows in the whole
+batch (the row map), a data split returns its frame counts for the
+trainer to sum (training/metrics.FRAME_COUNTS), and
 under the ``model`` axis, where w, bh and wuh hold this rank's H columns,
 the free energy's softplus sum over H is completed across the ranks —
 their softplus columns gathered and summed in the single-device order, so
@@ -42,8 +44,9 @@ from multinn_torch.ops import gibbs as gibbs_ops
 from multinn_torch.ops import sampling
 from multinn_torch.ops.precision import mm
 from multinn_torch.parallel import comm
-from multinn_torch.training.metrics import (binary_cross_entropy,
-                                            frame_metrics)
+from multinn_torch.training.metrics import (FRAME_COUNTS,
+                                            binary_cross_entropy,
+                                            frame_counts, frame_ratios)
 
 
 @dataclasses.dataclass
@@ -117,7 +120,8 @@ def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
     Keys per decoder: ``k1, k2, k3 = split(key, 3)`` (chain,
     reconstruction, pseudo-likelihood). ``detailed=False`` is the hot path
     (loss only); ``impl`` forces the chain's kernel or its plain version;
-    ``shard`` / ``seq``: a mesh's part (module docstring)."""
+    ``shard`` / ``seq``: a mesh's part (module docstring); rows split over
+    ``data`` add their frame counts (``metrics.FRAME_COUNTS``)."""
     cfg = params.cfg
     stacked = params.w.dim() == 3
     mg = None if shard is None else shard.model
@@ -144,11 +148,15 @@ def loss(params: Params, key: torch.Tensor, x: torch.Tensor,
     m2 = base.time_major_mask(frame_mask, False)
 
     def monitor(kk, v0, p, bv, bh):
-        recon = rbm_nn.reconstruction(kk[1], v0, p.w, bv, bh, k=cfg.cd_k)
-        out = frame_metrics(recon, v0, mask=m2)
+        recon = rbm_nn.reconstruction(kk[1], v0, p.w, bv, bh, k=cfg.cd_k,
+                                      rows=rows)
+        counts = frame_counts(recon, v0, mask=m2)
+        out = frame_ratios(counts)
+        if rows is not None:
+            out[FRAME_COUNTS] = counts
         out["bce_recon"] = binary_cross_entropy(recon, v0, mask=m2)
-        out["pll"] = base.frame_mean(
-            rbm_nn.pseudo_log_likelihood(kk[2], v0, p.w, bv, bh), m2)
+        out["pll"] = base.frame_mean(rbm_nn.pseudo_log_likelihood(
+            kk[2], v0, p.w, bv, bh, rows=rows), m2)
         return out
 
     with torch.no_grad():
@@ -166,11 +174,12 @@ def log_likelihood_proxy(params: Params, key: torch.Tensor, x: torch.Tensor,
     the real frames (this rank's under ``seq``): ([K,] B)."""
     stacked = params.w.dim() == 3
     mg = None if shard is None else shard.model
+    rows = None if shard is None else shard.rows
     x_tm, bv_t, bh_t = base.teacher_forced(params, x, ctx, seq, mg)
     p_full, bh_full = _full_hidden(params, bh_t, mg)
     pll = base.per_track(
         lambda kk, v0, p, bv, bh: rbm_nn.pseudo_log_likelihood(
-            kk, v0, p.w, bv, bh),
+            kk, v0, p.w, bv, bh, rows=rows),
         p_full, key, x_tm, bv_t, bh_full, dim=1)          # (T, [K,] B)
     m_tm = base.time_major_mask(frame_mask, stacked)
     if m_tm is not None:

@@ -41,7 +41,7 @@ same on every rank for that (parallel/seqpipe.py).
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -298,12 +298,15 @@ def sum_(tensors: List[torch.Tensor], groups) -> List[torch.Tensor]:
     return tensors
 
 
-def mean_(tensors: List[torch.Tensor], groups) -> List[torch.Tensor]:
+def mean_(tensors: List[torch.Tensor], groups,
+          sums: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
     """Average ``tensors`` in place over every group of ``groups`` (the
-    reference's pmean over several axes); returns them."""
+    reference's pmean over several axes), and sum ``sums`` in place in the
+    same all-reduces; returns ``tensors``."""
     n = 1
     for group in groups:
         n *= size(group)
     if n > 1:
-        torch._foreach_div_(sum_(tensors, groups), float(n))
+        sum_(list(tensors) + list(sums), groups)
+        torch._foreach_div_(tensors, float(n))
     return tensors

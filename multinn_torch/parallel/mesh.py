@@ -338,6 +338,13 @@ def batch_slice(b_global: int, mesh: Optional[Mesh]) -> slice:
                  (mesh.index(DATA_AXIS) + 1) * per)
 
 
+def track_slice(k: int, mesh: Mesh) -> slice:
+    """This rank's tracks of ``k`` split over ``track``."""
+    per = k // mesh.size(TRACK_AXIS)
+    t = mesh.index(TRACK_AXIS)
+    return slice(t * per, (t + 1) * per)
+
+
 def shard_batch(batch, mesh: Optional[Mesh], track_sharded: bool = False,
                 seq: bool = False, lead: int = 0):
     """This rank's block of a (B, T, K, D) pianoroll batch or a (B, T)
@@ -357,10 +364,7 @@ def shard_batch(batch, mesh: Optional[Mesh], track_sharded: bool = False,
     elif ndim > 1:
         idx.append(slice(None))
     if track_sharded and ndim == 4:
-        k = batch.shape[lead + 2]
-        per = k // mesh.size(TRACK_AXIS)
-        t = mesh.index(TRACK_AXIS)
-        idx.append(slice(t * per, (t + 1) * per))
+        idx.append(track_slice(batch.shape[lead + 2], mesh))
     return batch[tuple(idx)]
 
 
@@ -383,9 +387,11 @@ class Reduce:
         self.track = (mesh.group(TRACK_AXIS)
                       if mesh is not None and track_sharded else None)
 
-    def mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Average in place over the mean axes (the gradients' pmean)."""
-        return comm.mean_(list(tensors), self.mean_groups)
+    def mean(self, tensors: List[torch.Tensor],
+             sums: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+        """Average in place over the mean axes (the gradients' pmean); sum
+        ``sums`` in place in the same all-reduces."""
+        return comm.mean_(list(tensors), self.mean_groups, sums)
 
     def loss(self, share: torch.Tensor) -> torch.Tensor:
         """The global loss from this rank's share (no autograd)."""

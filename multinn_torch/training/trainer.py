@@ -89,6 +89,7 @@ from multinn_torch.parallel import comm
 from multinn_torch.parallel import mesh as mesh_mod
 from multinn_torch.training import hf as hf_mod
 from multinn_torch.training.checkpoint import Checkpointer
+from multinn_torch.training.metrics import FRAME_COUNTS, frame_ratios
 from multinn_torch.utils.device import entry_device
 from multinn_torch.utils.logging import (MetricsLogger, format_metrics,
                                          setup_logger)
@@ -99,6 +100,12 @@ class FaultInjected(RuntimeError):
 
 def _f32(count) -> torch.Tensor:
     return torch.as_tensor(count).to(torch.float32)
+
+
+def _track_mean_ratios(counts: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The frame ratios of every track's counts (K, 5), averaged over the
+    tracks as ``multinn.loss`` averages the metrics."""
+    return {name: v.mean(dim=0) for name, v in frame_ratios(counts).items()}
 
 
 def _linear_schedule(init: float, end: float, steps: int):
@@ -561,12 +568,21 @@ class Trainer:
 
     def _mean_metrics(self, metrics: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
-        """Metrics averaged over the mean axes (the reference's pmean)."""
+        """Metrics averaged over the mean axes (the reference's pmean); the
+        frame counts of a data split summed in the same all-reduce and the
+        ratios formed from the sums (the reference's global view)."""
         if self.mesh is None:
             return metrics
+        metrics = dict(metrics)
+        counts = metrics.pop(FRAME_COUNTS, None)
+        sums = [] if counts is None else [counts.clone()]
         names = list(metrics)
-        vals = self._red.mean([metrics[n].detach().clone() for n in names])
-        return dict(zip(names, vals))
+        vals = self._red.mean([metrics[n].detach().clone() for n in names],
+                              sums)
+        metrics = dict(zip(names, vals))
+        if sums:
+            metrics.update(_track_mean_ratios(sums[0]))
+        return metrics
 
     def train_step(self, x: torch.Tensor, key: torch.Tensor,
                    detailed: bool = False) -> Dict[str, torch.Tensor]:
@@ -713,36 +729,57 @@ class Trainer:
         return last
 
     @torch.no_grad()
-    def _eval_step(self, x, key, mask) -> Dict[str, torch.Tensor]:
+    def _eval_step(self, x, key, mask, whole: bool = False
+                   ) -> Dict[str, torch.Tensor]:
         """Frame-weighted metric sums of one batch, and ``n_frames`` (on a
-        mesh, this rank's block, the sums then summed over the mean
-        axes)."""
+        mesh, this rank's block, the sums then summed over the mean axes;
+        ``whole``: a gspmd batch whole on every rank, ``_eval_tail``)."""
         k_loss, k_ll = sampling.split(self._fold_shard_key(key))
-        shard, seq = self._shard(x), self._seq_spec(x)
+        shard = (mesh_mod.shard_of(self.mesh, None, self.track_sharded)
+                 if whole else self._shard(x))
+        seq = self._seq_spec(x)
         with self._policy():
             _, metrics = multinn.loss(self.params, k_loss, x,
                                       frame_mask=mask, shard=shard, seq=seq)
             ll = multinn.log_likelihood(self.params, k_ll, x,
                                         frame_mask=mask, shard=shard,
                                         seq=seq)
+        counts = metrics.pop(FRAME_COUNTS, None)
         n_frames = mask.sum()
         metrics["ll_per_frame"] = ll.sum() / (
             torch.clamp(n_frames, min=1.0) * self.cfg.model.n_tracks)
         weighted = {name: v * n_frames for name, v in metrics.items()}
         weighted["n_frames"] = n_frames
-        if self.mesh is not None:
+        if self.mesh is not None and not whole:
             names = list(weighted)
-            vals = comm.sum_([weighted[n].clone() for n in names],
+            sums = [] if counts is None else [counts.clone()]
+            vals = comm.sum_([weighted[n].clone() for n in names] + sums,
                              self._red.mean_groups)
             weighted = dict(zip(names, vals))
+            if sums:        # a data split: the ratios of the batch's counts
+                weighted.update({
+                    name: v * weighted["n_frames"]
+                    for name, v in _track_mean_ratios(sums[0]).items()})
         return weighted
+
+    def _eval_tail(self, batch: np.ndarray, mask: np.ndarray, key
+                   ) -> Dict[str, torch.Tensor]:
+        """``_eval_step`` of a gspmd short tail batch (B not a multiple of
+        the data width), whole on every rank at its own shape as the
+        reference's global view evaluates it, so its draws are one
+        device's; K over ``track`` when track-sharded."""
+        if self.track_sharded:
+            batch = batch[:, :, mesh_mod.track_slice(batch.shape[2],
+                                                     self.mesh)]
+        return self._eval_step(self._to_device(batch), key,
+                               self._to_device(mask), whole=True)
 
     def evaluate(self, split: str = "valid") -> Dict[str, float]:
         """Frame-weighted metrics over the split: per-batch sums divided by
         the total count of real frames, the short tail batch included at
-        its own size (on a mesh padded to the data width with zero-mask
-        windows, which add no frame and no sum). Per-track vectors come
-        out as ``<name>_<k>``."""
+        its own size (gspmd: ``_eval_tail``; the explicit styles pad it to
+        the data width with zero-mask windows, which add no frame and no
+        sum). Per-track vectors come out as ``<name>_<k>``."""
         sums: Dict[str, np.ndarray] = {}
         n_total = 0.0
         key = sampling.PRNGKey(self.cfg.train.seed + 1000 + self.epoch,
@@ -752,15 +789,18 @@ class Trainer:
         for batch, mask in self.dataset.batches(split, shuffle=False,
                                                 drop_remainder=False,
                                                 with_masks=True):
-            if len(batch) % n_data:
-                pad = n_data - len(batch) % n_data
-                batch = np.concatenate(
-                    [batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)])
-                mask = np.concatenate(
-                    [mask, np.zeros((pad, *mask.shape[1:]), mask.dtype)])
             key, k = sampling.split(key)
-            m = self._eval_step(self._put_batch(batch), k,
-                                self._put_batch(mask))
+            if len(batch) % n_data and self._gspmd:
+                m = self._eval_tail(batch, mask, k)
+            else:
+                if len(batch) % n_data:
+                    pad = n_data - len(batch) % n_data
+                    batch = np.concatenate([batch, np.zeros(
+                        (pad, *batch.shape[1:]), batch.dtype)])
+                    mask = np.concatenate([mask, np.zeros(
+                        (pad, *mask.shape[1:]), mask.dtype)])
+                m = self._eval_step(self._put_batch(batch), k,
+                                    self._put_batch(mask))
             m = {name: v.cpu().numpy() for name, v in m.items()}
             n_total += float(m.pop("n_frames"))
             for name, a in m.items():

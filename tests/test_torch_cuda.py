@@ -289,12 +289,13 @@ def test_nade_service_and_scan_branch_run_on_the_kernels(dev):
     assert _build.launches["nade_sample"] == 4 * 5
 
 
-# the cluster split: K in {1, 5, 8} for both families and K=12 (two tracks
-# per CTA) for the RBM; per-track, hybrid and feedback modes; L=2
+# the cluster split: K in {1, 4, 5, 8} for both families and K=12 (two
+# tracks per CTA) for the RBM; per-track, hybrid and feedback modes; L=2
 CLUSTER_CASES = [("rnn-rbm", 1, "per-track", 1), ("rnn-rbm", 5, "hybrid", 1),
                  ("rnn-rbm", 8, "feedback", 2), ("rnn-rbm", 12, "feedback", 1),
                  ("rnn-nade", 1, "per-track", 2),
-                 ("rnn-nade", 5, "hybrid", 1), ("rnn-nade", 8, "feedback", 2)]
+                 ("rnn-nade", 5, "hybrid", 1), ("rnn-nade", 8, "feedback", 2),
+                 ("rnn-rbm", 4, "feedback", 1), ("rnn-nade", 4, "feedback", 1)]
 
 
 def _cluster_model(family, n_tracks, mode="feedback", layers=1):
@@ -1361,6 +1362,29 @@ def test_nccl_world_one_captured_mesh_group(dev, tmp_path):
         dist.destroy_process_group()
 
 
+def test_frame_counts_capture(dev):
+    """A gspmd step on a data split returns its frame counts for the
+    trainer's reduction inside the captured step, so nothing in them may
+    come from the host: captured, with and without a mask, the counts
+    equal the eager ones."""
+    from multinn_torch.training.metrics import frame_counts
+    g = torch.Generator().manual_seed(0)
+    pred = torch.rand(64, 8, 84, generator=g).to(dev)
+    target = (torch.rand(64, 8, 84, generator=g) < 0.1).float().to(dev)
+    for mask in (None, torch.ones(64, 8, device=dev)):
+        want = frame_counts(pred, target, mask=mask)
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            frame_counts(pred, target, mask=mask)
+        torch.cuda.current_stream().wait_stream(stream)
+        with torch.cuda.graph(graph):
+            got = frame_counts(pred, target, mask=mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 def test_nccl_two_cards_captured_group_equals_eager(tmp_path):
     """Two ranks, a card each, on NCCL: each gspmd data=2 Trainer captures
     its groups with their NCCL collectives inside; two replayed groups of 4
@@ -1380,6 +1404,30 @@ def test_nccl_two_cards_captured_group_equals_eager(tmp_path):
             assert a["one_step"] >= 1
             assert a["recorded"] == 4 * a["one_step"]
             # the first call also ran the warm-up's two eager steps
+            assert a["replays"][1] == a["recorded"]
+
+
+def test_nccl_two_cards_captured_track_group_equals_eager(tmp_path):
+    """Two ranks, a card each, on NCCL: a gspmd data=1 x track=2 Trainer
+    (K=2, feedback, tiny widths: one track a card) of each family
+    captures its groups with the track group's collectives inside (the
+    context's all-gather and its backward); two replayed groups of 4
+    steps equal the eager mesh groups (params within 1e-6 max|p|) on both
+    ranks, each replay adding 4 eager steps' launches."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL runs one rank a card")
+    import torch_mesh_ranks as ranks
+    ranks.run_world(tmp_path, 2, "cards2_track", timeout=300,
+                    backend="nccl")
+    for dec in ("rnn-nade", "rnn-rbm"):
+        for r in range(2):
+            a = ranks.load(tmp_path, f"cards2t_{dec}", r)
+            assert str(a["backend"]) == "nccl"
+            assert str(a["device"]) == f"cuda:{r}"
+            assert a["captures"] == 1.0 and a["local_k"] == 1.0
+            assert (a["diffs"] <= 1e-6).all(), a["diffs"]
+            assert a["one_step"] >= 1
+            assert a["recorded"] == 4 * a["one_step"]
             assert a["replays"][1] == a["recorded"]
 
 

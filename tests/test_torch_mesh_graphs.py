@@ -11,14 +11,18 @@ the trainer's state as it was, the launch counts a replay adds, and two
 groups in a row bit-equal to the eager mesh groups in params, optimizer
 state and metrics on every rank. The layouts: gspmd data=2 (both
 families), shard_map data=2 (both), seqpipe seq=2, Hessian-free gspmd
-data=2 and gspmd data=2 x model=2 (both families). On the card the same
-path captures the NCCL collectives (``multinn_torch.scripts.mesh_cards``,
+data=2 and gspmd data=2 x model=2 (both families); with four tracks
+(feedback, the JAX package's tiny multichip flagship) gspmd data=2 x
+track=2 (both families; the RBM also in per-track mode) and data=1 x
+track=2 x model=2 (RBM). On the card the same path captures the NCCL
+collectives (``multinn_torch.scripts.mesh_cards``,
 tests/test_torch_cuda.py).
 
-The NADE captured group of 4 steps on data=2 from the JAX Trainer's
-params is held against the JAX Trainer's ``_train_multi`` (its
-``_build_multi_step``) on a 2-device CPU mesh: params within rtol 1e-5 /
-atol 1e-6 (the NADE loss is exact). The capture rule (the card with no
+The NADE captured group of 4 steps from the JAX Trainer's params is held
+against the JAX Trainer's ``_train_multi`` (its ``_build_multi_step``)
+on a CPU mesh of the same layout: data=2 on 2 devices, and data=2 x
+track=2 with four tracks on 4 devices; params within rtol 1e-5 / atol
+1e-6 (the NADE loss is exact). The capture rule (the card with no
 mesh or an NCCL mesh captures; gloo runs eagerly and logs it) is checked
 with the device and backend set by hand.
 """
@@ -44,6 +48,7 @@ from multinn_torch.utils.convert import from_jax  # noqa: E402
 
 N = 4                                   # steps a group
 # case -> (world, this rank's block of the (N, B=8, T=8, K=2, D=24) batch)
+# (K=4 cases: the batch is (N, 8, 8, 4, 24), K split over track)
 CASES = {"g_gspmd_nade": (2, [N, 4, 8, 2, 24]),
          "g_gspmd_rbm": (2, [N, 4, 8, 2, 24]),
          "g_shard_map_nade": (2, [N, 4, 8, 2, 24]),
@@ -52,18 +57,25 @@ CASES = {"g_gspmd_nade": (2, [N, 4, 8, 2, 24]),
          "g_hf_gspmd_nade": (2, [N, 4, 8, 2, 24]),
          "g_jax_nade": (2, [N, 4, 8, 2, 24]),
          "g_dp_tp_nade": (4, [N, 4, 8, 2, 24]),
-         "g_dp_tp_rbm": (4, [N, 4, 8, 2, 24])}
+         "g_dp_tp_rbm": (4, [N, 4, 8, 2, 24]),
+         "g_dp_track_nade": (4, [N, 4, 8, 2, 24]),
+         "g_dp_track_rbm": (4, [N, 4, 8, 2, 24]),
+         "g_pertrack_dp_track_rbm": (4, [N, 4, 8, 2, 24]),
+         "g_track_tp_rbm": (4, [N, 8, 8, 2, 24]),
+         "g_jax_dp_track_nade": (4, [N, 4, 8, 2, 24])}
 
 
-def _jax_group(out, monkeypatch):
-    """The JAX Trainer's NADE multi-step of N steps on a 2-device data
-    mesh from its own params, on N seeded train batches (and one more for
-    the ranks' second group), under PRNGKey(JAX_GROUP_KEY); its params
-    converted for the ranks and the params after the group."""
+def _jax_group(out, monkeypatch, n_devices=2, mesh=None, **kw):
+    """The JAX Trainer's NADE multi-step of N steps on a CPU mesh of
+    ``n_devices`` (``mesh``; data=2 when None; ``kw`` the config's) from
+    its own params, on N seeded train batches (and one more for the ranks'
+    second group), under PRNGKey(JAX_GROUP_KEY); its params converted for
+    the ranks and the params after the group."""
     real = jax_mesh.make_mesh
     monkeypatch.setattr(jax_trainer.mesh_mod, "make_mesh",
-                        lambda cfg: real(cfg, jax.devices()[:2]))
-    cfg = ranks.exp_cfg(out / "jaxg", ranks.mesh_cfg(), steps_per_call=N)
+                        lambda cfg: real(cfg, jax.devices()[:n_devices]))
+    mesh = mesh or ranks.mesh_cfg()
+    cfg = ranks.exp_cfg(out / "jaxg", mesh, steps_per_call=N, **kw)
     jcfg = jax_config.ExperimentConfig(
         name="par", data=jax_config.DataConfig(**dataclasses.asdict(
             cfg.data)), model=jax_multinn.MultINNConfig(
@@ -71,7 +83,8 @@ def _jax_group(out, monkeypatch):
         train=jax_config.TrainConfig(**dataclasses.asdict(cfg.train)),
         mesh=jax_config.MeshConfig(**dataclasses.asdict(cfg.mesh)))
     jt = jax_trainer.Trainer(jcfg)
-    assert dict(jt.mesh.shape) == {"data": 2, "track": 1}
+    assert dict(jt.mesh.shape) == {"data": mesh.data or 2,
+                                   "track": mesh.track}
     batches = list(jt.dataset.batches("train", epoch=0))
     stacked = np.stack([batches[i % len(batches)] for i in range(N + 1)])
     torch.save([t.clone() for t in multinn.tree_leaves(
@@ -100,6 +113,9 @@ def g2(tmp_path_factory):
 @pytest.fixture(scope="module")
 def g4(tmp_path_factory):
     out = tmp_path_factory.mktemp("g4")
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_group(out, mp, 4, ranks.mesh_cfg(data=2, track=2),
+                   **ranks.TRACK4)
     ranks.run_world(out, 4, "g4")
     return out
 
@@ -170,22 +186,34 @@ def test_graph_takes_this_ranks_block(request, case):
         assert ranks.load(out, case, r)["block"].tolist() == CASES[case][1]
 
 
-def test_captured_nade_group_matches_jax_multi_step(g2):
-    """The port's captured NADE group of N steps on data=2, from the JAX
-    Trainer's params on its batches and key, against the JAX Trainer's
-    fused multi-step on a 2-device mesh."""
-    want = np.load(g2 / "jaxg_ref.npz")
-    start = torch.load(g2 / "jaxg_params.pt")
+def _check_jax_group(out, case, world):
+    want = np.load(out / "jaxg_ref.npz")
+    start = torch.load(out / "jaxg_params.pt")
     assert not all(np.allclose(t.numpy(), want[f"p{i}"], rtol=1e-4,
                                atol=1e-5) for i, t in enumerate(start))
-    for r in range(2):
-        a = ranks.load(g2, "g_jax_nade", r)
+    for r in range(world):
+        a = ranks.load(out, case, r)
         n = _n(a, "first")
         assert n == len(want.files) > 0
         for i in range(n):
             np.testing.assert_allclose(a[f"first{i}"], want[f"p{i}"],
                                        rtol=1e-5, atol=1e-6,
                                        err_msg=f"r{r} leaf {i}")
+
+
+def test_captured_nade_group_matches_jax_multi_step(g2):
+    """The port's captured NADE group of N steps on data=2, from the JAX
+    Trainer's params on its batches and key, against the JAX Trainer's
+    fused multi-step on a 2-device mesh."""
+    _check_jax_group(g2, "g_jax_nade", 2)
+
+
+def test_captured_track_nade_group_matches_jax_multi_step(g4):
+    """The same with four tracks (feedback) on data=2 x track=2, against
+    the JAX Trainer's multi-step on a 4-device mesh of that layout (the
+    JAX package's multichip layout): each rank's tracks, keys and rows,
+    and the context gathered over ``track``."""
+    _check_jax_group(g4, "g_jax_dp_track_nade", 4)
 
 
 # -- the capture rule ---------------------------------------------------------
@@ -288,3 +316,126 @@ def test_rank_device_spreads_gloo_ranks_over_the_cards(monkeypatch, count,
 def test_rank_device_without_a_card_is_the_cpu(monkeypatch):
     monkeypatch.setattr(mesh_mod.torch.cuda, "is_available", lambda: False)
     assert mesh_mod.rank_device("gloo") == torch.device("cpu")
+
+
+# -- the four-card sets of multinn_torch.scripts.mesh_cards --------------------
+
+@pytest.mark.parametrize("k", [4, 5])
+def test_mesh_cards_layouts_split_tracks_only_where_k_divides(k, tmp_path):
+    """``layouts(4, k)``: K=4 gives the track set (data=4 as the baseline,
+    data=2 x track=2, track=4, data=1 x track=2 x model=2 for both
+    families, per-track data=2 x track=2 for the RBM, HF on data=2 x
+    track=2), K=5 (the flagship's) the K=5 set with no track axis; every
+    layout's config (and its one-device reference's) validates, its axes
+    fill the four ranks and its track count divides K."""
+    from multinn_torch.scripts import mesh_cards
+    sizes = dict(mesh_cards.SIZES, k=k)
+    got = mesh_cards.layouts(4, k, sizes)
+    names = [case for case, *_ in got]
+    assert len(set(names)) == len(names)
+    tracks = {case: mesh.get("track", 1) for case, _, _, mesh, _ in got}
+    if k == 4:
+        assert mesh_cards.track_set(4, k)
+        assert names == [
+            "gspmd_data4_rbm", "gspmd_data2_track2_rbm", "gspmd_track4_rbm",
+            "gspmd_data1_track2_model2_rbm", "gspmd_data4_nade",
+            "gspmd_data2_track2_nade", "gspmd_track4_nade",
+            "gspmd_data1_track2_model2_nade", "pertrack_data2_track2_rbm",
+            "hf_gspmd_data2_track2_nade"]
+    else:
+        assert not mesh_cards.track_set(4, k)
+        assert set(tracks.values()) == {1}
+        assert len(names) == 8
+    for case, dec, mode, mesh, train in got:
+        assert k % tracks[case] == 0
+        cfg = mesh_cards._cfg(sizes, dec, mesh, str(tmp_path), mode, **train)
+        m = cfg.mesh
+        assert (m.resolved_data(4) * m.track * m.model * m.seq) == 4, case
+        assert (cfg.model.n_tracks, cfg.model.mode, cfg.data.n_tracks,
+                cfg.data.frame_dim) == (k, mode, k, 84)
+        one = mesh_cards._cfg(sizes, dec, None, str(tmp_path), mode, **train)
+        assert not one.mesh.use_mesh
+    assert not mesh_cards.track_set(4, 5) and not mesh_cards.track_set(3, 4)
+
+
+@pytest.mark.parametrize("k", [4, 5])
+def test_mesh_cards_plan_names_every_case(k):
+    """``plan(4, sizes)``: the layouts first, in ``layouts``' order, then
+    one card's steps, then the generation, evaluation (track set: with the
+    short tail), checkpoint, accompaniment and service cases; every name
+    is unique."""
+    from multinn_torch.scripts import mesh_cards
+    sizes = dict(mesh_cards.SIZES, k=k)
+    names = [name for name, _ in mesh_cards.plan(4, sizes)]
+    n_layouts = len(mesh_cards.layouts(4, k, sizes))
+    assert names[:n_layouts] == [c for c, *_ in mesh_cards.layouts(4, k,
+                                                                  sizes)]
+    assert len(set(names)) == len(names)
+    extra = names[n_layouts:]
+    if k == 4:
+        assert extra == ["one_card_rbm", "one_card_nade"] + [
+            f"{case}_{fam}" for fam in ("rbm", "nade") for case in (
+                "gen_data2_track2", "gen_data1_track4", "eval_data2_track2",
+                "ckpt_data2_track2", "accompany_data2_track2",
+                "service_data2_track2")]
+    else:
+        assert extra == ["one_card_rbm", "one_card_nade", "gen_rbm",
+                         "service_rbm", "gen_nade", "service_nade"]
+
+
+def test_mesh_cards_only_runs_the_cases_that_match(monkeypatch):
+    """``run_cases`` with ``ctx["only"]`` runs the matching cases of the
+    plan, in its order, each with its wall seconds; None runs them all."""
+    from multinn_torch.scripts import mesh_cards
+    ran = []
+
+    def fake(world, sizes):
+        return [(name, lambda ctx, name=name: ran.append(name) or
+                 dict(case=name)) for name in ("gspmd_data4_rbm",
+                                               "gspmd_data2_track2_nade",
+                                               "eval_data2_track2_rbm")]
+    monkeypatch.setattr(mesh_cards, "plan", fake)
+    ctx = dict(world=4, sizes=mesh_cards.SIZES, only="data4_|eval_")
+    got = list(mesh_cards.run_cases(ctx))
+    assert ran == [c["case"] for c in got] == ["gspmd_data4_rbm",
+                                               "eval_data2_track2_rbm"]
+    assert all(c["wall_s"] >= 0 for c in got)
+    ran.clear()
+    assert len(list(mesh_cards.run_cases(dict(ctx, only=None)))) == 3
+
+
+def test_mesh_cards_eval_source_has_a_short_tail():
+    """The evaluation's source: the seeded batches, then a short tail
+    batch only where the remainder is kept (so an evaluation runs the
+    gspmd short-tail path), the same on every construction."""
+    from multinn_torch.scripts import mesh_cards
+    sizes = dict(mesh_cards.SIZES, k=4, t=8, d=6)
+    src = mesh_cards._Rolls(sizes, 8, 2, seed=17, tail=3)
+    kept = list(src.batches("valid", drop_remainder=False, with_masks=True))
+    assert [len(x) for x, _ in kept] == [8, 8, 3]
+    assert all(m.shape == x.shape[:2] and m.all() for x, m in kept)
+    assert [len(x) for x in src.batches("train")] == [8, 8]
+    again = mesh_cards._Rolls(sizes, 8, 2, seed=17, tail=3)
+    np.testing.assert_array_equal(again.tail, src.tail)
+    assert [len(x) for x in mesh_cards._Rolls(sizes, 8, 2, 17).batches(
+        drop_remainder=False)] == [8, 8]
+
+
+def test_mesh_cards_world_fails_fast_and_keeps_what_ended(tmp_path):
+    """A rank that fails ends the world at once, not at its deadline (a
+    failed capture used to hang the other ranks, and NCCL's teardown, for
+    the whole 1500 s), and the cases each rank finished still print."""
+    import time
+
+    from multinn_torch.scripts import mesh_cards
+    t0 = time.time()
+    ranks_out, error = mesh_cards.run_world(
+        str(tmp_path), 3, timeout=300, target=ranks.failing_cards_rank)
+    assert time.time() - t0 < 120
+    assert error is not None and "exit" in error.lower()
+    assert ranks_out[1]["error"] == "RuntimeError: capture failed"
+    assert [r["cases"] for r in ranks_out] == [[], [{"case": "first",
+                                                     "ok": True}], []]
+    assert ranks_out[0]["error"] == ranks_out[2]["error"] == \
+        "wrote no result"
+    assert mesh_cards.summarise(ranks_out) == []

@@ -365,6 +365,47 @@ def test_eval_matches_single_device_with_short_tail(w2, style):
     np.testing.assert_allclose(a["f1"], a["ref_f1"], rtol=2e-2)
 
 
+@pytest.mark.parametrize("world,case", [
+    (2, "eval_gspmd"), (2, "eval_gspmd_rbm"), (4, "eval_dp_track_rnn-nade"),
+    (4, "eval_dp_track_rnn-rbm")])
+def test_gspmd_eval_metrics_equal_single_device(request, world, case):
+    """A gspmd evaluation is the global view: every metric equals one
+    device's, the ratios (precision, recall, f1, the transduction
+    accuracy) of the whole batch's counts and the RBM's sampled monitors
+    (reconstruction, pseudo-LL) on the rows' draws of the whole batch —
+    on data=2 and on data=2 x track=2 (K=4, feedback)."""
+    a = ranks.load(request.getfixturevalue(f"w{world}"), case)
+    names = [k[len("ref_"):] for k in a if k.startswith("ref_")]
+    assert {"loss", "ll_per_frame", "f1", "precision", "recall",
+            "acc_transduction"} <= set(names)
+    if "rbm" in case:
+        assert {"pll", "bce_recon"} <= set(names)
+    for name in names:
+        np.testing.assert_allclose(a[name], a[f"ref_{name}"], rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("world,case", [
+    (2, "detailed_gspmd_rnn-nade"), (2, "detailed_gspmd_rnn-rbm"),
+    (4, "detailed_dp_track_rnn-nade"), (4, "detailed_dp_track_rnn-rbm")])
+def test_gspmd_detailed_step_metrics_equal_single_device(request, world,
+                                                         case):
+    """A gspmd step's detailed metrics (a group's last step) are the
+    global view: the frame ratios from the data ranks' counts, summed in
+    the metrics' one all-reduce, equal one device's, as do the loss, the
+    monitors and the gradient norm — on data=2 and on data=2 x track=2
+    (K=4, feedback)."""
+    a = ranks.load(request.getfixturevalue(f"w{world}"), case)
+    names = [k[len("ref_"):] for k in a if k.startswith("ref_")]
+    assert set(names) == {k for k in a if not k.startswith("ref_")}
+    assert {"loss", "f1", "precision", "recall", "acc_transduction",
+            "acc_elementwise", "grad_norm"} <= set(names)
+    assert "frame_counts" not in names
+    for name in names:
+        np.testing.assert_allclose(a[name], a[f"ref_{name}"], rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+
+
 def _check_hf(out, case):
     a = ranks.load(out, case)
     np.testing.assert_allclose(a["loss"], a["ref_loss"], rtol=1e-5)

@@ -44,6 +44,11 @@ def _entry(rank: int, world: int, out: str, job: str,
     except Exception:
         with open(os.path.join(out, f"{job}_error_r{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
+        if backend == "nccl":
+            # a rank that failed inside a collective or a capture can hang
+            # in destroy_process_group: leave at once, so the world fails
+            # now and not at its deadline
+            os._exit(1)
         raise
     finally:
         dist.destroy_process_group()
@@ -90,16 +95,19 @@ def _save(out, case: str, rank: int, every_rank: bool = False, **arrays):
 # -- configs and steps --------------------------------------------------------
 
 def exp_cfg(run_dir, mesh=None, mode="per-track", dec="rnn-nade",
-            window=8, songs=8, steps=32, model_kw=None, **train_kw):
-    """The reference's small config (tests/test_parallel.py): K=2, 24
+            window=8, songs=8, steps=32, model_kw=None, n_tracks=2,
+            **train_kw):
+    """The reference's small config (tests/test_parallel.py): K=2 (or
+    ``n_tracks``: 4 is the JAX package's tiny multichip flagship), 24
     pitches, H=12, U=8, window 8, B=8."""
     from multinn_torch.models.multinn import MultINNConfig
     from multinn_torch.utils import config as cfg_mod
     data = cfg_mod.DataConfig.from_preset(
-        "synthetic", n_tracks=2, pitch_min=40, pitch_max=63, window=window,
-        batch_size=8, synthetic_songs=songs, synthetic_steps=steps)
+        "synthetic", n_tracks=n_tracks, pitch_min=40, pitch_max=63,
+        window=window, batch_size=8, synthetic_songs=songs,
+        synthetic_steps=steps)
     model = MultINNConfig(**dict(TINY, mode=mode, decoder_type=dec,
-                                 **(model_kw or {})))
+                                 n_tracks=n_tracks, **(model_kw or {})))
     train = cfg_mod.TrainConfig(**dict(dict(
         epochs=1, lr=1e-3, log_every_steps=100, ckpt_every_steps=0,
         run_dir=str(run_dir)), **train_kw))
@@ -188,19 +196,39 @@ def rbm_shard_map_case(out, rank, case, n_data):
     _save(out, case, rank, **arrays)
 
 
-def eval_case(out, rank, case, mesh):
+def eval_case(out, rank, case, mesh, **kw):
     """``evaluate('valid')`` with a short tail batch (synthetic_steps=36,
     window 8: 4 full and 1 masked tail window per song; 9 valid windows
     at batch 8 leave a tail of 1) on ``mesh`` and, in rank 0, on one
     device."""
-    t = trainer(out, case, mesh, songs=10, steps=36)
+    t = trainer(out, case, mesh, songs=10, steps=36, **kw)
     got = t.evaluate("valid")
     t.close()
     arrays = {k: np.float64(v) for k, v in got.items()}
     if rank == 0:
-        ref = trainer(out, case + "_ref", songs=10, steps=36)
+        ref = trainer(out, case + "_ref", songs=10, steps=36, **kw)
         arrays.update({f"ref_{k}": np.float64(v)
                        for k, v in ref.evaluate("valid").items()})
+        ref.close()
+    _save(out, case, rank, **arrays)
+
+
+def detailed_step_case(out, rank, case, mesh, **kw):
+    """One detailed step (the form a group's last step takes) on ``mesh``
+    and, in rank 0, on one device: every metric it returns."""
+    from multinn_torch.ops import sampling
+
+    def step(t):
+        m = t.train_step(t._put_batch(first_batch(t)),
+                         sampling.PRNGKey(123, device="cpu"), detailed=True)
+        return {k: np.asarray(v.detach().numpy(), np.float64)
+                for k, v in m.items()}
+    t = trainer(out, case, mesh, **kw)
+    arrays = step(t)
+    t.close()
+    if rank == 0:
+        ref = trainer(out, case + "_ref", **kw)
+        arrays.update({f"ref_{k}": v for k, v in step(ref).items()})
         ref.close()
     _save(out, case, rank, **arrays)
 
@@ -509,6 +537,10 @@ def job_w2(rank, world, out):
     step_case(out, rank, "tp2_nade", mesh_cfg(model=2))
     step_case(out, rank, "tp2_rbm", mesh_cfg(model=2), dec="rnn-rbm")
     eval_case(out, rank, "eval_gspmd", mesh_cfg())
+    eval_case(out, rank, "eval_gspmd_rbm", mesh_cfg(), dec="rnn-rbm")
+    for dec in ("rnn-nade", "rnn-rbm"):
+        detailed_step_case(out, rank, f"detailed_gspmd_{dec}", mesh_cfg(),
+                           dec=dec)
     eval_case(out, rank, "eval_shard_map", mesh_cfg(style="shard_map"))
     hf_case(out, rank, "hf_gspmd", mesh_cfg())
     hf_case(out, rank, "hf_shard_map", mesh_cfg(style="shard_map"))
@@ -536,6 +568,12 @@ def job_w4(rank, world, out):
     step_case(out, rank, "tp4_rbm", mesh_cfg(model=4), dec="rnn-rbm")
     dbn_case(out, rank, mesh_cfg(track=2))
     pretrain_case(out, rank, mesh_cfg(track=2))
+    for dec in ("rnn-nade", "rnn-rbm"):
+        eval_case(out, rank, f"eval_dp_track_{dec}", mesh_cfg(track=2),
+                  dec=dec, mode="feedback", n_tracks=4)
+        detailed_step_case(out, rank, f"detailed_dp_track_{dec}",
+                           mesh_cfg(track=2), dec=dec, mode="feedback",
+                           n_tracks=4)
 
 
 def job_w8(rank, world, out):
@@ -694,20 +732,21 @@ def graph_case(out, rank, case, mesh, n=4, params=None, stacked=None,
     _save(out, case, rank, every_rank=True, **arrays)
 
 
-def jax_graph_case(out, rank):
-    """The NADE captured group on data=2 from the JAX Trainer's params
-    (``jaxg_params.pt``) on its stacked batches (``jaxg_stack.npy``); the
-    first group's key is the one the test process gave the JAX Trainer's
-    multi-step."""
+def jax_graph_case(out, rank, case="g_jax_nade", mesh=None, **kw):
+    """The NADE captured group on ``mesh`` (data=2 when None) from the JAX
+    Trainer's params (``jaxg_params.pt``) on its stacked batches
+    (``jaxg_stack.npy``); the first group's key is the one the test
+    process gave the JAX Trainer's multi-step. ``kw``: the config's
+    (``exp_cfg``)."""
     from multinn_torch.models import multinn
-    base = trainer(out, "jaxg_base", steps_per_call=4)
+    base = trainer(out, "jaxg_base", steps_per_call=4, **kw)
     with torch.no_grad():
         for t, v in zip(multinn.tree_leaves(base.params),
                         torch.load(os.path.join(out, "jaxg_params.pt"))):
             t.copy_(v)
-    graph_case(out, rank, "g_jax_nade", mesh_cfg(), params=base.params,
+    graph_case(out, rank, case, mesh or mesh_cfg(), params=base.params,
                stacked=np.load(os.path.join(out, "jaxg_stack.npy")),
-               key_seed=JAX_GROUP_KEY)
+               key_seed=JAX_GROUP_KEY, **kw)
     base.close()
 
 
@@ -732,12 +771,29 @@ def job_g2(rank, world, out):
         jax_graph_case(out, rank)
 
 
+# the JAX package's tiny multichip flagship: four tracks, feedback
+TRACK4 = dict(n_tracks=4, mode="feedback")
+
+
 def job_g4(rank, world, out):
     """A world of 4: captured groups against eager under gspmd data=2 x
-    model=2 (both families)."""
+    model=2 (both families), and with four tracks under data=2 x track=2
+    (both families; the RBM also in per-track mode), data=1 x track=2 x
+    model=2 (RBM), and the NADE group from the JAX Trainer's params on
+    data=2 x track=2."""
     graph_case(out, rank, "g_dp_tp_nade", mesh_cfg(data=2, model=2))
     graph_case(out, rank, "g_dp_tp_rbm", mesh_cfg(data=2, model=2),
                dec="rnn-rbm")
+    dp_track = mesh_cfg(data=2, track=2)
+    graph_case(out, rank, "g_dp_track_nade", dp_track, **TRACK4)
+    graph_case(out, rank, "g_dp_track_rbm", dp_track, dec="rnn-rbm",
+               **TRACK4)
+    graph_case(out, rank, "g_pertrack_dp_track_rbm", dp_track,
+               dec="rnn-rbm", n_tracks=4, mode="per-track")
+    graph_case(out, rank, "g_track_tp_rbm",
+               mesh_cfg(data=1, track=2, model=2), dec="rnn-rbm", **TRACK4)
+    if os.path.exists(os.path.join(out, "jaxg_params.pt")):
+        jax_graph_case(out, rank, "g_jax_dp_track_nade", dp_track, **TRACK4)
 
 
 def job_cards2(rank, world, out):
@@ -798,5 +854,74 @@ def job_cards2(rank, world, out):
         eager.close()
 
 
+def job_cards2_track(rank, world, out):
+    """Two cards on NCCL (tests/test_torch_cuda.py): a gspmd data=1 x
+    track=2 Trainer of each family at the tiny widths (K=2, feedback: one
+    track a card, the context all-gathered over ``track``) captures its
+    group of 4 steps, the track group's collectives inside; the replayed
+    group against the eager one from the same params, state and key,
+    twice in a row."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = mesh_mod.rank_device()
+    for dec, kernel in (("rnn-nade", "nade_ll_bwd"),
+                        ("rnn-rbm", "gibbs_chain")):
+        cfgs = [exp_cfg(os.path.join(out, f"cards2t_{dec}_{name}_{rank}"),
+                        mesh_cfg(data=1, track=2), mode="feedback", dec=dec,
+                        steps_per_call=4) for name in ("graph", "eager")]
+        params = multinn.init(cfgs[0].model, torch.Generator().manual_seed(0),
+                              device=dev)
+        graph, eager = [Trainer(c, params=params) for c in cfgs]
+        captures = graph.capture_groups
+        eager.capture_groups = False
+        batches = list(graph.dataset.batches("train", epoch=0))
+        batches = np.stack([batches[i % len(batches)] for i in range(8)])
+        diffs, replays = [], []
+        for i in range(2):
+            xs, key = batches[i * 4:(i + 1) * 4], sampling.PRNGKey(
+                30 + i, device=dev)
+            _build.launches.clear()
+            graph.run_group(xs, key)
+            torch.cuda.synchronize()
+            replays.append(_build.launches[kernel])
+            eager.run_group(xs, key)
+            diffs.append(max(
+                float((a - b).detach().abs().max()
+                      / b.detach().abs().max().clamp(min=1e-30))
+                for a, b in zip(graph._leaves, eager._leaves)))
+        _build.launches.clear()
+        eager.train_step(eager._put_batch(batches[0]), key)
+        torch.cuda.synchronize()
+        _save(out, f"cards2t_{dec}", rank, every_rank=True,
+              backend=np.array(graph.mesh.backend),
+              device=np.array(str(dev)), captures=np.float64(captures),
+              local_k=np.float64(graph.params.decoder.w.shape[0]),
+              diffs=np.array(diffs), replays=np.array(replays),
+              one_step=np.float64(_build.launches[kernel]),
+              recorded=np.float64(graph.group_graph.launches[kernel]))
+        graph.close()
+        eager.close()
+
+
+def failing_cards_rank(rank, world, out, sizes, only=None):
+    """A stand-in for ``mesh_cards._rank``: rank 1 finishes one case,
+    then fails as a rank that raised inside a capture does (its result
+    and traceback written, then an immediate exit); the others hang, as
+    ranks left waiting in a collective do."""
+    import json
+    if rank != 1:
+        time.sleep(600)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(backend="nccl", device=f"cuda:{rank}",
+                       cases=[dict(case="first", ok=True)],
+                       error="RuntimeError: capture failed"), f)
+    os._exit(1)
+
+
 JOBS = {"w1": job_w1, "w2": job_w2, "w4": job_w4, "w8": job_w8,
-        "w4s": job_w4s, "g2": job_g2, "g4": job_g4, "cards2": job_cards2}
+        "w4s": job_w4s, "g2": job_g2, "g4": job_g4, "cards2": job_cards2,
+        "cards2_track": job_cards2_track}
