@@ -184,14 +184,21 @@ matmul policy, 18 process meshes, 19 the port's scripts
      step on the card (loss rtol 1e-5, params rtol 1e-4 / atol 1e-6);
      batch-sharded generation of both families (B=8, T=1024, the fused
      kernels' row map) against the single-device roll, at least 7 of 8
-     samples bit-identical; a 2-rank service answering 16 requests. A
-     world of 5 ranks: the feedback track=5 step of both families and
+     samples bit-identical; batch-sharded accompaniment (NADE, track 0
+     given, B=8, T=1024: the fused kernel over each rank's rows with the
+     row map) against the single-device accompaniment, 8 of 8 identical,
+     the given track verbatim; a 2-rank service answering 16 requests. A
+     world of 5 ranks: the feedback track=5 step of both families,
      track-sharded scan generation (B=8, T=64) against the single-device
-     scan path, 8 of 8 identical. A world of one NCCL rank: an all-reduce
-     and a broadcast through NCCL and a gspmd data=1 step bit-equal to
-     the step without a mesh; a gspmd data=1 Trainer on NCCL captures its
-     group of 24 NADE steps (B=64, T=64): the replayed group against the
-     eager one, params within 1e-6 max|p|, each replay's launches 24
+     scan path, 8 of 8 identical, and track-sharded accompaniment (RBM,
+     track 0 given, B=8, T=64: each rank samples its track, the frames
+     gathered every step) against the single-device scan path, 8 of 8
+     identical, the given track verbatim. A world of one NCCL rank: an
+     all-reduce and a broadcast through NCCL and a gspmd data=1 step
+     bit-equal to the step without a mesh; a gspmd data=1 Trainer on
+     NCCL captures its group of 24 NADE steps (B=64, T=64): the replayed
+     group against the eager one, params within 1e-6 max|p|, each
+     replay's launches 24
      times one eager step's (the capture path of a mesh; every group of
      one rank is the identity, so no NCCL collective runs inside the
      graph: ``multinn_torch.scripts.mesh_cards`` runs those on one card a
@@ -435,6 +442,49 @@ def _track_generation(ctx, name, decoder, mesh):
     return out
 
 
+def _mesh_accompaniment(ctx, name, decoder, mesh, n_steps):
+    """Accompaniment sharded on ``mesh``, track 0 given (B samples over
+    ``n_steps``): a data split on the whole-generation kernel with the row
+    map, a track split on the scan path (each rank sampling its tracks,
+    the frames gathered every step); against one device's accompaniment
+    on the same path on rank 0: every sample bit-identical, the given
+    track verbatim."""
+    import numpy as np
+    import torch
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import _build, sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.generator import Generator
+    sizes, dev = ctx["sizes"], ctx["dev"]
+    cfg = _mesh_cfg(sizes, decoder, mesh)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(25),
+                          device=dev)
+    given = (np.random.default_rng(26).random(
+        (sizes["b_gen"], n_steps, sizes["k"], sizes["d"])) < 0.06
+             ).astype(np.float32)
+    key = sampling.PRNGKey(27, device=dev)
+    gen = Generator(cfg, params, mesh=mesh_mod.make_mesh(cfg.mesh))
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    roll = gen.accompany(key, given, (0,))
+    sec = time.perf_counter() - t0
+    out = dict(case=name, launches=dict(_build.launches), seconds=sec,
+               density=float(roll[:, :, 1:].mean()),
+               given_exact=bool((roll[:, :, 0] == given[:, :, 0]).all()))
+    out["ok"] = out["given_exact"]
+    if ctx["rank"] == 0:
+        with torch.inference_mode():
+            _, ref = multinn.generate_accompaniment(
+                params, key, multinn.init_state(params, len(given)),
+                torch.from_numpy(given).to(dev), (0,),
+                fused=False if gen.track_sharded else None)
+        ref = ref.to(torch.uint8).cpu().numpy()
+        same = int((roll == ref).reshape(len(ref), -1).all(axis=1).sum())
+        out.update(identical=same, of=len(ref),
+                   ok=out["given_exact"] and same == len(ref))
+    return out
+
+
 def _mesh_service(ctx, name, decoder, mesh, n_requests=16):
     """A service on ``mesh``: rank 0 takes n requests at batch B, the other
     ranks follow its broadcast calls."""
@@ -568,7 +618,7 @@ def _nccl_group(ctx, spc=24):
 def _mesh_job(ctx):
     """The cases of one world: ``mesh2`` (2 ranks), ``mesh5`` (5 ranks),
     ``nccl1`` (1 rank under NCCL)."""
-    job = ctx["job"]
+    job, sizes = ctx["job"], ctx["sizes"]
     if job == "nccl1":
         return [_nccl_step(ctx), _nccl_group(ctx)]
     if job == "mesh5":
@@ -577,7 +627,9 @@ def _mesh_job(ctx):
                 _track_generation(ctx, "track5_scan_gen_rbm", "rnn-rbm",
                                   dict(track=5)),
                 _track_generation(ctx, "track5_scan_gen_nade", "rnn-nade",
-                                  dict(track=5))]
+                                  dict(track=5)),
+                _mesh_accompaniment(ctx, "track5_accomp_rbm", "rnn-rbm",
+                                    dict(track=5), sizes["t_scan"])]
     return [_mesh_step(ctx, "dp2_nade", "rnn-nade", {}),
             _mesh_step(ctx, "dp2_rbm", "rnn-rbm", {}),
             _mesh_step(ctx, "shard_map_nade", "rnn-nade",
@@ -591,6 +643,8 @@ def _mesh_job(ctx):
                        hf_cg_iters=5),
             _mesh_generation(ctx, "gen_rbm", "rnn-rbm", {}),
             _mesh_generation(ctx, "gen_nade", "rnn-nade", {}),
+            _mesh_accompaniment(ctx, "accomp_nade", "rnn-nade", {},
+                                sizes["t_gen"]),
             _mesh_service(ctx, "service_rbm", "rnn-rbm", {})]
 
 
@@ -665,6 +719,8 @@ MESH_KERNELS = {"dp2_nade": ("nade_ll_fwd", "nade_ll_bwd"),
                 "track5_rbm": ("gibbs_chain",),
                 "track5_scan_gen_rbm": ("gibbs_chain",),
                 "track5_scan_gen_nade": ("nade_sample",),
+                "accomp_nade": ("gen_fused_nade",),
+                "track5_accomp_rbm": ("gibbs_chain",),
                 "nccl_dp_step": ("nade_ll_fwd", "nade_ll_bwd"),
                 "nccl_mesh_group": ("nade_ll_fwd", "nade_ll_bwd")}
 
@@ -697,7 +753,8 @@ def phase18(out, say, fail, device="cuda", sizes=MESH_SIZES):
         for case in ranks[0]["cases"]:
             extra = {k: case[k] for k in ("ref_loss", "loss",
                                           "worst_over_tol", "identical",
-                                          "of", "answered", "density",
+                                          "of", "given_exact", "answered",
+                                          "density",
                                           "probe", "captured", "params_diff",
                                           "replay_per_eager_step",
                                           "capture_s", "pool_bytes")

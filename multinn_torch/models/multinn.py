@@ -540,12 +540,7 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
         frames.append(frame)
     roll = torch.stack(frames, dim=1)
     if later:
-        def decode(lat):                           # (B, T, K, F)
-            kds = [sampling.split(kt)[1] for kt in keys]
-            return torch.stack([_decode_tracks(
-                params, kds[t], lat[:, t].movedim(1, 0), dec_beta,
-                shard).movedim(0, 1) for t in range(n_steps)], dim=1)
-        roll = _decode_whole_batch(decode, roll, shard)
+        roll = _decode_steps_later(params, keys, roll, dec_beta, shard)
     return state, roll
 
 
@@ -563,6 +558,21 @@ def _decode_whole_batch(decode, lat: torch.Tensor, shard) -> torch.Tensor:
     b = lat.shape[0]
     whole = decode(comm.gather_cat(lat.contiguous(), 0, group))
     return whole[shard.rows[0]:shard.rows[0] + b]
+
+
+def _decode_steps_later(params: MultINNParams, keys: torch.Tensor,
+                        lat: torch.Tensor, dec_beta: float,
+                        shard) -> torch.Tensor:
+    """The scan path's latent roll (B, T, K, F), each step t decoded under
+    the decode key of ``keys[t]`` (as ``_sample_step`` draws it) over the
+    whole batch: a data split's deferred decode."""
+    kds = [sampling.split(kt)[1] for kt in keys]
+
+    def decode(whole):
+        return torch.stack([_decode_tracks(
+            params, kds[t], whole[:, t].movedim(1, 0), dec_beta,
+            shard).movedim(0, 1) for t in range(whole.shape[1])], dim=1)
+    return _decode_whole_batch(decode, lat, shard)
 
 
 def _check_given(cfg: MultINNConfig, given: torch.Tensor,
@@ -596,7 +606,7 @@ def generate_accompaniment(params: MultINNParams, key: torch.Tensor,
                            k: Optional[int] = None,
                            temperature: float = 1.0,
                            fused: Optional[bool] = None,
-                           subset: bool = True
+                           subset: bool = True, shard=None
                            ) -> Tuple[MultINNState, torch.Tensor]:
     """Track-conditional generation: the tracks in ``given_tracks`` take the
     frames of ``given`` (B, T, K, D) and the others are sampled. Returns
@@ -617,10 +627,23 @@ def generate_accompaniment(params: MultINNParams, key: torch.Tensor,
     it. ``subset`` (scan path): True samples only the sampled tracks,
     False samples all K and keeps the given tracks by a select (the JAX
     package's track-sharded form); the two are bit-equal, since track i
-    draws under key i either way."""
+    draws under key i either way.
+
+    ``shard`` (a mesh's part): ``given`` and the state hold this rank's
+    rows (the row map) and the roll is this rank's rows, every track. A
+    track split runs the scan path in the all-K form: each rank samples
+    its tracks, given ones included, under their keys of the whole K,
+    selects the given features of its tracks (its own encoders) and
+    gathers the frames over ``track`` every step; a DBN's decode over a
+    data split waits for the whole batch."""
     cfg = params.cfg
     given_tracks = _check_given(cfg, given, given_tracks)
     b, n_steps = given.shape[:2]
+    if _track_group(shard) is not None:
+        if fused:
+            raise ValueError("the whole-generation kernels hold every "
+                             "track: a track-split mesh runs the scan path")
+        fused, subset = False, False
     if fused is None:
         from multinn_torch.ops import gen_fused
         fused = (gen_fused.supported(cfg, b, n_steps, gen_k=k,
@@ -633,32 +656,46 @@ def generate_accompaniment(params: MultINNParams, key: torch.Tensor,
     given = given.to(torch.float32)
     if fused:
         return _generate_accomp_fused(params, key, state, given,
-                                      given_tracks, k=k, dec_beta=dec_beta)
-    feats_g = _encode_tracks(params, given)              # (K, B, T, F)
+                                      given_tracks, k=k, dec_beta=dec_beta,
+                                      shard=shard)
+    own = (slice(None) if _track_group(shard) is None
+           else shard.tracks(cfg.n_tracks))
+    mine = range(cfg.n_tracks)[own]                # this rank's tracks
+    feats_g = _encode_tracks(params, given[:, :, own])   # (K', B, T, F)
     mask = torch.zeros(cfg.n_tracks, 1, 1, dtype=torch.bool,
                        device=given.device)
     mask[list(given_tracks)] = True
-    sampled = [i for i in range(cfg.n_tracks)
+    sampled = [j for j, i in enumerate(mine)
                if not subset or i not in given_tracks]
+    rows = None if shard is None else shard.rows
+    # a DBN decode over a data split waits for the whole batch's latents
+    later = bool(cfg.encoder_hidden) and _data_group(shard) is not None
     keys = sampling.split(key, n_steps)
     rolls = []
     for t in range(n_steps):
         key1, kd = sampling.split(keys[t])
-        tkeys = sampling.split(key1, cfg.n_tracks)
+        tkeys = _decoder_keys(cfg, key1, shard)
         vs = list(feats_g[:, :, t])
-        for i in sampled:
-            vs[i] = dec.sample_frame(index_tree(params.decoder, i), tkeys[i],
-                                     index_tree(state.decoder, i), k=k)
+        for j in sampled:
+            vs[j] = dec.sample_frame(index_tree(params.decoder, j), tkeys[j],
+                                     index_tree(state.decoder, j), k=k,
+                                     rows=rows)
         # select, don't blend: a non-finite sample must not reach a given
         # track
-        v_final = torch.where(mask, feats_g[:, :, t], torch.stack(vs))
-        state = _forced_step(params, state, v_final)
-        if cfg.encoder_hidden:
+        v_final = _all_tracks(torch.where(mask[own],
+                                          feats_g[:, :, t], torch.stack(vs)),
+                              shard)
+        state = _forced_step(params, state, v_final, shard)
+        if cfg.encoder_hidden and not later:
             v_final = torch.where(mask, given[:, t].movedim(1, 0),
                                   _decode_tracks(params, kd, v_final,
-                                                 dec_beta))
+                                                 dec_beta, shard))
         rolls.append(v_final)
-    return state, torch.stack(rolls).permute(2, 0, 1, 3)  # (B, T, K, D)
+    roll = torch.stack(rolls).permute(2, 0, 1, 3)          # (B, T, K, ·)
+    if later:
+        roll = _decode_steps_later(params, keys, roll, dec_beta, shard)
+        roll[:, :, list(given_tracks)] = given[:, :, list(given_tracks)]
+    return state, roll
 
 
 def _generate_fused(params: MultINNParams, key: torch.Tensor,
@@ -717,15 +754,19 @@ def _generate_accomp_fused(params: MultINNParams, key: torch.Tensor,
                            state: MultINNState, given: torch.Tensor,
                            given_tracks: Tuple[int, ...],
                            k: Optional[int] = None, dec_beta: float = 1.0,
-                           impl=None) -> Tuple[MultINNState, torch.Tensor]:
+                           impl=None, shard=None
+                           ) -> Tuple[MultINNState, torch.Tensor]:
     """generate_accompaniment on the whole-generation kernels: the given
     tracks' teacher-forced features stream into the kernel and replace
     those tracks' frames each step (``params`` already tempered). With a
-    DBN the decoded roll's given rows then take ``given`` verbatim."""
+    DBN the decoded roll's given rows then take ``given`` verbatim.
+    ``shard``: ``given`` holds this rank's rows of a data split (the
+    kernels' row map; a DBN's decode over the whole batch)."""
     feats = _encode_tracks(params, given).permute(1, 2, 0, 3)  # (B, T, K, F)
     state, roll = _generate_fused(params, key, state, given.shape[1],
                                   impl=impl, k=k, dec_beta=dec_beta,
-                                  given=feats, given_tracks=given_tracks)
+                                  given=feats, given_tracks=given_tracks,
+                                  shard=shard)
     if params.cfg.encoder_hidden:
         gt = list(given_tracks)
         roll[:, :, gt] = given[:, :, gt]

@@ -20,9 +20,10 @@ sets:
   * K=5 (no track axis): gspmd data=n and shard_map data=n (both
     families); gspmd data=n/2 x model=2 (both, H split over two cards;
     n even); seqpipe seq=n (RNN-NADE, T split, ``auto_microbatches``;
-    n >= 2); Hessian-free gspmd data=n (RNN-NADE, cg_iters 25, groups of
-    2 macro-steps: two captured macro-steps take about 12 GB of graph
-    pool at B=64 a card);
+    n >= 2); Hessian-free gspmd data=n and shard_map data=n (RNN-NADE,
+    cg_iters 25, groups of 2 macro-steps: two captured macro-steps take
+    about 12 GB of graph pool at B=64 a card); seqpipe data=n/2 x seq=2
+    (RNN-NADE, n >= 4 and even);
   * the track set, ``--k 4`` (the JAX package's multichip flagship):
     gspmd data=n as the baseline, data=n/2 x track=2, track=n (one track
     a card), data=n/4 x track=2 x model=2 (the K and the H split on the
@@ -50,9 +51,11 @@ sets:
     card's 8 samples bit-identical to one device's generation of the
     whole batch; at T=1024 songs/s against one card at B=8 (the fused
     kernel launched once a card a generation), and the device ms of a
-    card's generation of its 8 rows alone (CUDA events); a mesh service
-    (batch 8, 1024 steps) answering 24 requests, rank 0 taking them
-    while the others ``follow()``;
+    card's generation of its 8 rows alone (CUDA events); accompaniment
+    on data=n (below); a mesh service (batch 8, 1024 steps, track 0 of
+    accompaniment requests given) answering 24 requests, 8 of them
+    accompaniment (track 0 of each roll its given roll's), rank 0 taking
+    them while the others ``follow()``;
   * the track set, on data=n/2 x track=2 for both families:
     track-sharded generation (B=8 a data shard; also on track=n, B=8):
     the scan path with the frames all-gathered every step, every sample
@@ -62,8 +65,16 @@ sets:
     ``Trainer.evaluate`` with a short tail against one device (every
     metric within rtol 1e-5); a checkpoint saved on the mesh after a
     captured group, restored into one device bit for bit, its next step
-    against the mesh's; accompaniment with track 0 given (bit for bit) against one
-    card's; a mesh service answering 24 requests.
+    against the mesh's; accompaniment on data=n/2 x track=2 and on
+    track=n (below); a mesh service answering 24 requests, 8 of them
+    accompaniment;
+  * accompaniment, track 0 given, T=1024, B=8 a data shard, sharded as
+    generation is (a data split: the fused kernel over each card's rows
+    with the row map; a track split: the scan path, each card sampling
+    its tracks): every sample bit-identical to one card's accompaniment
+    of the global batch on the same path, the given track bit for bit,
+    each rank's launches (the fused kernel once a card; the sampler
+    once a local track a step), songs/s beside one card's at B=8.
 
 Prints one JSON line per case (rank 0's numbers, with every rank's step
 ms), the card's name and power limit (``nvidia-smi``), then
@@ -114,7 +125,8 @@ def layouts(n: int, k: int, sizes=SIZES):
     """(case, decoder, mode, mesh keywords, train keywords) for ``n`` cards
     and ``k`` tracks. A track layout comes only where its track count
     divides ``k``: the flagship's K=5 gives the K=5 set (gspmd and
-    shard_map data=n, data=n/2 x model=2, seqpipe seq=n, HF data=n); a K
+    shard_map data=n, data=n/2 x model=2, seqpipe seq=n, HF gspmd and
+    shard_map data=n, seqpipe data=n/2 x seq=2 where n >= 4); a K
     that splits over 2 tracks on an even ``n`` gives the track set (gspmd
     data=n, data=n/2 x track=2, track=n where n divides K, data=n/4 x
     track=2 x model=2 where 4 divides n, each for both families; the
@@ -157,6 +169,11 @@ def layouts(n: int, k: int, sizes=SIZES):
                     dict(data=1, seq=n, style="seqpipe"), {}))
     out.append((f"hf_gspmd_data{n}_nade", "rnn-nade", "feedback",
                 dict(data=n), hf))
+    out.append((f"hf_shard_map_data{n}_nade", "rnn-nade", "feedback",
+                dict(data=n, style="shard_map"), hf))
+    if n >= 4 and n % 2 == 0:
+        out.append((f"seqpipe_data{n // 2}_seq2_nade", "rnn-nade", "feedback",
+                    dict(data=n // 2, seq=2, style="seqpipe"), {}))
     return out
 
 
@@ -724,9 +741,14 @@ def _ckpt_case(ctx, decoder, mesh):
 
 
 def _accompany_case(ctx, decoder, mesh):
-    """Accompaniment on ``mesh``, track 0 given (B=8, T=1024; the whole
-    batch on every rank): the given track bit for bit, the roll equal to
-    one card's under the same key."""
+    """Accompaniment sharded on ``mesh``, track 0 given (T=1024, B=8 a data
+    shard): every sample against one card's accompaniment of the same
+    global batch on the same path (the fused kernel on a data-only mesh,
+    the scan path, ``fused=False``, on a track split), the given track bit
+    for bit; songs/s against one card's accompaniment of B=8 on the same
+    path; this rank's launches in one mesh accompaniment (a data split:
+    the fused kernel once, over its B/n rows; a track split: the sampler
+    once a local track a step)."""
     import torch
     from multinn_torch.models import multinn
     from multinn_torch.ops import _build, sampling
@@ -737,35 +759,54 @@ def _accompany_case(ctx, decoder, mesh):
     cfg = _cfg(sizes, decoder, mesh, ctx["out"])
     params = multinn.init(cfg.model, torch.Generator().manual_seed(33),
                           device=dev)
+    b, t_gen = sizes["b_gen"] * mesh.get("data", 1), sizes["t_gen"]
     rng = np.random.default_rng(35)
-    given = (rng.random((sizes["b_gen"], sizes["t_gen"], sizes["k"],
-                         sizes["d"])) < 0.06).astype(np.float32)
+    given = (rng.random((b, t_gen, sizes["k"], sizes["d"]))
+             < 0.06).astype(np.float32)
     key = sampling.PRNGKey(39, device=dev)
     gen = Generator(cfg, params, mesh=mesh_mod.make_mesh(cfg.mesh))
+    split_k = gen.track_sharded
+    fused = False if split_k else None
+
+    def one(batch):                   # one card, the same path
+        with torch.inference_mode():
+            _, roll = multinn.generate_accompaniment(
+                params, key, multinn.init_state(params, batch),
+                torch.from_numpy(given[:batch]).to(dev), (0,), fused=fused)
+        return roll.to(torch.uint8).cpu().numpy()
     _build.launches.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     got = gen.accompany(key, given, (0,))
-    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
     launches = dict(_build.launches)
-    want = Generator(_cfg(sizes, decoder, None, ctx["out"]),
-                     params).accompany(key, given, (0,))
+    want = one(b)
+    local_k = int(gen.params.decoder.w.shape[0])
     res = dict(case=f"accompany_{_mesh_name(mesh)}_{fam}", decoder=decoder,
-               mesh=mesh, rank=ctx["rank"], batch=sizes["b_gen"],
-               t=sizes["t_gen"], seconds=sec, launches=launches,
+               mesh=mesh, rank=ctx["rank"], batch=b, t=t_gen,
+               local_tracks=local_k, path="scan" if split_k else "fused",
+               launches=launches,
                given_exact=bool((got[:, :, 0] == given[:, :, 0]).all()),
-               identical=int((got == want).reshape(len(got), -1).all(
-                   axis=1).sum()), of=len(got),
+               identical=int((got == want).reshape(b, -1).all(
+                   axis=1).sum()), of=b,
                density=float(got[:, :, 1:].mean()))
-    res["ok"] = res["given_exact"] and res["identical"] == res["of"]
+    res["mesh_s"] = _timed(lambda: gen.accompany(key, given, (0,)))
+    res["songs_per_s"] = b / res["mesh_s"]
+    res["one_card_s"] = _timed(lambda: one(sizes["b_gen"]))
+    res["one_card_songs_per_s"] = sizes["b_gen"] / res["one_card_s"]
+    if split_k:
+        work = launches.get(SAMPLER[decoder], 0) == local_k * t_gen
+    else:
+        work = launches.get(f"gen_fused_{fam}") == 1
+    res["ok"] = bool(res["given_exact"] and res["identical"] == b and work)
     del gen
     _free()
     return res
 
 
 def _service_case(ctx, decoder, mesh, name):
-    """A service on ``mesh``: rank 0 takes the requests at batch 8, the
-    other ranks follow its broadcast calls."""
+    """A service on ``mesh`` with accompaniment requests enabled (track 0
+    given): rank 0 takes the requests at batch 8, 16 plain and 8 of
+    accompaniment, the other ranks follow its broadcast calls; each
+    accompaniment roll's track 0 is its given roll's."""
     import torch
     from multinn_torch.models import multinn
     from multinn_torch.parallel import mesh as mesh_mod
@@ -776,23 +817,31 @@ def _service_case(ctx, decoder, mesh, name):
                           device=dev)
     t0 = time.perf_counter()
     svc = GenerationService(cfg, params, ServeConfig(
-        batch=sizes["b_gen"], n_steps=sizes["t_gen"], max_wait_ms=1000.0),
-        mesh=mesh_mod.make_mesh(cfg.mesh))
+        batch=sizes["b_gen"], n_steps=sizes["t_gen"], max_wait_ms=1000.0,
+        accompany_tracks=(0,)), mesh=mesh_mod.make_mesh(cfg.mesh))
     res = dict(case=name, decoder=decoder, mesh=mesh, rank=ctx["rank"])
     if ctx["rank"] != 0:
         res.update(calls=svc.follow(), ok=True,
                    seconds=time.perf_counter() - t0)
         return res
+    n_acc = sizes["requests"] // 3
+    given = (np.random.default_rng(37).random(
+        (sizes["t_gen"], sizes["k"], sizes["d"])) < 0.06).astype(np.uint8)
     t1 = time.perf_counter()
-    futs = svc.submit_many(sizes["requests"])
+    futs = (svc.submit_many(sizes["requests"] - n_acc)
+            + svc.submit_many(n_acc, given=given))
     rolls = [f.result(300).roll for f in futs]
     sec = time.perf_counter() - t1
     svc.close()
     shape = (sizes["t_gen"], sizes["k"], sizes["d"])
-    res.update(answered=len(rolls), seconds=sec,
+    acc = rolls[len(rolls) - n_acc:]
+    res.update(answered=len(rolls), accompanied=len(acc), seconds=sec,
                songs_per_s=len(rolls) / sec,
+               given_exact=all(bool((r[:, 0] == given[:, 0]).all())
+                               for r in acc),
                ok=len(rolls) == sizes["requests"]
                and all(r.shape == shape for r in rolls))
+    res["ok"] = bool(res["ok"] and res["given_exact"])
     return res
 
 
@@ -813,6 +862,9 @@ def plan(world: int, sizes=SIZES) -> list:
             data = dict(data=world)
             out += [(f"gen_{fam}",
                      functools.partial(_generation_case, decoder=dec)),
+                    (f"accompany_{_mesh_name(data)}_{fam}",
+                     functools.partial(_accompany_case, decoder=dec,
+                                       mesh=data)),
                     (f"service_{fam}",
                      functools.partial(_service_case, decoder=dec,
                                        mesh=data, name=f"service_{fam}"))]
@@ -827,13 +879,14 @@ def plan(world: int, sizes=SIZES) -> list:
         out += [(f"eval_{name}_{fam}",
                  functools.partial(_eval_case, decoder=dec, mesh=dp_track)),
                 (f"ckpt_{name}_{fam}",
-                 functools.partial(_ckpt_case, decoder=dec, mesh=dp_track)),
-                (f"accompany_{name}_{fam}",
-                 functools.partial(_accompany_case, decoder=dec,
-                                   mesh=dp_track)),
-                (f"service_{name}_{fam}",
-                 functools.partial(_service_case, decoder=dec, mesh=dp_track,
-                                   name=f"service_{name}_{fam}"))]
+                 functools.partial(_ckpt_case, decoder=dec, mesh=dp_track))]
+        out += [(f"accompany_{_mesh_name(m)}_{fam}",
+                 functools.partial(_accompany_case, decoder=dec, mesh=m))
+                for m in meshes]
+        out.append((f"service_{name}_{fam}",
+                    functools.partial(_service_case, decoder=dec,
+                                      mesh=dp_track,
+                                      name=f"service_{name}_{fam}")))
     return out
 
 
@@ -936,7 +989,8 @@ def summarise(ranks) -> list:
                     "nccl_ms", "nccl_share", "coll_ms", "coll_share",
                     "identical_mine", "identical", "per_card_graph_ms",
                     "global_graph_ms", "songs_per_s", "kernel_ms",
-                    "busy_share", "wall_s", "given_exact", "ok"):
+                    "busy_share", "wall_s", "given_exact", "launches",
+                    "ok"):
             if key in case:
                 line[f"{key}_per_rank"] = [c.get(key) for c in per]
         if "nccl_share" in case:

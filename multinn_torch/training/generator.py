@@ -23,7 +23,12 @@ decoders are split over it and generation runs the scan path, each rank
 sampling its tracks under ``split(key1, K)[k]`` and the frames gathered
 every step for the feedback context: the single-device scan path bit for
 bit. Params split over ``model`` (a gspmd trainer's) are gathered once,
-at construction. Accompaniment runs the whole batch on every rank.
+at construction. Accompaniment shards alike: the given roll's (and the
+seed's) rows over ``data``, on the whole-generation kernel with the row
+map where the gate admits it, and on a track split the scan path, each
+rank sampling its tracks (the given ones too, then selected) and the
+frames gathered every step; the single-device accompaniment on the same
+path bit for bit.
 
 ``generate_async`` and ``accompany_async`` enqueue everything on the
 caller's current CUDA stream without a host synchronisation (the key is
@@ -78,8 +83,6 @@ class Generator:
             if split_k or split_h:
                 params = mesh_mod.gather_params(params, mesh, split_k,
                                                 split_h)
-        # the whole params (accompaniment), and this rank's tracks of them
-        self.full_params = params
         self.params = mesh_mod.shard_params(params, mesh, self.track_sharded,
                                             model_sharded=False)
         self.device = params.decoder.w.device
@@ -123,24 +126,41 @@ class Generator:
                                        temperature=self._temperature)
             return self._transport(roll, packed)
 
+    def _mesh_shard(self, batch: int):
+        """This rank's Shard of a call over ``batch`` rows (split over
+        ``data`` where it divides the axis, else whole on every rank) and
+        whether it is split; (None, False) without a mesh."""
+        if self.mesh is None:
+            return None, False
+        n_data = self.mesh.size(mesh_mod.DATA_AXIS)
+        split = n_data > 1 and batch % n_data == 0
+        return mesh_mod.shard_of(self.mesh, batch if split else None,
+                                 self.track_sharded,
+                                 model_sharded=False), split
+
+    def _mesh_rows(self, roll: np.ndarray, batch: int, split: bool,
+                   shard, tracks: bool) -> torch.Tensor:
+        """This rank's rows (and, where ``tracks`` on a track split, its
+        tracks) of a host roll (B, T, K, D), on the device (the whole roll
+        without a mesh)."""
+        mine = np.asarray(roll)[mesh_mod.batch_slice(batch, self.mesh)
+                                if split else slice(None)]
+        if tracks and self.track_sharded:
+            mine = mine[:, :, shard.tracks(self.cfg.model.n_tracks)]
+        return self._to_device(mine)
+
     def _generate_mesh(self, key, n_steps, batch, seed, packed
                        ) -> AsyncRolls:
         """generate_async on the mesh: this rank's rows (and tracks), the
         rolls gathered over ``data`` (every rank holds the whole roll)."""
-        n_data = self.mesh.size(mesh_mod.DATA_AXIS)
-        split = n_data > 1 and batch % n_data == 0
-        shard = mesh_mod.shard_of(self.mesh, batch if split else None,
-                                  self.track_sharded, model_sharded=False)
+        shard, split = self._mesh_shard(batch)
         with torch.inference_mode():
-            state = multinn.init_state(self.params,
-                                       batch // n_data if split else batch)
+            state = multinn.init_state(
+                self.params, batch // self.mesh.size(mesh_mod.DATA_AXIS)
+                if split else batch)
             if seed is not None:
-                mine = np.asarray(seed)[mesh_mod.batch_slice(batch, self.mesh)
-                                        if split else slice(None)]
-                if self.track_sharded:
-                    mine = mine[:, :, shard.tracks(self.cfg.model.n_tracks)]
-                state = multinn.prime(self.params, state,
-                                      self._to_device(mine), shard)
+                state = multinn.prime(self.params, state, self._mesh_rows(
+                    seed, batch, split, shard, tracks=True), shard)
             _, roll = multinn.generate(self.params, key.to(self.device),
                                        state, n_steps, k=self._gibbs_k,
                                        temperature=self._temperature,
@@ -156,21 +176,28 @@ class Generator:
         tracks ``given_tracks`` take the model-space roll ``given`` (B, T,
         K, D), the others are sampled (multinn.generate_accompaniment);
         ``seed``: optional (B, T_seed, K, D) priming roll; ``packed`` as in
-        generate_async. Returns AsyncRolls; decode with fetch_rolls."""
+        generate_async. Returns AsyncRolls; decode with fetch_rolls. On a
+        mesh: this rank's rows (and tracks), the rolls gathered over
+        ``data``, as generate_async."""
         _check_transport(packed)
-        if seed is not None and np.shape(seed)[0] != np.shape(given)[0]:
+        batch = np.shape(given)[0]
+        if seed is not None and np.shape(seed)[0] != batch:
             raise ValueError(f"seed batch {np.shape(seed)[0]} != given "
-                             f"batch {np.shape(given)[0]}")
+                             f"batch {batch}")
+        shard, split = self._mesh_shard(batch)
         with torch.inference_mode():
-            given_dev = self._to_device(given)
-            params = self.full_params          # whole on every mesh rank
-            state = multinn.init_state(params, given_dev.shape[0])
+            given_dev = self._mesh_rows(given, batch, split, shard,
+                                        tracks=False)
+            state = multinn.init_state(self.params, given_dev.shape[0])
             if seed is not None:
-                state = multinn.prime(params, state, self._to_device(seed))
+                state = multinn.prime(self.params, state, self._mesh_rows(
+                    seed, batch, split, shard, tracks=True), shard)
             _, roll = multinn.generate_accompaniment(
-                params, key.to(self.device), state, given_dev,
+                self.params, key.to(self.device), state, given_dev,
                 tuple(int(i) for i in given_tracks), k=self._gibbs_k,
-                temperature=self._temperature)
+                temperature=self._temperature, shard=shard)
+            if split:
+                roll = comm.gather_cat(roll.contiguous(), 0, shard.data)
             return self._transport(roll, packed)
 
     def accompany(self, key: torch.Tensor, given: np.ndarray, given_tracks,

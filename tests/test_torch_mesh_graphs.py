@@ -10,8 +10,9 @@ batch in the graph's static buffer, the warm-up and capture that leave
 the trainer's state as it was, the launch counts a replay adds, and two
 groups in a row bit-equal to the eager mesh groups in params, optimizer
 state and metrics on every rank. The layouts: gspmd data=2 (both
-families), shard_map data=2 (both), seqpipe seq=2, Hessian-free gspmd
-data=2 and gspmd data=2 x model=2 (both families); with four tracks
+families), shard_map data=2 (both), seqpipe seq=2 and data=2 x seq=2,
+Hessian-free gspmd data=2 and shard_map data=2 (2 macro-steps a group)
+and gspmd data=2 x model=2 (both families); with four tracks
 (feedback, the JAX package's tiny multichip flagship) gspmd data=2 x
 track=2 (both families; the RBM also in per-track mode) and data=1 x
 track=2 x model=2 (RBM). On the card the same path captures the NCCL
@@ -46,7 +47,7 @@ from multinn_torch.parallel import mesh as mesh_mod  # noqa: E402
 from multinn_torch.training import trainer  # noqa: E402
 from multinn_torch.utils.convert import from_jax  # noqa: E402
 
-N = 4                                   # steps a group
+N = 4                                   # steps a group (HF shard_map: 2)
 # case -> (world, this rank's block of the (N, B=8, T=8, K=2, D=24) batch)
 # (K=4 cases: the batch is (N, 8, 8, 4, 24), K split over track)
 CASES = {"g_gspmd_nade": (2, [N, 4, 8, 2, 24]),
@@ -55,9 +56,11 @@ CASES = {"g_gspmd_nade": (2, [N, 4, 8, 2, 24]),
          "g_shard_map_rbm": (2, [N, 4, 8, 2, 24]),
          "g_seqpipe_nade": (2, [N, 8, 4, 2, 24]),
          "g_hf_gspmd_nade": (2, [N, 4, 8, 2, 24]),
+         "g_hf_shard_map_nade": (2, [2, 4, 8, 2, 24]),
          "g_jax_nade": (2, [N, 4, 8, 2, 24]),
          "g_dp_tp_nade": (4, [N, 4, 8, 2, 24]),
          "g_dp_tp_rbm": (4, [N, 4, 8, 2, 24]),
+         "g_seqpipe_dp_nade": (4, [N, 4, 4, 2, 24]),
          "g_dp_track_nade": (4, [N, 4, 8, 2, 24]),
          "g_dp_track_rbm": (4, [N, 4, 8, 2, 24]),
          "g_pertrack_dp_track_rbm": (4, [N, 4, 8, 2, 24]),
@@ -161,13 +164,14 @@ def test_captured_mesh_group_equals_eager(request, case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_replay_launches_are_n_eager_steps(request, case):
-    """Each replay adds N times one eager step's launches on every rank
-    (the capture's own are taken back out)."""
+    """Each replay adds the group's steps times one eager step's launches
+    on every rank (the capture's own are taken back out)."""
     world, out = _world(request, case)
+    n = CASES[case][1][0]
     for r in range(world):
         a = ranks.load(out, case, r)
         assert a["one_step"] >= 1
-        assert a["replay0"] == a["replay1"] == N * a["one_step"], r
+        assert a["replay0"] == a["replay1"] == n * a["one_step"], r
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -325,7 +329,9 @@ def test_mesh_cards_layouts_split_tracks_only_where_k_divides(k, tmp_path):
     """``layouts(4, k)``: K=4 gives the track set (data=4 as the baseline,
     data=2 x track=2, track=4, data=1 x track=2 x model=2 for both
     families, per-track data=2 x track=2 for the RBM, HF on data=2 x
-    track=2), K=5 (the flagship's) the K=5 set with no track axis; every
+    track=2), K=5 (the flagship's) the K=5 set with no track axis (HF
+    also under shard_map in groups of 2 macro-steps, seqpipe also on
+    data=2 x seq=2); every
     layout's config (and its one-device reference's) validates, its axes
     fill the four ranks and its track count divides K."""
     from multinn_torch.scripts import mesh_cards
@@ -345,7 +351,18 @@ def test_mesh_cards_layouts_split_tracks_only_where_k_divides(k, tmp_path):
     else:
         assert not mesh_cards.track_set(4, k)
         assert set(tracks.values()) == {1}
-        assert len(names) == 8
+        assert names == [
+            "gspmd_data4_rbm", "shard_map_data4_rbm", "gspmd_data2_model2_rbm",
+            "gspmd_data4_nade", "shard_map_data4_nade",
+            "gspmd_data2_model2_nade", "seqpipe_seq4_nade",
+            "hf_gspmd_data4_nade", "hf_shard_map_data4_nade",
+            "seqpipe_data2_seq2_nade"]
+        by_name = {case: (mesh, train) for case, _, _, mesh, train in got}
+        assert by_name["hf_shard_map_data4_nade"] == (
+            dict(data=4, style="shard_map"),
+            dict(optimizer="hf", hf_cg_iters=25, steps_per_call=2))
+        assert by_name["seqpipe_data2_seq2_nade"] == (
+            dict(data=2, seq=2, style="seqpipe"), {})
     for case, dec, mode, mesh, train in got:
         assert k % tracks[case] == 0
         cfg = mesh_cards._cfg(sizes, dec, mesh, str(tmp_path), mode, **train)
@@ -362,8 +379,9 @@ def test_mesh_cards_layouts_split_tracks_only_where_k_divides(k, tmp_path):
 def test_mesh_cards_plan_names_every_case(k):
     """``plan(4, sizes)``: the layouts first, in ``layouts``' order, then
     one card's steps, then the generation, evaluation (track set: with the
-    short tail), checkpoint, accompaniment and service cases; every name
-    is unique."""
+    short tail), checkpoint, accompaniment (sharded: data=4 in the K=5
+    set, data=2 x track=2 and track=4 in the track set) and service
+    cases; every name is unique."""
     from multinn_torch.scripts import mesh_cards
     sizes = dict(mesh_cards.SIZES, k=k)
     names = [name for name, _ in mesh_cards.plan(4, sizes)]
@@ -377,10 +395,11 @@ def test_mesh_cards_plan_names_every_case(k):
             f"{case}_{fam}" for fam in ("rbm", "nade") for case in (
                 "gen_data2_track2", "gen_data1_track4", "eval_data2_track2",
                 "ckpt_data2_track2", "accompany_data2_track2",
-                "service_data2_track2")]
+                "accompany_data1_track4", "service_data2_track2")]
     else:
         assert extra == ["one_card_rbm", "one_card_nade", "gen_rbm",
-                         "service_rbm", "gen_nade", "service_nade"]
+                         "accompany_data4_rbm", "service_rbm", "gen_nade",
+                         "accompany_data4_nade", "service_nade"]
 
 
 def test_mesh_cards_only_runs_the_cases_that_match(monkeypatch):

@@ -23,9 +23,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 import torch_mesh_ranks as ranks  # noqa: E402
 from multinn_tpu.models import multinn as jax_multinn  # noqa: E402
+from multinn_tpu.ops import nade_ops as jax_nade_ops  # noqa: E402
+from multinn_tpu.ops import nade_pallas  # noqa: E402
 from multinn_tpu.training.trainer import Trainer as JaxTrainer  # noqa: E402
 from multinn_tpu.utils import config as jax_config  # noqa: E402
 from multinn_torch.models import multinn  # noqa: E402
@@ -62,10 +65,37 @@ def _jax_reference(out):
     jt.close()
 
 
+def _jax_accomp_reference(out):
+    """The JAX package's one-device accompaniment on its scan path
+    (``generate_accompaniment(fused=False)``; K=4 feedback NADE at the tiny
+    widths, track 0 given, B=8) with its sampler the Pallas kernel in
+    interpret mode, so it draws the port's stream; its params converted
+    for the ranks."""
+    kw = dict(ranks.TRACK4, model_kw=dict(w_std=0.5))
+    cfg = ranks.exp_cfg(out / "jaxa", None, **kw)
+    jp = jax_multinn.init(jax.random.PRNGKey(3), jax_multinn.MultINNConfig(
+        **dataclasses.asdict(cfg.model)))
+    given = (np.random.default_rng(53).random((8, ranks.ACCOMP_T, 4, 24))
+             < 0.3).astype(np.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_nade_ops, "nade_sample",
+                   lambda key, w, v, bv, bh, batch_shape=(), impl="auto":
+                       nade_pallas.sample(key, w, v, bv, bh, batch_shape,
+                                          True))
+        _, roll = jax.jit(lambda p, s, x: jax_multinn.generate_accompaniment(
+            p, jax.random.PRNGKey(ranks.JAXA_KEY), s, x, (0,), fused=False)
+        )(jp, jax_multinn.init_state(jp, 8), jnp.asarray(given))
+    torch.save([t.clone() for t in multinn.tree_leaves(
+        from_jax(jp, device="cpu"))], out / "jaxa_params.pt")
+    np.save(out / "jaxa_given.npy", given)
+    np.save(out / "jaxa_ref.npy", np.asarray(roll))
+
+
 @pytest.fixture(scope="module")
 def w2(tmp_path_factory):
     out = tmp_path_factory.mktemp("w2")
     _jax_reference(out)
+    _jax_accomp_reference(out)
     ranks.run_world(out, 2, "w2")
     return out
 
@@ -507,6 +537,114 @@ def test_mesh_service_matches_single_device(w2):
     np.testing.assert_array_equal(a["meta"], a["ref_meta"])
     assert a["rolls"].shape == (16, 6, 2, 24)
     np.testing.assert_array_equal(a["rolls"], a["ref_rolls"])
+
+
+# -- accompaniment on a mesh --------------------------------------------------
+
+ACCOMP_CASES = [(world, name, dec, sub)
+                for world, meshes in ranks.ACCOMP_MESHES.items()
+                for name in meshes for dec in ("rnn-nade", "rnn-rbm")
+                for sub in ranks.ACCOMP]
+
+
+@pytest.mark.parametrize("world,mesh,dec,sub", ACCOMP_CASES)
+def test_mesh_accompaniment_matches_single_device(request, world, mesh, dec,
+                                                  sub):
+    """``Generator.accompany`` on data=2 (the fused kernel's plain version
+    with the row map), data=1 x track=2 and data=2 x track=2 (the scan
+    path, each rank sampling its tracks, the frames gathered every step):
+    feedback with track 0 given, per-track, a DBN (per-track encoders,
+    two tracks given) and seeded (B=8, and B=3, which no data axis here
+    divides); on every rank bit-equal to one device's accompaniment of the
+    whole batch on the same path, the given tracks verbatim."""
+    out = request.getfixturevalue(f"w{world}")
+    case = f"accomp_{mesh}_{dec}_{sub}"
+    want = ranks.load(out, case)
+    tracks = list(want["tracks"])
+    sizes = [8, 3] if ranks.ACCOMP[sub][3] else [8]
+    for r in range(world):
+        a = ranks.load(out, case, r)
+        for b in sizes:
+            got = a[f"b{b}_got"]
+            assert got.shape == (b, ranks.ACCOMP_T, 4, 24)
+            np.testing.assert_array_equal(got, want[f"b{b}_want"],
+                                          err_msg=f"{case} r{r} B={b}")
+            np.testing.assert_array_equal(got[:, :, tracks],
+                                          a[f"b{b}_given"][:, :, tracks])
+        assert 0 < got.mean() < 1
+
+
+def _track_of_key(seed: int, n_steps: int, k: int) -> dict:
+    """Each scan-path step's sampler keys, ``split(split(split(key,
+    T)[t])[0], K)[i]``, by their words -> (t, i)."""
+    keys = sampling.split(sampling.PRNGKey(seed, device="cpu"), n_steps)
+    out = {}
+    for t in range(n_steps):
+        per = sampling.split(sampling.split(keys[t])[0], k)
+        for i in range(k):
+            out[tuple(sampling.key_to_seeds(per[i]).tolist())] = (t, i)
+    return out
+
+
+@pytest.mark.parametrize("world,mesh", [(w, m) for w, ms in
+                                        ranks.ACCOMP_MESHES.items()
+                                        for m in ms])
+@pytest.mark.parametrize("dec", ["rnn-nade", "rnn-rbm"])
+def test_mesh_accompaniment_each_rank_does_its_part(request, world, mesh,
+                                                    dec):
+    """What each rank hands the samplers: on data=2 one whole-generation
+    launch over its 4 rows of 8 (the row map) and no scan-path call, and
+    B=3 whole on every rank; on a track split no whole-generation launch
+    and, each step, one sampler call for each of its own two tracks (the
+    keys of tracks 2t and 2t+1 of the whole K) on its rows (4 of 8 with
+    the row map on data=2 x track=2, all 8 on data=1 x track=2)."""
+    out = request.getfixturevalue(f"w{world}")
+    layout = ranks.ACCOMP_MESHES[world][mesh]
+    n_data, n_track = layout.get("data", 2), layout.get("track", 1)
+    table = _track_of_key(45, ranks.ACCOMP_T, 4)
+    for r in range(world):
+        d, t = divmod(r, n_track)
+        a = ranks.load(out, f"accomp_{mesh}_{dec}_feedback", r)
+        odd = ranks.load(out, f"accomp_{mesh}_{dec}_seeded", r)
+        if n_track == 1:
+            assert a["local_k"] == 4
+            assert a["b8_fused"].tolist() == [[d * 4, 8, 4]]
+            assert len(a["b8_frames"]) == 0
+            assert odd["b3_fused"].tolist() == [[-1, -1, 3]]
+            continue
+        assert a["local_k"] == 2 and len(a["b8_fused"]) == 0
+        frames = a["b8_frames"]
+        rows = 8 // n_data
+        row_map = [d * rows, 8] if n_data > 1 else [-1, -1]
+        assert frames[:, 2].tolist() == [rows] * len(frames)
+        assert all(f[3:].tolist() == row_map for f in frames)
+        drawn = sorted(table[tuple(f[:2].tolist())] for f in frames)
+        assert drawn == [(s, i) for s in range(ranks.ACCOMP_T)
+                         for i in (2 * t, 2 * t + 1)]
+
+
+def test_mesh_accompaniment_matches_jax(w2):
+    """The accompaniment on data=1 x track=2 (K=4 feedback NADE, the scan
+    path) from the JAX package's params equals the JAX package's
+    one-device ``generate_accompaniment(fused=False)`` bit for bit, on
+    both ranks."""
+    want = np.load(w2 / "jaxa_ref.npy")
+    given = np.load(w2 / "jaxa_given.npy")
+    for r in range(2):
+        got = ranks.load(w2, "jaxa", r)["roll"]
+        np.testing.assert_array_equal(got, want.astype(np.uint8))
+        np.testing.assert_array_equal(got[:, :, 0], given[:, :, 0])
+
+
+def test_mesh_service_answers_accompaniment_as_one_device(w2):
+    """A service on data=2 answers plain and accompaniment requests with
+    the rolls of a single-device service; each accompaniment roll's track
+    0 is the given roll's."""
+    a = ranks.load(w2, "serve_accomp")
+    assert a["rolls"].shape == (16, 6, 4, 24)
+    np.testing.assert_array_equal(a["rolls"], a["ref_rolls"])
+    for i in (4, 5, 6, 7, 12, 13, 14, 15):
+        np.testing.assert_array_equal(a["rolls"][i, :, 0], a["given"][:, 0])
 
 
 # -- bring-up -----------------------------------------------------------------

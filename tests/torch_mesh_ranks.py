@@ -14,6 +14,7 @@ job, on the same seeded data and parameters.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -522,12 +523,176 @@ def comm_case(out, rank):
     _save(out, "comm", rank, every_rank=True, **arrays)
 
 
+# -- accompaniment on a mesh (tests/test_torch_parallel.py) -------------------
+
+ACCOMP_T = 6
+# sub-case -> (mode, given tracks, model keywords, seeded: B=8 and B=3)
+ACCOMP = {"feedback": ("feedback", (0,), {}, False),
+          "pertrack": ("per-track", (1,), {}, False),
+          "dbn": ("per-track", (0, 2), dict(encoder_hidden=(6,)), False),
+          "seeded": ("feedback", (0,), {}, True)}
+# the meshes of the accompaniment cases, by world
+ACCOMP_MESHES = {2: {"data2": dict(), "track2": dict(data=1, track=2)},
+                 4: {"data2_track2": dict(data=2, track=2)}}
+JAXA_KEY = 47
+
+
+@contextlib.contextmanager
+def recording_work(dec):
+    """What this rank hands the samplers meanwhile: each whole-generation
+    launch's row map and given rows (b0, B_global, rows; -1 for no row
+    map), and each scan-path ``sample_frame`` call's key words, state rows
+    and row map."""
+    from multinn_torch.models.base import get_decoder
+    from multinn_torch.ops import gen_fused
+    mod = get_decoder(dec)
+    name = "generate_nade" if dec == "rnn-nade" else "generate_rbm"
+    real_fused, real_frame = getattr(gen_fused, name), mod.sample_frame
+    work = dict(fused=[], frames=[])
+
+    def fused(*a, **kw):
+        rows = kw.get("rows") or (-1, -1)
+        work["fused"].append([*rows, kw["given"].shape[0]])
+        return real_fused(*a, **kw)
+
+    def frame(params, key, state, k=None, rows=None):
+        from multinn_torch.ops import sampling
+        work["frames"].append([*sampling.key_to_seeds(key).tolist(),
+                               state.v_prev.shape[0], *(rows or (-1, -1))])
+        return real_frame(params, key, state, k=k, rows=rows)
+    setattr(gen_fused, name, fused)
+    mod.sample_frame = frame
+    try:
+        yield work
+    finally:
+        setattr(gen_fused, name, real_fused)
+        mod.sample_frame = real_frame
+
+
+def accomp_ref(params, key, given, tracks, seed=None, fused=None):
+    """One device's accompaniment of the whole batch (uint8 roll)."""
+    from multinn_torch.models import multinn
+    with torch.inference_mode():
+        state = multinn.init_state(params, len(given))
+        if seed is not None:
+            state = multinn.prime(params, state, torch.from_numpy(seed))
+        _, roll = multinn.generate_accompaniment(
+            params, key, state, torch.from_numpy(given), tracks, fused=fused)
+    return roll.to(torch.uint8).numpy()
+
+
+def accomp_case(out, rank, mesh_name, mesh, dec, sub):
+    """``Generator.accompany`` on ``mesh`` (K=4 at the tiny widths, T=6)
+    in sub-case ``sub`` of ACCOMP, against one device's accompaniment of
+    the whole batch on the same path (the fused kernel on a data-only
+    mesh, the scan path where the tracks are split); with what this rank
+    handed the samplers."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.generator import Generator
+    case = f"accomp_{mesh_name}_{dec}_{sub}"
+    mode, tracks, model_kw, seeded = ACCOMP[sub]
+    cfg = exp_cfg(os.path.join(out, case), mesh_cfg(**mesh), mode=mode,
+                  dec=dec, n_tracks=4, model_kw=model_kw)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(41),
+                          device="cpu")
+    m = mesh_mod.make_mesh(cfg.mesh)
+    gen = Generator(cfg, params, mesh=m)
+    fused = False if m.size("track") > 1 else None
+    rng = np.random.default_rng(43)
+    key = sampling.PRNGKey(45, device="cpu")
+    arrays = dict(tracks=np.array(tracks),
+                  local_k=np.float64(gen.params.decoder.w.shape[0]))
+    for b in ((8, 3) if seeded else (8,)):
+        given = (rng.random((b, ACCOMP_T, 4, 24)) < 0.3).astype(np.float32)
+        seed = ((rng.random((b, 4, 4, 24)) < 0.3).astype(np.float32)
+                if seeded else None)
+        with recording_work(dec) as work:
+            arrays[f"b{b}_got"] = gen.accompany(key, given, tracks,
+                                                seed=seed)
+        arrays[f"b{b}_given"] = given
+        arrays[f"b{b}_fused"] = np.array(work["fused"]).reshape(-1, 3)
+        arrays[f"b{b}_frames"] = np.array(work["frames"]).reshape(-1, 5)
+        if rank == 0:
+            arrays[f"b{b}_want"] = accomp_ref(params, key, given, tracks,
+                                              seed, fused)
+    _save(out, case, rank, every_rank=True, **arrays)
+
+
+def accomp_cases(out, rank, world):
+    """Every ACCOMP sub-case of both families on the meshes of ``world``
+    ranks (ACCOMP_MESHES)."""
+    for name, mesh in ACCOMP_MESHES[world].items():
+        for dec in ("rnn-nade", "rnn-rbm"):
+            for sub in ACCOMP:
+                accomp_case(out, rank, name, mesh, dec, sub)
+
+
+def jax_accomp_case(out, rank):
+    """Accompaniment (K=4 feedback NADE, track 0 given) on data=1 x
+    track=2 from the params the test process converted from the JAX
+    package's (``jaxa_params.pt``), on its given roll
+    (``jaxa_given.npy``), under PRNGKey(JAXA_KEY)."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import sampling
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.training.generator import Generator
+    cfg = exp_cfg(os.path.join(out, "jaxa"), mesh_cfg(data=1, track=2),
+                  **TRACK4)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(0),
+                          device="cpu")
+    with torch.no_grad():
+        for t, v in zip(multinn.tree_leaves(params),
+                        torch.load(os.path.join(out, "jaxa_params.pt"))):
+            t.copy_(v)
+    gen = Generator(cfg, params, mesh=mesh_mod.make_mesh(cfg.mesh))
+    roll = gen.accompany(sampling.PRNGKey(JAXA_KEY, device="cpu"),
+                         np.load(os.path.join(out, "jaxa_given.npy")), (0,))
+    _save(out, "jaxa", rank, every_rank=True, roll=roll)
+
+
+def service_accomp_case(out, rank):
+    """A service on data=2 (K=4 feedback NADE, batch 4, 6 steps, track 0
+    of accompaniment requests given) answers two plain batches and two
+    of accompaniment requests; rank 0 runs the same requests through a
+    single-device service."""
+    from multinn_torch.models import multinn
+    from multinn_torch.parallel import mesh as mesh_mod
+    from multinn_torch.serving.service import GenerationService, ServeConfig
+    cfg = exp_cfg(os.path.join(out, "serve_accomp"), mesh_cfg(), **TRACK4)
+    params = multinn.init(cfg.model, torch.Generator().manual_seed(49),
+                          device="cpu")
+    scfg = ServeConfig(batch=4, n_steps=6, seed=5, accompany_tracks=(0,),
+                       max_wait_ms=1000.0)
+    svc = GenerationService(cfg, params, scfg,
+                            mesh=mesh_mod.make_mesh(cfg.mesh))
+    if rank != 0:
+        svc.follow()
+        return
+    given = (np.random.default_rng(51).random((6, 4, 24))
+             < 0.3).astype(np.uint8)
+
+    def drive(service):
+        rolls = []
+        for i in range(4):
+            futs = service.submit_many(4, given=(given if i % 2 else None))
+            rolls += [f.result(60).roll for f in futs]
+        service.close()
+        return np.stack(rolls)
+
+    _save(out, "serve_accomp", rank, given=given, rolls=drive(svc),
+          ref_rolls=drive(GenerationService(cfg, params, scfg)))
+
+
 # -- jobs ---------------------------------------------------------------------
 
 def job_w2(rank, world, out):
     """A world of 2: the collectives; DP (gspmd both families, shard_map)
-    and TP model=2 steps; evaluation, HF, generation, a service and the
-    steps from the JAX Trainer's params."""
+    and TP model=2 steps; evaluation, HF, generation, a service, the
+    accompaniment cases on data=2 and data=1 x track=2 and a service
+    with accompaniment requests, and the steps and the accompaniment
+    from the JAX package's params."""
     comm_case(out, rank)
     cli_case(out, rank)
     step_case(out, rank, "dp2_gspmd_nade", mesh_cfg())
@@ -549,13 +714,18 @@ def job_w2(rank, world, out):
     gen_case(out, rank, mesh_cfg(), "rnn-nade", "gen_dbn", mode="per-track",
              model_kw=dict(encoder_hidden=(6,)))
     service_case(out, rank, mesh_cfg())
+    accomp_cases(out, rank, world)
+    service_accomp_case(out, rank)
     if os.path.exists(os.path.join(out, "jax_params.pt")):
         jax_case(out, rank)
+    if os.path.exists(os.path.join(out, "jaxa_params.pt")):
+        jax_accomp_case(out, rank)
 
 
 def job_w4(rank, world, out):
     """A world of 4: DP data=4, dp x track, TP model=4, track-sharded
-    generation, a DBN config on dp x track."""
+    generation, a DBN config on dp x track, the accompaniment cases on
+    data=2 x track=2."""
     step_case(out, rank, "dp4_gspmd_nade", mesh_cfg())
     step_case(out, rank, "dp4_gspmd_rbm", mesh_cfg(), dec="rnn-rbm")
     step_case(out, rank, "dp4_shard_map_nade", mesh_cfg(style="shard_map"))
@@ -574,6 +744,7 @@ def job_w4(rank, world, out):
         detailed_step_case(out, rank, f"detailed_dp_track_{dec}",
                            mesh_cfg(track=2), dec=dec, mode="feedback",
                            n_tracks=4)
+    accomp_cases(out, rank, world)
 
 
 def job_w8(rank, world, out):
@@ -767,6 +938,8 @@ def job_g2(rank, world, out):
                mesh_cfg(data=1, seq=2, style="seqpipe"), mode="feedback")
     graph_case(out, rank, "g_hf_gspmd_nade", mesh_cfg(), optimizer="hf",
                hf_cg_iters=4)
+    graph_case(out, rank, "g_hf_shard_map_nade", mesh_cfg(style="shard_map"),
+               n=2, optimizer="hf", hf_cg_iters=4)
     if os.path.exists(os.path.join(out, "jaxg_params.pt")):
         jax_graph_case(out, rank)
 
@@ -777,13 +950,15 @@ TRACK4 = dict(n_tracks=4, mode="feedback")
 
 def job_g4(rank, world, out):
     """A world of 4: captured groups against eager under gspmd data=2 x
-    model=2 (both families), and with four tracks under data=2 x track=2
-    (both families; the RBM also in per-track mode), data=1 x track=2 x
-    model=2 (RBM), and the NADE group from the JAX Trainer's params on
-    data=2 x track=2."""
+    model=2 (both families), seqpipe data=2 x seq=2, and with four tracks
+    under data=2 x track=2 (both families; the RBM also in per-track
+    mode), data=1 x track=2 x model=2 (RBM), and the NADE group from the
+    JAX Trainer's params on data=2 x track=2."""
     graph_case(out, rank, "g_dp_tp_nade", mesh_cfg(data=2, model=2))
     graph_case(out, rank, "g_dp_tp_rbm", mesh_cfg(data=2, model=2),
                dec="rnn-rbm")
+    graph_case(out, rank, "g_seqpipe_dp_nade",
+               mesh_cfg(data=2, seq=2, style="seqpipe"), mode="feedback")
     dp_track = mesh_cfg(data=2, track=2)
     graph_case(out, rank, "g_dp_track_nade", dp_track, **TRACK4)
     graph_case(out, rank, "g_dp_track_rbm", dp_track, dec="rnn-rbm",
