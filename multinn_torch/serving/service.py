@@ -32,6 +32,19 @@ large packed batches off the card, packed on it (``_resolve_transport``).
 Two consecutive overflows demote a sparse service: the drain reads the
 packed roll from then on.
 
+With the span recorder on (utils/profiling), each batch records its
+spans, identified by its batch index: on the dispatcher ``serve.take``
+(the oldest request's enqueue -> the dispatch, so ``queue_s`` is a
+request's part of it), ``serve.inflight`` (the wait for room in the
+pipeline inside it) and ``serve.dispatch`` (the key and the enqueue);
+``serve.card``, the card's interval from a timing event before the
+batch's first operation on the service's stream to one after its last;
+on the drainer ``serve.drain`` around ``serve.drain.wait`` (the event)
+and ``.fetch`` (the copies and the unpack), both recorded by
+``Generator.fetch_rolls``, ``.finalize`` and ``.resolve`` (every future
+set, callbacks included). The timing events exist only while the
+recorder times this service's card (``profiling.card_timing``).
+
 With a ``mesh`` (parallel/mesh.py) the service's Generator generates on
 it. Rank 0 takes the requests; before each of its device calls (the
 warm-ups included) it broadcasts the call — its kind, key words and seed
@@ -54,6 +67,7 @@ import torch
 from multinn_torch.data import pianoroll
 from multinn_torch.ops import sampling
 from multinn_torch.parallel import comm
+from multinn_torch.utils import profiling
 
 # the calls rank 0 broadcasts to the other ranks of a mesh
 _STOP, _PLAIN, _SEEDED, _ACCOMPANY = 0, 1, 2, 3
@@ -470,11 +484,17 @@ class GenerationService:
         return out
 
     def _dispatch_loop(self) -> None:
+        rec = profiling.recorder
         while True:
             reqs = self._take_batch()
             if reqs is None:
                 return
+            on = rec.on                        # spans of this batch
+            if on:
+                t_wait = time.time_ns()
             self._inflight.acquire()           # bound dispatched-unfetched
+            if on:
+                t_room = time.time_ns()
             kind = reqs[0].kind
             with self._stats_lock:
                 bi = self._n_batches
@@ -488,10 +508,26 @@ class GenerationService:
             elif kind == "accompany":          # pad rows accompany silence
                 given_arr = self._rows([r.given for r in reqs])
             t_dispatch = time.time()
+            timed = (on and self._stream is not None
+                     and profiling.card_timing(self._stream.device))
             try:
+                if timed:                      # the batch's card interval
+                    card = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    card[0].record(self._stream)
                 with torch.cuda.stream(self._stream):
                     key = sampling.fold_in(self._base_key, bi)
                 out = self._dispatch(key, seed_arr, given_arr)
+                if timed:
+                    card[1].record(self._stream)
+                    profiling.card_span("serve.card", *card, ident=bi)
+                if on:
+                    t_ns = int(t_dispatch * 1e9)
+                    profiling.record("serve.take",
+                                     int(reqs[0].t_enqueue * 1e9), t_ns, bi)
+                    profiling.record("serve.inflight", t_wait, t_room, bi)
+                    profiling.record("serve.dispatch", t_ns, time.time_ns(),
+                                     bi)
             except Exception as e:            # pragma: no cover - defensive
                 self._inflight.release()
                 with self._stats_lock:
@@ -513,32 +549,41 @@ class GenerationService:
                         return
                     self._done_cv.wait(0.1)
                 out, reqs, bi, t_dispatch = self._done_q.popleft()
-            try:
-                was_sparse = out.sparse is not None
-                if was_sparse and self._transport_demoted:
-                    out, was_sparse = out._replace(sparse=None,
-                                                   count=None), False
-                hint = (self.generator.last_sparse_count if was_sparse
-                        else None)
-                rolls = self.generator.finalize(
-                    self.generator.fetch_rolls(out, size_hint=hint))
-                if was_sparse:
-                    self._note_sparse_overflow(
-                        self.generator.last_sparse_overflowed)
-            except Exception as e:
-                self._inflight.release()
-                with self._stats_lock:
-                    self._n_errors += len(reqs)
-                for r in reqs:
-                    r.future.set_exception(e)
-                continue
+            with profiling.span("serve.drain", bi):
+                self._drain(out, reqs, bi, t_dispatch)
+
+    def _drain(self, out, reqs, bi: int, t_dispatch: float) -> None:
+        """Wait for one dispatched batch, fetch and finalize its rolls and
+        resolve its requests' futures."""
+        try:
+            was_sparse = out.sparse is not None
+            if was_sparse and self._transport_demoted:
+                out, was_sparse = out._replace(sparse=None,
+                                               count=None), False
+            hint = (self.generator.last_sparse_count if was_sparse
+                    else None)
+            # serve.drain.wait and serve.drain.fetch
+            rolls = self.generator.fetch_rolls(out, size_hint=hint)
+            with profiling.span("serve.drain.finalize"):
+                rolls = self.generator.finalize(rolls)
+            if was_sparse:
+                self._note_sparse_overflow(
+                    self.generator.last_sparse_overflowed)
+        except Exception as e:
             self._inflight.release()
-            t_done = time.time()
             with self._stats_lock:
-                for r in reqs:
-                    self._latencies.append(t_done - r.t_enqueue)
-                    self._queue_waits.append(t_dispatch - r.t_enqueue)
-                    self._done_times.append(t_done)
+                self._n_errors += len(reqs)
+            for r in reqs:
+                r.future.set_exception(e)
+            return
+        self._inflight.release()
+        t_done = time.time()
+        with self._stats_lock:
+            for r in reqs:
+                self._latencies.append(t_done - r.t_enqueue)
+                self._queue_waits.append(t_dispatch - r.t_enqueue)
+                self._done_times.append(t_done)
+        with profiling.span("serve.drain.resolve"):
             for row, r in enumerate(reqs):
                 r.future.set_result(ServeResult(
                     roll=rolls[row], batch_index=bi, row=row,

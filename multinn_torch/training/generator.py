@@ -51,6 +51,7 @@ from multinn_torch.models import multinn
 from multinn_torch.ops import bitpack, sparsebytes
 from multinn_torch.parallel import comm
 from multinn_torch.parallel import mesh as mesh_mod
+from multinn_torch.utils import profiling
 
 
 class AsyncRolls(NamedTuple):
@@ -259,11 +260,19 @@ class Generator:
         copy; ``size_hint`` (a serving loop passes the previous batch's
         count) widens that first copy so a typical batch needs no second
         one. The rest of the chunks the count needs follow; a count over
-        the buffer's rows reads the packed roll instead."""
-        if out.event is not None:
-            out.event.synchronize()
-        if out.sparse is not None:
-            return self._fetch_sparse_rolls(out, size_hint)
+        the buffer's rows reads the packed roll instead.
+
+        Spans (utils/profiling): ``serve.drain.wait``, the wait for the
+        event, and ``serve.drain.fetch``, the copies and the decode."""
+        with profiling.span("serve.drain.wait"):
+            if out.event is not None:
+                out.event.synchronize()
+        with profiling.span("serve.drain.fetch"):
+            if out.sparse is not None:
+                return self._fetch_sparse_rolls(out, size_hint)
+            return self._fetch_packed_rolls(out)
+
+    def _fetch_packed_rolls(self, out: AsyncRolls) -> np.ndarray:
         (host,) = self._host([out.packed])
         return bitpack.unpack_rolls(host.numpy(), self.cfg.model.n_pitches)
 
@@ -282,7 +291,7 @@ class Generator:
         self.last_sparse_count = None if self.last_sparse_overflowed \
             else count
         if self.last_sparse_overflowed:      # truncated records: frames
-            return self.fetch_rolls(out._replace(sparse=None, count=None))
+            return self._fetch_packed_rolls(out)
         need = sparsebytes.n_chunks(count, chunk)
         parts = [got[1].numpy()]
         if need > n_pre:

@@ -90,6 +90,7 @@ from multinn_torch.parallel import mesh as mesh_mod
 from multinn_torch.training import hf as hf_mod
 from multinn_torch.training.checkpoint import Checkpointer
 from multinn_torch.training.metrics import FRAME_COUNTS, frame_ratios
+from multinn_torch.utils import profiling
 from multinn_torch.utils.device import entry_device
 from multinn_torch.utils.logging import (MetricsLogger, format_metrics,
                                          setup_logger)
@@ -338,11 +339,21 @@ class StepGroupGraph:
             raise ValueError(f"a captured group takes {tuple(self.x.shape)} "
                              f"batches, got {tuple(stacked.shape)}")
         src = torch.from_numpy(np.ascontiguousarray(stacked))
-        if self.x.is_cuda:                # pinned: the copy does not block
-            src = src.pin_memory()
-        self.x.copy_(src, non_blocking=True)
-        self.key.copy_(key)
-        self.graph.replay()
+        with profiling.span("train.pin"):
+            if self.x.is_cuda:            # pinned: the copy does not block
+                src = src.pin_memory()
+        timed = profiling.card_timing(self.x.device)
+        if timed:                         # the group's card interval
+            card = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            card[0].record()
+        with profiling.span("train.replay"):
+            self.x.copy_(src, non_blocking=True)
+            self.key.copy_(key)
+            self.graph.replay()
+        if timed:
+            card[1].record()
+            profiling.card_span("train.card", *card)
         _build.launches.update(self.launches)
         return self.out
 
@@ -433,6 +444,7 @@ class Trainer:
                                  keep_best=cfg.train.keep_best)
         self.capture_groups = self._choose_capture()
         self.group_graph: Optional[StepGroupGraph] = None
+        self.groups_run = 0                # run_group calls (span ids)
         self._logged_reference = False     # valid/reference is logged once
 
     def _choose_capture(self) -> bool:
@@ -646,15 +658,25 @@ class Trainer:
         """One group of steps on the stacked uint8 batches (N, B, T, K, D):
         by replay of the captured graph when ``capture_groups`` (the card,
         without a mesh or on NCCL; the first group captures it, every rank
-        at the same group), else eagerly. A capture that fails raises."""
-        if not self.capture_groups:
-            return self._group_body(self._put_batch(stacked, lead=1), key)
-        block = self._block(stacked, lead=1)
-        if self.group_graph is None:
-            self.group_graph = StepGroupGraph(self, len(block),
-                                              block.shape[1:],
-                                              self._new_graph())
-        return self.group_graph(block, key)
+        at the same group), else eagerly. A capture that fails raises.
+        Spans (utils/profiling): ``train.run_group``, identified by the
+        group count ``groups_run``, around ``train.pin`` (the batch staged
+        for the card) and ``train.replay`` (the group's steps enqueued: the
+        replay, or the eager steps), and on the card ``train.card``."""
+        g = self.groups_run
+        self.groups_run += 1
+        with profiling.span("train.run_group", g):
+            if not self.capture_groups:
+                with profiling.span("train.pin"):
+                    xs = self._put_batch(stacked, lead=1)
+                with profiling.span("train.replay"):
+                    return self._group_body(xs, key)
+            block = self._block(stacked, lead=1)
+            if self.group_graph is None:
+                self.group_graph = StepGroupGraph(self, len(block),
+                                                  block.shape[1:],
+                                                  self._new_graph())
+            return self.group_graph(block, key)
 
     def _post_step(self, metrics, timing, n_steps: int) -> Dict[str, Any]:
         """Advance the step count; raise an injected fault; on log

@@ -1461,8 +1461,115 @@ def test_timers_wait_for_the_card(dev):
     assert r["iters"] == 3 and 0 < r["min_s"] <= r["mean_s"]
     assert profiling.cuda_ms(lambda: a @ a, 3) > 0
     assert profiling.graph_ms(lambda: a @ a, 3) > 0
-    timer = profiling.StepTimer()
-    timer.start()
-    timer.lap(a @ a)
-    timer.lap(a @ a)
-    assert timer.mean > 0 and timer.rate(1.0) > 0
+
+
+def test_serve_card_span_is_on_the_profiler_clock(dev, tmp_path):
+    """The span recorder's card interval of a served batch (``serve.card``)
+    on the clock of the profiler's host events (``ts`` +
+    ``baseTimeNanoseconds`` / 1000, which is ``time.time_ns()``'s): its end
+    and the end of the drain's wait for the batch's event
+    (``cudaEventSynchronize``) agree within 0.5 ms, and its length and
+    that of the batch's operations in the device trace (the fused kernel
+    inside them) agree within 0.5 ms. The profiler's device timestamps
+    themselves are not the reference: on an H100 they lay 1.7 ms from its
+    own host events, and the card span 48 us from the wait's end. The
+    service's stream is kept busy for about 2 s while the batch is
+    dispatched, as it is under load, so the interval starts when the card
+    reaches the batch (on an idle stream it starts when the host starts
+    enqueueing); one batch first warms the dispatcher's thread, whose
+    first dispatch under the profiler took 573 ms on the host."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multinn_torch.utils import profiling
+    cfg = config.ExperimentConfig(
+        model=multinn.MultINNConfig(**FLAGSHIP),
+        data=config.DataConfig(n_tracks=5, pitch_min=24, pitch_max=107),
+        generate=config.GenerateConfig(n_steps=64))
+    svc = GenerationService(cfg, _params(cfg.model, dev),
+                            ServeConfig(batch=4, n_steps=64))
+    try:
+        for f in svc.submit_many(4):
+            f.result(timeout=300)
+        profiling.enable(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.stream(svc._stream):
+                torch.cuda._sleep(4_000_000_000)
+            res = [f.result(timeout=300) for f in svc.submit_many(4)]
+            torch.cuda.synchronize(dev)
+    finally:
+        svc.close()
+        spans = profiling.collect()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base_us = trace["baseTimeNanoseconds"] / 1e3
+    events = [ev for ev in trace["traceEvents"]
+              if ev.get("ph") == "X" and "dur" in ev]
+    kernel = [ev for ev in events if ev.get("cat") == "kernel"
+              and "gen_fused_rbm" in ev.get("name", "")]
+    spin = [ev for ev in events if ev.get("cat") == "kernel"
+            and "spin_kernel" in ev.get("name", "")]
+    cards = [s for s in spans if s.name == "serve.card"]
+    assert len(kernel) == len(spin) == len(cards) == 1
+    assert cards[0].ident == res[0].batch_index
+    card = (cards[0].start_ns / 1e3, cards[0].end_ns / 1e3)
+    # the drain waits for the batch's event all the while the card sleeps
+    wait = max((ev for ev in events if ev["name"] == "cudaEventSynchronize"),
+               key=lambda ev: ev["dur"])
+    wait_end = wait["ts"] + wait["dur"] + base_us
+    assert abs(wait_end - card[1]) < 500, (card, wait_end)
+    # the batch's operations: its stream's after the sleep
+    stream = kernel[0]["args"]["stream"]
+    after = spin[0]["ts"] + spin[0]["dur"]
+    ops = [ev for ev in events
+           if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and ev.get("args", {}).get("stream") == stream
+           and ev["ts"] >= after]
+    extent = max(ev["ts"] + ev["dur"] for ev in ops) - min(ev["ts"]
+                                                           for ev in ops)
+    assert abs((card[1] - card[0]) - extent) < 500, (card, extent)
+    assert kernel[0]["ts"] >= min(ev["ts"] for ev in ops)
+    disp = next(s for s in spans if s.name == "serve.dispatch")
+    assert disp.start_ns / 1e3 <= card[0]
+
+
+def test_train_card_span_is_the_replays_event_time(dev, tmp_path):
+    """``train.card`` of a replayed group, put on the host clock through
+    the recorder's anchors, lies within 1 % of the CUDA-event time of the
+    same replay (its two events' ``elapsed_time``), and inside events
+    recorded around the call."""
+    from multinn_torch.utils import profiling
+    (graph, eager), groups = _group_trainers(dev, FLAGSHIP, tmp_path)
+    eager.close()
+    graph.run_group(groups[0], sampling.PRNGKey(1, device=dev))  # capture
+    torch.cuda.synchronize(dev)
+    seen, real = [], profiling.card_span
+
+    def keep(name, start, end, *a, **k):
+        seen.append((start, end))
+        return real(name, start, end, *a, **k)
+    profiling.enable(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    profiling.card_span = keep
+    try:
+        graph.run_group(groups[1], sampling.PRNGKey(2, device=dev))
+    finally:
+        profiling.card_span = real
+    b.record()
+    b.synchronize()
+    spans = profiling.collect()
+    cards = [s for s in spans if s.name == "train.card"]
+    assert len(cards) == 1 and cards[0].ident == 1 == cards[0].parent
+    got = (cards[0].end_ns - cards[0].start_ns) / 1e6
+    want = seen[0][0].elapsed_time(seen[0][1])
+    assert abs(got - want) <= 0.01 * want, (got, want)
+    assert want <= a.elapsed_time(b), (want, a.elapsed_time(b))
+    names = {s.name for s in spans if s.ident == 1}
+    assert names == {"train.run_group", "train.pin", "train.replay",
+                     "train.card"}
+    graph.close()
