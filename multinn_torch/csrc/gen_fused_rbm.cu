@@ -25,17 +25,46 @@
 // (row stride H | 1, so the visible pass's column reads hit distinct
 // banks), Wuh and Wuv in shared memory, so the biases and all 2*gen_k
 // Gibbs passes read no global memory and need only the CTA's own barrier.
-// A pass is one thread per output summing its row in four independent
-// accumulators (16 shared-memory loads in flight). The cell stack reads
-// Wx and Wctx over the active rows of the fresh and the previous frame,
-// Wh densely, one thread per gate (coalesced). Tracks swap their frames
-// once per step through distributed shared memory. The S samples of a
-// cluster share its shared-memory weights, S = ceil(B / the clusters the
-// card holds), so large batches run in one wave.
+// The cell stack reads Wx and Wctx over the active rows of the fresh and
+// the previous frame, Wh densely, one thread per gate (coalesced). Tracks
+// swap their frames once per step through distributed shared memory. The
+// S samples of a cluster share its shared-memory weights, S = ceil(B /
+// the clusters the card holds), so large batches run in one wave.
 //
-// Measured on an H100 80GB HBM3 at 700 W (PERF.md): 55.0 ms per 64-bar
-// song at B=1, 373 ms at B=256, against 523 and 563 ms for the one-CTA-
-// per-sample design.
+// The Gibbs passes walk lists. One operand of every Gibbs product is a
+// binary sample, so a pass sums only the weight rows of the units that
+// are 1: the hidden pass (unit jj) bh(t)[jj] + sum over the listed v of
+// W[i][jj]; the visible pass (unit i) bv(t)[i] + sum over the listed h of
+// W[i][j]. The chain's state is its samples' mask words: the pass that
+// samples a row has a warp on 32 consecutive units of it (rows padded to
+// whole warps), and one ballot gives the word, so keeping the state costs
+// no barrier. A warp of the next pass lists the row it reads from those
+// words itself, into its own contiguous list (a few instructions per 32
+// units), and reads the list eight indices per 16-byte load: a listed
+// product costs one shared load and an eighth, where a dense one cost two
+// (the weight and x[i]). So a list never costs more than the dense dot,
+// whatever the density: there is no threshold and no second path. Sweep
+// 0's hidden pass walks the previous frame's list (gather_frames' own),
+// multiplying by the value, since a given row need not be binary. Each
+// thread takes R units of its row, so one list walk feeds R sums and R
+// draws overlap; R is 3 where that gives fewer rounds of warps for the
+// launch's samples per cluster (rbm_outputs_per_thread), as at the
+// flagship's B=256 (200 -> 175 ms), else 1, as for a lone song, whose
+// passes want the most warps (at B=8, R = 3 took 61.8 ms, R = 1 49.1).
+// Every sum keeps the list's order in a fixed set of accumulators, so a
+// replay is bit-equal. At the flagship the visible samples hold about
+// 0.06 of their units (the served songs' density) and the hidden ones
+// about half, so a sweep does about a sixteenth of the hidden pass's
+// products and half the visible pass's. With the launch's `counts` the
+// kernel adds the lists' lengths and the rows' widths of both passes'
+// inputs to it (one integer atomic per counter and CTA at the end).
+//
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md, T=1024): with dense
+// passes 55.6 ms a launch at B=8 (seeded weights), 44.3 at the served
+// density, 270-272 at B=256; over lists 49.5, 35.1 and 175.6. A sweep at
+// B=256 went from 15.4 to 6.1 us a step; the rest of the step (biases,
+// cell stack, frame exchange) is now about two thirds of it. Before the
+// clusters, one CTA per sample took 523 and 563 ms.
 //
 // Random stream: the TPU kernel draws (B, K*H) and (B, K*D) uniforms per
 // sweep at salts seed[1] + t*2*gen_k + 2s (+1 for v), so the draw of sample
@@ -70,11 +99,190 @@ using gen_cluster::Plan;
 // per-step weight matrices in shared-memory priority order
 enum { kW = 0, kWuh = 1, kWuv = 2, kMatrices = 3 };
 
-// scratch of a group during the Gibbs sweeps: bv(t) (D), bh(t) (H), the
-// chain's visible (D) and hidden (H) samples; during the cell stack: the
-// gates (G)
+// scratch floats of a group: during the Gibbs sweeps bv(t) (D), bh(t) (H)
+// and the chain's mask words (Chain); during the cell stack the gates (G)
 inline int rbm_scratch(const RbmArgs& a) {
-  return a.g > 2 * (a.d + a.hid) ? a.g : 2 * (a.d + a.hid);
+  const int gibbs = a.d + a.hid + gen_cluster::chunks_of(a.d) +
+                    gen_cluster::chunks_of(a.hid);
+  return a.g > gibbs ? a.g : gibbs;
+}
+
+// Bytes of a warp's region: its list, up to max(D, H) uint16 indices and
+// the 7 of a last eight's padding, then its four counters (uint64), 16-byte
+// aligned. The plan keeps kWarps of them at the front of the weight region.
+__host__ __device__ constexpr int64_t warp_list_bytes(int d, int h) {
+  return gen_cluster::align16(2 * int64_t{(d > h ? d : h) + 7});
+}
+__host__ __device__ constexpr int64_t warp_bytes(int d, int h) {
+  return warp_list_bytes(d, h) + 32;
+}
+
+// A group's Gibbs chain, binary, kept as the mask words of its visible
+// (DC words) and hidden (HC words) samples: bit l of word c is unit
+// 32 c + l.
+struct Chain {
+  uint32_t* vmask;
+  uint32_t* hmask;
+};
+
+__device__ __forceinline__ Chain chain_of(float* sc, int d, int h) {
+  uint32_t* at = reinterpret_cast<uint32_t*>(sc + d + h);
+  return {at, at + gen_cluster::chunks_of(d)};
+}
+
+// The next output of a thread's walk over (group, unit) pairs.
+__device__ __forceinline__ void step(int& grp, int& unit, int2 by,
+                                     int width) {
+  grp += by.x;
+  unit += by.y;
+  if (unit >= width) {
+    unit -= width;
+    ++grp;
+  }
+}
+
+// Called by whole warps, lane l at unit 32 c + l of a row, `on` its
+// sample: the row's mask word c.
+__device__ __forceinline__ void sample_word(bool on, int unit,
+                                            uint32_t* mask) {
+  const uint32_t m = __ballot_sync(0xffffffffu, on);
+  if ((threadIdx.x & 31) == 0) mask[unit >> 5] = m;
+}
+
+// Called by a whole warp: list in `out` (the warp's own, 16-byte aligned)
+// the units set in a row's `chunks` mask words, in increasing order, and
+// pad the list with unit 0 to a whole number of eights. Returns the
+// count.
+__device__ __forceinline__ int list_row(const uint32_t* mask, int chunks,
+                                        uint16_t* out) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t below = (1u << lane) - 1u;
+  __syncwarp();                 // the warp is done with its last list
+  int n = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const uint32_t m = mask[c];
+    if ((m >> lane) & 1u)
+      out[n + __popc(m & below)] = static_cast<uint16_t>(32 * c + lane);
+    n += __popc(m);
+  }
+  if (lane < (-n & 7)) out[n + lane] = 0;
+  __syncwarp();
+  return n;
+}
+
+// Called by whole warps: sample the R units unit[r] of a row of `width`
+// (their input sums acc, biases bias[unit]), drawing counter ctr + unit at
+// `salt`, into the row's mask words. The R draws lie in one block, so
+// their chains overlap; a unit past the row draws a counter it does not
+// own, and is dropped.
+template <int R>
+__device__ __forceinline__ void sample_units(const float (&acc)[R],
+                                             const float* bias,
+                                             const int (&unit)[R], int width,
+                                             uint32_t ctr, uint32_t seed,
+                                             uint32_t salt, uint32_t* mask) {
+  bool on[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float uu = random_uniform_at(seed, salt, ctr + unit[r]);
+    const float pr = sigmoid_nr(acc[r] + bias[min(unit[r], width - 1)]);
+    on[r] = unit[r] < width && uu < pr;
+  }
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (unit[r] - lane < width) sample_word(on[r], unit[r], mask);
+}
+
+// The weights a pass walks, as f32 by list entry: row or column `i` of
+// W at `stride` elements apart. SharedW reads W in shared memory through
+// its 32-bit shared address (ld.shared: no generic 64-bit address a
+// product), GlobalW from device memory where W did not fit.
+template <typename WT>
+struct SharedW {
+  uint32_t base, stride;          // bytes
+  __device__ __forceinline__ float operator()(uint32_t i) const {
+    const uint32_t at = base + i * stride;
+    if constexpr (sizeof(WT) == 4) {
+      float x;
+      asm volatile("ld.shared.f32 %0, [%1];" : "=f"(x) : "r"(at));
+      return x;
+    } else {
+      uint16_t x;
+      asm volatile("ld.shared.u16 %0, [%1];" : "=h"(x) : "r"(at));
+      return bf16_to_f32(x);
+    }
+  }
+};
+
+template <typename WT>
+struct GlobalW {
+  const WT* base;
+  int stride;                     // elements
+  __device__ __forceinline__ float operator()(uint32_t i) const {
+    return gen_cluster::wload(base + static_cast<int>(i) * stride);
+  }
+};
+
+template <typename WT>
+__device__ __forceinline__ SharedW<WT> shared_w(const WT* at, int stride) {
+  return {static_cast<uint32_t>(__cvta_generic_to_shared(at)),
+          static_cast<uint32_t>(stride * sizeof(WT))};
+}
+
+// R sums over a list of n units (list_row's), out[r] of w[r](i): eight
+// indices per 16-byte load, each index serving all R; the terms in list
+// order into two accumulators per sum by position mod 2, added last; the
+// last eight's padding enters times 0 (adds +0). The row's other terms are
+// exact zeros, so each is the row's dot product with a column (row) of W
+// up to the order of the sum.
+template <int R, typename Load>
+__device__ __forceinline__ void sum_list(const uint16_t* list, int n,
+                                         const Load (&w)[R], float (&out)[R]) {
+  float acc[R][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
+  const uint4* q = reinterpret_cast<const uint4*>(list);
+  int e = 0;
+#pragma unroll 2
+  for (; e + 8 <= n; e += 8) {
+    const uint4 v = q[e >> 3];
+    const uint32_t pair[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const uint32_t i = (pair[p >> 1] >> (16 * (p & 1))) & 0xffffu;
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r][p & 1] += w[r](i);
+    }
+  }
+  if (e < n) {                  // the last 1..7, then padding
+    const uint4 v = q[e >> 3];
+    const uint32_t pair[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int p = 0; p < 7; ++p) {
+      const uint32_t i = (pair[p >> 1] >> (16 * (p & 1))) & 0xffffu;
+      const float f = e + p < n ? 1.f : 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[r][p & 1] = fmaf(w[r](i), f, acc[r][p & 1]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = acc[r][0] + acc[r][1];
+}
+
+// Add the warps' four counters (each at the end of its region) to
+// out[0..3] in device memory: one integer atomic per counter and CTA.
+__device__ inline void add_counts(const unsigned char* smem,
+                                  int64_t region, unsigned long long* out) {
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    unsigned long long total = 0;
+    for (int w = 0; w < gen_cluster::kWarps; ++w)
+      total += reinterpret_cast<const unsigned long long*>(
+          smem + (w + 1) * region - 32)[threadIdx.x];
+    atomicAdd(out + threadIdx.x, total);
+  }
 }
 
 // Row pitch (elements) of W in shared memory, so that the visible pass's
@@ -85,7 +293,7 @@ __host__ __device__ constexpr int w_pitch(int h) {
   return sizeof(WT) == 4 ? (h | 1) : h + ((2 - h) & 3);
 }
 
-template <bool kLstm, typename WT>
+template <bool kLstm, typename WT, int kR>
 __global__ void __launch_bounds__(kThreads, 1)
     gen_fused_rbm_kernel(RbmArgs a, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -130,6 +338,117 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.g, a.given_mask};
   const uint32_t seed0 = static_cast<uint32_t>(a.seed[0]);
   const uint32_t seed1 = static_cast<uint32_t>(a.seed[1]);
+  // the rows' chunks of 32 units
+  const int DC = gen_cluster::chunks_of(D), HC = gen_cluster::chunks_of(H);
+  // this warp's list and, with a.counts, its counters: the hidden pass's
+  // input units listed and in all, the visible pass's the same
+  const int64_t region = warp_bytes(D, H);
+  uint16_t* const wlist =
+      reinterpret_cast<uint16_t*>(smem + (tid >> 5) * region);
+  unsigned long long* const n = reinterpret_cast<unsigned long long*>(
+      smem + ((tid >> 5) + 1) * region - 32);
+  const bool counting = a.counts != nullptr;
+  if (counting && (tid & 31) < 4) n[tid & 31] = 0;
+  const bool one_track = ct.ntr == 1;
+  // A pass gives each thread R = kR (1 or 3) outputs of a row of X units
+  // (XC chunks): thread u of a group takes unit u % 32 + 32 (R (u / 32) +
+  // r) for r < R, so ceil(XC / R) warps a group, and one list walk feeds
+  // R sums (rbm_outputs_per_thread).
+  constexpr int R = kR;
+  // a pass's threads o = tid + m kThreads as (group, u), stepped by
+  // (kThreads / q, kThreads % q) for q threads a group, without a division
+  auto walk = [&](auto body, int q) {
+    const int2 by = {kThreads / q, kThreads % q};
+    for (int grp = tid / q, u = tid - grp * q; grp < NG; step(grp, u, by, q))
+      body(grp, u);
+  };
+  // v -> h: R hidden units a thread over the list of v (at sweep 0 the
+  // previous frame's, its values multiplied), their samples into hmask
+  auto hidden_pass = [&](int sw, uint32_t salt) {
+    walk([&](int grp, int u) {
+      const int s = one_track ? grp : grp / ct.ntr;
+      const int j = grp - s * ct.ntr, k = ct.track(j);
+      float* sc = ct.scratch(s, j);
+      const Chain ch = chain_of(sc, D, H);
+      const WT* w = ct.matrix(kW, j, gw, D * H);
+      const int base = (R * (u >> 5)) * 32 + (u & 31);
+      int jj[R];
+      const WT* wc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        jj[r] = base + 32 * r;
+        wc[r] = w + min(jj[r], H - 1);     // loads clamped into the row
+      }
+      float acc[R];
+      int nv;                              // v's units listed
+      if (sw == 0) {
+        const uint16_t* li = ct.list_idx(s, k);
+        const float* x = ct.prev(s) + k * D;
+        nv = *ct.list_count(s, k);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r] = gen_cluster::gather_row(li, nv, x, wc[r], ldw, 0.f);
+      } else {
+        nv = list_row(ch.vmask, DC, wlist);
+        if (w_in_smem) {
+          SharedW<WT> ws[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) ws[r] = shared_w(wc[r], ldw);
+          sum_list(wlist, nv, ws, acc);
+        } else {
+          GlobalW<WT> wg[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) wg[r] = GlobalW<WT>{wc[r], ldw};
+          sum_list(wlist, nv, wg, acc);
+        }
+      }
+      sample_units<R>(acc, sc + D, jj, H,
+                      static_cast<uint32_t>(a.row0 + ct.b0 + s) * KH + k * H,
+                      seed0, salt, ch.hmask);
+      if (counting && u == 0) {
+        n[0] += nv;
+        n[1] += D;
+      }
+    }, 32 * ((HC + R - 1) / R));
+  };
+  // h -> v: R visible units a thread over the list of h, into vmask
+  auto visible_pass = [&](uint32_t salt) {
+    walk([&](int grp, int u) {
+      const int s = one_track ? grp : grp / ct.ntr;
+      const int j = grp - s * ct.ntr, k = ct.track(j);
+      float* sc = ct.scratch(s, j);
+      const Chain ch = chain_of(sc, D, H);
+      const WT* w = ct.matrix(kW, j, gw, D * H);
+      const int base = (R * (u >> 5)) * 32 + (u & 31);
+      int ii[R];
+      const WT* wr[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ii[r] = base + 32 * r;
+        wr[r] = w + min(ii[r], D - 1) * ldw;
+      }
+      float acc[R];
+      const int nh = list_row(ch.hmask, HC, wlist);
+      if (w_in_smem) {
+        SharedW<WT> ws[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) ws[r] = shared_w(wr[r], 1);
+        sum_list(wlist, nh, ws, acc);
+      } else {
+        GlobalW<WT> wg[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) wg[r] = GlobalW<WT>{wr[r], 1};
+        sum_list(wlist, nh, wg, acc);
+      }
+      sample_units<R>(acc, sc, ii, D,
+                      static_cast<uint32_t>(a.row0 + ct.b0 + s) * KD + k * D,
+                      seed0, salt, ch.vmask);
+      if (counting && u == 0) {
+        n[2] += nh;
+        n[3] += H;
+      }
+    }, 32 * ((DC + R - 1) / R));
+  };
 
   for (int t = 0; t < T; ++t) {
     const int buf = t & 1;           // parity buffer of the fresh rows
@@ -151,38 +470,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // 2. gen_k Gibbs sweeps, every group at once; the chain starts at the
+    // 2. gen_k Gibbs sweeps, every group at once, each pass over the lists
+    //    of its input and listing its output; the chain starts at the
     //    previous frame
     const uint32_t salt0 =
         seed1 + static_cast<uint32_t>(t) * 2u * static_cast<uint32_t>(a.gen_k);
     for (int sw = 0; sw < a.gen_k; ++sw) {
       const uint32_t salt_h = salt0 + 2u * static_cast<uint32_t>(sw);
-      for (int o = tid; o < NG * H; o += kThreads) {
-        const int grp = o / H, jj = o - grp * H;
-        const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
-        float* sc = ct.scratch(s, j);
-        const float* v = sw == 0 ? ct.prev(s) + k * D : sc + D + H;
-        const float acc =
-            gen_cluster::dot(v, ct.matrix(kW, j, gw, D * H) + jj, ldw, D);
-        const float pr = sigmoid_nr(acc + sc[D + jj]);
-        const float uu = random_uniform_at(
-            seed0, salt_h,
-            static_cast<uint32_t>(a.row0 + ct.b0 + s) * KH + k * H + jj);
-        sc[2 * D + H + jj] = uu < pr ? 1.f : 0.f;
-      }
+      hidden_pass(sw, salt_h);
       __syncthreads();
-      for (int o = tid; o < NG * D; o += kThreads) {
-        const int grp = o / D, i = o - grp * D;
-        const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
-        float* sc = ct.scratch(s, j);
-        const float acc = gen_cluster::dot(
-            sc + 2 * D + H, ct.matrix(kW, j, gw, D * H) + i * ldw, 1, H);
-        const float pr = sigmoid_nr(acc + sc[i]);
-        const float uu = random_uniform_at(
-            seed0, salt_h + 1u,
-            static_cast<uint32_t>(a.row0 + ct.b0 + s) * KD + k * D + i);
-        sc[D + H + i] = uu < pr ? 1.f : 0.f;
-      }
+      visible_pass(salt_h + 1u);
       __syncthreads();
     }
 
@@ -192,8 +489,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (a.given != nullptr && ((a.given_mask >> k) & 1))
         return a.given[(static_cast<size_t>(ct.b0 + s) * T + t) * KD +
                        k * D + i];
-      return a.gen_k > 0 ? ct.scratch(s, j)[D + H + i]
-                         : ct.prev(s)[k * D + i];
+      if (a.gen_k == 0) return ct.prev(s)[k * D + i];
+      const uint32_t* vmask = chain_of(ct.scratch(s, j), D, H).vmask;
+      return static_cast<float>((vmask[i >> 5] >> (i & 31)) & 1u);
     });
 
     // 4. the cell stack, then the fresh frames of all tracks become the
@@ -202,21 +500,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     gen_cluster::gather_frames(ct, buf);
   }
   gen_cluster::store_state(ct, a.h_out, a.c_out);
+  if (counting)
+    add_counts(smem, region, reinterpret_cast<unsigned long long*>(a.counts));
 }
 
 }  // namespace
 
+int rbm_outputs_per_thread(int groups, int d, int h) {
+  const int dc = gen_cluster::chunks_of(d), hc = gen_cluster::chunks_of(h);
+  auto rounds = [&](int r) {          // of both passes at R = r
+    auto of = [&](int chunks) {
+      const int warps = groups * ((chunks + r - 1) / r);
+      return (warps + gen_cluster::kWarps - 1) / gen_cluster::kWarps;
+    };
+    return of(dc) + of(hc);
+  };
+  return rounds(3) < rounds(1) ? 3 : 1;
+}
+
 // The shared-memory plan, at the stored bytes of W (at its pitch), Wuh and
-// Wuv; ops/gen_fused_rbm.py::_sample_bytes makes the same per-sample
-// count.
+// Wuv, after the warps' lists; ops/gen_fused_rbm.py::_sample_bytes makes
+// the same per-sample count and _lists_bytes the same lists.
 gen_cluster::Plan plan_gen_fused_rbm(const RbmArgs& a, int64_t limit) {
   const int64_t e = a.w_bf16 ? 2 : 4;
   const int64_t pitch =
       a.w_bf16 ? w_pitch<uint16_t>(a.hid) : w_pitch<float>(a.hid);
   const int64_t mats[kMatrices] = {e * a.d * pitch, e * a.u * a.hid,
                                    e * a.u * a.d};
-  return gen_cluster::make_plan(a.k, a.d, a.u, a.n_layers, rbm_scratch(a),
-                                mats, kMatrices, limit);
+  // the warps' lists go first: the matrices and samples share the rest
+  const int64_t lists = gen_cluster::kWarps * warp_bytes(a.d, a.hid);
+  Plan p = gen_cluster::make_plan(a.k, a.d, a.u, a.n_layers, rbm_scratch(a),
+                                  mats, kMatrices, limit - lists);
+  p.weight_bytes += lists;
+  for (int m = 0; m < kMatrices; ++m) p.w_off[m] += lists;
+  return p;
 }
 
 const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
@@ -228,14 +545,28 @@ const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
   if (a.k > 31)
     return "gen_fused_rbm: the given-track mask takes at most 31 tracks";
   const Plan p = plan_gen_fused_rbm(a, kSmemLimitBytes);
-  void (*kernel)(RbmArgs, Plan);
-  if (a.w_bf16)
-    kernel = a.lstm ? gen_fused_rbm_kernel<true, uint16_t>
-                    : gen_fused_rbm_kernel<false, uint16_t>;
-  else
-    kernel = a.lstm ? gen_fused_rbm_kernel<true, float>
-                    : gen_fused_rbm_kernel<false, float>;
-  return gen_cluster::launch(kernel, a, p, a.batch, stream, shape);
+  // [bf16][lstm][R == 3]
+  using Kernel = void (*)(RbmArgs, Plan);
+  const Kernel kernels[2][2][2] = {
+      {{gen_fused_rbm_kernel<false, float, 1>,
+        gen_fused_rbm_kernel<false, float, 3>},
+       {gen_fused_rbm_kernel<true, float, 1>,
+        gen_fused_rbm_kernel<true, float, 3>}},
+      {{gen_fused_rbm_kernel<false, uint16_t, 1>,
+        gen_fused_rbm_kernel<false, uint16_t, 3>},
+       {gen_fused_rbm_kernel<true, uint16_t, 1>,
+        gen_fused_rbm_kernel<true, uint16_t, 3>}}};
+  const Kernel* by_r = kernels[a.w_bf16 != 0][a.lstm != 0];
+  // the launch's shape (samples a cluster) decides R
+  int64_t sh[kLaunchShapeFields];
+  const char* err = gen_cluster::launch(by_r[0], a, p, a.batch, stream, sh);
+  if (err != nullptr || shape != nullptr) {
+    if (err == nullptr) std::copy(sh, sh + kLaunchShapeFields, shape);
+    return err;
+  }
+  const int r = rbm_outputs_per_thread(static_cast<int>(sh[1] * sh[6]),
+                                      a.d, a.hid);
+  return gen_cluster::launch(by_r[r == 3], a, p, a.batch, stream, nullptr);
 }
 
 }  // namespace multinn_torch

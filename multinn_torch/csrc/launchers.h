@@ -62,6 +62,9 @@ struct RbmArgs {
   int32_t given_mask;   // bit k set: track k takes `given`
   int32_t row0;         // the row map: sample b draws the stream of sample
   int32_t rows_total;   //   row0 + b of a batch of rows_total (0, batch)
+  int64_t* counts;      // (4,) or nullptr: the launch adds the units listed
+                        //   and in all of its hidden passes' inputs, then
+                        //   of its visible passes' inputs
 };
 
 // The whole-generation launchers (RBM and NADE) take `shape`: nullptr
@@ -77,6 +80,13 @@ constexpr int kLaunchShapeFields = 9;
 
 const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
                                  int64_t* shape = nullptr);
+
+// Outputs R a thread of the RBM kernel's Gibbs passes takes, for a launch
+// of `groups` (sample, track slot) groups per CTA: 3 where that gives
+// fewer rounds of both passes (ceil(chunks of 32 units / R) warps a group,
+// on the CTA's 16 warps) than 1, else 1. One sample a cluster takes 1; the
+// flagship's B=256 (11 or 12 samples a cluster) 3.
+int rbm_outputs_per_thread(int groups, int d, int h);
 
 // NADE ancestral sampling sweep over n rows with per-row biases (see
 // nade_sample.cu), one CTA a row, under the plan of

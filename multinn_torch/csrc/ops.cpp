@@ -112,8 +112,9 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
                    const at::Tensor& b, const at::Tensor& h0,
                    const at::Tensor& c0, const at::Tensor& v0,
                    const at::Tensor& given, const at::Tensor& seed,
-                   int64_t gen_k, int64_t lstm, int64_t given_mask,
-                   int64_t row0, int64_t rows_total, int64_t stream) {
+                   at::Tensor counts, int64_t gen_k, int64_t lstm,
+                   int64_t given_mask, int64_t row0, int64_t rows_total,
+                   int64_t stream) {
   check(roll, at::kFloat, "roll");
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
@@ -156,6 +157,12 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
               "gen_fused_rbm: wx_r shape");
   TORCH_CHECK(given.numel() == 0 || given.numel() == roll.numel(),
               "gen_fused_rbm: given shape");
+  // the optional list counters: empty, or four int64 the launch adds to
+  if (counts.numel() != 0) {
+    check(counts, at::kLong, "counts");
+    TORCH_CHECK(counts.numel() == 4, "gen_fused_rbm: counts must hold 4");
+    a.counts = counts.data_ptr<int64_t>();
+  }
   a.w = w.data_ptr();
   a.wuv = wuv.data_ptr();
   a.wuh = wuh.data_ptr();
@@ -287,8 +294,9 @@ void gen_fused_nade(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
 // The launch plan a whole-generation kernel (nade: 0 the RBM, 1 the NADE)
 // makes for these sizes and storage (bf16: the RBM's wdtype or the NADE's
 // aux dtype is bfloat16), without launching it: the kLaunchShapeFields
-// values of launchers.h, and for the NADE the depth its sweep runs at the
-// auto depth (nade_auto_depth of the plan's groups per CTA).
+// values of launchers.h, then for the NADE the depth its sweep runs at the
+// auto depth (nade_auto_depth of the plan's groups per CTA), for the RBM
+// the outputs a thread of its Gibbs passes takes (rbm_outputs_per_thread).
 std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
                                     int64_t hid, int64_t u, int64_t n_layers,
                                     int64_t lstm, int64_t batch,
@@ -321,6 +329,9 @@ std::vector<int64_t> gen_fused_plan(int64_t nade, int64_t k, int64_t d,
     sizes(a);
     a.w_bf16 = static_cast<int32_t>(bf16 != 0);
     err = launch_gen_fused_rbm(a, nullptr, shape.data());
+    if (err == nullptr)                  // track slots x samples per cluster
+      shape.push_back(rbm_outputs_per_thread(
+          static_cast<int>(shape[1] * shape[6]), a.d, a.hid));
   }
   raise_on(err, "gen_fused_plan");
   return shape;
@@ -415,8 +426,8 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor w, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "
         "Tensor h0, Tensor c0, Tensor v0, Tensor given, Tensor seed, "
-        "int gen_k, int lstm, int given_mask, int row0, int rows_total, "
-        "int stream) -> ()");
+        "Tensor(d!) counts, int gen_k, int lstm, int given_mask, int row0, "
+        "int rows_total, int stream) -> ()");
   m.def("nade_sample(Tensor(a!) out, Tensor w, Tensor v, Tensor bv, "
         "Tensor bh, Tensor seed, int staged, int row0, int rows_total, "
         "int stream) -> ()");

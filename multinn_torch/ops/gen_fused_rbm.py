@@ -30,17 +30,24 @@ batch (ops/gen_common.py: its VMEM budget, applied for its numerics
 only): bf16 where its f32 layout exceeds the budget and its bf16 one
 fits, else f32 (also where it falls back to its scan path).
 
+The kernel's Gibbs passes sum only the weight rows of the units their
+binary input holds (the chain's samples as mask words, each warp walking
+its own list of them); ``counts`` reads those lists' lengths.
+
 The gate is a Hopper resource check of the kernel's design — a cluster of
-min(K, 8) CTAs per group of samples, each CTA with its tracks' W, Wuh and
-Wuv in shared memory where they fit (else read from global memory) and
-each sample's state rows beside them — computed from the same arguments
-the dispatch builds (not the TPU kernel's VMEM rule): one sample's state
-must fit. The storage dtype changes which matrices fit beside it (the
-launch's plan), not what the gate admits.
+min(K, 8) CTAs per group of samples, each CTA with its 16 warps' lists,
+its tracks' W, Wuh and Wuv in shared memory where they fit (else read
+from global memory) and each sample's state rows beside them — computed
+from the same arguments the dispatch builds (not the TPU kernel's VMEM
+rule): one sample's state must fit beside the lists. The storage dtype
+changes which matrices fit beside it (the launch's plan), not what the
+gate admits.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -51,8 +58,10 @@ from multinn_torch.ops.gen_common import (SMEM_LIMIT_BYTES, _common_gate,
                                           _eff_dims, _from_state_rows,
                                           _given_fits, _state_rows)
 from multinn_torch.ops.sampling import key_to_seeds
+from multinn_torch.utils import profiling
 
 MAX_TRACKS = 31             # the given-track merge is a 32-bit lane mask
+_sink = threading.local()   # counting()'s counters, per thread
 
 
 class RbmArgs(NamedTuple):
@@ -132,18 +141,35 @@ def rbm_weight_dtype(cfg, batch: int, conditioned: bool = False
     return torch.float32 if dtype is None else dtype
 
 
+def _scratch(d: int, hid: int, g: int) -> int:
+    """A group's scratch floats, as rbm_scratch in csrc/gen_fused_rbm.cu:
+    bv(t), bh(t) and the chain's mask words, one per 32 units of the
+    visible and of the hidden row; then the gates."""
+    return max(g, d + hid + -(-d // 32) + -(-hid // 32))
+
+
+def _lists_bytes(d: int, hid: int) -> int:
+    """The warps' regions at the front of the weight region, as
+    plan_gen_fused_rbm keeps them: 16 warps, each a list of up to max(D, H)
+    uint16 indices and 7 of padding, 16-byte aligned, and four uint64
+    counters."""
+    return 16 * (((2 * (max(d, hid) + 7) + 15) & ~15) + 32)
+
+
 def _sample_bytes(args: RbmArgs) -> int:
     """One sample's shared memory, as plan_gen_fused_rbm in
-    csrc/gen_fused_rbm.cu counts it: a group's scratch row holds bv(t),
-    bh(t) and the chain's visible and hidden samples, then the gates."""
+    csrc/gen_fused_rbm.cu counts it (its scratch row ``_scratch``)."""
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
-    return gen_common.sample_bytes(k, d, u, n_layers, max(g, 2 * (d + hid)))
+    return gen_common.sample_bytes(k, d, u, n_layers, _scratch(d, hid, g))
 
 
 def _fits(args: RbmArgs) -> bool:
+    """One sample's state fits beside the warps' lists."""
+    _, d, hid = args.w.shape
     return (args.w.shape[0] <= MAX_TRACKS
-            and _sample_bytes(args) <= SMEM_LIMIT_BYTES)
+            and _sample_bytes(args) + _lists_bytes(d, hid)
+            <= SMEM_LIMIT_BYTES)
 
 
 def supported(cfg, batch: int, n_steps: int = 2048,
@@ -164,9 +190,23 @@ def supported(cfg, batch: int, n_steps: int = 2048,
     return _fits(_rbm_args(params, st, st, v0))
 
 
+@contextlib.contextmanager
+def counting(counts: torch.Tensor):
+    """Within the block, every kernel launch on this thread adds its list
+    counts to ``counts`` (as ``generate_rbm``'s) while the span recorder
+    times the launch's card (``profiling.card_timing``): the service's
+    per-batch counters, which cost nothing while the recorder is off."""
+    before = getattr(_sink, "counts", None)
+    _sink.counts = counts
+    try:
+        yield
+    finally:
+        _sink.counts = before
+
+
 def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
                  gen_k: int, impl=None, wdtype=None, given=None,
-                 given_tracks: Tuple[int, ...] = (), rows=None):
+                 given_tracks: Tuple[int, ...] = (), rows=None, counts=None):
     """Run the whole generation. dec_params: track-STACKED rnn_rbm.Params;
     h0/c0: (L, K, B, U) ((K, B, U) for one layer); v0: (K, B, D);
     ``given`` (B, n_steps, K, D) with ``given_tracks``: those tracks' frames
@@ -179,7 +219,13 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     (B_global under a row map, so every shard stores what one device
     would) and ``given``.
     ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors; "cuda" / "plain" force one."""
+    CPU tensors; "cuda" / "plain" force one.
+
+    ``counts``: an int64 tensor of 4 on the weights' device, to which the
+    generation adds, over its hidden passes, the input's units that are
+    nonzero (the kernel's list lengths) and all of them, then the same over
+    its visible passes. None: ``counting``'s, for a launch of the kernel
+    while the span recorder times its card."""
     n_layers = len(dec_params.cell)
     if h0.dim() == 3 and n_layers == 1:
         h0, c0 = h0[None], c0[None]
@@ -200,11 +246,15 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     if given is not None:
         given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
     if _build.impl_for(impl, args.w) == "cuda":
+        if counts is None and profiling.card_timing(args.w.device):
+            counts = getattr(_sink, "counts", None)
         roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, gen_k,
-                                            lstm, given, given_tracks, rmap)
+                                            lstm, given, given_tracks, rmap,
+                                            counts)
     else:
         roll, h_out, c_out = _generate_plain(seeds, args, n_steps, gen_k,
-                                             lstm, given, given_tracks, rmap)
+                                             lstm, given, given_tracks, rmap,
+                                             counts)
 
     return (roll.reshape(b, n_steps, k, d),
             _from_state_rows(h_out, n_layers, k, u),
@@ -212,11 +262,12 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
 
 
 def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
-                   given_tracks, rmap):
+                   given_tracks, rmap, counts=None):
     if not _fits(args):
         raise ValueError(
             f"generate_rbm: one sample's state needs "
-            f"{_sample_bytes(args)} bytes of shared memory (limit "
+            f"{_sample_bytes(args)} bytes of shared memory beside "
+            f"{_lists_bytes(*args.w.shape[1:])} of lists (limit "
             f"{SMEM_LIMIT_BYTES}) or K > {MAX_TRACKS}; gen_fused.supported "
             f"refuses this config — use the scan path")
     b = args.h0.shape[0]
@@ -233,17 +284,18 @@ def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
             args.bh, args.wx_v, none if args.wx_r is None else args.wx_r,
             args.wh, none if args.wctx is None else args.wctx, args.b,
             args.h0, args.c0, args.v0, none if given is None else given,
-            seeds, gen_k, int(lstm), mask, *rmap, _build.stream_of(args.w))
+            seeds, none.long() if counts is None else counts, gen_k,
+            int(lstm), mask, *rmap, _build.stream_of(args.w))
     return roll, h_out, c_out
 
 
 def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
-                    given_tracks, rmap=(0, None)):
+                    given_tracks, rmap=(0, None), counts=None):
     """Plain PyTorch version of the kernel, same signature and stream.
     Track-major (K, B, X) tensors; torch.matmul batches over the tracks.
     bf16 weights are widened exactly and h_top rounded to bf16 for the
     conditioning, as the reference's products of bf16 operands with f32
-    accumulation."""
+    accumulation. ``counts`` as the kernel's, recounted from the chain."""
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
     b = args.h0.shape[0]
@@ -286,6 +338,10 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
         for s in range(gen_k):
             ph = torch.sigmoid(v @ w + bh_row)
             hs = (uniform(salt0 + 2 * s, ctr_h) < ph).to(torch.float32)
+            if counts is not None:
+                counts += torch.stack([
+                    v.count_nonzero(), torch.tensor(v.numel(), device=dev),
+                    hs.count_nonzero(), torch.tensor(hs.numel(), device=dev)])
             pv = torch.sigmoid(hs @ wt + bv_row)
             v = (uniform(salt0 + 2 * s + 1, ctr_v) < pv).to(torch.float32)
         if given is not None:

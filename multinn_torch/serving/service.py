@@ -43,7 +43,11 @@ on the drainer ``serve.drain`` around ``serve.drain.wait`` (the event)
 and ``.fetch`` (the copies and the unpack), both recorded by
 ``Generator.fetch_rolls``, ``.finalize`` and ``.resolve`` (every future
 set, callbacks included). The timing events exist only while the
-recorder times this service's card (``profiling.card_timing``).
+recorder times this service's card (``profiling.card_timing``); so do
+an RBM service's list counters (``RBM_COUNTS``: the fused kernel's list
+lengths and row widths, ops/gen_fused_rbm.counting), added to the
+recorder's counts (``profiling.count``) once the drain has waited for the
+batch.
 
 With a ``mesh`` (parallel/mesh.py) the service's Generator generates on
 it. Rank 0 takes the requests; before each of its device calls (the
@@ -65,12 +69,15 @@ import numpy as np
 import torch
 
 from multinn_torch.data import pianoroll
-from multinn_torch.ops import sampling
+from multinn_torch.ops import gen_fused_rbm, sampling
 from multinn_torch.parallel import comm
 from multinn_torch.utils import profiling
 
 # the calls rank 0 broadcasts to the other ranks of a mesh
 _STOP, _PLAIN, _SEEDED, _ACCOMPANY = 0, 1, 2, 3
+# the RBM kernel's list counters (ops/gen_fused_rbm.generate_rbm's counts)
+RBM_COUNTS = ("gen.rbm_v_listed", "gen.rbm_v_rows", "gen.rbm_h_listed",
+              "gen.rbm_h_rows")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +185,9 @@ class GenerationService:
         self.device = self.generator.device
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        # an RBM service on the card keeps the fused kernel's list counters
+        self._rbm_counts = (cfg.model.decoder_type == "rnn-rbm"
+                            and self.device.type == "cuda")
         self._base_key = sampling.PRNGKey(self.serve_cfg.seed,
                                           device=self.device)
 
@@ -510,6 +520,7 @@ class GenerationService:
             t_dispatch = time.time()
             timed = (on and self._stream is not None
                      and profiling.card_timing(self._stream.device))
+            counts = None
             try:
                 if timed:                      # the batch's card interval
                     card = (torch.cuda.Event(enable_timing=True),
@@ -517,7 +528,11 @@ class GenerationService:
                     card[0].record(self._stream)
                 with torch.cuda.stream(self._stream):
                     key = sampling.fold_in(self._base_key, bi)
-                out = self._dispatch(key, seed_arr, given_arr)
+                    if timed and self._rbm_counts:
+                        counts = torch.zeros(4, dtype=torch.int64,
+                                             device=self.device)
+                with gen_fused_rbm.counting(counts):
+                    out = self._dispatch(key, seed_arr, given_arr)
                 if timed:
                     card[1].record(self._stream)
                     profiling.card_span("serve.card", *card, ident=bi)
@@ -536,7 +551,7 @@ class GenerationService:
                     r.future.set_exception(e)
                 continue
             with self._done_cv:
-                self._done_q.append((out, reqs, bi, t_dispatch))
+                self._done_q.append((out, reqs, bi, t_dispatch, counts))
                 self._done_cv.notify()
 
     # -- drainer thread --------------------------------------------------------
@@ -548,13 +563,16 @@ class GenerationService:
                     if self._closed and not self._dispatcher.is_alive():
                         return
                     self._done_cv.wait(0.1)
-                out, reqs, bi, t_dispatch = self._done_q.popleft()
+                out, reqs, bi, t_dispatch, counts = self._done_q.popleft()
             with profiling.span("serve.drain", bi):
-                self._drain(out, reqs, bi, t_dispatch)
+                self._drain(out, reqs, bi, t_dispatch, counts)
 
-    def _drain(self, out, reqs, bi: int, t_dispatch: float) -> None:
+    def _drain(self, out, reqs, bi: int, t_dispatch: float,
+               counts=None) -> None:
         """Wait for one dispatched batch, fetch and finalize its rolls and
-        resolve its requests' futures."""
+        resolve its requests' futures; add the batch's ``counts`` (the RBM
+        kernel's list counters, kept while the recorder times the card) to
+        the recorder's ``RBM_COUNTS``."""
         try:
             was_sparse = out.sparse is not None
             if was_sparse and self._transport_demoted:
@@ -564,6 +582,9 @@ class GenerationService:
                     else None)
             # serve.drain.wait and serve.drain.fetch
             rolls = self.generator.fetch_rolls(out, size_hint=hint)
+            if counts is not None:
+                for name, n in zip(RBM_COUNTS, counts.tolist()):
+                    profiling.count(name, n)
             with profiling.span("serve.drain.finalize"):
                 rolls = self.generator.finalize(rolls)
             if was_sparse:

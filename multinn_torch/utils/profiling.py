@@ -3,7 +3,8 @@ multinn_tpu/utils/profiling.py (``annotate`` and the timers).
 
 The span recorder is the port of ``annotate``: named regions of the host's
 work, kept by the program itself. It is off by default; ``enable()`` turns
-it on and ``collect()`` hands back what it kept and turns it off. Each
+it on and ``collect()`` hands back what it kept and turns it off. Beside
+the spans it keeps integer totals (``count``, read by ``counts()``). Each
 span holds its name, its start and end on ``time.time_ns()``, an
 identifier (what it is about: the service's batch index, the trainer's
 group count) and its parent's identifier. Spans open in any thread; a
@@ -90,6 +91,7 @@ class _Recorder:
         self.on = False
         self._lock = threading.Lock()
         self._spans: List[Span] = []
+        self._counts: Dict[str, int] = {}
         self._cards: list = []           # (name, start, end, ident, parent)
         self._anchors: list = []         # (CUDA event, time.time_ns())
         self._stream = None              # the anchors' stream
@@ -147,6 +149,7 @@ def enable(device=None) -> None:
         anchors.append(_anchor(stream))
     with recorder._lock:
         recorder._spans, recorder._cards = [], []
+        recorder._counts = {}
         recorder._anchors, recorder._stream = anchors, stream
         recorder._device = card
         recorder.on = True
@@ -240,6 +243,21 @@ def record(name: str, start_ns: int, end_ns: int,
         recorder.add(Span(name, int(start_ns), int(end_ns), ident,
                           stack[-1] if stack else None,
                           threading.current_thread().name))
+
+
+def count(name: str, value: int) -> None:
+    """Add ``value`` to the integer total ``name`` while the recorder is on
+    (nothing while it is off)."""
+    if recorder.on:
+        with recorder._lock:
+            recorder._counts[name] = recorder._counts.get(name, 0) + int(value)
+
+
+def counts() -> Dict[str, int]:
+    """The totals that ``count`` kept since ``enable()`` (``collect()``
+    leaves them)."""
+    with recorder._lock:
+        return dict(recorder._counts)
 
 
 def card_span(name: str, start: "torch.cuda.Event", end: "torch.cuda.Event",

@@ -7,6 +7,8 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 (--noconftest: tests/conftest.py sets up JAX for the rest of the suite).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -398,15 +400,18 @@ PLAN_FIELDS = ("cluster", "tpc", "w_smem", "weight_bytes", "sample_bytes",
 
 # (family, K, H, U; CTAs per cluster, track slots per CTA, the per-step
 # weight matrices in shared memory by bit — RBM: W, Wuh, Wuv; NADE: V, W,
-# Wuh, Wuv — their bytes, the most samples a CTA holds)
+# Wuh, Wuv — the weight region's bytes, the most samples a CTA holds). The
+# RBM's weight region starts with its 16 warps' regions, a list and four
+# counters: 16 x (320 + 32) bytes at max(D, H) = 150, 16 x (416 + 32) at
+# 200.
 PLAN_CASES = [
-    ("rnn-rbm", 1, 150, 100, 1, 1, 0b111, 144336, 21),
-    ("rnn-rbm", 5, 150, 100, 5, 1, 0b111, 144336, 14),
-    ("rnn-rbm", 8, 150, 100, 8, 1, 0b111, 144336, 11),
-    ("rnn-rbm", 9, 150, 100, 8, 2, 0b101, 168672, 5),
-    ("rnn-rbm", 12, 150, 100, 8, 2, 0b101, 168672, 4),
-    ("rnn-rbm", 31, 150, 100, 8, 4, 0b100, 134400, 3),
-    ("rnn-rbm", 5, 200, 150, 5, 1, 0b011, 187536, 6),
+    ("rnn-rbm", 1, 150, 100, 1, 1, 0b111, 5632 + 144336, 21),
+    ("rnn-rbm", 5, 150, 100, 5, 1, 0b111, 5632 + 144336, 14),
+    ("rnn-rbm", 8, 150, 100, 8, 1, 0b111, 5632 + 144336, 11),
+    ("rnn-rbm", 9, 150, 100, 8, 2, 0b101, 5632 + 168672, 5),
+    ("rnn-rbm", 12, 150, 100, 8, 2, 0b101, 5632 + 168672, 4),
+    ("rnn-rbm", 31, 150, 100, 8, 4, 0b100, 5632 + 134400, 3),
+    ("rnn-rbm", 5, 200, 150, 5, 1, 0b011, 7168 + 187536, 5),
     ("rnn-nade", 1, 150, 100, 1, 1, 0b1111, 127200, 27),
     ("rnn-nade", 5, 150, 100, 5, 1, 0b1111, 127200, 18),
     ("rnn-nade", 8, 256, 100, 8, 1, 0b1111, 205216, 3),
@@ -473,12 +478,13 @@ def test_launch_plan(dev, family, n_tracks, n_hidden, n_rnn, cluster, tpc,
 
 
 # the bf16 capacity modes' plans: (family, K, H, U; the matrices in shared
-# memory, their bytes, the most samples a CTA holds). RBM: W at a pitch of
-# 2 mod 4 elements (150 -> 150, 200 -> 202), Wuh, Wuv in bf16; NADE: Wuh
-# in bf16 beside the always-bf16 V, W and Wuv.
+# memory, the weight region's bytes, the most samples a CTA holds). RBM:
+# the warps' lists, then W at a pitch of 2 mod 4 elements (150 -> 150, 200
+# -> 202), Wuh, Wuv in bf16; NADE: Wuh in bf16 beside the always-bf16 V,
+# W and Wuv.
 CAPACITY_PLAN_CASES = [
-    ("rnn-rbm", 5, 150, 100, 0b111, 25200 + 30000 + 16800, 26),
-    ("rnn-rbm", 5, 200, 150, 0b111, 33936 + 60000 + 25200, 16),
+    ("rnn-rbm", 5, 150, 100, 0b111, 5632 + 25200 + 30000 + 16800, 26),
+    ("rnn-rbm", 5, 200, 150, 0b111, 7168 + 33936 + 60000 + 25200, 15),
     ("rnn-nade", 5, 150, 100, 0b1111, 25200 + 25200 + 30000 + 16800, 23)]
 
 
@@ -1289,6 +1295,154 @@ def test_row_map_fused_kernels_on_the_card(dev, family):
         same += int(_identical_samples(part, full[b0:b0 + 4]).sum())
         assert int(_identical_samples(part, plain).sum()) >= 3
     assert same >= 7
+
+
+# -- the RBM kernel's Gibbs passes over lists ---------------------------------
+
+# (case, model, the visible and hidden bias shifts, extra arguments):
+# visible densities of about 0.02, 0.06 (the served songs'), 0.5 and 1.0,
+# hidden ones near 0 and near 1, real-valued given rows in the merge, the
+# bf16 capacity mode, the joint track (K=1, D=420) and a row-mapped shard
+LIST_CASES = [
+    ("v0.02", FLAGSHIP, -4.0, 0.0, {}),
+    ("v0.06", FLAGSHIP, -2.75, 0.0, {}),
+    ("v0.5", FLAGSHIP, 0.0, 0.0, {}),
+    ("v1.0", FLAGSHIP, 50.0, 0.0, {}),
+    ("h0", FLAGSHIP, 0.0, -8.0, {}),
+    ("h1", FLAGSHIP, 0.0, 8.0, {}),
+    ("given", FLAGSHIP, -2.75, 0.0, {"given_tracks": (1, 3)}),
+    ("bf16", FLAGSHIP, -2.75, 0.0, {"wdtype": torch.bfloat16}),
+    ("joint", dict(FLAGSHIP, mode="joint"), -2.75, 0.0, {}),
+    ("row_map", FLAGSHIP, -2.75, 0.0, {"rows": (8, 24)}),
+]
+
+
+@pytest.mark.parametrize("case,model,dv,dh,extra", LIST_CASES,
+                         ids=[c[0] for c in LIST_CASES])
+def test_rbm_list_passes_match_plain_and_count_the_lists(dev, case, model,
+                                                         dv, dh, extra):
+    """The fused RBM kernel, whose Gibbs passes walk the lists of the
+    chain's active units, against its plain version: at least 7 of 8
+    samples identical at T=16 and the final h within 1e-4 on those; its
+    list counters equal the plain version's recount of the chain where
+    every sample is identical, and otherwise differ by at most the rows
+    of the samples that are not; two launches are bit-equal, counters
+    included."""
+    cfg = multinn.MultINNConfig(**dict(model, w_std=0.1))
+    params = _params(cfg, dev)
+    dec = params.decoder
+    dec = dataclasses.replace(dec, bv=dec.bv + dv, bh=dec.bh + dh)
+    state = _primed(params, 8, dev)
+    h0 = torch.stack([c.h for c in state.decoder.cell])
+    c0 = torch.stack([c.c for c in state.decoder.cell])
+    v0 = state.decoder.v_prev
+    k, d = v0.shape[0], v0.shape[2]
+    hid, t_steps, gen_k = cfg.n_hidden, 16, cfg.gen_k
+    extra = dict(extra)
+    if "given_tracks" in extra:             # real values, half of them 0
+        g = torch.Generator().manual_seed(2)
+        extra["given"] = (torch.rand(8, t_steps, k, d, generator=g)
+                          * (torch.rand(8, t_steps, k, d, generator=g)
+                             < 0.5)).to(dev)
+    key = sampling.PRNGKey(5, device=dev)
+
+    def run(impl):
+        counts = torch.zeros(4, dtype=torch.int64, device=dev)
+        out = gen_fused_rbm.generate_rbm(key, dec, h0, c0, v0, t_steps,
+                                         gen_k, impl=impl, counts=counts,
+                                         **extra)
+        return out, counts
+
+    _build.launches.clear()
+    (rk, hk, ck), nk = run("cuda")
+    assert _build.launches["gen_fused_rbm"] == 1
+    (rp, hp, _), np_ = run("plain")
+    same = _identical_samples(rk, rp)
+    assert int(same.sum()) >= 7
+    assert float((hk - hp).abs()[:, :, same].max()) <= 1e-4
+    if "given" in extra:
+        assert torch.equal(rk[:, :, [1, 3]], extra["given"][:, :, [1, 3]])
+    rows = [t_steps * gen_k * k * x for x in (d, d, hid, hid)]
+    assert nk[1].item() == np_[1].item() == 8 * rows[1]
+    assert nk[3].item() == np_[3].item() == 8 * rows[3]
+    off = 8 - int(same.sum())
+    assert all(abs(a - b) <= off * r
+               for a, b, r in zip(nk.tolist(), np_.tolist(), rows))
+    assert 0 < nk[0].item() <= nk[1].item()
+    assert 0 <= nk[2].item() <= nk[3].item()
+    (rk2, hk2, ck2), nk2 = run("cuda")
+    assert torch.equal(rk, rk2) and torch.equal(hk, hk2)
+    assert torch.equal(ck, ck2) and torch.equal(nk, nk2)
+
+
+def _rbm_outputs(groups, d=84, h=150):
+    """The outputs a thread of the RBM kernel's passes takes (the rule of
+    csrc/gen_fused_rbm.cu): 3 where that gives fewer rounds of 16 warps
+    over both passes, ceil(chunks of 32 units / R) warps a group, than 1;
+    else 1."""
+    def rounds(r):
+        return sum(-(-groups * -(-c // r) // 16) for c in (-(-d // 32),
+                                                           -(-h // 32)))
+    return 3 if rounds(3) < rounds(1) else 1
+
+
+def test_rbm_each_outputs_per_thread_matches_plain(dev):
+    """The launch gives each thread of the Gibbs passes 1 or 3 outputs by
+    its samples per cluster (the plan op's last value): B=8 of the
+    flagship takes 1, B=96 and 256 take 3; at each the kernel matches its
+    plain version (at least all but 1 % + 1 of the samples identical at
+    T=8, the final h within 1e-4 on those) and a replay is bit-equal."""
+    cfg = _cluster_model("rnn-rbm", 5)
+    params = _params(cfg, dev)
+    seen = set()
+    for batch in (8, 96, 256):
+        plan = _build.ops().gen_fused_plan(0, 5, 84, 150, 100, 1, 1, batch)
+        fields = dict(zip(PLAN_FIELDS, plan))
+        r = plan[len(PLAN_FIELDS)]
+        assert r == _rbm_outputs(fields["tpc"] * fields["samples"])
+        seen.add(r)
+        state = _primed(params, batch, dev, seed=batch)
+        key = sampling.PRNGKey(batch, device=dev)
+        fk, rk = multinn._generate_fused(params, key, state, 8, impl="cuda")
+        fp, rp = multinn._generate_fused(params, key, state, 8,
+                                         impl="plain")
+        same = _identical_samples(rk, rp)
+        assert int(same.sum()) >= batch - 1 - batch // 100
+        for a, b in zip(fk.decoder.cell, fp.decoder.cell):
+            assert float((a.h - b.h).abs()[:, same].max()) <= 1e-4
+        _, rk2 = multinn._generate_fused(params, key, state, 8, impl="cuda")
+        assert torch.equal(rk, rk2)
+    assert seen == {1, 3}
+
+
+def test_service_counts_the_rbm_lists(dev):
+    """While the span recorder times the card, an RBM service adds each
+    batch's list counters to the recorder's counts after the drain's
+    wait: rows of every pass of every batch, listed units within them."""
+    from multinn_torch.serving.service import RBM_COUNTS
+    from multinn_torch.utils import profiling
+    cfg = config.ExperimentConfig(
+        model=multinn.MultINNConfig(**FLAGSHIP),
+        data=config.DataConfig(n_tracks=5, pitch_min=24, pitch_max=107),
+        generate=config.GenerateConfig(n_steps=32))
+    svc = GenerationService(cfg, _params(cfg.model, dev),
+                            ServeConfig(batch=4, n_steps=32))
+    try:
+        for f in svc.submit_many(4):
+            f.result(timeout=300)
+        profiling.enable(dev)
+        res = [f.result(timeout=300) for f in svc.submit_many(8)]
+    finally:
+        svc.close()
+        profiling.collect()
+    got = profiling.counts()
+    batches = len({r.batch_index for r in res})
+    per_batch = 4 * 32 * FLAGSHIP["gen_k"] * 5
+    assert set(got) == set(RBM_COUNTS)
+    assert got["gen.rbm_v_rows"] == batches * per_batch * 84
+    assert got["gen.rbm_h_rows"] == batches * per_batch * 150
+    assert 0 < got["gen.rbm_v_listed"] < got["gen.rbm_v_rows"]
+    assert 0 < got["gen.rbm_h_listed"] < got["gen.rbm_h_rows"]
 
 
 # -- meshes on the card -------------------------------------------------------

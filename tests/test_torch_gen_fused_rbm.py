@@ -106,6 +106,57 @@ def test_generate_rbm_argument_checks():
     assert torch.equal(r1, r2)
 
 
+@pytest.mark.parametrize("case", ["base", "h_on", "h_off", "v_on",
+                                  "given", "row_map"])
+def test_plain_counts_are_the_chains_list_lengths(case):
+    """``counts`` on the plain version, as the kernel's list counters: the
+    hidden passes' input units that are nonzero and in all, then the
+    visible passes'. Sweep 0 starts at the previous frame (v0, then the
+    roll's frame before; a given row counts its nonzero values), later
+    sweeps at the chain's sample; a saturated layer lists every unit or
+    none. The roll is the one generated without counts."""
+    _, tp, _, ts = _primed("feedback", "lstm", 1, seed=2)
+    dec = tp.decoder
+    if case in ("h_on", "h_off"):
+        dec = dataclasses.replace(dec, bh=dec.bh + (50.0 if case == "h_on"
+                                                    else -50.0))
+    if case == "v_on":
+        dec = dataclasses.replace(dec, bv=dec.bv + 50.0)
+    h0 = torch.stack([c.h for c in ts.decoder.cell])
+    c0 = torch.stack([c.c for c in ts.decoder.cell])
+    v0 = ts.decoder.v_prev                                # (K, B, D)
+    extra = {}
+    if case == "given":                     # real values in track 1
+        extra = dict(given_tracks=(1,), given=torch.from_numpy(
+            np.random.default_rng(6).random((B, T, K, D)).astype(np.float32)
+            * (np.random.default_rng(7).random((B, T, K, D)) < 0.5)))
+    if case == "row_map":
+        extra = dict(rows=(2, 7))
+    gen_k = 3
+    counts = torch.zeros(4, dtype=torch.int64)
+    args = (sampling.PRNGKey(9), dec, h0, c0, v0, T, gen_k)
+    roll, _, _ = gen_fused.generate_rbm(*args, counts=counts, **extra)
+    counts_again = torch.zeros(4, dtype=torch.int64)
+    assert torch.equal(roll, gen_fused.generate_rbm(*args, **extra)[0])
+    gen_fused.generate_rbm(*args, counts=counts_again, **extra)
+    assert torch.equal(counts, counts_again)
+    v_listed, v_rows, h_listed, h_rows = counts.tolist()
+    assert v_rows == gen_k * T * B * K * D and h_rows == gen_k * T * B * K * H
+    prev = torch.cat([v0.movedim(0, 1)[:, None], roll[:, :-1]], dim=1)
+    first = int(prev.count_nonzero())       # sweep 0's lists
+    later = v_listed - first                # sweeps 1 and 2
+    assert 0 <= later <= (gen_k - 1) * T * B * K * D
+    if case == "v_on":                      # every sampled v is all ones
+        assert later == (gen_k - 1) * T * B * K * D
+        assert torch.equal(roll, torch.ones_like(roll))
+    if case == "h_on":
+        assert h_listed == h_rows
+    elif case == "h_off":                   # v then follows bv(t) alone
+        assert h_listed == 0
+    else:
+        assert 0 < h_listed < h_rows
+
+
 def _flagship_args(cfg, batch=1):
     params = gen_fused_rbm._decoder_param_shapes(cfg, rnn_rbm)
     st = torch.empty((cfg.rnn_layers, cfg.n_tracks, batch, cfg.n_rnn),
@@ -143,11 +194,15 @@ def test_gate_is_a_shared_memory_check():
         dataclasses.replace(flagship, n_tracks=32, mode="per-track"), 8)
     # the count the gate uses: one flagship sample's state
     # previous frames, fresh rows of both parities, h and c, a scratch row
-    # of max(G, 2 (D + H)) floats; the lists of 5 previous and 1 fresh row
-    sample = 4 * (5 * 84 + 2 * 84 + 2 * 100 + max(400, 2 * (84 + 150))) \
-        + (5 + 1) * (4 + 2 * 84)
+    # of max(G, D + H + the chain's mask words) floats, a word per 32 units
+    # of v (3) and of h (5); the lists of 5 previous and 1 fresh row
+    assert max(400, 84 + 150 + 3 + 5) == 400
+    sample = 4 * (5 * 84 + 2 * 84 + 2 * 100 + 400) + (5 + 1) * (4 + 2 * 84)
     assert (gen_fused_rbm._sample_bytes(_flagship_args(flagship))
-            == -(-sample // 16) * 16 == 6064)
+            == -(-sample // 16) * 16 == 5792)
+    # beside the 16 warps' regions: a list of up to max(D, H) = 150
+    # indices and 7 of padding, 16-byte aligned, and four uint64 counters
+    assert gen_fused_rbm._lists_bytes(84, 150) == 16 * (320 + 32)
 
 
 @pytest.mark.parametrize("n_tracks,cluster,tpc", [
@@ -159,7 +214,7 @@ def test_tracks_per_cta(n_tracks, cluster, tpc):
     are the launch's, tested on the card)."""
     assert gen_common.cluster_shape(n_tracks) == (cluster, tpc)
     cfg = dataclasses.replace(FLAGSHIP, n_tracks=n_tracks, mode="per-track")
-    sample = (4 * (n_tracks * 84 + tpc * (2 * 84 + 2 * 100 + 468))
+    sample = (4 * (n_tracks * 84 + tpc * (2 * 84 + 2 * 100 + 400))
               + (n_tracks + tpc) * (4 + 2 * 84))
     assert gen_fused_rbm._sample_bytes(_flagship_args(cfg)) == \
         -(-sample // 16) * 16

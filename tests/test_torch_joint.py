@@ -139,7 +139,9 @@ def test_gates_admit_the_joint_flagship(decoder):
     args = build(params, st, st, v0)
     # one 420-wide track: its frames at t-1 and of both parities, h and c,
     # the scratch row, and the lists of one previous and one fresh row
-    scr = (max(400, 2 * (420 + 150)) if decoder == "rnn-rbm"
+    # the RBM's: bv(t), bh(t) and its chain's mask words, one per 32 units
+    # of v (14) and of h (5)
+    scr = (max(400, 420 + 150 + 14 + 5) if decoder == "rnn-rbm"
            else max(400, 2 * 420 + 150))
     want = 4 * (420 + 2 * 420 + 2 * 100 + scr) + 2 * (4 + 2 * 420)
     assert mod._sample_bytes(args) == -(-want // 16) * 16

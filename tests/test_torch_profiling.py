@@ -116,6 +116,35 @@ def test_spans_keep_name_ident_parent_and_nesting(recorder_off):
     assert profiling.collect() == []                # collect empties
 
 
+def test_counts_sum_only_while_the_recorder_is_on(recorder_off):
+    """``count`` keeps nothing while the recorder is off, sums per name
+    while it is on (from any thread), ``counts()`` hands the totals back
+    and ``collect()`` leaves them; the spans are the same with or without
+    counts beside them; ``enable()`` starts the totals anew."""
+    profiling.count("n", 5)
+    assert profiling.counts() == {}
+    profiling.enable(device="cpu")
+    with profiling.span("batch", 1):
+        profiling.count("n", 2)
+        profiling.count("m", 0)
+    worker = threading.Thread(target=profiling.count, args=("n", 40))
+    worker.start()
+    worker.join()
+    profiling.count("n", np.int64(3))
+    with_counts = profiling.collect()
+    assert profiling.counts() == {"n": 45, "m": 0}
+    assert all(type(v) is int for v in profiling.counts().values())
+    profiling.count("n", 7)                          # off again
+    assert profiling.counts() == {"n": 45, "m": 0}
+    profiling.enable(device="cpu")
+    assert profiling.counts() == {}
+    with profiling.span("batch", 1):
+        pass
+    without = profiling.collect()
+    assert [s[:1] + s[3:] for s in with_counts] == \
+        [s[:1] + s[3:] for s in without] == [("batch", 1, None, "MainThread")]
+
+
 def test_spans_of_threads_nest_per_thread(recorder_off):
     profiling.enable()
     gate = threading.Barrier(2, timeout=10)
