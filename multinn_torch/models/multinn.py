@@ -33,11 +33,18 @@ tracks (its tracks' sum / K), whose gradients are its tracks' parameters'.
 The samplers draw each row's stream in the whole batch (the row map); a
 DBN's decode draws over the whole batch, gathered over ``data`` first.
 ``seq``: x is this rank's time chunk (parallel/seqpipe.py).
+
+Inside ``dbn_timing`` (the service enters it while the span recorder
+times its card) every DBN decode records its card interval as the span
+``gen.dbn_decode`` and adds the latent and decoded rolls' on-bits and
+cells to the service's counters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -49,10 +56,12 @@ from multinn_torch.nn import rnn as rnn_nn
 from multinn_torch.ops import sampling
 from multinn_torch.parallel import comm
 from multinn_torch.training.metrics import FRAME_COUNTS
+from multinn_torch.utils import profiling
 from multinn_torch.utils.device import entry_device
 
 MODES = ("per-track", "feedback", "joint", "hybrid")
 MODE_ALIASES = {"jamming": "per-track", "composer": "joint"}
+_dbn_sink = threading.local()   # dbn_timing()'s stream, ident and counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,16 +271,46 @@ def _decode_tracks(params: MultINNParams, key: torch.Tensor,
     (K, ...): the shared encoder decodes all tracks under ``key``,
     per-track encoders decode track i under ``split(key, K)[i]`` (under a
     track split each rank its tracks, then gathered)."""
+    sink = getattr(_dbn_sink, "on", None)
+    if sink is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(sink[0])
     if not _per_track_encoder(params):
-        return _decode_sample(params.encoder, key, lat_k, beta)
-    k = params.cfg.n_tracks
-    keys = sampling.split(key, k)
-    mine = (range(k) if _track_group(shard) is None
-            else range(k)[shard.tracks(k)])
-    out = torch.stack([_decode_sample(index_tree(params.encoder, j),
-                                      keys[i], lat_k[i], beta)
-                       for j, i in enumerate(mine)])
-    return _all_tracks(out, shard)
+        out = _decode_sample(params.encoder, key, lat_k, beta)
+    else:
+        k = params.cfg.n_tracks
+        keys = sampling.split(key, k)
+        mine = (range(k) if _track_group(shard) is None
+                else range(k)[shard.tracks(k)])
+        out = _all_tracks(torch.stack([
+            _decode_sample(index_tree(params.encoder, j), keys[i], lat_k[i],
+                           beta) for j, i in enumerate(mine)]), shard)
+    if sink is not None:
+        stream, ident, counts = sink
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        profiling.card_span("gen.dbn_decode", start, end, ident=ident)
+        for i, n in enumerate((lat_k.count_nonzero(), lat_k.numel(),
+                               out.count_nonzero(), out.numel())):
+            counts[i] += n
+    return out
+
+
+@contextlib.contextmanager
+def dbn_timing(stream, ident: Optional[int], counts: Optional[torch.Tensor]):
+    """Within the block, each DBN decode on this thread records its card
+    interval, between timing events on ``stream`` (the one it runs on), as
+    the span ``gen.dbn_decode`` with identifier ``ident``
+    (``profiling.card_span``), and adds to ``counts`` (int64 (4,) on the
+    latents' device) the latent roll's on-bits and cells, then the decoded
+    roll's notes and cells. ``counts`` None: nothing is recorded. The
+    service enters it only while the recorder times its card."""
+    before = getattr(_dbn_sink, "on", None)
+    _dbn_sink.on = None if counts is None else (stream, ident, counts)
+    try:
+        yield
+    finally:
+        _dbn_sink.on = before
 
 
 def _flatten_latents(vs: torch.Tensor) -> torch.Tensor:
@@ -451,7 +490,7 @@ def _sample_step(params: MultINNParams, key: torch.Tensor,
     ``kd`` for the DBN decode; ``dec_beta`` tempers only that decode.
     ``shard``: this rank samples its tracks (the frames then gathered over
     ``track``) on its rows' streams; ``decode=False`` leaves a DBN's frame
-    in latent space."""
+    in latent space, decoder-major (B, K', F)."""
     cfg = params.cfg
     dec = get_decoder(cfg.decoder_type)
     key, kd = sampling.split(key)
@@ -463,7 +502,9 @@ def _sample_step(params: MultINNParams, key: torch.Tensor,
         for i in range(params.decoder.w.shape[0])])      # (K, B, F)
     vs = _all_tracks(vs, shard)
     new_state = _forced_step(params, state, vs, shard)
-    if cfg.encoder_hidden and decode:
+    if cfg.encoder_hidden:
+        if not decode:
+            return new_state, vs.movedim(0, 1)
         vs = _decode_tracks(params, kd, vs, dec_beta, shard)
     return new_state, _frames(cfg, vs.movedim(0, 1))     # (B, K, D)
 
@@ -498,10 +539,14 @@ def _forced_step(params: MultINNParams, state: MultINNState,
 
 def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
              n_steps: int, fused: Optional[bool] = None,
-             k: Optional[int] = None, temperature: float = 1.0, shard=None
-             ) -> Tuple[MultINNState, torch.Tensor]:
+             k: Optional[int] = None, temperature: float = 1.0, shard=None,
+             latent: bool = False):
     """Autoregressive multi-track generation. Returns (state, pianoroll
-    (B, n_steps, K, D) float32).
+    (B, n_steps, K, D) float32); with ``latent`` also, third, the
+    decoders' model-space roll (B, n_steps, K', F) that a DBN's decode
+    drew the pianoroll from (the roll itself without a DBN; joint mode
+    one decoder, K' = 1). The pianoroll is the same bits either way: the
+    scan path then decodes after the loop, as under a data split.
 
     ``fused``: True runs the whole-generation kernel (ops/gen_fused.py; a
     DBN's latent roll is decoded after it), False the step loop (scan
@@ -528,9 +573,10 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
     dec_beta = 1.0 / temperature
     if fused:
         return _generate_fused(params, key, state, n_steps, k=k,
-                               dec_beta=dec_beta, shard=shard)
+                               dec_beta=dec_beta, shard=shard, latent=latent)
     # a DBN decode over a data split waits for the whole batch's latents
-    later = bool(cfg.encoder_hidden) and _data_group(shard) is not None
+    later = bool(cfg.encoder_hidden) and (_data_group(shard) is not None
+                                          or latent)
     keys = sampling.split(key, n_steps)
     frames = []
     for t in range(n_steps):
@@ -538,10 +584,10 @@ def generate(params: MultINNParams, key: torch.Tensor, state: MultINNState,
                                     dec_beta=dec_beta, shard=shard,
                                     decode=not later)
         frames.append(frame)
-    roll = torch.stack(frames, dim=1)
+    roll = lat = torch.stack(frames, dim=1)
     if later:
         roll = _decode_steps_later(params, keys, roll, dec_beta, shard)
-    return state, roll
+    return (state, roll, lat) if latent else (state, roll)
 
 
 def _data_group(shard):
@@ -563,16 +609,17 @@ def _decode_whole_batch(decode, lat: torch.Tensor, shard) -> torch.Tensor:
 def _decode_steps_later(params: MultINNParams, keys: torch.Tensor,
                         lat: torch.Tensor, dec_beta: float,
                         shard) -> torch.Tensor:
-    """The scan path's latent roll (B, T, K, F), each step t decoded under
-    the decode key of ``keys[t]`` (as ``_sample_step`` draws it) over the
-    whole batch: a data split's deferred decode."""
+    """The scan path's latent roll (B, T, K', F), each step t decoded
+    under the decode key of ``keys[t]`` (as ``_sample_step`` draws it)
+    over the whole batch: a deferred decode (a data split's, or one whose
+    latents are kept) -> pianoroll (B, T, K, D)."""
     kds = [sampling.split(kt)[1] for kt in keys]
 
     def decode(whole):
         return torch.stack([_decode_tracks(
             params, kds[t], whole[:, t].movedim(1, 0), dec_beta,
             shard).movedim(0, 1) for t in range(whole.shape[1])], dim=1)
-    return _decode_whole_batch(decode, lat, shard)
+    return _frames(params.cfg, _decode_whole_batch(decode, lat, shard))
 
 
 def _check_given(cfg: MultINNConfig, given: torch.Tensor,
@@ -702,8 +749,8 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
                     state: MultINNState, n_steps: int, impl=None,
                     k: Optional[int] = None, dec_beta: float = 1.0,
                     given: Optional[torch.Tensor] = None,
-                    given_tracks: Tuple[int, ...] = (), shard=None
-                    ) -> Tuple[MultINNState, torch.Tensor]:
+                    given_tracks: Tuple[int, ...] = (), shard=None,
+                    latent: bool = False):
     """Dispatch to the whole-generation kernel and rebuild the state
     contract from its outputs (``params`` already tempered). The kernel
     runs in feature space; with a DBN its latent roll is decoded to
@@ -713,7 +760,8 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
     tracks' frames in the kernel (accompaniment). Joint mode enters the
     kernels as one track of the joint width; its roll is split into the K
     tracks after the decode. ``shard``: the batch is this rank's rows of a
-    data split (the kernels' row map; the decode over the whole batch)."""
+    data split (the kernels' row map; the decode over the whole batch).
+    ``latent``: the kernel's roll is returned too, third (``generate``)."""
     from multinn_torch.ops import gen_fused
     cfg = params.cfg
     vanilla = cfg.cell == "vanilla"
@@ -742,12 +790,14 @@ def _generate_fused(params: MultINNParams, key: torch.Tensor,
         cell=tuple(cell_state(h_f[l], c_f[l]) for l in range(len(h_f))),
         v_prev=v_last)
     ctx = _flatten_latents(v_last) if cfg.mode == "feedback" else None
+    lat = roll
     if cfg.encoder_hidden:
         kd = sampling.fold_in(key, 0x5eed)
         roll = _decode_whole_batch(
             lambda lat: _decode_tracks(params, kd, lat.movedim(2, 0),
                                        dec_beta).movedim(0, 2), roll, shard)
-    return MultINNState(decoder=new_dec, ctx=ctx), _frames(cfg, roll)
+    out = MultINNState(decoder=new_dec, ctx=ctx), _frames(cfg, roll)
+    return out + (lat,) if latent else out
 
 
 def _generate_accomp_fused(params: MultINNParams, key: torch.Tensor,

@@ -32,6 +32,12 @@ large packed batches off the card, packed on it (``_resolve_transport``).
 Two consecutive overflows demote a sparse service: the drain reads the
 packed roll from then on.
 
+With ``latent_rows`` those rows of every plain or seeded batch also come
+back in model space (``ServeResult.latent``: the decoders' latent roll
+that a DBN's decode drew the pianoroll from), gathered and bit-packed on
+the card and copied with the batch's roll in the same drain; the
+pianoroll is the same bits with or without it.
+
 With the span recorder on (utils/profiling), each batch records its
 spans, identified by its batch index: on the dispatcher ``serve.take``
 (the oldest request's enqueue -> the dispatch, so ``queue_s`` is a
@@ -45,7 +51,10 @@ and ``.fetch`` (the copies and the unpack), both recorded by
 set, callbacks included). The timing events exist only while the
 recorder times this service's card (``profiling.card_timing``); so do
 an RBM service's list counters (``RBM_COUNTS``: the fused kernel's list
-lengths and row widths, ops/gen_fused_rbm.counting), added to the
+lengths and row widths, ops/gen_fused_rbm.counting) and a DBN service's
+decode span ``gen.dbn_decode``, a card interval of the batch's index, and
+counters (``DBN_COUNTS``: the latent roll's on-bits and cells, the
+decoded roll's notes and cells, models/multinn.dbn_timing), added to the
 recorder's counts (``profiling.count``) once the drain has waited for the
 batch.
 
@@ -69,6 +78,7 @@ import numpy as np
 import torch
 
 from multinn_torch.data import pianoroll
+from multinn_torch.models import multinn
 from multinn_torch.ops import gen_fused_rbm, sampling
 from multinn_torch.parallel import comm
 from multinn_torch.utils import profiling
@@ -78,6 +88,9 @@ _STOP, _PLAIN, _SEEDED, _ACCOMPANY = 0, 1, 2, 3
 # the RBM kernel's list counters (ops/gen_fused_rbm.generate_rbm's counts)
 RBM_COUNTS = ("gen.rbm_v_listed", "gen.rbm_v_rows", "gen.rbm_h_listed",
               "gen.rbm_h_rows")
+# the DBN decode's counters (models/multinn.dbn_timing's counts)
+DBN_COUNTS = ("gen.dbn_latent_on", "gen.dbn_latent_cells", "gen.dbn_notes",
+              "gen.dbn_cells")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +121,9 @@ class ServeResult:
     row: int                   # provenance: row within the batch
     queue_s: float             # enqueue -> dispatch
     total_s: float             # enqueue -> resolution
+    latent: Optional[np.ndarray] = None   # model-space roll (n_steps, K', F)
+    #                            uint8 of a row in the service's
+    #                            latent_rows, else None
 
 
 class _Request:
@@ -169,10 +185,13 @@ def auto_batch(cfg, n_steps: int) -> int:
 class GenerationService:
     """Continuous-batching generation server core (module docstring).
     ``mesh``: generate on a process mesh; on its ranks other than 0 the
-    constructor returns at once and ``follow()`` serves rank 0's calls."""
+    constructor returns at once and ``follow()`` serves rank 0's calls.
+    ``latent_rows``: rows of every plain or seeded batch whose model-space
+    roll comes back in ``ServeResult.latent`` (not on a mesh, nor with
+    ``accompany_tracks``); ServeConfig keeps the JAX service's fields."""
 
     def __init__(self, cfg, params, serve_cfg: ServeConfig = None,
-                 mesh=None):
+                 mesh=None, latent_rows: tuple = ()):
         from multinn_torch.training.generator import Generator
 
         self.cfg = cfg
@@ -185,9 +204,13 @@ class GenerationService:
         self.device = self.generator.device
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        # an RBM service on the card keeps the fused kernel's list counters
+        # an RBM service on the card keeps the fused kernel's list counters,
+        # a DBN service the decode's
         self._rbm_counts = (cfg.model.decoder_type == "rnn-rbm"
                             and self.device.type == "cuda")
+        self._dbn_counts = bool(cfg.model.encoder_hidden)
+        self._count_names = ((RBM_COUNTS if self._rbm_counts else ())
+                             + (DBN_COUNTS if self._dbn_counts else ()))
         self._base_key = sampling.PRNGKey(self.serve_cfg.seed,
                                           device=self.device)
 
@@ -199,6 +222,15 @@ class GenerationService:
                         if self._accompany_tracks else 0)
         self._packed = _resolve_transport(self.serve_cfg.transport, cfg,
                                           self.batch, steps_max, self.device)
+        self._latent_rows = tuple(int(r) for r in latent_rows)
+        if self._latent_rows and (
+                len(set(self._latent_rows)) < len(self._latent_rows)
+                or not all(0 <= r < self.batch for r in self._latent_rows)
+                or mesh is not None or self._accompany_tracks):
+            raise ValueError(
+                f"latent_rows {self._latent_rows} must be distinct rows of a "
+                f"batch of {self.batch}, on a service without a mesh or "
+                f"accompany_tracks")
 
         self._lock = threading.Condition()
         self._queues = {"plain": collections.deque(),
@@ -266,9 +298,9 @@ class GenerationService:
                 return self.generator.accompany_async(
                     key, given_arr, self._accompany_tracks,
                     packed=self._packed)
-            return self.generator.generate_async(key, self.n_steps,
-                                                 self.batch, seed=seed_arr,
-                                                 packed=self._packed)
+            return self.generator.generate_async(
+                key, self.n_steps, self.batch, seed=seed_arr,
+                packed=self._packed, latent_rows=self._latent_rows)
 
     # -- the other ranks of a mesh ---------------------------------------------
 
@@ -526,12 +558,17 @@ class GenerationService:
                     card = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
                     card[0].record(self._stream)
+                rbm = dbn = None
                 with torch.cuda.stream(self._stream):
                     key = sampling.fold_in(self._base_key, bi)
-                    if timed and self._rbm_counts:
-                        counts = torch.zeros(4, dtype=torch.int64,
+                    if timed and self._count_names:
+                        counts = torch.zeros(len(self._count_names),
+                                             dtype=torch.int64,
                                              device=self.device)
-                with gen_fused_rbm.counting(counts):
+                        rbm = counts[:4] if self._rbm_counts else None
+                        dbn = counts[-4:] if self._dbn_counts else None
+                with gen_fused_rbm.counting(rbm), \
+                        multinn.dbn_timing(self._stream, bi, dbn):
                     out = self._dispatch(key, seed_arr, given_arr)
                 if timed:
                     card[1].record(self._stream)
@@ -569,10 +606,11 @@ class GenerationService:
 
     def _drain(self, out, reqs, bi: int, t_dispatch: float,
                counts=None) -> None:
-        """Wait for one dispatched batch, fetch and finalize its rolls and
-        resolve its requests' futures; add the batch's ``counts`` (the RBM
-        kernel's list counters, kept while the recorder times the card) to
-        the recorder's ``RBM_COUNTS``."""
+        """Wait for one dispatched batch, fetch and finalize its rolls (and
+        its latent rows) and resolve its requests' futures; add the
+        batch's ``counts`` (the RBM kernel's list counters and the DBN
+        decode's, kept while the recorder times the card) to the
+        recorder's ``RBM_COUNTS`` and ``DBN_COUNTS``."""
         try:
             was_sparse = out.sparse is not None
             if was_sparse and self._transport_demoted:
@@ -581,9 +619,10 @@ class GenerationService:
             hint = (self.generator.last_sparse_count if was_sparse
                     else None)
             # serve.drain.wait and serve.drain.fetch
-            rolls = self.generator.fetch_rolls(out, size_hint=hint)
+            rolls, latents = self.generator.fetch_with_latents(
+                out, size_hint=hint)
             if counts is not None:
-                for name, n in zip(RBM_COUNTS, counts.tolist()):
+                for name, n in zip(self._count_names, counts.tolist()):
                     profiling.count(name, n)
             with profiling.span("serve.drain.finalize"):
                 rolls = self.generator.finalize(rolls)
@@ -604,9 +643,11 @@ class GenerationService:
                 self._latencies.append(t_done - r.t_enqueue)
                 self._queue_waits.append(t_dispatch - r.t_enqueue)
                 self._done_times.append(t_done)
+        kept = ({} if latents is None
+                else dict(zip(self._latent_rows, latents)))
         with profiling.span("serve.drain.resolve"):
             for row, r in enumerate(reqs):
                 r.future.set_result(ServeResult(
                     roll=rolls[row], batch_index=bi, row=row,
                     queue_s=t_dispatch - r.t_enqueue,
-                    total_s=t_done - r.t_enqueue))
+                    total_s=t_done - r.t_enqueue, latent=kept.get(row)))

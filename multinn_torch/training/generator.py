@@ -36,6 +36,11 @@ derived on the card, the seed and given rolls copy from pinned memory
 without blocking) and return the packed device tensor with a CUDA event
 recorded after it; ``fetch_rolls`` waits on that event only, so a serving
 loop can dispatch the next batch while this one runs.
+
+``latent_rows`` asks ``generate_async`` for those rows' model-space
+(latent) roll beside the pianoroll: gathered and bit-packed on the
+device at the feature width, copied with the roll, and handed back by
+``fetch_with_latents``. Asked for nothing, nothing more is done.
 """
 
 from __future__ import annotations
@@ -58,11 +63,13 @@ class AsyncRolls(NamedTuple):
     """A dispatched generation: the bit-packed roll (B, T, K, ceil(D/8))
     uint8 on the device, the event recorded after its last kernel (None on
     the CPU) and, for the sparse transport, the (cap, 5) uint8 records and
-    their int32 count (ops/sparsebytes)."""
+    their int32 count (ops/sparsebytes); where rows were asked for, their
+    bit-packed model-space roll (R, T, K', ceil(F/8)) uint8."""
     packed: torch.Tensor
     event: Optional[torch.cuda.Event]
     sparse: Optional[torch.Tensor] = None
     count: Optional[torch.Tensor] = None
+    latent: Optional[torch.Tensor] = None
 
 
 class Generator:
@@ -105,27 +112,35 @@ class Generator:
 
     def generate_async(self, key: torch.Tensor, n_steps: int,
                        batch: int = 1, seed: Optional[np.ndarray] = None,
-                       packed=True) -> AsyncRolls:
+                       packed=True, latent_rows: Tuple[int, ...] = ()
+                       ) -> AsyncRolls:
         """Dispatch one generation without blocking. ``key``: a Threefry key
         (ops/sampling.py); ``seed``: optional (batch, T_seed, K, D)
         model-space priming roll; ``packed``: the transport, True (the
         bit-packed roll) or ``"sparse"`` (its nonzero bytes as records, the
-        packed roll kept beside them). Returns AsyncRolls; decode with
-        fetch_rolls."""
+        packed roll kept beside them); ``latent_rows``: rows whose
+        model-space roll comes back too (not on a mesh). Returns
+        AsyncRolls; decode with fetch_rolls or fetch_with_latents."""
         _check_transport(packed)
         if seed is not None and np.shape(seed)[0] != batch:
             raise ValueError(f"seed batch {np.shape(seed)[0]} != {batch}")
         if self.mesh is not None:
+            if latent_rows:
+                raise ValueError("latent rows are not gathered on a mesh")
             return self._generate_mesh(key, n_steps, batch, seed, packed)
         with torch.inference_mode():
             state = multinn.init_state(self.params, batch)
             if seed is not None:
                 state = multinn.prime(self.params, state,
                                       self._to_device(seed))
-            _, roll = multinn.generate(self.params, key.to(self.device),
-                                       state, n_steps, k=self._gibbs_k,
-                                       temperature=self._temperature)
-            return self._transport(roll, packed)
+            out = multinn.generate(self.params, key.to(self.device), state,
+                                   n_steps, k=self._gibbs_k,
+                                   temperature=self._temperature,
+                                   latent=bool(latent_rows))
+            # rows by Python index: an index tensor would be a host copy
+            lat = (torch.stack([out[2][r] for r in latent_rows])
+                   if latent_rows else None)
+            return self._transport(out[1], packed, lat)
 
     def _mesh_shard(self, batch: int):
         """This rank's Shard of a call over ``batch`` rows (split over
@@ -208,10 +223,13 @@ class Generator:
         return self.fetch_rolls(self.accompany_async(key, given, given_tracks,
                                                      seed=seed))
 
-    def _transport(self, roll: torch.Tensor, packed) -> AsyncRolls:
-        """The device side of the transport: pack the roll, and for the
-        sparse transport compact its nonzero bytes; then the event."""
+    def _transport(self, roll: torch.Tensor, packed,
+                   latent: Optional[torch.Tensor] = None) -> AsyncRolls:
+        """The device side of the transport: pack the roll (and the asked
+        rows' ``latent`` roll), and for the sparse transport compact the
+        roll's nonzero bytes; then the event."""
         out = bitpack.pack_rolls(roll)
+        lat = None if latent is None else bitpack.pack_rolls(latent)
         buf = count = None
         if packed == "sparse":
             buf, count = sparsebytes.sparse_pack(
@@ -220,7 +238,7 @@ class Generator:
         if out.is_cuda:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return AsyncRolls(out, event, buf, count)
+        return AsyncRolls(out, event, buf, count, lat)
 
     def _host(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """Copies of device tensors on the host, made on the copy stream
@@ -264,6 +282,14 @@ class Generator:
 
         Spans (utils/profiling): ``serve.drain.wait``, the wait for the
         event, and ``serve.drain.fetch``, the copies and the decode."""
+        return self.fetch_with_latents(out, size_hint)[0]
+
+    def fetch_with_latents(self, out: AsyncRolls,
+                           size_hint: Optional[int] = None
+                           ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """``fetch_rolls``'s rolls and the asked rows' model-space rolls
+        (R, n_steps, K', F) uint8, copied in the same copies (None where
+        no rows were asked for)."""
         with profiling.span("serve.drain.wait"):
             if out.event is not None:
                 out.event.synchronize()
@@ -272,26 +298,41 @@ class Generator:
                 return self._fetch_sparse_rolls(out, size_hint)
             return self._fetch_packed_rolls(out)
 
-    def _fetch_packed_rolls(self, out: AsyncRolls) -> np.ndarray:
-        (host,) = self._host([out.packed])
-        return bitpack.unpack_rolls(host.numpy(), self.cfg.model.n_pitches)
+    def _latents(self, host: List[torch.Tensor]) -> Optional[np.ndarray]:
+        """The asked rows' unpacked latent roll from the copies' tail."""
+        if not host:
+            return None
+        return bitpack.unpack_rolls(host[0].numpy(),
+                                    self.cfg.model.feature_dim())
+
+    def _extra(self, out: AsyncRolls) -> List[torch.Tensor]:
+        return [] if out.latent is None else [out.latent]
+
+    def _fetch_packed_rolls(self, out: AsyncRolls):
+        host = self._host([out.packed] + self._extra(out))
+        return (bitpack.unpack_rolls(host[0].numpy(),
+                                     self.cfg.model.n_pitches),
+                self._latents(host[1:]))
 
     def _fetch_sparse_rolls(self, out: AsyncRolls,
-                            size_hint: Optional[int]) -> np.ndarray:
+                            size_hint: Optional[int]):
         chunk = sparsebytes.FETCH_CHUNK
         cap = out.sparse.shape[0]
         n_pre = (sparsebytes.n_chunks(int(size_hint * 1.25), chunk)
                  if size_hint else 1)
         n_pre = min(n_pre, sparsebytes.n_chunks(cap, chunk))
-        got = self._host([out.count, out.sparse[:n_pre * chunk]])
+        got = self._host([out.count, out.sparse[:n_pre * chunk]]
+                         + self._extra(out))
         count = int(got[0])
+        latents = self._latents(got[2:])
         # an over-cap count is no size hint: it would prefetch the whole
         # buffer before the next overflow shows
         self.last_sparse_overflowed = count > cap
         self.last_sparse_count = None if self.last_sparse_overflowed \
             else count
         if self.last_sparse_overflowed:      # truncated records: frames
-            return self._fetch_packed_rolls(out)
+            return self._fetch_packed_rolls(out._replace(latent=None))[0], \
+                latents
         need = sparsebytes.n_chunks(count, chunk)
         parts = [got[1].numpy()]
         if need > n_pre:
@@ -299,7 +340,7 @@ class Generator:
                                                 need * chunk]])[0].numpy())
         buf = np.concatenate(parts) if len(parts) > 1 else parts[0]
         pk = sparsebytes.sparse_unpack(buf, count, tuple(out.packed.shape))
-        return bitpack.unpack_rolls(pk, self.cfg.model.n_pitches)
+        return bitpack.unpack_rolls(pk, self.cfg.model.n_pitches), latents
 
     def finalize(self, rolls: np.ndarray) -> np.ndarray:
         """Model-space rolls -> user-facing frame pianorolls: decode the data

@@ -1445,6 +1445,73 @@ def test_service_counts_the_rbm_lists(dev):
     assert 0 < got["gen.rbm_h_listed"] < got["gen.rbm_h_rows"]
 
 
+def test_per_track_dbn_service_against_the_reference(dev):
+    """The LPD-5 model (per-track DBN encoders, RNN-RBM decoders at
+    gen_k=25) served at its batch of 256, T=16, with latent rows: the
+    benchmark's plain reference replays every kept song's latent chain
+    and decode within its cell's limits; while the recorder times the
+    card each batch has one ``gen.dbn_decode`` inside its ``serve.card``
+    and the counters count every cell."""
+    import json
+    from pathlib import Path
+
+    from multinn_torch.serving.service import DBN_COUNTS
+    from multinn_torch.utils import profiling
+    from portbench import weights_dbn
+    from portbench.reference import model as ref
+    from portbench.reference import per_track_dbn, threefry
+    limits = json.loads((Path(__file__).resolve().parents[1] / "portbench"
+                         / "workloads" / "lpd5_multinn_rnnrbm.serve.json")
+                        .read_text())["limits"]
+    cfg = config.ExperimentConfig(
+        model=multinn.MultINNConfig(**DBN_RBM),
+        data=config.DataConfig(n_tracks=5, pitch_min=24, pitch_max=107),
+        generate=config.GenerateConfig(n_steps=16))
+    wts = weights_dbn.draw(cfg.model, 22, 2.75, dev)
+    rows = (0, 77, 200, 255)
+    svc = GenerationService(cfg, weights_dbn.port_params(cfg.model, wts),
+                            ServeConfig(batch=256, n_steps=16, seed=5),
+                            latent_rows=rows)
+    try:
+        profiling.enable(dev)
+        res = [f.result(timeout=300) for f in svc.submit_many(512)]
+    finally:
+        svc.close()
+        spans = profiling.collect()
+    kept = [r for r in res if r.latent is not None]
+    assert sorted(r.row for r in kept) == sorted(rows * 2)
+    ref.no_tf32()
+    keys = [threefry.fold_in(threefry.prng_key(5), r.batch_index)
+            for r in kept]
+    stack = lambda xs: torch.from_numpy(np.stack(xs)).to(dev, torch.float32)
+    lat, roll = stack([r.latent for r in kept]), stack([r.roll for r in kept])
+    assert 0.3 < float(lat.mean()) < 0.7 and 0.02 < float(roll.mean()) < 0.15
+    with torch.no_grad():
+        chain = per_track_dbn.latent_replay(wts, lat, keys,
+                                            [r.row for r in kept], 25)
+        dec = per_track_dbn.decode_replay(wts, lat, roll, keys,
+                                          [r.row for r in kept])
+    assert (float(chain["frames"].sum()) / (8 * chain["cells"])
+            <= limits["latent_frames_differing"])
+    assert float(chain["margin"].max()) <= limits["latent_worst_margin"]
+    assert (float(dec["cells"].sum()) / (8 * dec["cells_per_song"])
+            <= limits["decode_cells_differing"])
+    assert float(dec["margin"].max()) <= limits["decode_worst_margin"]
+    batches = {r.batch_index for r in res}
+    got = profiling.counts()
+    assert set(got) >= set(DBN_COUNTS)
+    assert got["gen.dbn_cells"] == len(batches) * 256 * 16 * 5 * 84
+    assert got["gen.dbn_latent_cells"] == len(batches) * 256 * 16 * 5 * 64
+    assert 0.3 < got["gen.dbn_latent_on"] / got["gen.dbn_latent_cells"] < 0.7
+    assert 0.02 < got["gen.dbn_notes"] / got["gen.dbn_cells"] < 0.15
+    decode = {s.ident: s for s in spans if s.name == "gen.dbn_decode"}
+    card = {s.ident: s for s in spans if s.name == "serve.card"}
+    assert set(decode) == set(card) == batches
+    for i in batches:
+        assert card[i].start_ns <= decode[i].start_ns < decode[i].end_ns \
+            <= card[i].end_ns + 1000
+
+
 # -- meshes on the card -------------------------------------------------------
 
 def test_nccl_world_one_dp_step(dev, tmp_path):
