@@ -11,10 +11,26 @@
 // global memory through a pointer chosen at launch. The weights of the cell
 // stack (Wx, Wh, Wctx: about 1 MB per track) stay in global memory and
 // L2. A matrix stored in bf16 (the capacity modes) takes half the bytes in
-// either place and is widened to f32 exactly where it is read. Per sample the CTA holds its tracks' h and c rows, a scratch row
-// (biases and chain state, then the gates), the frames of ALL tracks at
-// t - 1, its own tracks' frames at t (two buffers, by step parity), and
-// the rows' lists of nonzero entries.
+// either place and is widened to f32 exactly where it is read. Per sample
+// the CTA holds its tracks' h and c rows, a scratch row (biases and chain
+// state, then the gates), the frames of ALL tracks at t - 1, its own
+// tracks' frames at t (two buffers, by step parity), and the rows' lists
+// of nonzero entries.
+//
+// Every sample of a CTA reads the same Wh, Wx_r (and in the RBM kernel
+// Wuv, Wuh) in a step, so these dense products block samples per thread:
+// a thread owns one gate of a track slot for a slice of the CTA's samples
+// (block_slices: as many slices as keep the threads busy, at most
+// kMaxBlock samples a slice), reads each element of the gate's Wh column
+// once and multiplies it into one set of accumulators per sample, the h
+// rows coming as 16-byte broadcast loads from shared memory. The
+// per-sample gathers (Wx over the fresh row's list, Wctx over the previous
+// frames' lists) share no reads, and run a thread per (sample, gate) in
+// list order, 16 loads in flight, adding the sliced h Wh from the gate's
+// slot. Where every slice holds one sample (a lone song, or few samples of
+// narrow cells) the whole stack runs a thread per (sample, gate). Each sum
+// keeps the order it has with one sample a thread, so the two agree bit
+// for bit.
 //
 // The tracks of a sample couple only through the previous frame of all
 // tracks (the feedback context). So a step is local to each CTA until its
@@ -51,8 +67,26 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;      // the portable cluster size
 constexpr int kMaxMatrices = 4;     // per-step weight matrices per track
+constexpr int kMaxBlock = 6;        // samples a thread blocks at most
 
 __host__ __device__ constexpr int chunks_of(int n) { return (n + 31) / 32; }
+
+// Slices of a CTA's ns samples for a phase of `outputs` (track slot,
+// output) pairs a sample: a thread owns an output for one slice, so one
+// read of the output's weight column serves the slice. As many slices as
+// keep the CTA's threads busy, at least enough to hold a slice within
+// kMaxBlock samples, at most ns (then one sample a thread).
+// ops/gen_common.py::block_slices mirrors it for the host's counters. The
+// sliced code's accumulators raise a kernel's register pressure even where
+// it does not run, so each kernel is built with it (kSliced) and without,
+// and a launch whose full clusters slice nothing takes the latter.
+__host__ __device__ constexpr int block_slices(int ns, int outputs) {
+  const int fill = kThreads / (outputs > 0 ? outputs : 1);
+  const int least = (ns + kMaxBlock - 1) / kMaxBlock;
+  const int n = fill > least ? fill : least;
+  return n < ns ? n : ns;
+}
+
 __host__ __device__ constexpr int64_t align16(int64_t x) {
   return (x + 15) & ~int64_t{15};
 }
@@ -211,6 +245,77 @@ __device__ __forceinline__ float dot(const float* x, const T* w, int64_t ld,
   float acc = (a0 + a1) + (a2 + a3);
   for (; i < n; ++i) acc = fmaf(xv(i), wload(w + i * ld), acc);
   return acc;
+}
+
+// dot over the rows x + q * xs of a slice's nb <= kB samples: out[q] =
+// dot<kRoundX>(x + q * xs, w, ld, n) bit for bit (each sample's terms in
+// its own four accumulators by i mod 4, then the tail), each w[i * ld]
+// read once for all of them, 16 at a time in flight. kVec: x is 16-byte
+// aligned (xs, a sample's floats, always is), so a sample's four x come
+// in one broadcast load.
+template <int kB, bool kRoundX, bool kVec, typename T>
+__device__ __forceinline__ void dot_slice_rows(const float* x, int xs, int nb,
+                                               const T* w, int64_t ld, int n,
+                                               float (&out)[kB]) {
+  float a[kB][4];
+#pragma unroll
+  for (int q = 0; q < kB; ++q) a[q][0] = a[q][1] = a[q][2] = a[q][3] = 0.f;
+  auto four = [&](int i, float w0, float w1, float w2, float w3) {
+#pragma unroll
+    for (int q = 0; q < kB; ++q) {
+      if (q < nb) {
+        const float* xq = x + q * xs + i;
+        float4 v = kVec ? *reinterpret_cast<const float4*>(xq)
+                        : make_float4(xq[0], xq[1], xq[2], xq[3]);
+        if (kRoundX) {
+          v.x = round_bf16(v.x);
+          v.y = round_bf16(v.y);
+          v.z = round_bf16(v.z);
+          v.w = round_bf16(v.w);
+        }
+        a[q][0] = fmaf(v.x, w0, a[q][0]);
+        a[q][1] = fmaf(v.y, w1, a[q][1]);
+        a[q][2] = fmaf(v.z, w2, a[q][2]);
+        a[q][3] = fmaf(v.w, w3, a[q][3]);
+      }
+    }
+  };
+  constexpr int kRows = 16;
+  int i = 0;
+  for (; i + kRows <= n; i += kRows) {
+    float wv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) wv[r] = wload(w + (i + r) * ld);
+#pragma unroll
+    for (int r = 0; r < kRows; r += 4)
+      four(i + r, wv[r], wv[r + 1], wv[r + 2], wv[r + 3]);
+  }
+  for (; i + 4 <= n; i += 4)
+    four(i, wload(w + i * ld), wload(w + (i + 1) * ld),
+         wload(w + (i + 2) * ld), wload(w + (i + 3) * ld));
+#pragma unroll
+  for (int q = 0; q < kB; ++q)
+    out[q] = (a[q][0] + a[q][1]) + (a[q][2] + a[q][3]);
+  for (; i < n; ++i) {
+    const float wi = wload(w + i * ld);
+#pragma unroll
+    for (int q = 0; q < kB; ++q) {
+      if (q < nb) {
+        const float xi = x[q * xs + i];
+        out[q] = fmaf(kRoundX ? round_bf16(xi) : xi, wi, out[q]);
+      }
+    }
+  }
+}
+
+template <int kB, bool kRoundX = false, typename T>
+__device__ __forceinline__ void dot_slice(const float* x, int xs, int nb,
+                                          const T* w, int64_t ld, int n,
+                                          float (&out)[kB]) {
+  if ((reinterpret_cast<uintptr_t>(x) & 15) == 0)
+    dot_slice_rows<kB, kRoundX, true>(x, xs, nb, w, ld, n, out);
+  else
+    dot_slice_rows<kB, kRoundX, false>(x, xs, nb, w, ld, n, out);
 }
 
 // The CTA's view of its shared memory and of its samples and tracks.
@@ -394,22 +499,72 @@ struct CellWeights {
   int given_mask;
 };
 
+// The dense products of layer l for `slices` slices of the CTA's samples
+// (a thread per (slice, track slot, gate)), each summed as dot sums it:
+// layer 0's h Wh into the gates' slots, for the per-sample gathers to add
+// to; layer l >= 1's whole gate sum (x Wx_r + h Wh) + b.
+template <typename WxT, typename WctxT, typename WrT>
+__device__ __forceinline__ void gates_sliced(
+    const Cta& ct, const CellWeights<WxT, WctxT, WrT>& cw, int l,
+    int slices) {
+  constexpr int kB = kMaxBlock;
+  const int K = ct.k, U = ct.u, G = cw.g;
+  const int xs = static_cast<int>(ct.p.sample_bytes / 4);
+  for (int o = threadIdx.x; o < slices * ct.ntr * G; o += kThreads) {
+    const int r = o / G, gg = o - r * G;
+    const int sl = r / ct.ntr, j = r - sl * ct.ntr;
+    const int s0 = sl * ct.ns / slices;
+    const int nb = (sl + 1) * ct.ns / slices - s0;
+    const int k_ = ct.track(j);
+    float rec[kB], zin[kB];
+    dot_slice<kB>(ct.h(s0, j) + l * U, xs, nb,
+                  cw.wh + (static_cast<int64_t>(l) * K + k_) * U * G + gg, G,
+                  U, rec);
+    if (l > 0) {
+      dot_slice<kB>(
+          ct.h(s0, j) + (l - 1) * U, xs, nb,
+          cw.wx_r + (static_cast<int64_t>(l - 1) * K + k_) * U * G + gg, G,
+          U, zin);
+      const float bias = cw.b[static_cast<int64_t>(l) * K * G + k_ * G + gg];
+#pragma unroll
+      for (int q = 0; q < kB; ++q) rec[q] = (zin[q] + rec[q]) + bias;
+    }
+#pragma unroll
+    for (int q = 0; q < kB; ++q)
+      if (q < nb) ct.scratch(s0 + q, j)[gg] = rec[q];
+  }
+}
+
 // Advance the stacked cells of the CTA's groups: layer 0 reads the fresh
 // frame (the own rows of parity `buf`, through their lists) plus, with
 // wctx, the previous frame of all tracks; layer l >= 1 the fresh h of
 // layer l - 1. The gate sum is ((x Wx + ctx) + h Wh) + b with ctx summed per
 // source track (kNadeOrder, the NADE kernel's order), else
 // ((x Wx + h Wh) + b) + ctx with ctx summed over all source rows. Uses
-// each group's scratch row for the gates; ends with a CTA barrier.
-template <bool kLstm, bool kNadeOrder, typename WxT, typename WctxT,
-          typename WrT>
+// each group's scratch row for the gates; ends with a CTA barrier. In a
+// kernel built kSliced, where block_slices gives fewer slices than
+// samples, gates_sliced first takes the dense products for slices of
+// samples (layer 0's h Wh, kept in the gates' slots; layer l >= 1's whole
+// sum), and layer 0's gathers then run a thread per (sample, gate), as
+// every layer does otherwise.
+template <bool kLstm, bool kNadeOrder, bool kSliced, typename WxT,
+          typename WctxT, typename WrT>
 __device__ void cell_stack(const Cta& ct,
                            const CellWeights<WxT, WctxT, WrT>& cw, int buf) {
   const int tid = threadIdx.x;
   const int K = ct.k, D = ct.d, U = ct.u, G = cw.g, L = ct.n_layers;
   const int KG = K * G;
+  const int slices = kSliced ? block_slices(ct.ns, ct.ntr * G) : ct.ns;
+  const bool sliced = slices < ct.ns;
   for (int l = 0; l < L; ++l) {
-    for (int o = tid; o < ct.n_groups() * G; o += kThreads) {
+    if constexpr (kSliced) {
+      if (sliced) {
+        gates_sliced(ct, cw, l, slices);
+        if (l == 0) __syncthreads();
+      }
+    }
+    for (int o = tid; (!sliced || l == 0) && o < ct.n_groups() * G;
+         o += kThreads) {
       const int grp = o / G, gg = o - grp * G;
       const int s = grp / ct.ntr, j = grp - s * ct.ntr;
       const int k_ = ct.track(j);
@@ -442,8 +597,10 @@ __device__ void cell_stack(const Cta& ct,
                   G, U);
       }
       const float rec =
-          dot(ct.h(s, j) + l * U,
-              cw.wh + (static_cast<int64_t>(l) * K + k_) * U * G + gg, G, U);
+          sliced ? ct.scratch(s, j)[gg]
+                 : dot(ct.h(s, j) + l * U,
+                       cw.wh + (static_cast<int64_t>(l) * K + k_) * U * G + gg,
+                       G, U);
       const float bias = cw.b[static_cast<int64_t>(l) * KG + k_ * G + gg];
       float z;
       if (kNadeOrder) {

@@ -27,8 +27,11 @@
 // capacity mode) and Wuv (bf16) in shared memory. The own-frame
 // projection z = sum_i x_i Wx_i leaves the serial loop: the cell stack
 // gathers it over the sampled frame's active dims, in increasing i, which
-// is the same sequence of exact f32 adds from 0 as the per-dim update. The cell stack and the frame exchange are the
-// RBM kernel's. No block barrier inside the sweep.
+// is the same sequence of exact f32 adds from 0 as the per-dim update.
+// The cell stack (h Wh a thread per gate for a slice of the CTA's samples,
+// one read of Wh serving the slice; the context summed per source track)
+// and the frame exchange are the RBM kernel's. No block barrier inside the
+// sweep.
 //
 // The sweep, at the depth a.spec (1, 2 or 4 dividing D; 0: auto, which
 // the launcher resolves, nade_auto_depth):
@@ -344,7 +347,7 @@ __device__ __forceinline__ uint32_t sweep_team(const float* sc,
   return bits;
 }
 
-template <bool kLstm, int kSpec, typename AuxT>
+template <bool kLstm, int kSpec, typename AuxT, bool kSliced>
 __global__ void __launch_bounds__(kThreads, 1)
     gen_fused_nade_kernel(NadeArgs a, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -464,23 +467,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // 4. the cell stack, then the fresh frames of all tracks become the
     //    previous ones
-    gen_cluster::cell_stack<kLstm, true>(ct, cw, buf);
+    gen_cluster::cell_stack<kLstm, true, kSliced>(ct, cw, buf);
     gen_cluster::gather_frames(ct, buf);
   }
   gen_cluster::store_state(ct, a.h_out, a.c_out);
 }
 
-// The kernel of a launch: cells, sweep depth and aux storage type.
-template <typename AuxT>
+// The kernel of a launch: cells, sweep depth, aux storage type and
+// whether its cell stack slices the samples (gen_cluster::block_slices).
+template <typename AuxT, bool kSliced>
 void (*nade_kernel(bool lstm, int depth))(NadeArgs, Plan) {
   if (depth == 4)
-    return lstm ? gen_fused_nade_kernel<true, 4, AuxT>
-                : gen_fused_nade_kernel<false, 4, AuxT>;
+    return lstm ? gen_fused_nade_kernel<true, 4, AuxT, kSliced>
+                : gen_fused_nade_kernel<false, 4, AuxT, kSliced>;
   if (depth == 2)
-    return lstm ? gen_fused_nade_kernel<true, 2, AuxT>
-                : gen_fused_nade_kernel<false, 2, AuxT>;
-  return lstm ? gen_fused_nade_kernel<true, 1, AuxT>
-              : gen_fused_nade_kernel<false, 1, AuxT>;
+    return lstm ? gen_fused_nade_kernel<true, 2, AuxT, kSliced>
+                : gen_fused_nade_kernel<false, 2, AuxT, kSliced>;
+  return lstm ? gen_fused_nade_kernel<true, 1, AuxT, kSliced>
+              : gen_fused_nade_kernel<false, 1, AuxT, kSliced>;
 }
 
 }  // namespace
@@ -514,21 +518,27 @@ const char* launch_gen_fused_nade(const NadeArgs& a, void* stream,
     return "gen_fused_nade: the speculative depth must be 1, 2 or 4 and "
            "divide D (0: auto)";
   const Plan p = plan_gen_fused_nade(a, kSmemLimitBytes);
-  auto kernel = [&](int depth) {
-    return a.aux_bf16 ? nade_kernel<uint16_t>(a.lstm, depth)
-                      : nade_kernel<float>(a.lstm, depth);
+  auto kernel = [&](int depth, bool sliced) {
+    if (sliced)
+      return a.aux_bf16 ? nade_kernel<uint16_t, true>(a.lstm, depth)
+                        : nade_kernel<float, true>(a.lstm, depth);
+    return a.aux_bf16 ? nade_kernel<uint16_t, false>(a.lstm, depth)
+                      : nade_kernel<float, false>(a.lstm, depth);
   };
-  int spec = a.spec;
-  if (!asked) {
-    // the auto depth follows the launch's groups per CTA: the plan of the
-    // launch, made without launching
-    int64_t plan[kLaunchShapeFields];
-    const char* err = gen_cluster::launch(kernel(1), a, p, a.batch, stream,
-                                          plan);
-    if (err != nullptr) return err;
-    spec = nade_auto_depth(a.d, static_cast<int>(plan[1] * plan[6]));
-  }
-  return gen_cluster::launch(kernel(spec), a, p, a.batch, stream, shape);
+  // the auto depth and the slicing follow the launch's samples a cluster:
+  // the plan of the launch, made without launching
+  int64_t plan[kLaunchShapeFields];
+  const char* err = gen_cluster::launch(kernel(1, false), a, p, a.batch,
+                                        stream, plan);
+  if (err != nullptr) return err;
+  const int spec =
+      asked ? a.spec
+            : nade_auto_depth(a.d, static_cast<int>(plan[1] * plan[6]));
+  const int s = static_cast<int>(plan[6]);
+  const bool sliced =
+      gen_cluster::block_slices(s, static_cast<int>(plan[1]) * a.g) < s;
+  return gen_cluster::launch(kernel(spec, sliced), a, p, a.batch, stream,
+                             shape);
 }
 
 }  // namespace multinn_torch

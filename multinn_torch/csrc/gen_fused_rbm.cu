@@ -26,10 +26,14 @@
 // banks), Wuh and Wuv in shared memory, so the biases and all 2*gen_k
 // Gibbs passes read no global memory and need only the CTA's own barrier.
 // The cell stack reads Wx and Wctx over the active rows of the fresh and
-// the previous frame, Wh densely, one thread per gate (coalesced). Tracks
-// swap their frames once per step through distributed shared memory. The
-// S samples of a cluster share its shared-memory weights, S = ceil(B /
-// the clusters the card holds), so large batches run in one wave.
+// the previous frame, a thread per (sample, gate), and Wh densely, a
+// thread per gate (coalesced) for a slice of the CTA's samples: each Wh
+// element read from L2 serves the slice (gen_cluster::cell_stack). The
+// conditioned biases are sliced the same way, a thread per output of Wuv
+// or Wuh for a slice. Tracks swap their frames once per step through
+// distributed shared memory. The S samples of a cluster share its
+// shared-memory weights, S = ceil(B / the clusters the card holds), so
+// large batches run in one wave.
 //
 // The Gibbs passes walk lists. One operand of every Gibbs product is a
 // binary sample, so a pass sums only the weight rows of the units that
@@ -63,8 +67,11 @@
 // passes 55.6 ms a launch at B=8 (seeded weights), 44.3 at the served
 // density, 270-272 at B=256; over lists 49.5, 35.1 and 175.6. A sweep at
 // B=256 went from 15.4 to 6.1 us a step; the rest of the step (biases,
-// cell stack, frame exchange) is now about two thirds of it. Before the
-// clusters, one CTA per sample took 523 and 563 ms.
+// cell stack, frame exchange) was then about two thirds of it. Sliced
+// biases and h Wh (slices of up to 6 samples, a kernel built with and one
+// without them) took B=256 at the served density from 174.9 to 157.2 ms,
+// B=128 106.1 to 102.2, and left B=8 at 35.0. Before the clusters, one
+// CTA per sample took 523 and 563 ms.
 //
 // Random stream: the TPU kernel draws (B, K*H) and (B, K*D) uniforms per
 // sweep at salts seed[1] + t*2*gen_k + 2s (+1 for v), so the draw of sample
@@ -293,7 +300,7 @@ __host__ __device__ constexpr int w_pitch(int h) {
   return sizeof(WT) == 4 ? (h | 1) : h + ((2 - h) & 3);
 }
 
-template <bool kLstm, typename WT, int kR>
+template <bool kLstm, typename WT, int kR, bool kSliced>
 __global__ void __launch_bounds__(kThreads, 1)
     gen_fused_rbm_kernel(RbmArgs a, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -450,10 +457,44 @@ __global__ void __launch_bounds__(kThreads, 1)
     }, 32 * ((DC + R - 1) / R));
   };
 
+  // the conditioned biases' slices of the CTA's samples
+  const int bias_slices =
+      kSliced ? gen_cluster::block_slices(ct.ns, ct.ntr * (D + H)) : ct.ns;
+
   for (int t = 0; t < T; ++t) {
     const int buf = t & 1;           // parity buffer of the fresh rows
-    // 1. biases from the TOP layer's previous h
-    for (int o = tid; o < NG * (D + H); o += kThreads) {
+    // 1. biases from the TOP layer's previous h: a thread per (slice,
+    //    track slot, output) where the samples are sliced, each read of a
+    //    Wuv or Wuh column serving the slice, else per (sample, output)
+    if (kSliced && bias_slices < ct.ns) {
+      constexpr int kB = gen_cluster::kMaxBlock;
+      const int xs = static_cast<int>(p.sample_bytes / 4);
+      for (int o = tid; o < bias_slices * ct.ntr * (D + H); o += kThreads) {
+        const int r = o / (D + H), e = o - r * (D + H);
+        const int sl = r / ct.ntr, j = r - sl * ct.ntr, k = ct.track(j);
+        const int s0 = sl * ct.ns / bias_slices;
+        const int nb = (sl + 1) * ct.ns / bias_slices - s0;
+        const float* ht = ct.h(s0, j) + (L - 1) * U;
+        float acc[kB];
+        float bias;
+        if (e < D) {
+          const WT* wuv = ct.matrix(kWuv, j, gwuv, U * D);
+          gen_cluster::dot_slice<kB, kRound>(ht, xs, nb, wuv + e, D, U, acc);
+          bias = a.bv[k * D + e];
+        } else {
+          const int jj = e - D;
+          const WT* wuh = ct.matrix(kWuh, j, gwuh, U * H);
+          gen_cluster::dot_slice<kB, kRound>(ht, xs, nb, wuh + jj, H, U,
+                                             acc);
+          bias = a.bh[k * H + jj];
+        }
+#pragma unroll
+        for (int q = 0; q < kB; ++q)
+          if (q < nb) ct.scratch(s0 + q, j)[e] = bias + acc[q];
+      }
+    }
+    for (int o = tid; bias_slices == ct.ns && o < NG * (D + H);
+         o += kThreads) {
       const int grp = o / (D + H), e = o - grp * (D + H);
       const int s = grp / ct.ntr, j = grp - s * ct.ntr, k = ct.track(j);
       const float* ht = ct.h(s, j) + (L - 1) * U;
@@ -496,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // 4. the cell stack, then the fresh frames of all tracks become the
     //    previous ones
-    gen_cluster::cell_stack<kLstm, false>(ct, cw, buf);
+    gen_cluster::cell_stack<kLstm, false, kSliced>(ct, cw, buf);
     gen_cluster::gather_frames(ct, buf);
   }
   gen_cluster::store_state(ct, a.h_out, a.c_out);
@@ -545,28 +586,41 @@ const char* launch_gen_fused_rbm(const RbmArgs& a, void* stream,
   if (a.k > 31)
     return "gen_fused_rbm: the given-track mask takes at most 31 tracks";
   const Plan p = plan_gen_fused_rbm(a, kSmemLimitBytes);
-  // [bf16][lstm][R == 3]
+  // [bf16][lstm][R == 3][sliced]
   using Kernel = void (*)(RbmArgs, Plan);
-  const Kernel kernels[2][2][2] = {
-      {{gen_fused_rbm_kernel<false, float, 1>,
-        gen_fused_rbm_kernel<false, float, 3>},
-       {gen_fused_rbm_kernel<true, float, 1>,
-        gen_fused_rbm_kernel<true, float, 3>}},
-      {{gen_fused_rbm_kernel<false, uint16_t, 1>,
-        gen_fused_rbm_kernel<false, uint16_t, 3>},
-       {gen_fused_rbm_kernel<true, uint16_t, 1>,
-        gen_fused_rbm_kernel<true, uint16_t, 3>}}};
-  const Kernel* by_r = kernels[a.w_bf16 != 0][a.lstm != 0];
-  // the launch's shape (samples a cluster) decides R
+  const Kernel kernels[2][2][2][2] = {
+      {{{gen_fused_rbm_kernel<false, float, 1, false>,
+         gen_fused_rbm_kernel<false, float, 1, true>},
+        {gen_fused_rbm_kernel<false, float, 3, false>,
+         gen_fused_rbm_kernel<false, float, 3, true>}},
+       {{gen_fused_rbm_kernel<true, float, 1, false>,
+         gen_fused_rbm_kernel<true, float, 1, true>},
+        {gen_fused_rbm_kernel<true, float, 3, false>,
+         gen_fused_rbm_kernel<true, float, 3, true>}}},
+      {{{gen_fused_rbm_kernel<false, uint16_t, 1, false>,
+         gen_fused_rbm_kernel<false, uint16_t, 1, true>},
+        {gen_fused_rbm_kernel<false, uint16_t, 3, false>,
+         gen_fused_rbm_kernel<false, uint16_t, 3, true>}},
+       {{gen_fused_rbm_kernel<true, uint16_t, 1, false>,
+         gen_fused_rbm_kernel<true, uint16_t, 1, true>},
+        {gen_fused_rbm_kernel<true, uint16_t, 3, false>,
+         gen_fused_rbm_kernel<true, uint16_t, 3, true>}}}};
+  const auto& by_r = kernels[a.w_bf16 != 0][a.lstm != 0];
+  // the launch's shape (samples a cluster) decides R and the slicing
   int64_t sh[kLaunchShapeFields];
-  const char* err = gen_cluster::launch(by_r[0], a, p, a.batch, stream, sh);
+  const char* err =
+      gen_cluster::launch(by_r[0][0], a, p, a.batch, stream, sh);
   if (err != nullptr || shape != nullptr) {
     if (err == nullptr) std::copy(sh, sh + kLaunchShapeFields, shape);
     return err;
   }
-  const int r = rbm_outputs_per_thread(static_cast<int>(sh[1] * sh[6]),
-                                      a.d, a.hid);
-  return gen_cluster::launch(by_r[r == 3], a, p, a.batch, stream, nullptr);
+  const int tpc = static_cast<int>(sh[1]), s = static_cast<int>(sh[6]);
+  const int r = rbm_outputs_per_thread(tpc * s, a.d, a.hid);
+  const bool sliced =
+      gen_cluster::block_slices(s, tpc * a.g) < s ||
+      gen_cluster::block_slices(s, tpc * (a.d + a.hid)) < s;
+  return gen_cluster::launch(by_r[r == 3][sliced], a, p, a.batch, stream,
+                             nullptr);
 }
 
 }  // namespace multinn_torch

@@ -278,6 +278,9 @@ def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
     none = torch.empty(0, device=dev)
     mask = sum(1 << t for t in given_tracks)
     with torch.cuda.device(dev):
+        gen_common.count_cells(False, *args.w.shape, *args.wh.shape[2:],
+                               args.wh.shape[0], b, n_steps,
+                               args.w.dtype == torch.bfloat16, dev)
         _build.launches["gen_fused_rbm"] += 1
         _build.ops().gen_fused_rbm(
             roll, h_out, c_out, args.w, args.wuv, args.wuh, args.bv,

@@ -1415,10 +1415,104 @@ def test_rbm_each_outputs_per_thread_matches_plain(dev):
     assert seen == {1, 3}
 
 
+# -- the cell stack's samples sliced per thread -------------------------------
+
+@pytest.mark.parametrize("family", ["rnn-rbm", "rnn-nade"])
+@pytest.mark.parametrize("case", ["base", "given", "layers2", "bf16"])
+def test_sliced_samples_bit_equal_to_each_sample_alone(dev, family, case):
+    """The whole-generation kernels at the flagship, T=8, at B = 8, 96,
+    256 and 300 (1, about 5, 12 and 14 samples a cluster, the last
+    cluster partial): the cell stack and #2's biases slice a CTA's samples
+    by the plan's samples a cluster (gen_common.block_slices), and every
+    sample's roll and final h / c are bit-equal to the same sample
+    launched alone through the row map, one sample a cluster; with given
+    tracks, two layers and the bf16 storage modes too."""
+    nade = family == "rnn-nade"
+    layers = 2 if case == "layers2" else 1
+    params = _params(_cluster_model(family, 5, layers=layers), dev)
+    n_steps = 8
+    extra = {}
+    if case == "bf16":
+        extra = {"aux_dtype" if nade else "wdtype": torch.bfloat16}
+    sliced = set()
+    for batch in (8, 96, 256, 300):
+        plan = dict(zip(PLAN_FIELDS, _build.ops().gen_fused_plan(
+            int(nade), 5, 84, 150, 100, layers, 1, batch,
+            int(case == "bf16"))))
+        sliced.add(gen_common.block_slices(plan["samples"], 400)
+                   < plan["samples"])
+        dstate = _primed(params, batch, dev, seed=batch).decoder
+        h0 = torch.stack([s.h for s in dstate.cell])
+        c0 = torch.stack([s.c for s in dstate.cell])
+        given = None
+        if case == "given":
+            given = (torch.rand(batch, n_steps, 5, 84, generator=torch
+                                .Generator().manual_seed(batch)) < 0.1
+                     ).float().to(dev)
+        key = sampling.PRNGKey(batch, device=dev)
+
+        def run(sl, rows):
+            args = (key, params.decoder, h0[:, :, sl], c0[:, :, sl],
+                    dstate.v_prev[:, sl], n_steps)
+            kw = dict(extra, rows=rows, impl="cuda")
+            if given is not None:
+                kw.update(given=given[sl], given_tracks=(1, 3))
+            if nade:
+                return gen_fused_nade.generate_nade(*args, **kw)
+            return gen_fused_rbm.generate_rbm(*args, 10, **kw)
+
+        roll, h, c = run(slice(None), None)
+        for b in range(batch):
+            r1, h1, c1 = run(slice(b, b + 1), (b, batch))
+            assert torch.equal(r1, roll[b:b + 1]), (batch, b)
+            assert torch.equal(h1, h[:, :, b:b + 1]), (batch, b)
+            assert torch.equal(c1, c[:, :, b:b + 1]), (batch, b)
+    assert sliced == {False, True}
+
+
+def test_service_counts_the_cell_stacks_reads(dev):
+    """While the span recorder times the card, each launch of a service's
+    fused kernel adds its cell stack's (sample, track) rows and reads of
+    a track's Wh, from the launch's plan: at B=256 of the flagship a read
+    serves about a slice's samples (the plan's samples a cluster, at most
+    gen_common.MAX_BLOCK), at B=8 one sample."""
+    from multinn_torch.utils import profiling
+    for family, batch in (("rnn-rbm", 256), ("rnn-nade", 256),
+                          ("rnn-rbm", 8)):
+        cfg = config.ExperimentConfig(
+            model=multinn.MultINNConfig(**dict(FLAGSHIP,
+                                               decoder_type=family)),
+            data=config.DataConfig(n_tracks=5, pitch_min=24, pitch_max=107),
+            generate=config.GenerateConfig(n_steps=16))
+        svc = GenerationService(cfg, _params(cfg.model, dev),
+                                ServeConfig(batch=batch, n_steps=16))
+        try:
+            for f in svc.submit_many(1):
+                f.result(timeout=300)
+            profiling.enable(dev)
+            res = [f.result(timeout=300) for f in svc.submit_many(batch)]
+        finally:
+            svc.close()
+            profiling.collect()
+        got = profiling.counts()
+        batches = len({r.batch_index for r in res})
+        plan = _build.ops().gen_fused_plan(int(family == "rnn-nade"), 5, 84,
+                                           150, 100, 1, 1, batch)
+        rows, reads = gen_common.cell_counts(plan, batch, 5, 400, 1, 16)
+        assert got[gen_common.CELL_COUNTS[0]] == batches * rows
+        assert got[gen_common.CELL_COUNTS[1]] == batches * reads
+        most = min(dict(zip(PLAN_FIELDS, plan))["samples"],
+                   gen_common.MAX_BLOCK)
+        per_read = rows / reads
+        assert (per_read == 1 if batch == 8
+                else most / 2 < per_read <= most)
+
+
 def test_service_counts_the_rbm_lists(dev):
     """While the span recorder times the card, an RBM service adds each
     batch's list counters to the recorder's counts after the drain's
-    wait: rows of every pass of every batch, listed units within them."""
+    wait: rows of every pass of every batch, listed units within them;
+    its launches add the cell stack's counters beside them."""
     from multinn_torch.serving.service import RBM_COUNTS
     from multinn_torch.utils import profiling
     cfg = config.ExperimentConfig(
@@ -1438,7 +1532,7 @@ def test_service_counts_the_rbm_lists(dev):
     got = profiling.counts()
     batches = len({r.batch_index for r in res})
     per_batch = 4 * 32 * FLAGSHIP["gen_k"] * 5
-    assert set(got) == set(RBM_COUNTS)
+    assert set(got) == set(RBM_COUNTS) | set(gen_common.CELL_COUNTS)
     assert got["gen.rbm_v_rows"] == batches * per_batch * 84
     assert got["gen.rbm_h_rows"] == batches * per_batch * 150
     assert 0 < got["gen.rbm_v_listed"] < got["gen.rbm_v_rows"]

@@ -340,3 +340,141 @@ def test_nade_wrapper_hands_the_op_the_resolved_depth(recorder, monkeypatch,
         "gen_fused_nade"]
     assert (got, lstm, mask, row0, total) == (want, 1, 0, 0, 2)
     assert set(recorder.calls) == {"gen_fused_nade"}
+
+
+# -- the cell stack's samples sliced per thread (gen_common.block_slices) -----
+
+def test_block_slices_constants_are_the_kernels():
+    """gen_common's mirror of the slicing rule reads the kernel's constants:
+    the CTA's threads and the most samples a thread blocks."""
+    from multinn_torch.ops import gen_common
+    src = (CSRC / "gen_cluster.cuh").read_text()
+    assert f"constexpr int kThreads = {gen_common.THREADS};" in src
+    assert f"constexpr int kMaxBlock = {gen_common.MAX_BLOCK};" in src
+
+
+@pytest.mark.parametrize("ns,outputs,want", [
+    (1, 400, 1), (2, 400, 1), (6, 400, 1),       # the flagship's gates
+    (7, 400, 2), (12, 400, 2), (13, 400, 3),     # at most 6 a slice
+    (1, 234, 1), (2, 234, 2), (3, 234, 2),       # #2's biases (D + H)
+    (12, 234, 2), (13, 234, 3),
+    (4, 32, 4), (20, 32, 16),                    # narrow cells fill
+    (5, 800, 1), (13, 800, 3),                   # two track slots
+    (7, 0, 7)])
+def test_block_slices(ns, outputs, want):
+    from multinn_torch.ops import gen_common
+    assert gen_common.block_slices(ns, outputs) == want
+
+
+def _flagship_plan(batch, k=5, clusters=22, s_max=14):
+    """The fields of gen_fused_plan for a launch of ``batch`` (the launcher's
+    rule: S = ceil(B / the clusters the card holds) within s_max)."""
+    c = min(k, 8)
+    s = max(1, min(s_max, -(-batch // clusters)))
+    return (c, -(-k // c), 7, 0, 0, s_max, s, -(-batch // s), clusters)
+
+
+def _walk_cell_stack(plan, batch, k, g):
+    """(rows, reads) of one layer and step, walked as the kernels' threads
+    walk them: every CTA's items (slice, track slot, gate) of
+    gates_sliced, or its (sample, gate) items where the slices are its
+    samples; a read of a track's Wh is one (slice, track slot) at gate 0."""
+    from multinn_torch.ops import gen_common
+    c, s, grid = plan[0], plan[6], plan[7]
+    rows = reads = 0
+    seen = set()
+    for cl in range(grid):
+        ns = min(s, batch - cl * s)
+        for r in range(c):
+            ntr = (k - r + c - 1) // c
+            slices = gen_common.block_slices(ns, ntr * g)
+            for o in range(slices * ntr * g):
+                sl, gg = divmod(o, g)
+                sl, j = divmod(sl, ntr)
+                s0, s1 = sl * ns // slices, (sl + 1) * ns // slices
+                assert 1 <= s1 - s0 <= gen_common.MAX_BLOCK
+                if gg == 0:
+                    reads += 1
+                    rows += s1 - s0
+                    seen.update((cl * s + b, r + j * c)
+                                for b in range(s0, s1))
+    assert seen == {(b, t) for b in range(batch) for t in range(k)}
+    return rows, reads
+
+
+@pytest.mark.parametrize("batch", [1, 8, 22, 23, 96, 128, 256, 300])
+@pytest.mark.parametrize("k,g,layers", [(5, 400, 1), (5, 400, 2),
+                                        (1, 400, 1), (10, 400, 1),
+                                        (3, 16, 1)])
+def test_cell_counts_follow_the_plan(batch, k, g, layers):
+    """gen.cell_sample_rows and gen.cell_weight_reads of a launch equal the
+    kernels' walk of their items under the launch's plan, once a layer
+    and step; at B=256 of the flagship a read of Wh serves 5.95 samples
+    (the plan's 12 a cluster in two slices, the last cluster's 4 in one),
+    at B <= 22 one."""
+    from multinn_torch.ops import gen_common
+    plan = _flagship_plan(batch, k)
+    rows, reads = _walk_cell_stack(plan, batch, k, g)
+    assert rows == batch * k
+    assert gen_common.cell_counts(plan, batch, k, g, layers, 7) == (
+        rows * layers * 7, reads * layers * 7)
+    if (k, g, batch) == (5, 400, 256):
+        assert (rows, reads) == (1280, 215)
+    if batch <= 22 and g == 400:
+        assert reads == rows
+
+
+@pytest.mark.parametrize("family,bf16", [("rnn-rbm", False),
+                                         ("rnn-rbm", True),
+                                         ("rnn-nade", False),
+                                         ("rnn-nade", True)])
+def test_wrappers_count_the_cell_stack_from_the_plan(recorder, monkeypatch,
+                                                     family, bf16):
+    """generate_rbm / generate_nade on the CPU through the CUDA path, the
+    ops replaced by the recorder: while the span recorder times the card,
+    a launch adds gen_common.cell_counts of the plan the gen_fused_plan op
+    gives for its shape and storage; with the recorder off nothing is
+    counted and no plan is queried."""
+    from multinn_torch.models import multinn
+    from multinn_torch.ops import gen_common, gen_fused_nade, gen_fused_rbm
+    from multinn_torch.utils import profiling
+    nade = family == "rnn-nade"
+    plan = _flagship_plan(3, s_max=9)
+    asked = []
+    recorder.gen_fused_plan = lambda *a: asked.append(a) or list(plan) + [1]
+    monkeypatch.setattr(_build, "impl_for", lambda impl, x: "cuda")
+    cfg = multinn.MultINNConfig(n_tracks=5, n_pitches=84, mode="feedback",
+                                decoder_type=family, n_hidden=150,
+                                n_rnn=100, rnn_layers=2)
+    params = multinn.init(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    st = multinn.init_state(params, 3)
+    args = (sampling.PRNGKey(0), params.decoder,
+            torch.stack([c.h for c in st.decoder.cell]),
+            torch.stack([c.c for c in st.decoder.cell]), st.decoder.v_prev,
+            6)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+
+    def launch():
+        if nade:
+            gen_fused_nade.generate_nade(*args, aux_dtype=dtype)
+        else:
+            gen_fused_rbm.generate_rbm(*args, 10, wdtype=dtype)
+
+    launch()                                   # the recorder is off
+    assert not asked
+    profiling.enable("cpu")
+    monkeypatch.setattr(profiling, "card_timing", lambda device: True)
+    try:
+        launch()
+        launch()
+    finally:
+        profiling.collect()
+    got = profiling.counts()
+    assert asked == [(int(nade), 5, 84, 150, 100, 2, 1, 3, int(bf16))] * 2
+    rows, reads = gen_common.cell_counts(plan, 3, 5, 400, 2, 6)
+    assert got == {gen_common.CELL_COUNTS[0]: 2 * rows,
+                   gen_common.CELL_COUNTS[1]: 2 * reads}
+    assert rows == 3 * 5 * 2 * 6
+    assert set(recorder.calls) == {"gen_fused_nade" if nade
+                                   else "gen_fused_rbm"}
