@@ -59,9 +59,7 @@
 // replay is bit-equal. At the flagship the visible samples hold about
 // 0.06 of their units (the served songs' density) and the hidden ones
 // about half, so a sweep does about a sixteenth of the hidden pass's
-// products and half the visible pass's. With the launch's `counts` the
-// kernel adds the lists' lengths and the rows' widths of both passes'
-// inputs to it (one integer atomic per counter and CTA at the end).
+// products and half the visible pass's.
 //
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md, T=1024): with dense
 // passes 55.6 ms a launch at B=8 (seeded weights), 44.3 at the served
@@ -114,14 +112,11 @@ inline int rbm_scratch(const RbmArgs& a) {
   return a.g > gibbs ? a.g : gibbs;
 }
 
-// Bytes of a warp's region: its list, up to max(D, H) uint16 indices and
-// the 7 of a last eight's padding, then its four counters (uint64), 16-byte
-// aligned. The plan keeps kWarps of them at the front of the weight region.
-__host__ __device__ constexpr int64_t warp_list_bytes(int d, int h) {
-  return gen_cluster::align16(2 * int64_t{(d > h ? d : h) + 7});
-}
+// Bytes of a warp's list: up to max(D, H) uint16 indices and the 7 of a
+// last eight's padding, 16-byte aligned. The plan keeps kWarps of them at
+// the front of the weight region.
 __host__ __device__ constexpr int64_t warp_bytes(int d, int h) {
-  return warp_list_bytes(d, h) + 32;
+  return gen_cluster::align16(2 * int64_t{(d > h ? d : h) + 7});
 }
 
 // A group's Gibbs chain, binary, kept as the mask words of its visible
@@ -278,20 +273,6 @@ __device__ __forceinline__ void sum_list(const uint16_t* list, int n,
   for (int r = 0; r < R; ++r) out[r] = acc[r][0] + acc[r][1];
 }
 
-// Add the warps' four counters (each at the end of its region) to
-// out[0..3] in device memory: one integer atomic per counter and CTA.
-__device__ inline void add_counts(const unsigned char* smem,
-                                  int64_t region, unsigned long long* out) {
-  __syncthreads();
-  if (threadIdx.x < 4) {
-    unsigned long long total = 0;
-    for (int w = 0; w < gen_cluster::kWarps; ++w)
-      total += reinterpret_cast<const unsigned long long*>(
-          smem + (w + 1) * region - 32)[threadIdx.x];
-    atomicAdd(out + threadIdx.x, total);
-  }
-}
-
 // Row pitch (elements) of W in shared memory, so that the visible pass's
 // column reads (thread i at row i) hit distinct banks: odd for f32 words;
 // for bf16, 2 mod 4, an odd count of 4-byte words.
@@ -347,15 +328,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t seed1 = static_cast<uint32_t>(a.seed[1]);
   // the rows' chunks of 32 units
   const int DC = gen_cluster::chunks_of(D), HC = gen_cluster::chunks_of(H);
-  // this warp's list and, with a.counts, its counters: the hidden pass's
-  // input units listed and in all, the visible pass's the same
-  const int64_t region = warp_bytes(D, H);
+  // this warp's list
   uint16_t* const wlist =
-      reinterpret_cast<uint16_t*>(smem + (tid >> 5) * region);
-  unsigned long long* const n = reinterpret_cast<unsigned long long*>(
-      smem + ((tid >> 5) + 1) * region - 32);
-  const bool counting = a.counts != nullptr;
-  if (counting && (tid & 31) < 4) n[tid & 31] = 0;
+      reinterpret_cast<uint16_t*>(smem + (tid >> 5) * warp_bytes(D, H));
   const bool one_track = ct.ntr == 1;
   // A pass gives each thread R = kR (1 or 3) outputs of a row of X units
   // (XC chunks): thread u of a group takes unit u % 32 + 32 (R (u / 32) +
@@ -387,16 +362,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         wc[r] = w + min(jj[r], H - 1);     // loads clamped into the row
       }
       float acc[R];
-      int nv;                              // v's units listed
       if (sw == 0) {
         const uint16_t* li = ct.list_idx(s, k);
         const float* x = ct.prev(s) + k * D;
-        nv = *ct.list_count(s, k);
+        const int nv = *ct.list_count(s, k);
 #pragma unroll
         for (int r = 0; r < R; ++r)
           acc[r] = gen_cluster::gather_row(li, nv, x, wc[r], ldw, 0.f);
       } else {
-        nv = list_row(ch.vmask, DC, wlist);
+        const int nv = list_row(ch.vmask, DC, wlist);
         if (w_in_smem) {
           SharedW<WT> ws[R];
 #pragma unroll
@@ -412,10 +386,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       sample_units<R>(acc, sc + D, jj, H,
                       static_cast<uint32_t>(a.row0 + ct.b0 + s) * KH + k * H,
                       seed0, salt, ch.hmask);
-      if (counting && u == 0) {
-        n[0] += nv;
-        n[1] += D;
-      }
     }, 32 * ((HC + R - 1) / R));
   };
   // h -> v: R visible units a thread over the list of h, into vmask
@@ -450,10 +420,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       sample_units<R>(acc, sc, ii, D,
                       static_cast<uint32_t>(a.row0 + ct.b0 + s) * KD + k * D,
                       seed0, salt, ch.vmask);
-      if (counting && u == 0) {
-        n[2] += nh;
-        n[3] += H;
-      }
     }, 32 * ((DC + R - 1) / R));
   };
 
@@ -541,8 +507,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     gen_cluster::gather_frames(ct, buf);
   }
   gen_cluster::store_state(ct, a.h_out, a.c_out);
-  if (counting)
-    add_counts(smem, region, reinterpret_cast<unsigned long long*>(a.counts));
 }
 
 }  // namespace

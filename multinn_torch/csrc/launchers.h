@@ -62,9 +62,6 @@ struct RbmArgs {
   int32_t given_mask;   // bit k set: track k takes `given`
   int32_t row0;         // the row map: sample b draws the stream of sample
   int32_t rows_total;   //   row0 + b of a batch of rows_total (0, batch)
-  int64_t* counts;      // (4,) or nullptr: the launch adds the units listed
-                        //   and in all of its hidden passes' inputs, then
-                        //   of its visible passes' inputs
 };
 
 // The whole-generation launchers (RBM and NADE) take `shape`: nullptr

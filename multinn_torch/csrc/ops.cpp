@@ -112,9 +112,8 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
                    const at::Tensor& b, const at::Tensor& h0,
                    const at::Tensor& c0, const at::Tensor& v0,
                    const at::Tensor& given, const at::Tensor& seed,
-                   at::Tensor counts, int64_t gen_k, int64_t lstm,
-                   int64_t given_mask, int64_t row0, int64_t rows_total,
-                   int64_t stream) {
+                   int64_t gen_k, int64_t lstm, int64_t given_mask,
+                   int64_t row0, int64_t rows_total, int64_t stream) {
   check(roll, at::kFloat, "roll");
   check(h_out, at::kFloat, "h_out");
   check(c_out, at::kFloat, "c_out");
@@ -157,12 +156,6 @@ void gen_fused_rbm(at::Tensor roll, at::Tensor h_out, at::Tensor c_out,
               "gen_fused_rbm: wx_r shape");
   TORCH_CHECK(given.numel() == 0 || given.numel() == roll.numel(),
               "gen_fused_rbm: given shape");
-  // the optional list counters: empty, or four int64 the launch adds to
-  if (counts.numel() != 0) {
-    check(counts, at::kLong, "counts");
-    TORCH_CHECK(counts.numel() == 4, "gen_fused_rbm: counts must hold 4");
-    a.counts = counts.data_ptr<int64_t>();
-  }
   a.w = w.data_ptr();
   a.wuv = wuv.data_ptr();
   a.wuh = wuh.data_ptr();
@@ -426,8 +419,8 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor w, Tensor wuv, Tensor wuh, Tensor bv, Tensor bh, "
         "Tensor wx_v, Tensor wx_r, Tensor wh, Tensor wctx, Tensor b, "
         "Tensor h0, Tensor c0, Tensor v0, Tensor given, Tensor seed, "
-        "Tensor(d!) counts, int gen_k, int lstm, int given_mask, int row0, "
-        "int rows_total, int stream) -> ()");
+        "int gen_k, int lstm, int given_mask, int row0, int rows_total, "
+        "int stream) -> ()");
   m.def("nade_sample(Tensor(a!) out, Tensor w, Tensor v, Tensor bv, "
         "Tensor bh, Tensor seed, int staged, int row0, int rows_total, "
         "int stream) -> ()");

@@ -34,17 +34,14 @@ The samplers draw each row's stream in the whole batch (the row map); a
 DBN's decode draws over the whole batch, gathered over ``data`` first.
 ``seq``: x is this rank's time chunk (parallel/seqpipe.py).
 
-Inside ``dbn_timing`` (the service enters it while the span recorder
-times its card) every DBN decode records its card interval as the span
-``gen.dbn_decode`` and adds the latent and decoded rolls' on-bits and
-cells to the service's counters.
+A DBN decode inside a card interval (utils/profiling.card_interval: the
+service's ``serve.card`` while the span recorder times its card) records
+its own as the span ``gen.dbn_decode``, with the batch's index.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -61,7 +58,6 @@ from multinn_torch.utils.device import entry_device
 
 MODES = ("per-track", "feedback", "joint", "hybrid")
 MODE_ALIASES = {"jamming": "per-track", "composer": "joint"}
-_dbn_sink = threading.local()   # dbn_timing()'s stream, ident and counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,46 +267,16 @@ def _decode_tracks(params: MultINNParams, key: torch.Tensor,
     (K, ...): the shared encoder decodes all tracks under ``key``,
     per-track encoders decode track i under ``split(key, K)[i]`` (under a
     track split each rank its tracks, then gathered)."""
-    sink = getattr(_dbn_sink, "on", None)
-    if sink is not None:
-        start = torch.cuda.Event(enable_timing=True)
-        start.record(sink[0])
-    if not _per_track_encoder(params):
-        out = _decode_sample(params.encoder, key, lat_k, beta)
-    else:
+    with profiling.card_interval("gen.dbn_decode"):
+        if not _per_track_encoder(params):
+            return _decode_sample(params.encoder, key, lat_k, beta)
         k = params.cfg.n_tracks
         keys = sampling.split(key, k)
         mine = (range(k) if _track_group(shard) is None
                 else range(k)[shard.tracks(k)])
-        out = _all_tracks(torch.stack([
+        return _all_tracks(torch.stack([
             _decode_sample(index_tree(params.encoder, j), keys[i], lat_k[i],
                            beta) for j, i in enumerate(mine)]), shard)
-    if sink is not None:
-        stream, ident, counts = sink
-        end = torch.cuda.Event(enable_timing=True)
-        end.record(stream)
-        profiling.card_span("gen.dbn_decode", start, end, ident=ident)
-        for i, n in enumerate((lat_k.count_nonzero(), lat_k.numel(),
-                               out.count_nonzero(), out.numel())):
-            counts[i] += n
-    return out
-
-
-@contextlib.contextmanager
-def dbn_timing(stream, ident: Optional[int], counts: Optional[torch.Tensor]):
-    """Within the block, each DBN decode on this thread records its card
-    interval, between timing events on ``stream`` (the one it runs on), as
-    the span ``gen.dbn_decode`` with identifier ``ident``
-    (``profiling.card_span``), and adds to ``counts`` (int64 (4,) on the
-    latents' device) the latent roll's on-bits and cells, then the decoded
-    roll's notes and cells. ``counts`` None: nothing is recorded. The
-    service enters it only while the recorder times its card."""
-    before = getattr(_dbn_sink, "on", None)
-    _dbn_sink.on = None if counts is None else (stream, ident, counts)
-    try:
-        yield
-    finally:
-        _dbn_sink.on = before
 
 
 def _flatten_latents(vs: torch.Tensor) -> torch.Tensor:

@@ -19,11 +19,7 @@ card-only tests read that plan through the gen_fused_plan op).
 
 ``block_slices`` mirrors how the kernels' cell stack (and the RBM
 kernel's conditioned biases) slice a CTA's samples, a thread per output
-for a slice, so that one read of a weight column serves the slice;
-``cell_counts`` and ``count_cells`` give the host's counters of a launch
-from its plan: the (sample, track) rows the cell stack computed and the
-reads of a track's Wh (``CELL_COUNTS``), whose ratio is the samples a read
-serves.
+for a slice, so that one read of a weight column serves the slice.
 
 ``LayoutDims``, ``rbm_layout_bytes``, ``nade_layout_bytes`` and
 ``storage_dtype`` are the JAX package's storage-dtype contract: which
@@ -33,12 +29,9 @@ That is a rule about numerics, not a resource gate of this card.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
-
-from multinn_torch.ops import _build
-from multinn_torch.utils import profiling
 
 # dynamic shared memory one CTA may use on Hopper (232,448 bytes)
 SMEM_LIMIT_BYTES = 227 * 1024
@@ -68,9 +61,6 @@ def sample_bytes(k: int, d: int, u: int, n_layers: int, scratch: int) -> int:
 
 THREADS = 512              # a CTA's threads (gen_cluster.cuh's kThreads)
 MAX_BLOCK = 6              # the most samples a thread blocks (kMaxBlock)
-# the host's counters of the cell stack, per launch while the span
-# recorder times the card
-CELL_COUNTS = ("gen.cell_sample_rows", "gen.cell_weight_reads")
 
 
 def block_slices(ns: int, outputs: int) -> int:
@@ -80,41 +70,6 @@ def block_slices(ns: int, outputs: int) -> int:
     within MAX_BLOCK samples, at most ``ns`` (one sample a thread)."""
     fill = THREADS // max(outputs, 1)
     return min(ns, max(fill, -(-ns // MAX_BLOCK)))
-
-
-def cell_counts(plan: Sequence[int], batch: int, k: int, g: int,
-                n_layers: int, n_steps: int) -> Tuple[int, int]:
-    """(rows, reads) of the cell stack over a launch of ``batch`` samples
-    under ``plan`` (the gen_fused_plan op's fields: CTAs per cluster,
-    track slots per CTA, ..., samples per cluster at [6], clusters of the
-    grid at [7]): the (sample, track) rows it computed and the reads of a
-    track's Wh (G gates a track), each once a layer and step. A CTA reads
-    each of its tracks' Wh once per slice of its samples; the last cluster
-    holds what the others leave."""
-    c, s, grid = plan[0], plan[6], plan[7]
-    tracks = [(k - r + c - 1) // c for r in range(c)]   # of CTA r
-
-    def reads(ns):
-        return sum(n * block_slices(ns, n * g) for n in tracks)
-    steps = n_layers * n_steps
-    total = (grid - 1) * reads(s) + reads(batch - (grid - 1) * s)
-    return batch * k * steps, total * steps
-
-
-def count_cells(nade: bool, k: int, d: int, hid: int, u: int, g: int,
-                n_layers: int, batch: int, n_steps: int, bf16: bool,
-                device) -> None:
-    """Add a launch's ``cell_counts`` to the span recorder's counts
-    (``CELL_COUNTS``) while it times ``device``'s card, from the launch's
-    plan (the gen_fused_plan op, which launches nothing); nothing
-    otherwise."""
-    if not profiling.card_timing(device):
-        return
-    plan = _build.ops().gen_fused_plan(int(nade), k, d, hid, u, n_layers,
-                                       int(g == 4 * u), batch, int(bf16))
-    for name, n in zip(CELL_COUNTS, cell_counts(plan, batch, k, g, n_layers,
-                                                n_steps)):
-        profiling.count(name, n)
 
 
 def _common_gate(cfg, decoder_type: str) -> bool:

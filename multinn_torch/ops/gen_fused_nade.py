@@ -315,9 +315,6 @@ def _generate_cuda(seeds, args: NadeArgs, n_steps, lstm, given, given_tracks,
     mask = sum(1 << t for t in given_tracks)
     opt = lambda x: none if x is None else x
     with torch.cuda.device(dev):
-        gen_common.count_cells(True, *args.w.shape, *args.wh.shape[2:],
-                               args.wh.shape[0], b, n_steps,
-                               args.wuh.dtype == torch.bfloat16, dev)
         _build.launches["gen_fused_nade"] += 1
         _build.ops().gen_fused_nade(
             roll, h_out, c_out, args.w, args.v, args.wuv, args.wuh, args.bv,

@@ -32,7 +32,7 @@ fits, else f32 (also where it falls back to its scan path).
 
 The kernel's Gibbs passes sum only the weight rows of the units their
 binary input holds (the chain's samples as mask words, each warp walking
-its own list of them); ``counts`` reads those lists' lengths.
+its own list of them).
 
 The gate is a Hopper resource check of the kernel's design — a cluster of
 min(K, 8) CTAs per group of samples, each CTA with its 16 warps' lists,
@@ -46,8 +46,6 @@ gate admits.
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -58,10 +56,8 @@ from multinn_torch.ops.gen_common import (SMEM_LIMIT_BYTES, _common_gate,
                                           _eff_dims, _from_state_rows,
                                           _given_fits, _state_rows)
 from multinn_torch.ops.sampling import key_to_seeds
-from multinn_torch.utils import profiling
 
 MAX_TRACKS = 31             # the given-track merge is a 32-bit lane mask
-_sink = threading.local()   # counting()'s counters, per thread
 
 
 class RbmArgs(NamedTuple):
@@ -149,11 +145,10 @@ def _scratch(d: int, hid: int, g: int) -> int:
 
 
 def _lists_bytes(d: int, hid: int) -> int:
-    """The warps' regions at the front of the weight region, as
+    """The warps' lists at the front of the weight region, as
     plan_gen_fused_rbm keeps them: 16 warps, each a list of up to max(D, H)
-    uint16 indices and 7 of padding, 16-byte aligned, and four uint64
-    counters."""
-    return 16 * (((2 * (max(d, hid) + 7) + 15) & ~15) + 32)
+    uint16 indices and 7 of padding, 16-byte aligned."""
+    return 16 * ((2 * (max(d, hid) + 7) + 15) & ~15)
 
 
 def _sample_bytes(args: RbmArgs) -> int:
@@ -190,23 +185,9 @@ def supported(cfg, batch: int, n_steps: int = 2048,
     return _fits(_rbm_args(params, st, st, v0))
 
 
-@contextlib.contextmanager
-def counting(counts: torch.Tensor):
-    """Within the block, every kernel launch on this thread adds its list
-    counts to ``counts`` (as ``generate_rbm``'s) while the span recorder
-    times the launch's card (``profiling.card_timing``): the service's
-    per-batch counters, which cost nothing while the recorder is off."""
-    before = getattr(_sink, "counts", None)
-    _sink.counts = counts
-    try:
-        yield
-    finally:
-        _sink.counts = before
-
-
 def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
                  gen_k: int, impl=None, wdtype=None, given=None,
-                 given_tracks: Tuple[int, ...] = (), rows=None, counts=None):
+                 given_tracks: Tuple[int, ...] = (), rows=None):
     """Run the whole generation. dec_params: track-STACKED rnn_rbm.Params;
     h0/c0: (L, K, B, U) ((K, B, U) for one layer); v0: (K, B, D);
     ``given`` (B, n_steps, K, D) with ``given_tracks``: those tracks' frames
@@ -219,13 +200,7 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     (B_global under a row map, so every shard stores what one device
     would) and ``given``.
     ``impl``: None = the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors; "cuda" / "plain" force one.
-
-    ``counts``: an int64 tensor of 4 on the weights' device, to which the
-    generation adds, over its hidden passes, the input's units that are
-    nonzero (the kernel's list lengths) and all of them, then the same over
-    its visible passes. None: ``counting``'s, for a launch of the kernel
-    while the span recorder times its card."""
+    CPU tensors; "cuda" / "plain" force one."""
     n_layers = len(dec_params.cell)
     if h0.dim() == 3 and n_layers == 1:
         h0, c0 = h0[None], c0[None]
@@ -246,15 +221,11 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
     if given is not None:
         given = given.reshape(b, n_steps, k * d).to(torch.float32).contiguous()
     if _build.impl_for(impl, args.w) == "cuda":
-        if counts is None and profiling.card_timing(args.w.device):
-            counts = getattr(_sink, "counts", None)
         roll, h_out, c_out = _generate_cuda(seeds, args, n_steps, gen_k,
-                                            lstm, given, given_tracks, rmap,
-                                            counts)
+                                            lstm, given, given_tracks, rmap)
     else:
         roll, h_out, c_out = _generate_plain(seeds, args, n_steps, gen_k,
-                                             lstm, given, given_tracks, rmap,
-                                             counts)
+                                             lstm, given, given_tracks, rmap)
 
     return (roll.reshape(b, n_steps, k, d),
             _from_state_rows(h_out, n_layers, k, u),
@@ -262,7 +233,7 @@ def generate_rbm(key: torch.Tensor, dec_params, h0, c0, v0, n_steps: int,
 
 
 def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
-                   given_tracks, rmap, counts=None):
+                   given_tracks, rmap):
     if not _fits(args):
         raise ValueError(
             f"generate_rbm: one sample's state needs "
@@ -278,27 +249,23 @@ def _generate_cuda(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
     none = torch.empty(0, device=dev)
     mask = sum(1 << t for t in given_tracks)
     with torch.cuda.device(dev):
-        gen_common.count_cells(False, *args.w.shape, *args.wh.shape[2:],
-                               args.wh.shape[0], b, n_steps,
-                               args.w.dtype == torch.bfloat16, dev)
         _build.launches["gen_fused_rbm"] += 1
         _build.ops().gen_fused_rbm(
             roll, h_out, c_out, args.w, args.wuv, args.wuh, args.bv,
             args.bh, args.wx_v, none if args.wx_r is None else args.wx_r,
             args.wh, none if args.wctx is None else args.wctx, args.b,
             args.h0, args.c0, args.v0, none if given is None else given,
-            seeds, none.long() if counts is None else counts, gen_k,
-            int(lstm), mask, *rmap, _build.stream_of(args.w))
+            seeds, gen_k, int(lstm), mask, *rmap, _build.stream_of(args.w))
     return roll, h_out, c_out
 
 
 def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
-                    given_tracks, rmap=(0, None), counts=None):
+                    given_tracks, rmap=(0, None)):
     """Plain PyTorch version of the kernel, same signature and stream.
     Track-major (K, B, X) tensors; torch.matmul batches over the tracks.
     bf16 weights are widened exactly and h_top rounded to bf16 for the
     conditioning, as the reference's products of bf16 operands with f32
-    accumulation. ``counts`` as the kernel's, recounted from the chain."""
+    accumulation."""
     k, d, hid = args.w.shape
     n_layers, _, u, g = args.wh.shape
     b = args.h0.shape[0]
@@ -341,10 +308,6 @@ def _generate_plain(seeds, args: RbmArgs, n_steps, gen_k, lstm, given,
         for s in range(gen_k):
             ph = torch.sigmoid(v @ w + bh_row)
             hs = (uniform(salt0 + 2 * s, ctr_h) < ph).to(torch.float32)
-            if counts is not None:
-                counts += torch.stack([
-                    v.count_nonzero(), torch.tensor(v.numel(), device=dev),
-                    hs.count_nonzero(), torch.tensor(hs.numel(), device=dev)])
             pv = torch.sigmoid(hs @ wt + bv_row)
             v = (uniform(salt0 + 2 * s + 1, ctr_v) < pv).to(torch.float32)
         if given is not None:

@@ -97,11 +97,6 @@ def bits_at_plain(seed, salt, counter: torch.Tensor) -> torch.Tensor:
     return out0
 
 
-def random_bits_plain(shape, seed, salt, device=None) -> torch.Tensor:
-    """uint32 bits of ``shape`` (2D+) from (seed, salt) as int64 values."""
-    return bits_at_plain(seed, salt, _counters(tuple(shape), device))
-
-
 def row_map(n: int, rows):
     """(b0, N_global) of the row map ``rows`` of a sampling kernel's launch
     of n rows (or samples): they are rows b0 .. b0 + n - 1 of a batch of

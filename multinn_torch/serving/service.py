@@ -48,15 +48,11 @@ batch's first operation on the service's stream to one after its last;
 on the drainer ``serve.drain`` around ``serve.drain.wait`` (the event)
 and ``.fetch`` (the copies and the unpack), both recorded by
 ``Generator.fetch_rolls``, ``.finalize`` and ``.resolve`` (every future
-set, callbacks included). The timing events exist only while the
-recorder times this service's card (``profiling.card_timing``); so do
-an RBM service's list counters (``RBM_COUNTS``: the fused kernel's list
-lengths and row widths, ops/gen_fused_rbm.counting) and a DBN service's
-decode span ``gen.dbn_decode``, a card interval of the batch's index, and
-counters (``DBN_COUNTS``: the latent roll's on-bits and cells, the
-decoded roll's notes and cells, models/multinn.dbn_timing), added to the
-recorder's counts (``profiling.count``) once the drain has waited for the
-batch.
+set, callbacks included). ``serve.card`` is a
+``profiling.card_interval``, timed only while the recorder times this
+service's card (``profiling.card_timing``); a DBN service's decode span
+``gen.dbn_decode``, the model's card interval inside it, takes the
+batch's index from it.
 
 With a ``mesh`` (parallel/mesh.py) the service's Generator generates on
 it. Rank 0 takes the requests; before each of its device calls (the
@@ -78,19 +74,12 @@ import numpy as np
 import torch
 
 from multinn_torch.data import pianoroll
-from multinn_torch.models import multinn
-from multinn_torch.ops import gen_fused_rbm, sampling
+from multinn_torch.ops import sampling
 from multinn_torch.parallel import comm
 from multinn_torch.utils import profiling
 
 # the calls rank 0 broadcasts to the other ranks of a mesh
 _STOP, _PLAIN, _SEEDED, _ACCOMPANY = 0, 1, 2, 3
-# the RBM kernel's list counters (ops/gen_fused_rbm.generate_rbm's counts)
-RBM_COUNTS = ("gen.rbm_v_listed", "gen.rbm_v_rows", "gen.rbm_h_listed",
-              "gen.rbm_h_rows")
-# the DBN decode's counters (models/multinn.dbn_timing's counts)
-DBN_COUNTS = ("gen.dbn_latent_on", "gen.dbn_latent_cells", "gen.dbn_notes",
-              "gen.dbn_cells")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,13 +193,6 @@ class GenerationService:
         self.device = self.generator.device
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        # an RBM service on the card keeps the fused kernel's list counters,
-        # a DBN service the decode's
-        self._rbm_counts = (cfg.model.decoder_type == "rnn-rbm"
-                            and self.device.type == "cuda")
-        self._dbn_counts = bool(cfg.model.encoder_hidden)
-        self._count_names = ((RBM_COUNTS if self._rbm_counts else ())
-                             + (DBN_COUNTS if self._dbn_counts else ()))
         self._base_key = sampling.PRNGKey(self.serve_cfg.seed,
                                           device=self.device)
 
@@ -550,29 +532,11 @@ class GenerationService:
             elif kind == "accompany":          # pad rows accompany silence
                 given_arr = self._rows([r.given for r in reqs])
             t_dispatch = time.time()
-            timed = (on and self._stream is not None
-                     and profiling.card_timing(self._stream.device))
-            counts = None
             try:
-                if timed:                      # the batch's card interval
-                    card = (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True))
-                    card[0].record(self._stream)
-                rbm = dbn = None
-                with torch.cuda.stream(self._stream):
-                    key = sampling.fold_in(self._base_key, bi)
-                    if timed and self._count_names:
-                        counts = torch.zeros(len(self._count_names),
-                                             dtype=torch.int64,
-                                             device=self.device)
-                        rbm = counts[:4] if self._rbm_counts else None
-                        dbn = counts[-4:] if self._dbn_counts else None
-                with gen_fused_rbm.counting(rbm), \
-                        multinn.dbn_timing(self._stream, bi, dbn):
+                with profiling.card_interval("serve.card", bi, self._stream):
+                    with torch.cuda.stream(self._stream):
+                        key = sampling.fold_in(self._base_key, bi)
                     out = self._dispatch(key, seed_arr, given_arr)
-                if timed:
-                    card[1].record(self._stream)
-                    profiling.card_span("serve.card", *card, ident=bi)
                 if on:
                     t_ns = int(t_dispatch * 1e9)
                     profiling.record("serve.take",
@@ -588,7 +552,7 @@ class GenerationService:
                     r.future.set_exception(e)
                 continue
             with self._done_cv:
-                self._done_q.append((out, reqs, bi, t_dispatch, counts))
+                self._done_q.append((out, reqs, bi, t_dispatch))
                 self._done_cv.notify()
 
     # -- drainer thread --------------------------------------------------------
@@ -600,17 +564,13 @@ class GenerationService:
                     if self._closed and not self._dispatcher.is_alive():
                         return
                     self._done_cv.wait(0.1)
-                out, reqs, bi, t_dispatch, counts = self._done_q.popleft()
+                out, reqs, bi, t_dispatch = self._done_q.popleft()
             with profiling.span("serve.drain", bi):
-                self._drain(out, reqs, bi, t_dispatch, counts)
+                self._drain(out, reqs, bi, t_dispatch)
 
-    def _drain(self, out, reqs, bi: int, t_dispatch: float,
-               counts=None) -> None:
+    def _drain(self, out, reqs, bi: int, t_dispatch: float) -> None:
         """Wait for one dispatched batch, fetch and finalize its rolls (and
-        its latent rows) and resolve its requests' futures; add the
-        batch's ``counts`` (the RBM kernel's list counters and the DBN
-        decode's, kept while the recorder times the card) to the
-        recorder's ``RBM_COUNTS`` and ``DBN_COUNTS``."""
+        its latent rows) and resolve its requests' futures."""
         try:
             was_sparse = out.sparse is not None
             if was_sparse and self._transport_demoted:
@@ -621,9 +581,6 @@ class GenerationService:
             # serve.drain.wait and serve.drain.fetch
             rolls, latents = self.generator.fetch_with_latents(
                 out, size_hint=hint)
-            if counts is not None:
-                for name, n in zip(self._count_names, counts.tolist()):
-                    profiling.count(name, n)
             with profiling.span("serve.drain.finalize"):
                 rolls = self.generator.finalize(rolls)
             if was_sparse:

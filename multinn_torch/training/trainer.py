@@ -342,18 +342,13 @@ class StepGroupGraph:
         with profiling.span("train.pin"):
             if self.x.is_cuda:            # pinned: the copy does not block
                 src = src.pin_memory()
-        timed = profiling.card_timing(self.x.device)
-        if timed:                         # the group's card interval
-            card = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            card[0].record()
-        with profiling.span("train.replay"):
+        stream = (torch.cuda.current_stream(self.x.device)
+                  if self.x.is_cuda else None)
+        with profiling.card_interval("train.card", stream=stream), \
+                profiling.span("train.replay"):
             self.x.copy_(src, non_blocking=True)
             self.key.copy_(key)
             self.graph.replay()
-        if timed:
-            card[1].record()
-            profiling.card_span("train.card", *card)
         _build.launches.update(self.launches)
         return self.out
 

@@ -25,9 +25,13 @@ slewed against the card's (on H100 hosts by 166–530 µs a second, for
 seconds at a time), and the card's intervals have to stay on the clock
 of the host's spans. The profiler's device timestamps are not slewed, so
 over such a stretch they part from both by up to a few ms. Off, a span
-costs one attribute test: no clock read, no event, no allocation; code
-that makes timing events asks ``card_timing(device)`` first, which holds
-only while the recorder is on and anchored on that card.
+costs one attribute test: no clock read, no event, no allocation. The
+program times the card through ``card_interval``, which makes its timing
+events only while ``card_timing(device)`` holds: the recorder is on and
+anchored on that card. An interval opened inside another on the same
+thread times the outer one's stream under its identifier, so a layer
+below the one that owns the stream (the model's DBN decode inside the
+service's batch) needs to be told nothing.
 
 PyTorch returns from a CUDA call before the card has run it, so every timer
 here waits for the card: ``force`` synchronizes each device the results
@@ -286,6 +290,47 @@ def card_span(name: str, start: "torch.cuda.Event", end: "torch.cuda.Event",
         anchor = _anchor(stream)
         with recorder._lock:
             recorder._anchors.append(anchor)
+
+
+class _CardInterval:
+    __slots__ = ("name", "ident", "stream", "start", "outer")
+
+    def __init__(self, name, ident, stream):
+        self.name, self.ident, self.stream = name, ident, stream
+
+    def __enter__(self):
+        self.outer = getattr(recorder._local, "card", None)
+        recorder._local.card = (self.stream, self.ident)
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record(self.stream)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        recorder._local.card = self.outer
+        if exc_type is None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
+            card_span(self.name, self.start, end, self.ident)
+        return False
+
+
+def card_interval(name: str, ident: Optional[int] = None, stream=None):
+    """A context manager that records the card's interval over the work
+    its block enqueues on the CUDA ``stream``, between timing events
+    recorded there before and after it, as the span ``name``
+    (``card_span``, with ``ident``) while ``card_timing`` holds for the
+    stream's device. Opened inside another card interval on the same
+    thread it takes that one's stream and identifier; without a stream it
+    records only there. Otherwise a shared no-op that makes no events. A
+    block that raises records nothing."""
+    if not recorder.on:
+        return _OFF
+    outer = getattr(recorder._local, "card", None)
+    if outer is not None:
+        stream, ident = outer
+    elif stream is None or not card_timing(stream.device):
+        return _OFF
+    return _CardInterval(name, ident, stream)
 
 
 def _cuda_device(*trees) -> Optional[torch.device]:

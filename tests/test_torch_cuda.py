@@ -401,17 +401,16 @@ PLAN_FIELDS = ("cluster", "tpc", "w_smem", "weight_bytes", "sample_bytes",
 # (family, K, H, U; CTAs per cluster, track slots per CTA, the per-step
 # weight matrices in shared memory by bit — RBM: W, Wuh, Wuv; NADE: V, W,
 # Wuh, Wuv — the weight region's bytes, the most samples a CTA holds). The
-# RBM's weight region starts with its 16 warps' regions, a list and four
-# counters: 16 x (320 + 32) bytes at max(D, H) = 150, 16 x (416 + 32) at
-# 200.
+# RBM's weight region starts with its 16 warps' lists: 16 x 320 bytes at
+# max(D, H) = 150, 16 x 416 at 200.
 PLAN_CASES = [
-    ("rnn-rbm", 1, 150, 100, 1, 1, 0b111, 5632 + 144336, 21),
-    ("rnn-rbm", 5, 150, 100, 5, 1, 0b111, 5632 + 144336, 14),
-    ("rnn-rbm", 8, 150, 100, 8, 1, 0b111, 5632 + 144336, 11),
-    ("rnn-rbm", 9, 150, 100, 8, 2, 0b101, 5632 + 168672, 5),
-    ("rnn-rbm", 12, 150, 100, 8, 2, 0b101, 5632 + 168672, 4),
-    ("rnn-rbm", 31, 150, 100, 8, 4, 0b100, 5632 + 134400, 3),
-    ("rnn-rbm", 5, 200, 150, 5, 1, 0b011, 7168 + 187536, 5),
+    ("rnn-rbm", 1, 150, 100, 1, 1, 0b111, 5120 + 144336, 22),
+    ("rnn-rbm", 5, 150, 100, 5, 1, 0b111, 5120 + 144336, 14),
+    ("rnn-rbm", 8, 150, 100, 8, 1, 0b111, 5120 + 144336, 11),
+    ("rnn-rbm", 9, 150, 100, 8, 2, 0b101, 5120 + 168672, 5),
+    ("rnn-rbm", 12, 150, 100, 8, 2, 0b101, 5120 + 168672, 4),
+    ("rnn-rbm", 31, 150, 100, 8, 4, 0b100, 5120 + 134400, 3),
+    ("rnn-rbm", 5, 200, 150, 5, 1, 0b011, 6656 + 187536, 5),
     ("rnn-nade", 1, 150, 100, 1, 1, 0b1111, 127200, 27),
     ("rnn-nade", 5, 150, 100, 5, 1, 0b1111, 127200, 18),
     ("rnn-nade", 8, 256, 100, 8, 1, 0b1111, 205216, 3),
@@ -483,8 +482,8 @@ def test_launch_plan(dev, family, n_tracks, n_hidden, n_rnn, cluster, tpc,
 # -> 202), Wuh, Wuv in bf16; NADE: Wuh in bf16 beside the always-bf16 V,
 # W and Wuv.
 CAPACITY_PLAN_CASES = [
-    ("rnn-rbm", 5, 150, 100, 0b111, 5632 + 25200 + 30000 + 16800, 26),
-    ("rnn-rbm", 5, 200, 150, 0b111, 7168 + 33936 + 60000 + 25200, 15),
+    ("rnn-rbm", 5, 150, 100, 0b111, 5120 + 25200 + 30000 + 16800, 26),
+    ("rnn-rbm", 5, 200, 150, 0b111, 6656 + 33936 + 60000 + 25200, 15),
     ("rnn-nade", 5, 150, 100, 0b1111, 25200 + 25200 + 30000 + 16800, 23)]
 
 
@@ -1323,11 +1322,8 @@ def test_rbm_list_passes_match_plain_and_count_the_lists(dev, case, model,
                                                          dv, dh, extra):
     """The fused RBM kernel, whose Gibbs passes walk the lists of the
     chain's active units, against its plain version: at least 7 of 8
-    samples identical at T=16 and the final h within 1e-4 on those; its
-    list counters equal the plain version's recount of the chain where
-    every sample is identical, and otherwise differ by at most the rows
-    of the samples that are not; two launches are bit-equal, counters
-    included."""
+    samples identical at T=16 and the final h within 1e-4 on those; two
+    launches are bit-equal."""
     cfg = multinn.MultINNConfig(**dict(model, w_std=0.1))
     params = _params(cfg, dev)
     dec = params.decoder
@@ -1337,7 +1333,7 @@ def test_rbm_list_passes_match_plain_and_count_the_lists(dev, case, model,
     c0 = torch.stack([c.c for c in state.decoder.cell])
     v0 = state.decoder.v_prev
     k, d = v0.shape[0], v0.shape[2]
-    hid, t_steps, gen_k = cfg.n_hidden, 16, cfg.gen_k
+    t_steps = 16
     extra = dict(extra)
     if "given_tracks" in extra:             # real values, half of them 0
         g = torch.Generator().manual_seed(2)
@@ -1347,32 +1343,21 @@ def test_rbm_list_passes_match_plain_and_count_the_lists(dev, case, model,
     key = sampling.PRNGKey(5, device=dev)
 
     def run(impl):
-        counts = torch.zeros(4, dtype=torch.int64, device=dev)
-        out = gen_fused_rbm.generate_rbm(key, dec, h0, c0, v0, t_steps,
-                                         gen_k, impl=impl, counts=counts,
-                                         **extra)
-        return out, counts
+        return gen_fused_rbm.generate_rbm(key, dec, h0, c0, v0, t_steps,
+                                          cfg.gen_k, impl=impl, **extra)
 
     _build.launches.clear()
-    (rk, hk, ck), nk = run("cuda")
+    rk, hk, ck = run("cuda")
     assert _build.launches["gen_fused_rbm"] == 1
-    (rp, hp, _), np_ = run("plain")
+    rp, hp, _ = run("plain")
     same = _identical_samples(rk, rp)
     assert int(same.sum()) >= 7
     assert float((hk - hp).abs()[:, :, same].max()) <= 1e-4
     if "given" in extra:
         assert torch.equal(rk[:, :, [1, 3]], extra["given"][:, :, [1, 3]])
-    rows = [t_steps * gen_k * k * x for x in (d, d, hid, hid)]
-    assert nk[1].item() == np_[1].item() == 8 * rows[1]
-    assert nk[3].item() == np_[3].item() == 8 * rows[3]
-    off = 8 - int(same.sum())
-    assert all(abs(a - b) <= off * r
-               for a, b, r in zip(nk.tolist(), np_.tolist(), rows))
-    assert 0 < nk[0].item() <= nk[1].item()
-    assert 0 <= nk[2].item() <= nk[3].item()
-    (rk2, hk2, ck2), nk2 = run("cuda")
+    rk2, hk2, ck2 = run("cuda")
     assert torch.equal(rk, rk2) and torch.equal(hk, hk2)
-    assert torch.equal(ck, ck2) and torch.equal(nk, nk2)
+    assert torch.equal(ck, ck2)
 
 
 def _rbm_outputs(groups, d=84, h=150):
@@ -1470,86 +1455,15 @@ def test_sliced_samples_bit_equal_to_each_sample_alone(dev, family, case):
     assert sliced == {False, True}
 
 
-def test_service_counts_the_cell_stacks_reads(dev):
-    """While the span recorder times the card, each launch of a service's
-    fused kernel adds its cell stack's (sample, track) rows and reads of
-    a track's Wh, from the launch's plan: at B=256 of the flagship a read
-    serves about a slice's samples (the plan's samples a cluster, at most
-    gen_common.MAX_BLOCK), at B=8 one sample."""
-    from multinn_torch.utils import profiling
-    for family, batch in (("rnn-rbm", 256), ("rnn-nade", 256),
-                          ("rnn-rbm", 8)):
-        cfg = config.ExperimentConfig(
-            model=multinn.MultINNConfig(**dict(FLAGSHIP,
-                                               decoder_type=family)),
-            data=config.DataConfig(n_tracks=5, pitch_min=24, pitch_max=107),
-            generate=config.GenerateConfig(n_steps=16))
-        svc = GenerationService(cfg, _params(cfg.model, dev),
-                                ServeConfig(batch=batch, n_steps=16))
-        try:
-            for f in svc.submit_many(1):
-                f.result(timeout=300)
-            profiling.enable(dev)
-            res = [f.result(timeout=300) for f in svc.submit_many(batch)]
-        finally:
-            svc.close()
-            profiling.collect()
-        got = profiling.counts()
-        batches = len({r.batch_index for r in res})
-        plan = _build.ops().gen_fused_plan(int(family == "rnn-nade"), 5, 84,
-                                           150, 100, 1, 1, batch)
-        rows, reads = gen_common.cell_counts(plan, batch, 5, 400, 1, 16)
-        assert got[gen_common.CELL_COUNTS[0]] == batches * rows
-        assert got[gen_common.CELL_COUNTS[1]] == batches * reads
-        most = min(dict(zip(PLAN_FIELDS, plan))["samples"],
-                   gen_common.MAX_BLOCK)
-        per_read = rows / reads
-        assert (per_read == 1 if batch == 8
-                else most / 2 < per_read <= most)
-
-
-def test_service_counts_the_rbm_lists(dev):
-    """While the span recorder times the card, an RBM service adds each
-    batch's list counters to the recorder's counts after the drain's
-    wait: rows of every pass of every batch, listed units within them;
-    its launches add the cell stack's counters beside them."""
-    from multinn_torch.serving.service import RBM_COUNTS
-    from multinn_torch.utils import profiling
-    cfg = config.ExperimentConfig(
-        model=multinn.MultINNConfig(**FLAGSHIP),
-        data=config.DataConfig(n_tracks=5, pitch_min=24, pitch_max=107),
-        generate=config.GenerateConfig(n_steps=32))
-    svc = GenerationService(cfg, _params(cfg.model, dev),
-                            ServeConfig(batch=4, n_steps=32))
-    try:
-        for f in svc.submit_many(4):
-            f.result(timeout=300)
-        profiling.enable(dev)
-        res = [f.result(timeout=300) for f in svc.submit_many(8)]
-    finally:
-        svc.close()
-        profiling.collect()
-    got = profiling.counts()
-    batches = len({r.batch_index for r in res})
-    per_batch = 4 * 32 * FLAGSHIP["gen_k"] * 5
-    assert set(got) == set(RBM_COUNTS) | set(gen_common.CELL_COUNTS)
-    assert got["gen.rbm_v_rows"] == batches * per_batch * 84
-    assert got["gen.rbm_h_rows"] == batches * per_batch * 150
-    assert 0 < got["gen.rbm_v_listed"] < got["gen.rbm_v_rows"]
-    assert 0 < got["gen.rbm_h_listed"] < got["gen.rbm_h_rows"]
-
-
 def test_per_track_dbn_service_against_the_reference(dev):
     """The LPD-5 model (per-track DBN encoders, RNN-RBM decoders at
     gen_k=25) served at its batch of 256, T=16, with latent rows: the
     benchmark's plain reference replays every kept song's latent chain
     and decode within its cell's limits; while the recorder times the
-    card each batch has one ``gen.dbn_decode`` inside its ``serve.card``
-    and the counters count every cell."""
+    card each batch has one ``gen.dbn_decode`` inside its ``serve.card``."""
     import json
     from pathlib import Path
 
-    from multinn_torch.serving.service import DBN_COUNTS
     from multinn_torch.utils import profiling
     from portbench import weights_dbn
     from portbench.reference import model as ref
@@ -1592,12 +1506,6 @@ def test_per_track_dbn_service_against_the_reference(dev):
             <= limits["decode_cells_differing"])
     assert float(dec["margin"].max()) <= limits["decode_worst_margin"]
     batches = {r.batch_index for r in res}
-    got = profiling.counts()
-    assert set(got) >= set(DBN_COUNTS)
-    assert got["gen.dbn_cells"] == len(batches) * 256 * 16 * 5 * 84
-    assert got["gen.dbn_latent_cells"] == len(batches) * 256 * 16 * 5 * 64
-    assert 0.3 < got["gen.dbn_latent_on"] / got["gen.dbn_latent_cells"] < 0.7
-    assert 0.02 < got["gen.dbn_notes"] / got["gen.dbn_cells"] < 0.15
     decode = {s.ident: s for s in spans if s.name == "gen.dbn_decode"}
     card = {s.ident: s for s in spans if s.name == "serve.card"}
     assert set(decode) == set(card) == batches

@@ -108,53 +108,52 @@ def test_generate_rbm_argument_checks():
 
 @pytest.mark.parametrize("case", ["base", "h_on", "h_off", "v_on",
                                   "given", "row_map"])
-def test_plain_counts_are_the_chains_list_lengths(case):
-    """``counts`` on the plain version, as the kernel's list counters: the
-    hidden passes' input units that are nonzero and in all, then the
-    visible passes'. Sweep 0 starts at the previous frame (v0, then the
-    roll's frame before; a given row counts its nonzero values), later
-    sweeps at the chain's sample; a saturated layer lists every unit or
-    none. The roll is the one generated without counts."""
-    _, tp, _, ts = _primed("feedback", "lstm", 1, seed=2)
-    dec = tp.decoder
-    if case in ("h_on", "h_off"):
-        dec = dataclasses.replace(dec, bh=dec.bh + (50.0 if case == "h_on"
-                                                    else -50.0))
-    if case == "v_on":
-        dec = dataclasses.replace(dec, bv=dec.bv + 50.0)
-    h0 = torch.stack([c.h for c in ts.decoder.cell])
-    c0 = torch.stack([c.c for c in ts.decoder.cell])
-    v0 = ts.decoder.v_prev                                # (K, B, D)
-    extra = {}
+def test_plain_regimes_bit_equal_to_pallas_interpret(case):
+    """The plain version in the chain's regimes against the JAX package's
+    fused kernel in interpret mode, with the same bias shifts on both
+    packages' parameters: a saturated hidden layer (every unit on, or
+    none, when v follows bv(t) alone), a saturated visible one (every
+    frame all ones), a given track of real values, and a launch under the
+    row map (samples 2..4 of a batch of 7, against those rows of the
+    whole batch). The rolls are bit-equal, h and c within 1e-5."""
+    jp, tp, js, _ = _primed("feedback", "lstm", 1, seed=2)
+    jdec, tdec = jp.decoder, tp.decoder
+    shift = {"h_on": ("bh", 50.0), "h_off": ("bh", -50.0),
+             "v_on": ("bv", 50.0)}.get(case)
+    if shift is not None:
+        name, by = shift
+        jdec = jdec.replace(**{name: getattr(jdec, name) + by})
+        tdec = dataclasses.replace(tdec, **{name: getattr(tdec, name) + by})
+    h0 = np.stack([np.asarray(c.h) for c in js.decoder.cell])  # (L, K, B, U)
+    c0 = np.stack([np.asarray(c.c) for c in js.decoder.cell])
+    v0 = np.array(js.decoder.v_prev)                            # (K, B, D)
+    jin, jkw, tkw, mine = (h0, c0, v0), {}, {}, slice(None)
     if case == "given":                     # real values in track 1
-        extra = dict(given_tracks=(1,), given=torch.from_numpy(
-            np.random.default_rng(6).random((B, T, K, D)).astype(np.float32)
-            * (np.random.default_rng(7).random((B, T, K, D)) < 0.5)))
+        rng = np.random.default_rng(6)
+        given = (rng.random((B, T, K, D)) * (rng.random((B, T, K, D)) < 0.5)
+                 ).astype(np.float32)
+        jkw = dict(given=jnp.asarray(given), given_tracks=(1,))
+        tkw = dict(given=torch.from_numpy(given), given_tracks=(1,))
     if case == "row_map":
-        extra = dict(rows=(2, 7))
+        tkw, mine = dict(rows=(2, 7)), slice(2, 2 + B)
+
+        def whole(x, axis):                 # B rows at 2 in a batch of 7
+            pad = [(0, 0)] * x.ndim
+            pad[axis] = (2, 7 - 2 - B)
+            return np.pad(x, pad)
+        jin = (whole(h0, 2), whole(c0, 2), whole(v0, 1))
     gen_k = 3
-    counts = torch.zeros(4, dtype=torch.int64)
-    args = (sampling.PRNGKey(9), dec, h0, c0, v0, T, gen_k)
-    roll, _, _ = gen_fused.generate_rbm(*args, counts=counts, **extra)
-    counts_again = torch.zeros(4, dtype=torch.int64)
-    assert torch.equal(roll, gen_fused.generate_rbm(*args, **extra)[0])
-    gen_fused.generate_rbm(*args, counts=counts_again, **extra)
-    assert torch.equal(counts, counts_again)
-    v_listed, v_rows, h_listed, h_rows = counts.tolist()
-    assert v_rows == gen_k * T * B * K * D and h_rows == gen_k * T * B * K * H
-    prev = torch.cat([v0.movedim(0, 1)[:, None], roll[:, :-1]], dim=1)
-    first = int(prev.count_nonzero())       # sweep 0's lists
-    later = v_listed - first                # sweeps 1 and 2
-    assert 0 <= later <= (gen_k - 1) * T * B * K * D
+    jroll, jh, jc = jax_gen_fused.generate_rbm(
+        jax.random.PRNGKey(9), jdec, *map(jnp.asarray, jin), T, gen_k,
+        interpret=True, **jkw)
+    troll, th, tc = gen_fused.generate_rbm(
+        sampling.PRNGKey(9), tdec, *map(torch.from_numpy, (h0, c0, v0)), T,
+        gen_k, **tkw)
+    np.testing.assert_array_equal(troll.numpy(), np.asarray(jroll)[mine])
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh)[:, :, mine], **TOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc)[:, :, mine], **TOL)
     if case == "v_on":                      # every sampled v is all ones
-        assert later == (gen_k - 1) * T * B * K * D
-        assert torch.equal(roll, torch.ones_like(roll))
-    if case == "h_on":
-        assert h_listed == h_rows
-    elif case == "h_off":                   # v then follows bv(t) alone
-        assert h_listed == 0
-    else:
-        assert 0 < h_listed < h_rows
+        assert torch.equal(troll, torch.ones_like(troll))
 
 
 def _flagship_args(cfg, batch=1):
@@ -200,9 +199,9 @@ def test_gate_is_a_shared_memory_check():
     sample = 4 * (5 * 84 + 2 * 84 + 2 * 100 + 400) + (5 + 1) * (4 + 2 * 84)
     assert (gen_fused_rbm._sample_bytes(_flagship_args(flagship))
             == -(-sample // 16) * 16 == 5792)
-    # beside the 16 warps' regions: a list of up to max(D, H) = 150
-    # indices and 7 of padding, 16-byte aligned, and four uint64 counters
-    assert gen_fused_rbm._lists_bytes(84, 150) == 16 * (320 + 32)
+    # beside the 16 warps' lists: up to max(D, H) = 150 indices and 7 of
+    # padding, 16-byte aligned
+    assert gen_fused_rbm._lists_bytes(84, 150) == 16 * 320
 
 
 @pytest.mark.parametrize("n_tracks,cluster,tpc", [

@@ -7,9 +7,9 @@ benchmark's parts for it and for RNN-NADE training, on the CPU:
 * ``generate(latent=True)`` and the service's ``latent_rows``: the
   model-space roll of the rows asked for, the pianoroll the same bits
   with or without it;
-* the decode's span ``gen.dbn_decode`` and its counters, kept only while
-  the recorder times the service's card (stand-ins for the card's
-  stream and events, as tests/test_torch_spans.py);
+* the decode's span ``gen.dbn_decode``, kept only while the recorder
+  times the service's card (stand-ins for the card's stream and events,
+  as tests/test_torch_spans.py);
 * the new per-layer readers on hand-built records and the frozen count
   against the program's;
 * the RNN-NADE training reference (portbench/reference/nade_train.py)
@@ -182,13 +182,11 @@ def test_decode_span_and_counters_only_while_the_card_is_timed(
         monkeypatch, spans_off, recorder):
     """A DBN service whose stream is a stand-in on cuda:0, anchored as
     enable() would anchor it: each batch gives one ``gen.dbn_decode``
-    inside its ``serve.card``, with its index, and the four counters add
-    every batch's latent and decoded on-bits and cells. With the recorder
-    off, nothing."""
+    inside its ``serve.card``, with its index. With the recorder off,
+    nothing."""
     svc, _ = _service(latent_rows=(1,))
     svc._stream = _Stream("cuda:0")
     monkeypatch.setattr(torch.cuda, "Event", _Event)
-    before = profiling.counts()          # what an earlier test left
     try:
         if recorder:
             profiling.enable(device="cpu")
@@ -200,10 +198,9 @@ def test_decode_span_and_counters_only_while_the_card_is_timed(
     finally:
         svc.close()
     spans = profiling.collect()
-    counts = profiling.counts()
     assert svc.stats()["errors"] == 0
     if not recorder:
-        assert spans == [] and counts == before
+        assert spans == []
         return
     batches = {r.batch_index for r in res}
     dec = {s.ident: s for s in spans if s.name == "gen.dbn_decode"}
@@ -213,15 +210,6 @@ def test_decode_span_and_counters_only_while_the_card_is_timed(
     for i in batches:
         assert card[i].start_ns <= dec[i].start_ns <= dec[i].end_ns \
             <= card[i].end_ns
-    assert set(counts) == set(service.DBN_COUNTS)
-    n = len(batches)
-    assert counts["gen.dbn_latent_cells"] == n * 4 * T * 5 * 6
-    assert counts["gen.dbn_cells"] == n * 4 * T * 5 * 12
-    assert 0 < counts["gen.dbn_latent_on"] < counts["gen.dbn_latent_cells"]
-    assert 0 < counts["gen.dbn_notes"] < counts["gen.dbn_cells"]
-    rows = [r for r in res if r.row == 1]
-    on = sum(int(r.latent.sum()) for r in rows)
-    assert on <= counts["gen.dbn_latent_on"]
 
 
 # -- the benchmark's parts ----------------------------------------------------

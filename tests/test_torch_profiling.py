@@ -5,11 +5,13 @@ port of ``annotate``): off it reads no clock, makes no event and opens no
 profiler region; on it keeps names, identifiers, parents and nesting on
 ``time.time_ns()``, puts card intervals on that clock through its anchors
 (and drops one it has no anchor for), times a card only where it is
-anchored on it, and opens a ``record_function`` only on a thread the
-profiler records.
+anchored on it, records a ``card_interval`` only there, an inner one
+under the outer one's stream and identifier, and opens a
+``record_function`` only on a thread the profiler records.
 The CUDA-event paths run in tests/test_torch_cuda.py."""
 
 import dataclasses
+import itertools
 import json
 import threading
 import time
@@ -229,6 +231,111 @@ def test_card_timing_only_on_the_anchored_card(recorder_off, anchored,
     assert profiling.card_timing(asked) is timed
     profiling.collect()
     assert not profiling.card_timing(asked)
+
+
+class _Stream:
+    """A stand-in for a CUDA stream on ``device``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+
+class _Event(_FakeEvent):
+    """A timing event that takes the next ms of a counter, and keeps the
+    stream it was recorded on; every one made is in ``made``."""
+    made = []
+    tick = itertools.count(1)
+
+    def __init__(self, enable_timing=False):
+        super().__init__(None)
+        self.stream = None
+        _Event.made.append(self)
+
+    def record(self, stream=None):
+        self.ms, self.stream = float(next(self.tick)), stream
+
+
+@pytest.fixture
+def card_events(monkeypatch, recorder_off):
+    """torch.cuda.Event replaced by ``_Event``, none made yet."""
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    _Event.made = []
+    return _Event.made
+
+
+def _anchor_on(device):
+    """The recorder on, anchored on ``device`` as enable() there would."""
+    profiling.enable(device="cpu")
+    profiling.recorder._device = torch.device(device)
+    profiling.recorder._anchors = [(_FakeEvent(0.0), time.time_ns())]
+
+
+@pytest.mark.parametrize("state", ["off", "unanchored", "other_card",
+                                   "no_stream"])
+def test_card_interval_records_nothing_unless_timed(card_events, state):
+    """Off, enabled off the card, anchored on another card than the
+    stream's, or without a stream and outside another interval: the block
+    runs, and no event is made and no span kept."""
+    if state == "unanchored":
+        profiling.enable(device="cpu")
+    elif state in ("other_card", "no_stream"):
+        _anchor_on("cuda:1" if state == "other_card" else "cuda:0")
+    stream = None if state == "no_stream" else _Stream("cuda:0")
+    ran = []
+    with profiling.card_interval("serve.card", 3, stream):
+        ran.append(1)
+    assert ran == [1] and card_events == []
+    assert profiling.collect() == []
+
+
+def test_card_interval_records_its_block_on_its_stream(card_events):
+    """Timed, an interval keeps the span of its name and identifier
+    between an event recorded on its stream before the block and one
+    after it; a block that raises keeps nothing."""
+    _anchor_on("cuda:0")
+    stream = _Stream("cuda:0")
+    with profiling.card_interval("serve.card", 7, stream):
+        inside = len(card_events)
+    with pytest.raises(ValueError):
+        with profiling.card_interval("serve.card", 8, stream):
+            raise ValueError
+    spans = profiling.collect()
+    assert [(s.name, s.ident, s.parent, s.thread) for s in spans] == [
+        ("serve.card", 7, None, "card")]
+    assert inside == 1 and spans[0].start_ns < spans[0].end_ns
+    assert all(e.stream is stream for e in card_events)
+
+
+def test_inner_card_interval_takes_the_outer_ones_stream_and_ident(
+        card_events):
+    """An interval opened inside another on the same thread records on the
+    outer one's stream under its identifier, whatever it was given; on
+    another thread, or once the outer one has closed, one without a
+    stream records nothing."""
+    _anchor_on("cuda:0")
+    outer = _Stream("cuda:0")
+
+    def alone():
+        with profiling.card_interval("gen.dbn_decode"):
+            pass
+    with profiling.card_interval("serve.card", 4, outer):
+        with profiling.card_interval("gen.dbn_decode"):
+            pass
+        with profiling.card_interval("gen.other", 9, _Stream("cuda:0")):
+            pass
+        worker = threading.Thread(target=alone)
+        worker.start()
+        worker.join(10)
+    alone()
+    spans = profiling.collect()
+    assert sorted((s.name, s.ident) for s in spans) == [
+        ("gen.dbn_decode", 4), ("gen.other", 4), ("serve.card", 4)]
+    by = {s.name: s for s in spans}
+    assert (by["serve.card"].start_ns <= by["gen.dbn_decode"].start_ns
+            < by["gen.dbn_decode"].end_ns <= by["gen.other"].start_ns
+            < by["gen.other"].end_ns <= by["serve.card"].end_ns)
+    assert len(card_events) == 6
+    assert all(e.stream is outer for e in card_events)
 
 
 def test_spans_show_in_the_profiler_trace_of_their_thread(tmp_path,
