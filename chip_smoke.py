@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multinn_torch/csrc`` and runs
-twenty phases, one line each or a few; any failure exits non-zero
+twenty-one phases, one line each or a few; any failure exits non-zero
 before the result line. Phases 4-6 drive the RNN-RBM serving path, 7-9 the
 RNN-NADE serving path, 10-12 training (the NADE likelihood kernels, then
 the Trainer on each family), 13 the train entry point with its steps
@@ -239,6 +239,19 @@ matmul policy, 18 process meshes, 19 the port's scripts
      modes at B=32 and 128, T=1024; the NADE flagship checked at B=64 and
      timed in both modes there at the auto depth. Each timing prints the
      bound and the plan's shared-memory matrices and most samples a CTA.
+ 21. the LSTM recurrence kernels (``ops.lstm_scan``; ``phase21`` runs it
+     alone): at the two train cells' shapes (K=5 tracks, T=64, input
+     84 + 420, U=100, B=16 and 64), at U=150 (Wh read from L2), at K=1
+     with input 420 (joint) and at U=64, and through a two-layer stack,
+     ``rnn.lstm_scan``'s hs, final state and gradients (xs, Wx, b, Wh,
+     h0, c0) through the kernels within 1e-4 max|ref| + 1e-6 of the plain
+     versions (on the CPU), each layer's forward one launch; then at the two
+     train shapes the share of h bit-equal to the loop's on the card (all
+     at B=16), the kernels' ms (CUDA graphs), dWh's batched product's,
+     the plain loop's forward
+     and forward + autograd backward, the Function's forward + backward,
+     and the CUDA kernels one forward + backward launches, the Function's
+     against the plain loop's (torch.profiler).
 
 Then the total wall time, one JSON line with each kernel's launches (from
 its path's window plus the windows of phases 14 to 20, phase 18's summed
@@ -774,6 +787,149 @@ def phase18(out, say, fail, device="cuda", sizes=MESH_SIZES):
             f"({ranks[0]['device']}), {job_s:.1f} s with start-up "
             f"(correctness run on one shared card, not a scaling number)")
     return windows
+
+
+# -- phase 21: the LSTM recurrence kernels (module level: it runs alone too) -
+
+# (tracks, batch, input, units): the train cells' recurrence (the frame
+# and its 420-wide feedback context), then the other shapes the kernels
+# take: U=150 (the Lakh config; Wh read from L2), joint K=1, U=64
+LSTM_TRAIN_SHAPES = ((5, 16, 504, 100), (5, 64, 504, 100))
+LSTM_OTHER_SHAPES = ((5, 16, 504, 150), (1, 16, 420, 100), (5, 8, 148, 64))
+
+
+def phase21(dev, say, fail, t=64) -> dict:
+    """Phase 21 (module docstring); returns the two kernels' results."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multinn_torch.nn import rnn
+    from multinn_torch.ops import _build, lstm_scan
+    from multinn_torch.utils.flops import (lstm_scan_bwd_work,
+                                           lstm_scan_fwd_work)
+    from multinn_torch.utils.profiling import graph_ms
+
+    t21 = time.perf_counter()
+    g = torch.Generator().manual_seed(21)
+
+    def layer(k, n_in, u, std=0.1):
+        p = rnn.lstm_init(n_in, u, g, w_std=std)
+        if k > 1:
+            p = rnn.LSTMParams(*(torch.stack([getattr(rnn.lstm_init(
+                n_in, u, g, w_std=std), f) for _ in range(k)])
+                for f in ("wx", "wh", "b")))
+        return rnn.LSTMParams(*(x.to(dev) for x in (p.wx, p.wh, p.b)))
+
+    def inputs(k, b, n_in, u):
+        lead = (k, b) if k > 1 else (b,)
+        xs = (torch.rand(t, *lead, n_in, generator=g) < 0.06).float()
+        h0, c0 = (0.5 * torch.randn(*lead, u, generator=g) for _ in "hc")
+        return xs.to(dev), h0.to(dev), c0.to(dev)
+
+    def run(layers, xs, h0, c0):
+        """hs, the final states and the gradients of a fixed projection of
+        them through the stack: the kernels for CUDA tensors, the plain
+        versions for CPU ones. Also the launches of the forward."""
+        leaves = [x.detach().requires_grad_() for p in layers
+                  for x in (p.wx, p.wh, p.b)]
+        xs, h0, c0 = (x.detach().requires_grad_() for x in (xs, h0, c0))
+        params = tuple(rnn.LSTMParams(*leaves[3 * i:3 * i + 3])
+                       for i in range(len(layers)))
+        states = tuple(rnn.LSTMState(h=h0, c=c0) for _ in layers)
+        _build.launches.clear()
+        finals, hs = rnn.stacked_scan("lstm", params, states, xs)
+        launched = dict(_build.launches)
+        w = torch.linspace(-1, 1, hs.numel(), device=hs.device).view(hs.shape)
+        loss = (hs * w).sum() + sum((f.h.sum() + 0.5 * f.c.sum())
+                                    for f in finals)
+        grads = torch.autograd.grad(loss, [xs, h0, c0, *leaves])
+        outs = [hs, *(x for f in finals for x in (f.h, f.c)), *grads]
+        return [o.detach().cpu() for o in outs], launched
+
+    cpu = lambda xs: [x.cpu() for x in xs]  # noqa: E731
+    checked, errs = [], {}
+    shapes = [(s, 1) for s in LSTM_TRAIN_SHAPES + LSTM_OTHER_SHAPES]
+    for (k, b, n_in, u), n_layers in shapes + [(LSTM_TRAIN_SHAPES[0], 2)]:
+        layers = [layer(k, n_in if i == 0 else u, u)
+                  for i in range(n_layers)]
+        xs, h0, c0 = inputs(k, b, n_in, u)
+        got, launched = run(layers, xs, h0, c0)
+        want, _ = run([rnn.LSTMParams(*cpu((p.wx, p.wh, p.b)))
+                       for p in layers], *cpu((xs, h0, c0)))
+        if launched != {"lstm_scan_fwd": n_layers}:
+            fail(f"phase 21 K={k} B={b} U={u} layers={n_layers}: the "
+                 f"forward launched {launched}")
+        worst = max(float((a - r).abs().max())
+                    / (1e-4 * float(r.abs().max()) + 1e-6)
+                    for a, r in zip(got, want))
+        if not worst <= 1.0:
+            fail(f"phase 21 K={k} B={b} U={u} layers={n_layers}: kernels "
+                 f"against plain at {worst:.3f} of the tolerance")
+        plan = lstm_scan.launch_plan(k, b, u, _build.sm_count(xs))
+        checked.append(f"K={k} B={b} in={n_in} U={u} x{n_layers} plan "
+                       f"{plan}: {worst:.4f}")
+        errs.setdefault((k, b, n_in, u), worst)
+    say(f"phase 21 lstm recurrence vs plain (error / tolerance): "
+        f"{'; '.join(checked)}")
+
+    out = {}
+    for k, b, n_in, u in LSTM_TRAIN_SHAPES:
+        p = layer(k, n_in, u, std=0.01)
+        xs, h0, c0 = inputs(k, b, n_in, u)
+        xz = (xs @ p.wx + p.b.unsqueeze(-2)).contiguous()
+        hbuf, cbuf, z = lstm_scan.lstm_fwd(xz, p.wh, h0, c0)
+        same = float((hbuf == lstm_scan.lstm_fwd_plain(xz, p.wh, h0, c0)[0])
+                     .float().mean())
+        dh = torch.randn(hbuf.shape, generator=g).to(dev)
+        dz = lstm_scan.lstm_bwd(z, p.wh, hbuf, cbuf, dh, None)[0]
+        xz_r, wh_r = (x.detach().requires_grad_() for x in (xz, p.wh))
+
+        def both(fwd):
+            hb = fwd(xz_r, wh_r, h0, c0)[0]
+            return torch.autograd.grad(hb, (xz_r, wh_r), dh)
+
+        recur = lambda *a: lstm_scan.lstm_recurrence(*a)  # noqa: E731
+        ms = dict(
+            fwd=graph_ms(lambda: lstm_scan.lstm_fwd(xz, p.wh, h0, c0), 20),
+            bwd=graph_ms(lambda: lstm_scan.lstm_bwd(z, p.wh, hbuf, cbuf, dh,
+                                                    None), 20),
+            dwh=graph_ms(lambda: lstm_scan._dwh(hbuf[:-1], dz, p.wh), 20),
+            plain_fwd=graph_ms(
+                lambda: lstm_scan.lstm_fwd_plain(xz, p.wh, h0, c0), 3),
+            plain_both=graph_ms(lambda: both(lstm_scan.lstm_fwd_plain), 3),
+            function_both=graph_ms(lambda: both(recur), 20))
+        counts = {}
+        for name, fwd in (("function", recur),
+                          ("plain", lstm_scan.lstm_fwd_plain)):
+            both(fwd)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                both(fwd)
+                torch.cuda.synchronize()
+            counts[name] = sum(e.count for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA)
+        for name, work in (("fwd", lstm_scan_fwd_work),
+                           ("bwd", lstm_scan_bwd_work)):
+            bms, by = bound(*work(k, b, u, t))
+            out.setdefault(f"lstm_scan_{name}", {})[f"B={b}"] = dict(
+                err_over_tol=errs[(k, b, n_in, u)], ms=ms[name],
+                bound_ms=bms, bound_by=by,
+                plain_ms=ms[f"plain_{'fwd' if name == 'fwd' else 'both'}"])
+        say(f"phase 21 lstm recurrence K={k} B={b} T={t} in={n_in} U={u}, "
+            f"plan {lstm_scan.launch_plan(k, b, u, _build.sm_count(xz))}: "
+            f"h bit-equal to the loop's (torch.matmul) at {same:.4f}; "
+            f"forward kernel {ms['fwd']:.4f} ms ({ms['fwd'] / t * 1e3:.2f} "
+            f"us a step), backward {ms['bwd']:.4f} ms, dWh's product "
+            f"{ms['dwh']:.4f} ms, Function forward + backward "
+            f"{ms['function_both']:.4f} ms; plain loop forward "
+            f"{ms['plain_fwd']:.3f} ms, forward + autograd backward "
+            f"{ms['plain_both']:.3f} ms; device operations a forward + "
+            f"backward "
+            f"{counts['function']} (plain loop {counts['plain']})")
+    say(f"phase 21: {time.perf_counter() - t21:.1f} s")
+    return {name: dict(**r["B=16"], at_b64=r["B=64"])
+            for name, r in out.items()}
 
 
 def main() -> None:
@@ -1508,6 +1664,10 @@ def main() -> None:
     if rbm_train_launches.get("gibbs_chain", 0) < 100:
         fail(f"rbm training launched the Gibbs chain "
              f"{rbm_train_launches.get('gibbs_chain', 0)} times (< 100)")
+    if min(rbm_train_launches.get(n, 0)
+           for n in ("lstm_scan_fwd", "lstm_scan_bwd")) < 20:
+        fail(f"rbm training launched the recurrence kernels fewer than 20 "
+             f"times each: {rbm_train_launches}")
     cd_args = gibbs_inputs(1024)
     key = sampling.PRNGKey(2, device=dev)
     ck = gibbs_cuda.gibbs_chain(key, *cd_args, 1)
@@ -3030,6 +3190,8 @@ def main() -> None:
     say(f"phase 20 launches, its windows summed: {w20}; phase "
         f"{time.perf_counter() - t20:.1f} s")
 
+    results.update(phase21(dev, say, fail))
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "multinn_tpu"))
@@ -3058,7 +3220,14 @@ def main() -> None:
                                nade_train_launches),
                "nade_ll_bwd": ("multinn_torch/csrc/nade_ll.cu",
                                "multinn_tpu/ops/nade_ll_pallas.py:153",
-                               nade_train_launches)}
+                               nade_train_launches),
+               # no Pallas kernel: the JAX package's lax.scan of the cell
+               "lstm_scan_fwd": ("multinn_torch/csrc/lstm_scan.cu",
+                                 "multinn_tpu/nn/rnn.py::lstm_scan",
+                                 rbm_train_launches),
+               "lstm_scan_bwd": ("multinn_torch/csrc/lstm_scan.cu",
+                                 "multinn_tpu/nn/rnn.py::lstm_scan",
+                                 rbm_train_launches)}
     # each kernel's launches: its path's window above plus the windows of
     # the DBN paths (pre-training, serving) and of accompaniment
     new_windows = windows_sum(*dbn["nade"]["windows"], *dbn["rbm"]["windows"],

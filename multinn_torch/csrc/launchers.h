@@ -169,4 +169,29 @@ const char* launch_nade_ll_bwd(const float* x, const float* w, const float* v,
                                int64_t h, int64_t n_ctas, int64_t chunk,
                                void* stream);
 
+// The LSTM recurrence of one layer over t steps (see lstm_scan.cu), for k
+// tracks x n rows of u <= 256 units: xz (t, k, n, 4u); wf, the forward's
+// gate-interleaved Wh (k, u', u, 4); h0, c0 (k, n, u); out: hbuf, cbuf
+// (t + 1, k, n, u), slot 0 the initial state, and the pre-activations zbuf
+// (t, k, n, 4u), or nullptr for none. The plan of
+// ops/lstm_scan.launch_plan: rows per CTA (1-4), Wh staged in shared
+// memory (1) or read from device memory (0).
+const char* launch_lstm_scan_fwd(const float* xz, const float* wf,
+                                 const float* h0, const float* c0,
+                                 float* hbuf, float* cbuf, float* zbuf,
+                                 int64_t t, int64_t k, int64_t n, int64_t u,
+                                 int64_t rows, int64_t w_smem, void* stream);
+
+// Its reverse recurrence under the same plan: z (t, k, n, 4u), the
+// pre-activations the forward kept; wb, the backward's gate-interleaved Wh
+// (k, u, u', 4); cbuf as the forward wrote it; dhbuf, dcbuf (t + 1, k, n,
+// u), the carries' gradients, or nullptr for none; out: dz (t, k, n, 4u),
+// dh0, dc0 (k, n, u).
+const char* launch_lstm_scan_bwd(const float* z, const float* wb,
+                                 const float* cbuf, const float* dhbuf,
+                                 const float* dcbuf, float* dz, float* dh0,
+                                 float* dc0, int64_t t, int64_t k, int64_t n,
+                                 int64_t u, int64_t rows, int64_t w_smem,
+                                 void* stream);
+
 }  // namespace multinn_torch

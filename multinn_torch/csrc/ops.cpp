@@ -405,6 +405,73 @@ void nade_ll_bwd(at::Tensor dw, at::Tensor dv, at::Tensor dx, at::Tensor dbh,
            "nade_ll_bwd");
 }
 
+// An (t + 1, k, n, u) carry buffer, an (k, n, u) state or an (t, k, n, 4u)
+// gate tensor of the LSTM recurrence.
+void check_shape(const at::Tensor& t, std::initializer_list<int64_t> sizes,
+                 const char* name) {
+  TORCH_CHECK(t.sizes() == at::IntArrayRef(sizes), "lstm_scan: ", name,
+              " must be ", at::IntArrayRef(sizes), ", got ", t.sizes());
+}
+
+void lstm_scan_fwd(at::Tensor hbuf, at::Tensor cbuf, at::Tensor zbuf,
+                   const at::Tensor& xz, const at::Tensor& wf,
+                   const at::Tensor& h0, const at::Tensor& c0, int64_t rows,
+                   int64_t w_smem, int64_t stream) {
+  for (auto [t, name] :
+       {std::pair<const at::Tensor*, const char*>{&hbuf, "hbuf"},
+        {&cbuf, "cbuf"}, {&xz, "xz"}, {&wf, "wf"}, {&h0, "h0"}, {&c0, "c0"}})
+    check(*t, at::kFloat, name);
+  TORCH_CHECK(xz.dim() == 4 && xz.size(3) % 4 == 0,
+              "lstm_scan_fwd: xz must be (t, k, n, 4u)");
+  const int64_t t = xz.size(0), k = xz.size(1), n = xz.size(2),
+                u = xz.size(3) / 4;
+  check_shape(wf, {k, u, u, 4}, "wf");
+  check_shape(h0, {k, n, u}, "h0");
+  check_shape(c0, {k, n, u}, "c0");
+  check_shape(hbuf, {t + 1, k, n, u}, "hbuf");
+  check_shape(cbuf, {t + 1, k, n, u}, "cbuf");
+  // the pre-activations are not asked for without a backward to read them
+  if (zbuf.numel() != 0) check_shape(zbuf, {t, k, n, 4 * u}, "zbuf");
+  raise_on(launch_lstm_scan_fwd(xz.data_ptr<float>(), wf.data_ptr<float>(),
+                                h0.data_ptr<float>(), c0.data_ptr<float>(),
+                                hbuf.data_ptr<float>(), cbuf.data_ptr<float>(),
+                                optional_out(zbuf, "zbuf"), t, k, n, u, rows,
+                                w_smem, as_stream(stream)),
+           "lstm_scan_fwd");
+}
+
+void lstm_scan_bwd(at::Tensor dz, at::Tensor dh0, at::Tensor dc0,
+                   const at::Tensor& z, const at::Tensor& wb,
+                   const at::Tensor& cbuf, const at::Tensor& dhbuf,
+                   const at::Tensor& dcbuf, int64_t rows, int64_t w_smem,
+                   int64_t stream) {
+  for (auto [t, name] :
+       {std::pair<const at::Tensor*, const char*>{&dz, "dz"}, {&dh0, "dh0"},
+        {&dc0, "dc0"}, {&z, "z"}, {&wb, "wb"}, {&cbuf, "cbuf"}})
+    check(*t, at::kFloat, name);
+  TORCH_CHECK(z.dim() == 4 && z.size(3) % 4 == 0,
+              "lstm_scan_bwd: z must be (t, k, n, 4u)");
+  const int64_t t = z.size(0), k = z.size(1), n = z.size(2),
+                u = z.size(3) / 4;
+  check_shape(wb, {k, u, u, 4}, "wb");
+  check_shape(cbuf, {t + 1, k, n, u}, "cbuf");
+  check_shape(dz, {t, k, n, 4 * u}, "dz");
+  check_shape(dh0, {k, n, u}, "dh0");
+  check_shape(dc0, {k, n, u}, "dc0");
+  // an absent carry gradient is an empty tensor
+  for (const at::Tensor* g : {&dhbuf, &dcbuf})
+    if (g->numel() != 0)
+      check_shape(*g, {t + 1, k, n, u}, "a carry gradient");
+  raise_on(launch_lstm_scan_bwd(z.data_ptr<float>(), wb.data_ptr<float>(),
+                                cbuf.data_ptr<float>(),
+                                optional_f32(dhbuf, "dhbuf"),
+                                optional_f32(dcbuf, "dcbuf"),
+                                dz.data_ptr<float>(), dh0.data_ptr<float>(),
+                                dc0.data_ptr<float>(), t, k, n, u, rows,
+                                w_smem, as_stream(stream)),
+           "lstm_scan_bwd");
+}
+
 }  // namespace
 }  // namespace multinn_torch
 
@@ -441,6 +508,12 @@ TORCH_LIBRARY(multinn_torch, m) {
         "Tensor(d!) dbh, Tensor(e!) dw_part, Tensor(f!) dv_part, "
         "Tensor(g!) dx_part, Tensor x, Tensor w, Tensor v, Tensor g, "
         "Tensor a_end, int chunk, int stream) -> ()");
+  m.def("lstm_scan_fwd(Tensor(a!) hbuf, Tensor(b!) cbuf, Tensor(c!) zbuf, "
+        "Tensor xz, Tensor wf, Tensor h0, Tensor c0, int rows, int w_smem, "
+        "int stream) -> ()");
+  m.def("lstm_scan_bwd(Tensor(a!) dz, Tensor(b!) dh0, Tensor(c!) dc0, "
+        "Tensor z, Tensor wb, Tensor cbuf, Tensor dhbuf, Tensor dcbuf, "
+        "int rows, int w_smem, int stream) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(multinn_torch, CUDA, m) {
@@ -451,4 +524,6 @@ TORCH_LIBRARY_IMPL(multinn_torch, CUDA, m) {
   m.impl("gen_fused_nade", &multinn_torch::gen_fused_nade);
   m.impl("nade_ll_fwd", &multinn_torch::nade_ll_fwd);
   m.impl("nade_ll_bwd", &multinn_torch::nade_ll_bwd);
+  m.impl("lstm_scan_fwd", &multinn_torch::lstm_scan_fwd);
+  m.impl("lstm_scan_bwd", &multinn_torch::lstm_scan_bwd);
 }

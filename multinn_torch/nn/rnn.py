@@ -11,9 +11,19 @@ batch over the leading axes, and biases enter as ``b.unsqueeze(-2)`` so
 that (G,) and (K, G) both broadcast. Time-major sequences are (T, [K,] B,
 in).
 
-``remat`` (the model's ``remat`` flag) checkpoints each step of a layer's
-scan (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
-a step's gates from its carry and its hoisted input product instead of
+An LSTM layer's recurrence over its T steps is one autograd Function
+(ops/lstm_scan.py: one forward and one backward kernel on the card, their
+plain versions on the CPU) wherever it takes the inputs: float32 under the
+f32 matmul policy, carrying no forward-mode tangents. Its backward
+recomputes the gates from the saved carries and hoisted input products,
+which is all the checkpointed loop keeps, so ``remat`` changes nothing
+there.
+
+The step loop runs the rest: the bf16 policy, ``torch.func.jvp`` (the
+Hessian-free step's J v) and the vanilla cell. There ``remat`` (the
+model's ``remat`` flag) checkpoints each step of a layer's scan
+(``torch.utils.checkpoint``, non-reentrant): the backward recomputes a
+step's gates from its carry and its hoisted input product instead of
 keeping them, as the reference's ``jax.checkpoint`` of the scan body. The
 recurrence draws no random numbers, so no RNG state is stashed (stashing
 the CUDA RNG state is illegal while a graph is captured); the recompute
@@ -29,6 +39,7 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from multinn_torch.ops import lstm_scan as lstm_ops
 from multinn_torch.ops import precision
 from multinn_torch.ops.precision import mm
 
@@ -67,10 +78,8 @@ def lstm_zero_state(batch_shape, n_hidden: int, device=None) -> LSTMState:
 
 
 def _lstm_gates(c, z) -> LSTMState:
-    u = c.shape[-1]
-    i, f, g, o = z[..., :u], z[..., u:2 * u], z[..., 2 * u:3 * u], z[..., 3 * u:]
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    return LSTMState(h=torch.sigmoid(o) * torch.tanh(c_new), c=c_new)
+    h, c_new = lstm_ops.cell(c, z)
+    return LSTMState(h=h, c=c_new)
 
 
 def lstm_step(params: LSTMParams, state: LSTMState, x) -> LSTMState:
@@ -94,8 +103,13 @@ def _lstm_step_hc(c, h, xz_t, wh):
 
 def lstm_scan(params: LSTMParams, state: LSTMState, xs, remat: bool = False):
     """LSTM over time-major xs (T, ..., in) -> (final_state, hs (T, ..., H)),
-    with the input projection of all T steps hoisted out of the loop."""
+    with the input projection of all T steps hoisted out of the recurrence
+    (the Function or the step loop: module docstring)."""
     xz = mm(xs, params.wx) + params.b.unsqueeze(-2)
+    if lstm_ops.takes(xz, params.wh, state.h, state.c):
+        hbuf, cbuf = lstm_ops.lstm_recurrence(xz, params.wh, state.h,
+                                              state.c)
+        return LSTMState(h=hbuf[-1], c=cbuf[-1]), hbuf[1:]
     hs = []
     for xz_t in xz:
         if remat:

@@ -36,7 +36,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 _SOURCES = ("threefry.cu", "gibbs_chain.cu", "gen_fused_rbm.cu",
-            "nade_sample.cu", "gen_fused_nade.cu", "nade_ll.cu", "ops.cpp")
+            "nade_sample.cu", "gen_fused_nade.cu", "nade_ll.cu",
+            "lstm_scan.cu", "ops.cpp")
 _HEADERS = ("threefry.cuh", "sigmoid.cuh", "reduce.cuh", "gen_cluster.cuh",
             "launchers.h")
 _LIB = "multinn_torch_ops.so"

@@ -273,6 +273,24 @@ def nade_ll_bwd_work(k: int, n: int, d: int, h: int, x):
             4 * k * n * d * h + 2 * h * float(x.sum()))
 
 
+def lstm_scan_fwd_work(k: int, n: int, u: int, t: int):
+    """(bytes, operations) of the LSTM recurrence forward over t steps of k
+    tracks x n rows of u units: xz (t, k, n, 4u), Wh, h0 and c0 in; hbuf
+    and cbuf (t + 1, k, n, u) and the kept pre-activations z out; the h Wh
+    products (the cell's elementwise work left out: a lower bound)."""
+    return (4 * (8 * t * k * n * u + 4 * k * u * u + 2 * k * n * u
+                 + 2 * (t + 1) * k * n * u),
+            8 * t * k * n * u * u)
+
+
+def lstm_scan_bwd_work(k: int, n: int, u: int, t: int):
+    """(bytes, operations) of its backward: z, cbuf, one carry's cotangent
+    and Wh in; dz (t, k, n, 4u), dh0 and dc0 out; the dz Wh^T products."""
+    return (4 * (8 * t * k * n * u + 2 * (t + 1) * k * n * u
+                 + 4 * k * u * u + 2 * k * n * u),
+            8 * t * k * n * u * u)
+
+
 def fused_work(params, roll, v0, gen_k: int, storage=None):
     """(bytes, operations) of one whole generation: every decoder weight
     read once at the bytes it is stored in (bf16 where the NADE kernel

@@ -17,8 +17,8 @@ torch = pytest.importorskip("torch")
 from multinn_torch.models import multinn  # noqa: E402
 from multinn_torch.ops import (_build, gen_common,  # noqa: E402
                                gen_fused_nade, gen_fused_rbm, gibbs,
-                               gibbs_cuda, kernel_prng, nade_ll, nade_ops,
-                               sampling)
+                               gibbs_cuda, kernel_prng, lstm_scan, nade_ll,
+                               nade_ops, sampling)
 from multinn_torch.serving.service import (GenerationService,  # noqa: E402
                                            ServeConfig)
 from multinn_torch.utils import config  # noqa: E402
@@ -1669,6 +1669,105 @@ def test_remat_graph_group_equals_eager(dev, model, tmp_path):
         for name in ("loss", "loss_mean", "grad_norm"):
             assert torch.allclose(got[name], want[name], rtol=1e-5), name
         _params_close(graph, eager)
+
+
+def _lstm_inputs(dev, k, b, n_in, u, layers, t=64, seed=21):
+    """A binary Bernoulli(0.06) input (T, [K,] B, n_in) as the train cells'
+    frames and context, ``layers`` LSTM layers (wx, wh, b) at w_std 0.1
+    (track-stacked for K > 1) and a carried state."""
+    g = torch.Generator().manual_seed(seed)
+    lead, w = ((k, b), (k,)) if k > 1 else ((b,), ())
+    xs = (torch.rand(t, *lead, n_in, generator=g) < 0.06).float()
+    params = [tuple(0.1 * torch.randn(*w, *shape, generator=g) for shape in
+                    ((n_in if i == 0 else u, 4 * u), (u, 4 * u), (4 * u,)))
+              for i in range(layers)]
+    h0, c0 = (0.5 * torch.randn(*lead, u, generator=g) for _ in "hc")
+    to = lambda x: x.to(dev)  # noqa: E731
+    return (to(xs), [tuple(map(to, p)) for p in params], to(h0), to(c0))
+
+
+def _lstm_through(impl, xs, params, h0, c0):
+    """hs, each layer's final h and c, and the gradients of a fixed loss of
+    them in xs, every weight, h0 and c0, through the Function's ``impl``."""
+    xs, h0, c0 = (x.detach().requires_grad_() for x in (xs, h0, c0))
+    leaves = [x.detach().requires_grad_() for p in params for x in p]
+    inp, finals = xs, []
+    for wx, wh, b in zip(*[iter(leaves)] * 3):
+        xz = inp @ wx + b.unsqueeze(-2)
+        hbuf, cbuf = lstm_scan.lstm_recurrence(xz, wh, h0, c0, impl=impl)
+        inp = hbuf[1:]
+        finals += [hbuf[-1], cbuf[-1]]
+    w = torch.linspace(-1, 1, inp.numel(), device=inp.device)
+    loss = (inp.flatten() * w).sum() + sum(f.sum() for f in finals)
+    grads = torch.autograd.grad(loss, [xs, h0, c0, *leaves])
+    return [x.detach() for x in (inp, *finals, *grads)]
+
+
+@pytest.mark.parametrize("k,b,n_in,u,layers", [
+    (5, 16, 504, 100, 1),       # rbm_flagship.train
+    (5, 64, 504, 100, 1),       # nade_flagship.train
+    (5, 16, 504, 150, 1),       # U=150: Wh read from L2
+    (1, 16, 420, 100, 1),       # joint
+    (5, 16, 504, 100, 2)])      # a two-layer stack
+def test_lstm_scan_kernels_match_plain(dev, k, b, n_in, u, layers):
+    """The recurrence kernels against their plain versions on the card
+    (T=64): hs, final states and every gradient within 1e-4 max|ref| +
+    1e-6, each layer one forward and one backward launch."""
+    args = _lstm_inputs(dev, k, b, n_in, u, layers)
+    _build.launches.clear()
+    got = _lstm_through("cuda", *args)
+    assert dict(_build.launches) == {"lstm_scan_fwd": layers,
+                                     "lstm_scan_bwd": layers}
+    want = _lstm_through("plain", *args)
+    for a, r in zip(got, want):
+        assert float((a - r).abs().max()) <= (
+            1e-4 * float(r.abs().max()) + 1e-6)
+
+
+def test_lstm_scan_forward_bit_equal_to_the_loop_at_the_rbm_train_shape(
+        dev):
+    """At the RNN-RBM train step's shape (K=5, B=16, U=100) the forward
+    kernel sums h Wh in cuBLAS's order: every h, c and pre-activation
+    equals the step loop's (torch.matmul on the card) to the bit, so the
+    CD chain's draws flip nowhere the loop's would not."""
+    xs, [(wx, wh, b)], h0, c0 = _lstm_inputs(dev, 5, 16, 504, 100, 1)
+    xz = xs @ wx + b.unsqueeze(-2)
+    got = lstm_scan.lstm_fwd(xz, wh, h0, c0)
+    want = lstm_scan.lstm_fwd_plain(xz, wh, h0, c0)
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
+
+
+def test_lstm_scan_replay_is_bit_equal(dev):
+    """A forward and backward of the Function captured in a CUDA graph:
+    its replay equals the eager call to the bit."""
+    args = _lstm_inputs(dev, 5, 16, 504, 100, 1)
+    run = lambda: _lstm_through("cuda", *args)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, run()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", [FLAGSHIP, NADE])
+def test_captured_group_launches_the_recurrence_once_a_step(dev, model,
+                                                           tmp_path):
+    """A captured group of 24 steps: one forward and one backward
+    recurrence launch a step."""
+    (graph, _), _ = _group_trainers(dev, model, tmp_path, n=24)
+    batches = np.stack(list(graph.dataset.batches("train", epoch=0)))
+    graph.run_group(batches[np.arange(24) % len(batches)],
+                    sampling.PRNGKey(60, device=dev))
+    launches = graph.group_graph.launches
+    assert launches["lstm_scan_fwd"] == launches["lstm_scan_bwd"] == 24
 
 
 def test_timers_wait_for_the_card(dev):

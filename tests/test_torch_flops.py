@@ -159,6 +159,16 @@ def test_work_functions_hand_worked():
         4 * (48 + 60 + 160), 480 + 70)
 
 
+def test_lstm_scan_work_hand_worked():
+    # k=2 tracks x n=3 rows, u=4 units, t=5 steps, in floats: xz in and z
+    # out (or z in and dz out) 2 * 5*2*3*16; Wh 2*4*16; h0, c0 (dh0, dc0)
+    # 2 * 2*3*4; hbuf, cbuf (cbuf, one carry's cotangent) 2 * 6*2*3*4.
+    # Operations: 5*2*3 rows a step of 2 * 4 * 16 (the h Wh product)
+    want = (4 * (960 + 128 + 48 + 288), 30 * 128)
+    assert flops.lstm_scan_fwd_work(2, 3, 4, 5) == want
+    assert flops.lstm_scan_bwd_work(2, 3, 4, 5) == want
+
+
 @pytest.mark.parametrize("family", ["rnn-rbm", "rnn-nade"])
 def test_fused_work_hand_worked(family):
     cfg = multinn.MultINNConfig(n_tracks=2, n_pitches=4, mode="feedback",

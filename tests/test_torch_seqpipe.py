@@ -150,10 +150,16 @@ def test_remat_matches_norematerialization(dec, dtype):
 @pytest.mark.parametrize("dec", [rnn_rbm, rnn_nade])
 def test_remat_saves_fewer_tensors(dec):
     """The backward keeps each step's carry and hoisted input product,
-    not its gates: fewer saved elements."""
+    not its gates: fewer saved elements. The step loop (it runs the bf16
+    policy) does so under remat only; the LSTM Function (f32) always does,
+    so remat changes nothing there, and it keeps no more than the
+    checkpointed loop."""
+    _, _, loop_plain = _decoder_loss(dec, False, "bf16")
+    _, _, loop_remat = _decoder_loss(dec, True, "bf16")
+    assert loop_remat < loop_plain, (loop_remat, loop_plain)
     _, _, plain = _decoder_loss(dec, False)
     _, _, remat = _decoder_loss(dec, True)
-    assert remat < plain, (remat, plain)
+    assert remat == plain <= loop_remat, (remat, plain, loop_remat)
 
 
 def test_remat_flag_matches_jax():
